@@ -5,21 +5,41 @@
 
 1. prints the card (nvidia-smi) and builds the CUDA kernels from
    ``src/repro_torch/csrc`` with nvcc;
-2. holds the NVFP4 quantize kernel bitwise against its plain PyTorch
-   version, on full-width expert stacks and on a power-of-two edge sweep;
-3. holds the grouped W4A4 FFN kernel against its plain version: f32 at
-   rtol 1e-5 / atol 1e-4 over ragged, empty, one-slot, cap-dropped and
-   pad-slot patterns, bf16 at full width (rel-L2 < 3e-2, peak < 0.1);
-4. serves a seeded 16-request MMMU stream on full-width, 48-layer
-   moonshot-v1-16b-a3b (random weights from a seed) through ``Engine``,
-   with the launch counters zeroed just before and read just after, and
-   keeps the FFN kernel's inputs of the first launch at each row count;
-5. holds the FFN kernel against its plain version on those inputs and
-   times both there; checks the outputs (finite full-width logits; reduced
-   model on the card against the CPU) and prints one ``{"kernels": [...]}``
-   line with each kernel's launches, error, time, bound and plain-version
-   time (the FFN's averaged over the serve run's launches);
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+2. holds the NVFP4 quantize kernel and the global-scale kernel bitwise
+   against their plain PyTorch versions, on full-width expert stacks and on
+   a power-of-two edge sweep, and the quantizer's device predicate (0:
+   nothing written);
+3. holds the grouped FFN kernels against their plain versions: W4A4 and
+   plain weights, f32 at rtol 1e-5 / atol 1e-4 over ragged, empty,
+   one-slot, cap-dropped and pad-slot patterns, bf16 at full width;
+4. drives the ``fp4_linear`` path (the on-the-fly quantize plus the W4(A4)
+   GEMM) on one full-width moonshot expert projection, a4 off and on, with
+   the launch counters zeroed just before and read just after, and holds
+   the GEMM kernel against its plain version (f32 output at rtol 1e-5 /
+   atol 1e-4, bf16 output within one bf16 ulp);
+5. on full-width, 48-layer moonshot-v1-16b-a3b (random weights from a
+   seed): one ``chunk_forward`` with FP4 firing, one with FP4 off and one
+   ``decode_forward``, all under ``torch.cuda.set_sync_debug_mode("error")``
+   (any device-to-host sync raises), keeping the inputs of the first
+   launch of the taken branch's FFN kernel; times each forward (and a
+   decode forward with FP4 off) warm, on the host (its enqueue, and the
+   functions that take it, from ``cProfile``) and on the device (busy time
+   and kernels, from a ``torch.profiler`` trace); holds the FFN kernels
+   against their plain versions on those inputs and times both there;
+   then serves a seeded 16-request MMMU stream through ``Engine`` with
+   every forward under the same mode and the launch counters zeroed just
+   before and read just after.  Every launch of the serve run is noted
+   without a host read, so that the launches that did work (predicate 1,
+   or a nonzero count in a slot with weights) are counted apart from those
+   that exited at once, and the FFN kernels are held against their plain
+   versions and timed on the inputs of their first working launch at each
+   row count;
+6. checks the outputs (finite full-width logits; reduced model on the card
+   against the CPU) and prints one ``{"kernels": [...]}`` line with each
+   kernel's launches (on its path) and working launches, error, time
+   (the FFNs': over the serve run's working launches), time of a launch
+   that exits at once, bound and plain-version time;
+7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once without a CUDA device.
@@ -63,14 +83,16 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def check_quantize(dev):
-    """Phase 2: kernel 1 bitwise against its plain version; returns its
-    record at the gate/up shape of the serving path."""
+    """Phase 2: the quantize and global-scale kernels bitwise against their
+    plain versions; returns their records at the gate/up shape of the
+    serving path."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import quantize_fp4 as qk
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    rec = {}
+    rec, srec = {}, {"name": "global_scale_fp4"}
+    off = torch.zeros((), dtype=torch.int32, device=dev)
     # the views the MoE layer quantizes: w_gate/w_up [E, D, F] transposed to
     # [64, 1408, 2048], w_down [E, F, D] transposed to [64, 2048, 1408]
     for name, shape in (("gate_up", (64, 2048, 1408)),
@@ -79,6 +101,11 @@ def check_quantize(dev):
             torch.bfloat16)
         view = w.transpose(-1, -2)
         gs = quant.global_scale_for(view)
+        gs_k = qk.global_scale_cuda(view)
+        torch.cuda.synchronize()
+        if not torch.equal(gs_k.view(torch.int32), gs.view(torch.int32)):
+            raise AssertionError(f"global_scale_fp4 {name}: {float(gs_k)} != "
+                                 f"{float(gs)}")
         pk, sc = qk.quantize_fp4_cuda(view, gs)
         pk_p, sc_p = qk.quantize_fp4_plain(view, gs)
         torch.cuda.synchronize()
@@ -90,6 +117,8 @@ def check_quantize(dev):
         if n_bad:
             raise AssertionError(f"quantize_fp4 {name}: not bitwise")
         ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs), iters=10)
+        idle_ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs, off),
+                          iters=10)
         plain_ms = time_ms(lambda: qk.quantize_fp4_plain(view, gs), iters=2)
         n = view.numel()
         nbytes = n * 2 + n // 2 + (n // 16) * 4
@@ -97,15 +126,34 @@ def check_quantize(dev):
         # ~12 f32 operations per weight (abs, max, divide, 7 compares,
         # select, shift/or) off the tensor cores
         bound_ops = n * 12 / F32_FLOP_PER_S * 1e3
-        log(f"quantize_fp4 {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+        log(f"quantize_fp4 {name}: {ms:.4f} ms (predicate 0: "
+            f"{idle_ms:.4f} ms; plain {plain_ms:.4f} ms), "
             f"bound {max(bound_bytes, bound_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s")
         rec.setdefault("name", "quantize_fp4")
+        s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=10)
+        s_idle_ms = time_ms(lambda: qk.global_scale_cuda(view, off),
+                            iters=10)
+        s_plain_ms = time_ms(lambda: quant.global_scale_for(view), iters=10)
+        # it reads the stack once; ~2 operations (abs, max) per weight
+        s_bytes = n * view.element_size() / HBM_BYTES_PER_S * 1e3
+        s_ops = n * 2 / F32_FLOP_PER_S * 1e3
+        log(f"global_scale_fp4 {name}: bitwise equal; {s_ms:.4f} ms "
+            f"(predicate 0: {s_idle_ms:.4f} ms; plain "
+            f"{s_plain_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
+            f"({n * view.element_size() / 1e6:.1f} MB), "
+            f"{n * view.element_size() / s_ms / 1e6:.1f} GB/s")
         if name == "gate_up":
-            rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            rec.update(max_abs_err=err, ms=ms, idle_ms=idle_ms,
+                       plain_ms=plain_ms,
                        bound_ms=max(bound_bytes, bound_ops),
                        bound_by="bytes" if bound_bytes >= bound_ops
                        else "operations")
+            srec.update(max_abs_err=0.0, ms=s_ms, idle_ms=s_idle_ms,
+                        plain_ms=s_plain_ms,
+                        bound_ms=max(s_bytes, s_ops),
+                        bound_by="bytes" if s_bytes >= s_ops
+                        else "operations")
         del w, view, pk, sc, pk_p, sc_p
 
     # power-of-two edge sweep: group amax = 6 x each edge, global scale 1
@@ -121,27 +169,36 @@ def check_quantize(dev):
             raise AssertionError(f"quantize_fp4 edge sweep {dtype}")
     log(f"quantize_fp4 power-of-two edge sweep ({w.numel() // 16} scales, "
         "f32 and bf16): bitwise equal")
-    return rec
+    from test_torch_cuda import test_quantize_cuda_predicate
+    test_quantize_cuda_predicate(dev)
+    log("quantize_fp4 device predicate: 0 writes nothing, 1 gives the "
+        "unpredicated result bitwise (global scale included)")
+    return rec, srec
 
 
-def ffn_bound(args):
+def ffn_bound(args, fp4=True):
     """Least time of one FFN launch on these inputs, ``(ms, bound_by)``.
-    Bytes: x and y once each, and the packed weights and scales of the
-    slots that hold a nonzero row.  Operations: 6·D·F per nonzero row at
-    the bf16 MMA rate (H100 has no FP4 MMA).  All-zero rows (the pad slot's
-    unfilled capacity) need no work: their output is 0."""
+    Bytes: x and y once each, and the weights (FP4: packed codes and
+    scales, 4.25 bits a weight; plain: 16 or 32 bits) of the slots that
+    hold a nonzero row.  Operations: 6·D·F per nonzero row at the bf16 MMA
+    rate (H100 has no FP4 MMA).  All-zero rows (the pad slot's unfilled
+    capacity), rows of slots without weights and rows of slots with a zero
+    count need no work: their output is 0."""
     import torch
     xs, gs = args[0], args[1]
     m, d = xs.shape
-    f = args[2].shape[1]
+    n_w = args[2].shape[0]
+    f = args[2].shape[1] if fp4 else args[2].shape[2]
     ends = torch.cumsum(gs.long(), 0)
     slot = torch.searchsorted(ends, torch.arange(m, device=xs.device),
                               right=True)
-    work = (xs != 0).any(-1) & (slot < gs.numel())
+    work = (xs != 0).any(-1) & (slot < min(gs.numel(), n_w))
     rows = int(work.sum())
     n_live = int(torch.unique(slot[work]).numel())
-    nbytes = (n_live * 3 * f * d * (0.5 + 4 / 16)
-              + 2 * m * d * xs.element_size() + gs.numel() * 4 + 12)
+    w_bytes = 0.5 + 4 / 16 if fp4 else args[2].element_size()
+    nbytes = (n_live * 3 * f * d * w_bytes
+              + 2 * m * d * xs.element_size() + gs.numel() * 4
+              + (12 if fp4 else 0))
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = 6.0 * rows * d * f / BF16_FLOP_PER_S * 1e3
     return (max(bound_bytes, bound_ops),
@@ -149,77 +206,283 @@ def ffn_bound(args):
 
 
 @contextlib.contextmanager
-def recording_ffn_inputs(seen):
-    """While open, every call of the FFN kernel's wrapper records its row
-    count M in ``seen[M][0]``, and ``seen[M][1]`` keeps the inputs of the
-    first call at that M.  The wrapper itself launches and counts."""
+def keeping_first_inputs(kept, key, wrapper):
+    """While open, the first call of the grouped FFN kernel wrapper named
+    ``wrapper`` keeps its inputs in ``kept[key]``.  The wrapper itself
+    launches and counts."""
     from repro_torch.kernels import grouped_fp4_ffn as ffn
-    launch = ffn.grouped_fp4_ffn_cuda
+    launch = getattr(ffn, wrapper)
 
-    def record(*args):
-        seen.setdefault(args[0].shape[0], [0, args])[0] += 1
+    def run(*args):
+        kept.setdefault(key, args)
         return launch(*args)
 
-    ffn.grouped_fp4_ffn_cuda = record
+    setattr(ffn, wrapper, run)
     try:
-        yield seen
+        yield kept
     finally:
-        ffn.grouped_fp4_ffn_cuda = launch
+        setattr(ffn, wrapper, launch)
 
 
-def check_ffn_at_serve_shapes(seen):
-    """Kernel 2 against its plain version on the inputs the serve run gave
-    it, one first launch per distinct M; returns its record with times and
-    bound averaged over the serve run's launches."""
+@contextlib.contextmanager
+def sync_checked_forwards(counter):
+    """While open, every ``chunk_forward`` and ``decode_forward`` (as the
+    engine calls them) runs under ``set_sync_debug_mode("error")``, so a
+    device-to-host sync inside a forward raises; ``counter`` counts them."""
+    import torch
+    from repro_torch.models import transformer as tf
+    saved = {"chunk": tf.chunk_forward, "decode": tf.decode_forward}
+
+    def checked(name, fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            counter[name] = counter.get(name, 0) + 1
+            return out
+        return run
+
+    tf.chunk_forward = checked("chunk", saved["chunk"])
+    tf.decode_forward = checked("decode", saved["decode"])
+    try:
+        yield counter
+    finally:
+        tf.chunk_forward, tf.decode_forward = saved["chunk"], saved["decode"]
+
+
+def check_ffn_at_main_shapes(kept):
+    """Phase 5b: the grouped FFN kernels against their plain versions on
+    the inputs the full-width forwards gave their first launch (FP4 kernel:
+    the chunk forward with FP4 firing, and the decode forward; plain kernel:
+    the chunk forward with FP4 off), consuming ``kept``."""
+    from repro_torch.kernels import grouped_fp4_ffn as ffn
+    from test_torch_cuda import check_ffn, check_plain_ffn
+
+    cases = (("chunk_fp4", "grouped_fp4_ffn_cuda", "grouped_fp4_ffn",
+              ffn.grouped_fp4_ffn_plain, check_ffn, True),
+             ("decode_fp4", "grouped_fp4_ffn_cuda", "grouped_fp4_ffn",
+              ffn.grouped_fp4_ffn_plain, check_ffn, True),
+             ("chunk_bf16", "grouped_ffn_cuda", "grouped_ffn",
+              ffn.grouped_ffn_plain, check_plain_ffn, False))
+    for key, wrapper, name, plain, check, fp4 in cases:
+        args = kept.pop(key)
+        launch = getattr(ffn, wrapper)
+        err = check(launch(*args), plain(*args))
+        ms = time_ms(lambda: launch(*args), iters=5)
+        plain_ms = time_ms(lambda: plain(*args), iters=2)
+        bound, by = ffn_bound(args, fp4)
+        m = args[0].shape[0]
+        routed = int(args[1][:args[2].shape[0]].sum())
+        log(f"{name} at the {key} forward's first launch: M={m} "
+            f"({routed} rows in slots with weights, G={args[1].numel()}) "
+            f"{args[0].dtype}: max abs err {err:.4g}; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms), bound {bound:.4f} ms ({by})")
+        del args
+
+
+class ServeLaunches:
+    """Notes every launch of the serving path's kernel wrappers while
+    ``noting()`` is open, with no device operation and no host read inside
+    a forward.  A quantizer or global-scale launch works when its predicate
+    is 1, an FFN launch when a slot with weights has a nonzero count; the
+    others exit at once.  ``end_step`` (after the engine's own host read at
+    the end of a step) keeps the inputs of each FFN kernel's first working
+    launch at each row count M, and ``working`` counts the working launches
+    with one host read after the run.  An FP4 launch keeps its x, its counts
+    and the three BF16 weight views its quantizer launches were given; its
+    packed weights are made again from those (the quantizer is bitwise
+    deterministic), so no layer's packed weights are held."""
+
+    FFN = ("grouped_fp4_ffn", "grouped_ffn")
+
+    def __init__(self):
+        self.preds = {"quantize_fp4": [], "global_scale_fp4": []}
+        self.ffn = {n: [] for n in self.FFN}     # (counts, n_w, M) a launch
+        self.step = {n: [] for n in self.FFN}    # this step's kept inputs
+        self.first = {n: {} for n in self.FFN}   # M -> inputs
+        self.views = []
+        self.held_bytes = 0                      # most x held in one step
+
+    @contextlib.contextmanager
+    def noting(self):
+        from repro_torch.kernels import grouped_fp4_ffn as ffn
+        from repro_torch.kernels import quantize_fp4 as qk
+        quantize, gscale = qk.quantize_fp4_cuda, qk.global_scale_cuda
+        fp4, plain = ffn.grouped_fp4_ffn_cuda, ffn.grouped_ffn_cuda
+
+        def quantize_noted(w, gs, pred):
+            self.preds["quantize_fp4"].append(pred)
+            self.views = (self.views + [w])[-3:]
+            return quantize(w, gs, pred)
+
+        def gscale_noted(w, pred):
+            self.preds["global_scale_fp4"].append(pred)
+            return gscale(w, pred)
+
+        def noted(name, launch, inputs):
+            def run(*args):
+                m, n_w = args[0].shape[0], args[2].shape[0]
+                self.ffn[name].append((args[1], n_w, m))
+                if m not in self.first[name]:
+                    self.step[name].append((m, args[1], n_w, inputs(args)))
+                return launch(*args)
+            return run
+
+        qk.quantize_fp4_cuda, qk.global_scale_cuda = (quantize_noted,
+                                                      gscale_noted)
+        ffn.grouped_fp4_ffn_cuda = noted(
+            "grouped_fp4_ffn", fp4, lambda a: (a[0], a[1], tuple(self.views)))
+        ffn.grouped_ffn_cuda = noted("grouped_ffn", plain, lambda a: a)
+        try:
+            yield self
+        finally:
+            qk.quantize_fp4_cuda, qk.global_scale_cuda = quantize, gscale
+            ffn.grouped_fp4_ffn_cuda, ffn.grouped_ffn_cuda = fp4, plain
+
+    @staticmethod
+    def _works(launches):
+        """Host list: did each (counts, n_w, ...) launch do work."""
+        import torch
+        return torch.stack([g[:n_w].max() > 0
+                            for g, n_w, *_ in launches]).tolist()
+
+    def end_step(self):
+        held = {}
+        for name, entries in self.step.items():
+            if not entries:
+                continue
+            held.update((e[3][0].data_ptr(), e[3][0].nbytes) for e in entries)
+            works = self._works([(g, n_w) for _, g, n_w, _ in entries])
+            for (m, _, _, inputs), w in zip(entries, works):
+                if w and m not in self.first[name]:
+                    self.first[name][m] = inputs
+            entries.clear()
+        self.held_bytes = max(self.held_bytes, sum(held.values()))
+
+    def launches_by_m(self, name):
+        """``{M: launches}`` of an FFN kernel."""
+        out = {}
+        for *_, m in self.ffn[name]:
+            out[m] = out.get(m, 0) + 1
+        return out
+
+    def working(self):
+        """Working launches: a count per quantizer kernel, ``{M: count}``
+        per FFN kernel."""
+        import torch
+        out = {n: int(torch.stack([p.to(torch.int32).reshape(())
+                                   for p in preds]).sum()) if preds else 0
+               for n, preds in self.preds.items()}
+        for name, launches in self.ffn.items():
+            out[name] = {}
+            for (_, _, m), w in zip(launches, self._works(launches)
+                                    if launches else []):
+                out[name][m] = out[name].get(m, 0) + int(w)
+        return out
+
+
+def check_ffn_at_serve_launches(note, working):
+    """Phase 5c: each FFN kernel against its plain version on the inputs of
+    its first working launch of the serve run at each row count M, timed
+    there; and, at each M, the time of a launch with all-zero counts (it
+    exits at once), as the serve run's other launches were.  Returns
+    records averaged over the serve run's working launches (``ms``,
+    ``plain_ms``, ``bound_ms``) and over its other launches (``idle_ms``)."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
-    from test_torch_cuda import check_ffn
+    from repro_torch.kernels import ops
+    from test_torch_cuda import check_ffn, check_plain_ffn
 
-    n_all = sum(n for n, _ in seen.values())
-    rec = {"name": "grouped_fp4_ffn", "max_abs_err": 0.0, "ms": 0.0,
-           "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}}
-    for m, (n, args) in sorted(seen.items()):
-        err = check_ffn(ffn.grouped_fp4_ffn_cuda(*args),
-                        ffn.grouped_fp4_ffn_plain(*args))
-        ms = time_ms(lambda: ffn.grouped_fp4_ffn_cuda(*args), iters=5)
-        plain_ms = time_ms(lambda: ffn.grouped_fp4_ffn_plain(*args), iters=2)
-        bound, by = ffn_bound(args)
-        pad = int(args[1][-1])
-        log(f"grouped_fp4_ffn serve shape M={m} ({m - pad} routed + {pad} "
-            f"pad rows) bf16, {n}/{n_all} launches: max abs err {err:.4g}; "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound:.4f} ms "
-            f"({by})")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
-            rec[key] += v * n / n_all
-        rec["bound_by"][by] = rec["bound_by"].get(by, 0) + n
-    rec["bound_by"] = max(rec["bound_by"], key=rec["bound_by"].get)
-    log(f"grouped_fp4_ffn per serve-run launch (launch-weighted mean over "
-        f"{len(seen)} shapes): {rec['ms']:.4f} ms (plain "
-        f"{rec['plain_ms']:.4f} ms), bound {rec['bound_ms']:.4f} ms")
-    return rec
+    def fp4_args(xs, gs, views):
+        wq = [ops.quantize_experts_fp4(v) for v in views]
+        return (xs, gs, *(t for q in wq for t in (q.packed, q.scales)),
+                torch.stack([q.global_scale.reshape(()) for q in wq]))
+
+    recs = {}
+    for name, launch, plain, check, fp4 in (
+            ("grouped_fp4_ffn", ffn.grouped_fp4_ffn_cuda,
+             ffn.grouped_fp4_ffn_plain, check_ffn, True),
+            ("grouped_ffn", ffn.grouped_ffn_cuda, ffn.grouped_ffn_plain,
+             check_plain_ffn, False)):
+        if not note.first[name]:
+            raise AssertionError(f"{name}: no working launch in the serve run")
+        rows = []
+        for m, inputs in sorted(note.first[name].items()):
+            args = fp4_args(*inputs) if fp4 else inputs
+            err = check(launch(*args), plain(*args))
+            ms = time_ms(lambda: launch(*args), iters=5)
+            plain_ms = time_ms(lambda: plain(*args), iters=2)
+            bound, by = ffn_bound(args, fp4)
+            n = working[name][m]
+            routed = int(args[1][:args[2].shape[0]].sum())
+            log(f"{name} at the serve run's first working launch with M={m} "
+                f"({routed} rows in slots with weights; {n} working launches "
+                f"at this M) {args[0].dtype}: max abs err {err:.4g}; "
+                f"{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound:.4f} "
+                f"ms ({by})")
+            rows.append((n, err, ms, plain_ms, bound, by))
+        idle_rows = []
+        for m, n in sorted(note.launches_by_m(name).items()):
+            n_idle = n - working[name].get(m, 0)
+            if not n_idle:
+                continue
+            idle = (torch.zeros((m, args[0].shape[1]), dtype=args[0].dtype,
+                                device=args[0].device),
+                    torch.zeros_like(args[1])) + tuple(args[2:])
+            idle_ms = time_ms(lambda: launch(*idle), iters=5)
+            log(f"{name}: {n_idle} launches of the serve run at M={m} did no "
+                f"work; such a launch (all-zero counts) takes {idle_ms:.4f} "
+                "ms")
+            idle_rows.append((n_idle, idle_ms))
+        del args
+        total = sum(r[0] for r in rows)
+        mean = lambda i: sum(r[0] * r[i] for r in rows) / total  # noqa: E731
+        n_idle = sum(r[0] for r in idle_rows)
+        recs[name] = {"name": name, "max_abs_err": max(r[1] for r in rows),
+                      "ms": mean(2), "plain_ms": mean(3), "bound_ms": mean(4),
+                      "bound_by": max(rows, key=lambda r: r[0])[5],
+                      "idle_ms": sum(n * t for n, t in idle_rows) / n_idle
+                      if n_idle else None}
+    note.first = {n: {} for n in note.FFN}
+    return recs
 
 
 def check_grouped_ffn(dev):
-    """Phase 3: kernel 2 against its plain version over the reference's
-    patterns (f32 and bf16) and at full width on a 1024-token chunk."""
+    """Phase 3: both grouped FFN kernels against their plain versions over
+    the reference's patterns (f32 and bf16, the plain kernel's last slot a
+    pad slot without weights), all-zero counts, and at full width on a
+    1024-token chunk."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from repro_torch.kernels import ops
 
-    from test_torch_cuda import GROUPED_CASES, _ffn_args, check_ffn
+    from test_torch_cuda import (GROUPED_CASES, _ffn_args, _plain_ffn_args,
+                                 check_ffn, check_plain_ffn,
+                                 test_grouped_ffns_cuda_zero_counts,
+                                 test_grouped_fp4_ffn_cuda_pad_slot)
 
     for m, d, f, gs in GROUPED_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ffn_args(dev, m, d, f, gs, dtype, m + d + f)
             err = check_ffn(ffn.grouped_fp4_ffn_cuda(*args),
                             ffn.grouped_fp4_ffn_plain(*args))
-            log(f"grouped_fp4_ffn m={m} d={d} f={f} gs={gs} {dtype}: "
-                f"max abs err {err:.3g}")
+            args = _plain_ffn_args(dev, m, d, f, gs, len(gs) - 1, dtype,
+                                   m + d)
+            err_p = check_plain_ffn(ffn.grouped_ffn_cuda(*args),
+                                    ffn.grouped_ffn_plain(*args))
+            log(f"grouped FFN m={m} d={d} f={f} gs={gs} {dtype}: max abs "
+                f"err FP4 {err:.3g}, plain weights {err_p:.3g}")
+    for dtype in (torch.float32, torch.bfloat16):
+        test_grouped_ffns_cuda_zero_counts(dev, dtype)
+        test_grouped_fp4_ffn_cuda_pad_slot(dev, dtype)
+    log("grouped FFNs: all-zero counts give exactly 0; the FP4 kernel's pad "
+        "slot without weights gives 0")
 
     # full width: a 1024-token prefill chunk, top-6 of 64 experts, capacity
     # factor 1.25 -> cap = 7680 rows; 6144 routed rows over 64 slots (skewed)
-    # plus the pad slot of 1536 unfilled zero rows, run with slot 0's weights
+    # plus the pad slot of 1536 unfilled zero rows, which has no weights
     gen = torch.Generator(device=dev).manual_seed(2)
     d, f, e, t, k = 2048, 1408, 64, 1024, 6
     cap = -(-int(t * k * 1.25) // 8) * 8
@@ -230,39 +493,246 @@ def check_grouped_ffn(dev):
     xs = torch.zeros((cap, d), dtype=torch.bfloat16, device=dev)
     xs[:t * k] = torch.randn((t * k, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    wq = {}
+    w, wq = {}, {}
     for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
                         ("w_down", (e, f, d))):
-        w = (torch.randn(shape, generator=gen, device=dev)
-             / shape[1] ** 0.5).to(torch.bfloat16)
-        q = ops.quantize_experts_fp4(w.transpose(-1, -2))
-        wq[name] = q._replace(packed=torch.cat([q.packed, q.packed[:1]]),
-                              scales=torch.cat([q.scales, q.scales[:1]]))
-        del w
+        w[name] = (torch.randn(shape, generator=gen, device=dev)
+                   / shape[1] ** 0.5).to(torch.bfloat16)
+        wq[name] = ops.quantize_experts_fp4(w[name].transpose(-1, -2))
     gsc = torch.stack([wq[n].global_scale for n in ("w_gate", "w_up",
                                                     "w_down")])
-    args = (xs, gs, wq["w_gate"].packed, wq["w_gate"].scales,
-            wq["w_up"].packed, wq["w_up"].scales, wq["w_down"].packed,
-            wq["w_down"].scales, gsc)
-    y = ffn.grouped_fp4_ffn_cuda(*args)
-    ref = ffn.grouped_fp4_ffn_plain(*args)
-    err = check_ffn(y, ref)
-    ms = time_ms(lambda: ffn.grouped_fp4_ffn_cuda(*args), iters=5)
-    plain_ms = time_ms(lambda: ffn.grouped_fp4_ffn_plain(*args), iters=2)
-    bound, by = ffn_bound(args)
-    log(f"grouped_fp4_ffn full width M={cap} ({t * k} routed rows) D={d} "
-        f"F={f} G={e + 1} bf16: max abs err {err:.4g}; {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms), bound {bound:.4f} ms ({by}), "
-        f"{6.0 * t * k * d * f / ms / 1e9:.1f} TFLOP/s")
+    fp4_args = (xs, gs, wq["w_gate"].packed, wq["w_gate"].scales,
+                wq["w_up"].packed, wq["w_up"].scales, wq["w_down"].packed,
+                wq["w_down"].scales, gsc)
+    plain_args = (xs, gs, w["w_gate"], w["w_up"], w["w_down"])
+    for name, args, launch, plain, check, fp4 in (
+            ("grouped_fp4_ffn", fp4_args, ffn.grouped_fp4_ffn_cuda,
+             ffn.grouped_fp4_ffn_plain, check_ffn, True),
+            ("grouped_ffn", plain_args, ffn.grouped_ffn_cuda,
+             ffn.grouped_ffn_plain, check_plain_ffn, False)):
+        err = check(launch(*args), plain(*args))
+        ms = time_ms(lambda: launch(*args), iters=5)
+        plain_ms = time_ms(lambda: plain(*args), iters=2)
+        bound, by = ffn_bound(args, fp4)
+        log(f"{name} full width M={cap} ({t * k} routed rows) D={d} F={f} "
+            f"G={e + 1} (pad slot without weights) bf16: max abs err "
+            f"{err:.4g}; {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
+            f"{bound:.4f} ms ({by}), "
+            f"{6.0 * t * k * d * f / ms / 1e9:.1f} TFLOP/s")
 
 
-def serve(dev, seen):
-    """Phase 4: the main path, full width, recording the FFN kernel's inputs
-    into ``seen``; returns the launch counts."""
+def check_fp4_linear(dev):
+    """Phase 4: the ``fp4_linear`` path on one full-width moonshot expert
+    projection, x [4096, 2048] bf16 against w [2048, 1408] bf16, a4 off and
+    on, with the counters zeroed just before and read just after; then the
+    GEMM kernel against its plain version.  Returns (record, counts)."""
+    import torch
+    from repro_torch.kernels import fp4_matmul as mm
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, k, n = 4096, 2048, 1408
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    ops.reset_launch_counts()
+    ys = {a4: ops.fp4_linear(x, w, a4=a4) for a4 in (False, True)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"fp4_linear x {tuple(x.shape)} bf16 . w {tuple(w.shape)} bf16, a4 "
+        f"off and on: kernel launches {counts}")
+    for name in ("quantize_fp4", "global_scale_fp4", "fp4_matmul"):
+        if counts[name] == 0:
+            raise AssertionError(f"fp4_linear did not launch {name}")
+
+    packed, scales, gs = ops.quantize_fp4(w.transpose(0, 1))
+    rec = {"name": "fp4_matmul", "max_abs_err": 0.0}
+    for a4 in (False, True):
+        ref = mm.fp4_matmul_plain(x, packed, scales, gs, a4=a4)
+        if not (ys[a4].shape == (m, n) and torch.isfinite(ys[a4]).all()):
+            raise AssertionError("fp4_linear: output not finite")
+        torch.testing.assert_close(ys[a4], ref, rtol=1e-5, atol=1e-4)
+        err = float((ys[a4] - ref).abs().max())
+        # x in f32: the same product, f32 in
+        y32 = mm.fp4_matmul_cuda(x.float(), packed, scales, gs, a4=a4)
+        torch.testing.assert_close(y32, ref, rtol=1e-5, atol=1e-4)
+        # bf16 out: the f32 result rounded once, within one bf16 ulp
+        y16 = mm.fp4_matmul_cuda(x, packed, scales, gs, a4=a4,
+                                 out_dtype=torch.bfloat16)
+        torch.testing.assert_close(y16.float(), ref, rtol=2.0 ** -8,
+                                   atol=1e-4)
+        err16 = float((y16.float() - ref).abs().max())
+        log(f"fp4_matmul a4={a4}: f32 out max abs err {err:.4g} (rtol 1e-5 "
+            f"/ atol 1e-4, bf16 and f32 x), bf16 out max abs err "
+            f"{err16:.4g} (within one bf16 ulp)")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    run = lambda: mm.fp4_matmul_cuda(x, packed, scales, gs)  # noqa: E731
+    ms = time_ms(run, iters=20)
+    ms_a4 = time_ms(lambda: mm.fp4_matmul_cuda(x, packed, scales, gs,
+                                               a4=True), iters=20)
+    plain_ms = time_ms(lambda: mm.fp4_matmul_plain(x, packed, scales, gs),
+                       iters=5)
+    w_deq = mm.dequantize_kernel_order(packed, scales, gs)
+    xf = x.float()
+    cublas_ms = time_ms(lambda: torch.matmul(xf, w_deq.t()), iters=20)
+    flops = 2.0 * m * n * k
+    nbytes = m * k * 2 + n * k // 2 + n * k // 16 * 4 + m * n * 4
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_f32 = flops / F32_FLOP_PER_S * 1e3
+    bound_tc = flops / BF16_FLOP_PER_S * 1e3
+    log(f"fp4_matmul [{m}, {k}] . [{n}, {k}]^T bf16 -> f32: {ms:.4f} ms "
+        f"(a4 {ms_a4:.4f} ms), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+        f"{plain_ms:.4f} ms; bounds: f32 FMA {bound_f32:.4f} ms "
+        f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s, the design's), bf16 tensor "
+        f"cores {bound_tc:.4f} ms, bytes {bound_bytes:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB); context only: torch.matmul(x.float(), "
+        f"w_deq.T) on the pre-dequantized W {cublas_ms:.4f} ms")
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_f32),
+               bound_by="bytes" if bound_bytes >= bound_f32 else "operations")
+    return rec, counts
+
+
+def sync_free_forwards(dev, params, cfg):
+    """Phase 5a: one full-width chunk_forward with FP4 firing, one with FP4
+    off and one decode_forward (FP4 firing), each under
+    ``set_sync_debug_mode("error")``, keeping the inputs of the first launch
+    of the FFN kernel of the taken branch; returns those inputs."""
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+
+    # every virtual rank is hot (C = 0) and the gate always open: FP4 fires
+    # wherever a rank holds a vision token
+    fp4 = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                      adaptive=False)
+    bf16 = ReaLBConfig(gate_gamma=10 ** 9)
+    b, s, l = 8, 256, 512
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "start": torch.zeros(b, dtype=torch.int32, device=dev),
+             "chunk_len": torch.full((b,), 128, dtype=torch.int32,
+                                     device=dev),
+             "modality": torch.rand((b, s), generator=gen, device=dev) < 0.6}
+    dec = {"tokens": batch["tokens"][:, :1],
+           "pos": torch.full((b,), 128, dtype=torch.int32, device=dev),
+           "modality": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+    m0 = torch.zeros((1, 4), device=dev)
+    fired, kept = {}, {}
+    torch.cuda.synchronize()
+    for key, rcfg, wrapper in (
+            ("chunk_fp4", fp4, "grouped_fp4_ffn_cuda"),
+            ("chunk_bf16", bf16, "grouped_ffn_cuda"),
+            ("decode_fp4", fp4, "grouped_fp4_ffn_cuda")):
+        cache = tf.init_cache(cfg, b, l, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with keeping_first_inputs(kept, key, wrapper):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                if key.startswith("chunk"):
+                    res = tf.chunk_forward(params, cfg, rcfg, batch, cache, m0)
+                else:
+                    res = tf.decode_forward(params, cfg, rcfg, dec, cache, m0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fired[key] = float(res.aux["fp4_ranks"])
+        if not torch.isfinite(res.logits).all():
+            raise AssertionError(f"{key}: logits not finite")
+        log(f"{key}: full-width {'chunk' if 'chunk' in key else 'decode'}"
+            f"_forward under set_sync_debug_mode('error'): no sync; FP4 "
+            f"virtual ranks summed over the MoE layers {fired[key]:.0f}; "
+            f"{secs * 1e3:.1f} ms")
+    if not (fired["chunk_fp4"] > 0 and fired["decode_fp4"] > 0
+            and fired["chunk_bf16"] == 0):
+        raise AssertionError(f"FP4 did not fire as configured: {fired}")
+    del res
+
+    # phase 5d: host against device time of each forward, warm
+    for key, rcfg in (("chunk_fp4", fp4), ("chunk_bf16", bf16),
+                      ("decode_fp4", fp4), ("decode_bf16", bf16)):
+        if key.startswith("chunk"):
+            args = (params, cfg, rcfg, batch, cache, m0)
+            fwd = lambda: tf.chunk_forward(*args)  # noqa: E731
+        else:
+            args = (params, cfg, rcfg, dec, cache, m0)
+            fwd = lambda: tf.decode_forward(*args)  # noqa: E731
+        host, wall, device, top, top_host = host_and_device_ms(fwd)
+        busy = "not measured (no device event in the trace)" \
+            if device is None else (f"{device:.1f} ms busy (idle "
+                                    f"{1 - device / wall:.1%} of the wall)")
+        log(f"{key} forward, warm: host enqueue {host:.1f} ms, wall "
+            f"{wall:.1f} ms, device {busy}; most device time: " + "; ".join(
+                f"{name} {ms:.2f} ms" for name, ms in top)
+            + "; most host time (cProfile, own): " + "; ".join(
+                f"{name} x{n} {ms:.2f} ms" for name, n, ms in top_host))
+    del cache
+    return kept
+
+
+def host_and_device_ms(fn):
+    """Phase 5d: one warm call of ``fn``: ``(host ms, wall ms, device ms,
+    top, top_host)``.  Host: from call to return; wall: until its work is
+    done; device: the union of the intervals in which a kernel, copy or
+    memset of a third call ran, from a ``torch.profiler`` trace (None when
+    the trace holds no device event); top: the six kernels with the most
+    device time, ``[(name, ms)]``; top_host: the eight functions with the
+    most host time of their own in a fourth call under ``cProfile``,
+    ``[(name, calls, ms)]``."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "phase5d_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") in ("kernel", "gpu_memcpy",
+                                         "gpu_memset")),
+                    key=lambda e: e["ts"])
+    path.unlink()
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in events:
+        busy += max(0.0, e["ts"] + e["dur"] - max(e["ts"], end))
+        end = max(end, e["ts"] + e["dur"])
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    fn()
+    prof_host.disable()
+    torch.cuda.synchronize()
+    own = sorted(pstats.Stats(prof_host).stats.items(),
+                 key=lambda kv: -kv[1][2])[:8]
+    top_host = [(f"{Path(f).name}:{line} {func}"[:70], calls, secs * 1e3)
+                for (f, line, func), (_, calls, secs, *_) in own]
+    return (host * 1e3, wall * 1e3, busy / 1e3 if events else None,
+            [(name[:70], us / 1e3) for name, us in top], top_host)
+
+
+def serve(dev):
+    """Phase 5: the main path, full width: the sync-free forwards, the FFN
+    kernels on the inputs they gave them, then the serve run and the FFN
+    kernels on its inputs; returns the FFN kernels' records and the serve
+    run's launch counts and working launches."""
     import numpy as np
     import torch
     from repro_torch.configs import ReaLBConfig, get_config
-    from repro_torch.core import ep_moe
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import tree_bytes
@@ -278,6 +748,8 @@ def serve(dev, seen):
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
         f"{tree_bytes(params) / 1e9:.2f} GB of weights in "
         f"{time.perf_counter() - t0:.1f} s")
+    check_ffn_at_main_shapes(sync_free_forwards(dev, params, cfg))
+    torch.cuda.empty_cache()
 
     rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
     max_len, n_req = 512, 16
@@ -295,11 +767,11 @@ def serve(dev, seen):
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    ep_moe.host_syncs = 0
+    checked, note = {}, ServeLaunches()
     pending = sorted(specs, key=lambda s: s.arrival)
     step_s = {"prefill": [], "decode": []}   # host seconds per eng.step()
     t_run = time.perf_counter()
-    with recording_ffn_inputs(seen):
+    with sync_checked_forwards(checked), note.noting():
         while len(eng.scheduler.finished) < n_req:
             now = clock()
             while pending and pending[0].arrival <= now:
@@ -312,10 +784,14 @@ def serve(dev, seen):
             phases = {s.phase for s in eng.stats[n_before:]}
             step_s["prefill" if "prefill" in phases else "decode"].append(
                 time.perf_counter() - t0)
+            note.end_step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     counts = ops.launch_counts()
-    syncs = ep_moe.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    working_by_m = note.working()
+    working = {k: v if isinstance(v, int) else sum(v.values())
+               for k, v in working_by_m.items()}
 
     done = eng.scheduler.finished
     toks = sum(len(r.generated) for r in done)
@@ -329,25 +805,33 @@ def serve(dev, seen):
     log(f"prefill gate duty {np.mean([s.gate_open for s in pre]):.4f}, "
         f"FP4 fired in {fp4_iters}/{len(pre)} prefill iterations "
         f"(mean FP4 virtual ranks per layer "
-        f"{np.mean([s.fp4_ranks for s in pre]):.4f}); host reads of the "
-        f"FP4 flag {syncs}")
-    kept = sum(a.numel() * a.element_size() for _, args in seen.values()
-               for a in args)
+        f"{np.mean([s.fp4_ranks for s in pre]):.4f})")
+    log(f"sync-free: all {checked.get('chunk', 0)} chunk_forward and "
+        f"{checked.get('decode', 0)} decode_forward calls of the serve run "
+        "ran under set_sync_debug_mode('error') without a device-to-host "
+        "sync")
     log(f"wall {wall:.3f} s, {toks / wall:.2f} tok/s, TTFT p50 "
         f"{np.median(ttft) * 1e3:.1f} ms, TPOT p50 "
         f"{np.median(tpot) * 1e3:.2f} ms, max memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (including "
-        f"up to {kept / 2 ** 30:.2f} GiB of kept FFN inputs)")
+        f"{peak / 2 ** 30:.2f} GiB (including up to "
+        f"{note.held_bytes / 2 ** 30:.2f} GiB of FFN inputs held in a step)")
     log("engine steps: " + ", ".join(
         f"{k} {len(v)} x {np.mean(v) * 1e3:.1f} ms (min {min(v) * 1e3:.1f})"
         for k, v in step_s.items() if v))
-    log(f"kernel launches on the main path: {counts}")
+    log(f"kernel launches on the main path: {counts}; of those, launches "
+        f"that did work (FFNs: by row count M): {working_by_m}")
     if len(done) != n_req:
         raise AssertionError("not every request finished")
     if fp4_iters == 0:
         raise AssertionError("FP4 never fired in prefill")
-    if min(counts.values()) == 0:
+    serve_kernels = ("quantize_fp4", "global_scale_fp4", "grouped_fp4_ffn",
+                     "grouped_ffn")
+    if min(counts[k] for k in serve_kernels) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if min(working[k] for k in serve_kernels) == 0:
+        raise AssertionError(f"a kernel of the path never did work: "
+                             f"{working}")
+    ffn_recs = check_ffn_at_serve_launches(note, working_by_m)
     for r in done:
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
             raise AssertionError(f"request {r.uid}: token out of range")
@@ -368,11 +852,11 @@ def serve(dev, seen):
     log(f"full-width chunk logits {tuple(res.logits.shape)} finite")
     del params, eng, res
     torch.cuda.empty_cache()
-    return counts
+    return ffn_recs, counts, working
 
 
 def check_small_against_cpu(dev):
-    """Phase 5a: reduced moonshot through the kernels on the card against
+    """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
     from test_torch_cuda import test_reduced_model_through_kernels_matches_cpu
     test_reduced_model_through_kernels_matches_cpu(dev)
@@ -398,28 +882,41 @@ def main() -> int:
     _build.load(verbose=True)
     log(f"kernels built and loaded in {_build.build_seconds:.1f} s")
 
-    recs = [check_quantize(dev)]
+    q_rec, s_rec = check_quantize(dev)
     check_grouped_ffn(dev)
     torch.cuda.empty_cache()
-    seen = {}
-    counts = serve(dev, seen)
-    recs.append(check_ffn_at_serve_shapes(seen))
-    del seen
+    mm_rec, linear_counts = check_fp4_linear(dev)
     torch.cuda.empty_cache()
+    ffn_recs, counts, working = serve(dev)
     check_small_against_cpu(dev)
 
-    sources = {"quantize_fp4": ("src/repro_torch/csrc/quantize_fp4.cu",
-                                "src/repro/kernels/quantize_fp4.py:48"),
-               "grouped_fp4_ffn": ("src/repro_torch/csrc/grouped_fp4_ffn.cu",
-                                   "src/repro/kernels/grouped_fp4_ffn.py:122")}
+    # (record, launches and working launches on its path, source, what it
+    # replaces); fp4_matmul has no predicate: every launch works
+    rows = [
+        (q_rec, counts, working, "src/repro_torch/csrc/quantize_fp4.cu",
+         "src/repro/kernels/quantize_fp4.py:48"),
+        (s_rec, counts, working, "src/repro_torch/csrc/quantize_fp4.cu",
+         "jnp.max(jnp.abs(w)) in global_scale_for (XLA), "
+         "src/repro/core/quant.py:68"),
+        (ffn_recs["grouped_fp4_ffn"], counts, working,
+         "src/repro_torch/csrc/grouped_fp4_ffn.cu",
+         "src/repro/kernels/grouped_fp4_ffn.py:122"),
+        (ffn_recs["grouped_ffn"], counts, working,
+         "src/repro_torch/csrc/grouped_fp4_ffn.cu",
+         "jax.lax.ragged_dot (XLA), src/repro/core/ep_moe.py:325"),
+        (dict(mm_rec, idle_ms=None), linear_counts, linear_counts,
+         "src/repro_torch/csrc/fp4_matmul.cu",
+         "src/repro/kernels/fp4_matmul.py:68"),
+    ]
     kernels = []
-    for r in recs:
-        src, rep = sources[r["name"]]
+    for r, path_counts, path_working, src, rep in rows:
         kernels.append({"name": r["name"], "route": "cuda", "source": src,
-                        "replaces": rep, "launches": counts[r["name"]],
+                        "replaces": rep, "launches": path_counts[r["name"]],
+                        "working_launches": path_working[r["name"]],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "idle_ms": r["idle_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

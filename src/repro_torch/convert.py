@@ -4,7 +4,8 @@ Feeds the port with the reference's parameters and caches: pass it the
 JAX tree after ``jax.tree.map(np.asarray, tree)``.  A JAX bf16 array
 becomes an ``ml_dtypes`` bfloat16 numpy array, which ``torch.from_numpy``
 rejects, so bf16 goes through its 16-bit pattern.  Every leaf is copied:
-JAX's buffers are read-only.
+JAX's buffers are read-only.  Like every entry point of the port, they
+put the tensors on ``cuda`` unless the caller names a device.
 """
 from __future__ import annotations
 
@@ -13,10 +14,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.common import resolve_device
+
 Tree = Any
 
 
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(arr, device=None) -> torch.Tensor:
+    device = resolve_device(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(arr.view(np.int16).copy())
@@ -24,8 +28,9 @@ def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_numpy(tree: Tree, device="cpu") -> Tree:
+def params_from_numpy(tree: Tree, device=None) -> Tree:
     """Nested dicts (and tuples) of numpy arrays → the same of tensors."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -9,17 +9,25 @@ Two paths, as in the reference:
 
 * ``dispatch`` (prefill): route, policy, conditional BF16→NVFP4 weight
   quantization (``kernels.ops.quantize_experts_fp4``), capacity-packed
-  dispatch, grouped expert FFN (BF16 per-slot products, or the fused W4A4
-  kernel ``kernels.ops.grouped_fp4_ffn``), gate-weighted combine.
-* ``broadcast`` (decode): every expert on every token, dense per-expert
-  products, combine by one-hot gates.
+  dispatch, grouped expert FFN (``kernels.ops.grouped_ffn`` with the BF16
+  weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
+  gate-weighted combine.
+* ``broadcast`` (decode): every expert on every token (dense per-expert
+  products in BF16, the grouped W4A4 kernel in FP4), combine by one-hot
+  gates.
+
+The BF16-or-FP4 decision stays on the device, as the reference's in-graph
+``lax.cond`` keeps it: ``_use_fp4`` gives a 0-dim tensor ``f``, the
+quantizer runs under ``f`` as a device predicate, the FP4 expert FFN runs
+with slot counts ``gs·f`` and the BF16 one with ``gs·(1-f)`` (a kernel with
+all-zero counts exits at once), and ``torch.where(f, ·, ·)`` returns the
+chosen branch bit for bit.  Neither path reads a tensor on the host.  On
+the CPU the same code runs the plain versions: the quantizer branches on
+``f`` (a CPU tensor, free to read there) and the FFN with zero counts
+computes nothing.
 
 Differences forced by eager PyTorch:
 
-* The reference decides BF16 or FP4 with an in-graph ``lax.cond``.  Here
-  the host reads the flag: one small device→host sync per MoE layer
-  (``host_syncs`` counts them).  The BF16 grouped product reads the slot
-  counts on the host too (one more sync per BF16 dispatch layer).
 * JAX drops out-of-bounds scatter writes and fills out-of-bounds gathers;
   torch raises.  Every such index (the ``big`` capacity-dropped slot) is
   written into a few spare rows past the buffer instead.
@@ -29,7 +37,6 @@ Differences forced by eager PyTorch:
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,12 +46,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig, ReaLBConfig
 from repro_torch.core import quant
 from repro_torch.core.policy import realb_policy
-from repro_torch.kernels import nvfp4
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.grouped_fp4_ffn import grouped_matmul
 
 F32 = torch.float32
-host_syncs = 0      # device->host reads of the FP4 decision (one per layer)
 AUX_SCALARS = ("lb_loss", "z_loss", "drop_frac", "ib_global", "fp4_ranks",
                "gate_open", "split_frac")
 
@@ -182,43 +186,37 @@ def _aux_losses(probs: torch.Tensor, counts_global: torch.Tensor,
 # --------------------------------------------------------------------------
 # grouped expert compute (bf16 / fp4 branches)
 # --------------------------------------------------------------------------
-def _grouped_ffn(xs, gs, w_gate, w_up, w_down, act):
-    """xs [m,D] sorted by group; gs [G]; w_* [G,.,.] (contraction on dim 1)."""
-    dt = xs.dtype
-    g = grouped_matmul(xs, w_gate.to(dt), gs)
-    u = grouped_matmul(xs, w_up.to(dt), gs)
-    h = act(g.to(F32)).to(dt) * u
-    return grouped_matmul(h, w_down.to(dt), gs)
-
-
-def _grouped_ffn_fp4(xs, gs, wq: Dict[str, quant.QTensor],
-                     rcfg: ReaLBConfig):
-    """NVFP4 W4A4 grouped SwiGLU FFN: the fused kernel on the card, its
-    plain version on the CPU."""
-    return kops.grouped_fp4_ffn(xs, gs, wq, group=rcfg.group_size)
-
-
-def _dq_t(q: quant.QTensor, dtype) -> torch.Tensor:
-    """Dequantize a [G,N,K]-layout QTensor to [G,K,N]."""
-    return quant.dequantize_fp4(q, F32).transpose(-1, -2).to(dtype)
-
-
-def _quantize_experts(w: Dict[str, torch.Tensor], rcfg: ReaLBConfig
-                      ) -> Dict[str, quant.QTensor]:
-    """③ on-the-fly BF16→FP4 transformation of the resident expert weights
-    (the caller runs it only when the policy asks for FP4)."""
+def _quantize_experts(w: Dict[str, torch.Tensor], rcfg: ReaLBConfig,
+                      fi: torch.Tensor) -> Dict[str, quant.QTensor]:
+    """③ on-the-fly BF16→FP4 transformation of the resident expert weights,
+    under the device predicate ``fi`` (int32; nothing is computed when it
+    is 0)."""
     return {name: kops.quantize_experts_fp4(wt.transpose(-1, -2),
-                                            group=rcfg.group_size)
+                                            group=rcfg.group_size, pred=fi)
             for name, wt in w.items()}
 
 
-def _use_fp4(dec_use_fp4: torch.Tensor, ep: int, pol_ep: int) -> bool:
-    """The FP4 decision, read on the host: on one physical rank with a
-    virtual policy topology, any FP4 rank switches every local expert."""
-    global host_syncs
-    flag = dec_use_fp4[0] if ep == pol_ep else dec_use_fp4.any()
-    host_syncs += 1
-    return bool(flag)
+def _use_fp4(dec_use_fp4: torch.Tensor, ep: int, pol_ep: int
+             ) -> torch.Tensor:
+    """The FP4 decision as a 0-dim bool tensor on the device: on one
+    physical rank with a virtual policy topology, any FP4 rank switches
+    every local expert."""
+    return dec_use_fp4[0] if ep == pol_ep else dec_use_fp4.any()
+
+
+def _expert_ffns(xs, gs, w, wq, f, fi, rcfg):
+    """Both expert-FFN branches over slot-sorted rows ``xs`` with counts
+    ``gs``, each with its counts masked by the decision ``f`` (``fi`` as
+    int32), and the chosen one's output (the reference's ``lax.cond``)."""
+    y_fp4 = kops.grouped_fp4_ffn(xs, gs * fi, wq, group=rcfg.group_size)
+    y_bf16 = kops.grouped_ffn(xs, gs * (1 - fi), w)
+    return torch.where(f, y_fp4, y_bf16)
+
+
+def _per_assignment(v: torch.Tensor, k: int) -> torch.Tensor:
+    """[t] → [t·k], each entry repeated k times (``repeat_interleave``
+    without its host read of the output size)."""
+    return v[:, None].expand(v.shape[0], k).reshape(-1)
 
 
 def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep):
@@ -232,11 +230,11 @@ def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep):
     k = e_cfg.top_k
     gates, eidx, probs = _route(p["router"], x_t, e_cfg)
     flat_e = eidx.reshape(t * k)
-    val_flat = val_t.to(torch.bool).repeat_interleave(k)
+    val_flat = _per_assignment(val_t.to(torch.bool), k)
     flat_p, secondary = _split_assignments(rep, flat_e, val_flat)
-    w_val = val_t.to(F32).repeat_interleave(k)
-    w_vis = (mod_t.to(torch.bool) & val_t.to(torch.bool)).to(F32) \
-        .repeat_interleave(k)
+    w_val = _per_assignment(val_t.to(F32), k)
+    w_vis = _per_assignment(
+        (mod_t.to(torch.bool) & val_t.to(torch.bool)).to(F32), k)
     counts = _bincount(flat_e, w_val, e)
     vis = _bincount(flat_e, w_vis, e)
     slot_load = _bincount(flat_p, w_val, n_slots)
@@ -270,7 +268,7 @@ def _aux(r, drop_frac, k, e_cfg):
 # --------------------------------------------------------------------------
 # dispatch path (prefill)
 # --------------------------------------------------------------------------
-def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
+def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     """x_t [t,D] tokens; mod_t [t] vision flags; val_t [t] real-token flags;
     m_vec [pol_ep] AIMD state; rep maps logical experts onto slots."""
     e_cfg = cfg.moe
@@ -283,11 +281,12 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
 
     # ① routing + metadata, ② policy
     r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
-    use_fp4 = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    fi = f.to(torch.int32)
     w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
 
     # ③ conditional on-the-fly quantization
-    wq = _quantize_experts(w, rcfg) if use_fp4 else None
+    wq = _quantize_experts(w, rcfg, fi)
 
     # dispatch: valid assignments first, capacity-packed; padding and
     # over-capacity assignments get the out-of-range slot `big`
@@ -319,23 +318,12 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
     slot_flat[order] = slot_s
 
     # ④ local expert compute; slot s_loc is the pad slot of unfilled
-    # capacity rows (zeros), computed with slot 0's weights
+    # capacity rows (zeros), which has no weights: its rows give 0, as the
+    # reference's zero rows through slot 0's weights do
     order2 = torch.sort(eid_recv, stable=True).indices
     xs = recv[order2]
     gs = _bincount(eid_recv, None, s_loc + 1).to(torch.int32)
-
-    def pad_row(a):
-        return torch.cat([a, a[:1]], dim=0)
-
-    if use_fp4:
-        wq_pad = {n: quant.QTensor(pad_row(v.packed), pad_row(v.scales),
-                                   v.global_scale) for n, v in wq.items()}
-        if act is not F.silu:
-            raise NotImplementedError("the FP4 expert FFN is SwiGLU only")
-        ys = _grouped_ffn_fp4(xs, gs, wq_pad, rcfg)
-    else:
-        ys = _grouped_ffn(xs, gs, pad_row(w["w_gate"]), pad_row(w["w_up"]),
-                          pad_row(w["w_down"]), act)
+    ys = _expert_ffns(xs, gs, w, wq, f, fi, rcfg)
     y_buf = torch.zeros((ep * cap + 8, d), dtype=ys.dtype, device=dev)
     y_buf[order2] = ys
 
@@ -355,7 +343,7 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
 # --------------------------------------------------------------------------
 # broadcast path (decode)
 # --------------------------------------------------------------------------
-def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
+def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     """Decode-regime MoE: every local expert on every token, then combine."""
     e_cfg = cfg.moe
     ep = 1
@@ -366,33 +354,29 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, act, rep, pol_ep):
     dt = x_t.dtype
 
     r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
-    use_fp4 = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    fi = f.to(torch.int32)
     w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
 
-    def per_expert(x_all, wg, wu, wd):
-        g = torch.matmul(x_all, wg)                          # [E,t,F]
-        u = torch.matmul(x_all, wu)
-        h = act(g.to(F32)).to(dt) * u
-        return torch.matmul(h, wd)                           # [E,t,D]
-
-    if use_fp4:
-        wq = _quantize_experts(w, rcfg)
-        # the same dynamic per-group a4 recipe as the grouped kernel
-        xq = nvfp4.fake_quant_a4(x_t, rcfg.group_size).to(dt)
-        wd = {n: _dq_t(q, dt) for n, q in wq.items()}
-        g = torch.matmul(xq, wd["w_gate"])
-        u = torch.matmul(xq, wd["w_up"])
-        h = act(g.to(F32)).to(dt) * u
-        hq = nvfp4.fake_quant_a4(h, rcfg.group_size).to(dt)
-        y_e = torch.matmul(hq, wd["w_down"])
-    else:
-        y_e = per_expert(x_t, w["w_gate"].to(dt), w["w_up"].to(dt),
-                         w["w_down"].to(dt))
+    # BF16: dense per-expert products
+    g = torch.matmul(x_t, w["w_gate"].to(dt))                 # [E,t,F]
+    u = torch.matmul(x_t, w["w_up"].to(dt))
+    h = F.silu(g.to(F32)).to(dt) * u
+    y_bf16 = torch.matmul(h, w["w_down"].to(dt))             # [E,t,D]
+    # FP4: the grouped W4A4 kernel over x_t once per local slot (the
+    # reference's decode FP4 recipe is the grouped kernel's), its counts
+    # masked by the decision
+    wq = _quantize_experts(w, rcfg, fi)
+    xs = x_t.repeat(s_loc, 1)                                 # [E·t,D]
+    gs = torch.full((s_loc,), t, dtype=torch.int32, device=x_t.device) * fi
+    y_fp4 = kops.grouped_fp4_ffn(xs, gs, wq, group=rcfg.group_size)
+    y_e = torch.where(f, y_fp4.reshape(s_loc, t, -1), y_bf16)
 
     pidx = r["flat_p"].reshape(t, k)                          # [t,K] placed
     leid = pidx % s_loc
     local_gate = r["gates"]                 # one physical rank: all local
-    onehot = F.one_hot(leid.long(), s_loc).to(dt)             # [t,K,s_loc]
+    onehot = (leid[..., None] == torch.arange(
+        s_loc, device=leid.device)).to(dt)                    # [t,K,s_loc]
     weight_e = torch.einsum("tk,tke->te", local_gate.to(dt), onehot)
     out = torch.einsum("te,etd->td", weight_e, y_e)
 
@@ -426,10 +410,10 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if rep.slot_owner.shape[0] % pol_ep:
         raise ValueError(f"{rep.slot_owner.shape[0]} slots over {pol_ep} ranks")
     b, s, d = x.shape
-    act = F.silu if cfg.activation == "swiglu" \
-        else partial(F.gelu, approximate="tanh")      # jax.nn.gelu's default
+    if cfg.activation != "swiglu":
+        raise NotImplementedError("the expert FFN kernels are SwiGLU only")
     args = (x.reshape(b * s, d), modality.reshape(b * s),
-            valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg, act, rep,
+            valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg, rep,
             pol_ep)
     if mode == "broadcast":
         y, m_new, aux = _moe_broadcast(*args)

@@ -84,3 +84,39 @@ def dequantize_fp4(q: QTensor, dtype=torch.float32) -> torch.Tensor:
     vals = vals.reshape(*lead, k // g, g) * q.scales[..., None] \
         * q.global_scale
     return vals.reshape(*lead, k).to(dtype)
+
+
+def fp4_sim(x: torch.Tensor, group: int = GROUP) -> torch.Tensor:
+    """Fake-quantize (quantize+dequantize) along the last axis, same dtype.
+
+    Straight-through: the gradient is the identity (the reference's
+    ``jax.lax.stop_gradient`` around the rounding)."""
+    q = quantize_fp4(x.detach(), group)
+    dq = dequantize_fp4(q, torch.float32)
+    xf = x.to(torch.float32)
+    return (xf + (dq - xf).detach()).to(x.dtype)
+
+
+def quant_error(w: torch.Tensor, group: int = GROUP) -> torch.Tensor:
+    """Relative Frobenius error of the NVFP4 round-trip (accuracy proxy)."""
+    wf = w.to(torch.float32)
+    dq = dequantize_fp4(quantize_fp4(wf, group))
+    return torch.linalg.norm(dq - wf) / torch.clamp(torch.linalg.norm(wf),
+                                                    min=1e-20)
+
+
+# --------------------------------------------------------------------------
+# quantized matmul references (the numerics the kernels must match)
+# --------------------------------------------------------------------------
+def matmul_w4a16(x: torch.Tensor, qw: QTensor) -> torch.Tensor:
+    """x [M,K] @ dequant(qw) [K,N] with qw quantized along K (stored [N,K])."""
+    w = dequantize_fp4(qw, torch.float32)                     # [N,K]
+    return (x.to(torch.float32) @ w.t()).to(x.dtype)
+
+
+def matmul_w4a4(x: torch.Tensor, qw: QTensor,
+                group: int = GROUP) -> torch.Tensor:
+    """NVFP4 W4A4 GEMM simulation: both operands fake-quantized per group-K."""
+    xq = fp4_sim(x.to(torch.float32), group)
+    w = dequantize_fp4(qw, torch.float32)
+    return (xq @ w.t()).to(x.dtype)

@@ -1,42 +1,60 @@
-// Grouped W4A4 SwiGLU expert FFN for Hopper (sm_90a): the FP4 expert compute
-// of ReaLB's prefill MoE layer, over tokens sorted by expert slot.
+// Grouped SwiGLU expert FFN for Hopper (sm_90a): the expert compute of
+// ReaLB's MoE layer over tokens sorted by expert slot, with FP4 (W4A4) or
+// plain (BF16, or f32 for parity checks) expert weights.
 //
-// Replaces: src/repro/kernels/grouped_fp4_ffn.py, grouped_fp4_ffn_kernel
-// (Pallas body _ffn_kernel, _dequant_tile).  Same function: for the rows of
-// slot g (counts gs[g], rows in slot order),
+// Replaces, FP4 entries: src/repro/kernels/grouped_fp4_ffn.py,
+// grouped_fp4_ffn_kernel (Pallas body _ffn_kernel, _dequant_tile).  Same
+// function: for the rows of slot g (counts gs[g], rows in slot order),
 //   xq = a4(x); gate, up = xq . deq(W)^T (f32 accumulate, cast to T);
 //   h  = T(silu(gate)) * up;  hq = a4(h);  y = T(hq . deq(Wd)^T);
 // with deq(W) = T((level * local_scale) * global_scale) and a4 the dynamic
-// group-16 activation fake-quant.  Rows outside every slot stay 0.
+// group-16 activation fake-quant.
+// Plain entries (grouped_ffn_*): the reference's BF16 branch _grouped_ffn
+// (src/repro/core/ep_moe.py:328), three jax.lax.ragged_dot calls, which XLA
+// and not Pallas computes: the same schedule and rounding without a4, with
+// weights w_gate/w_up [G, D, F] and w_down [G, F, D] of type T.
+// Rows outside every slot stay 0, and so do the rows of slots g >= Gw (slots
+// without weights: the MoE layer's pad slot of unfilled capacity rows, whose
+// rows are zero, so the reference's output there is 0 too).
+//
+// The device-side branch.  ReaLB picks FP4 or BF16 per MoE layer on the
+// device (the reference's lax.cond).  The MoE layer launches both variants,
+// the FP4 one with counts gs * f and the plain one with gs * (1 - f); with
+// all-zero counts every block finds no tile and exits, and the prep kernel
+// stops at row sum(gs) = 0.  The host never reads gs or f.
 //
 // What bounds it on the H100: at the serving shapes (M ~ 7.7k slot rows of
 // a 1024-token prefill chunk, D = 2048, F = 1408, 65 slots) bytes and
 // operations about evenly: the packed weights (4.25 bits each) take
 // ~0.145 ms at 3.35 TB/s, the bf16 products ~0.134 ms at 989 TFLOP/s.
-// H100 has no FP4 tensor cores, so each weight is decoded to bf16 in shared
-// memory and multiplied on the bf16 tensor cores (WMMA 16x16x16, f32
-// accumulate).  The f32 instantiation (parity checks) multiplies with
-// plain f32 FMAs.
+// With plain bf16 weights the weight bytes are 3.8x more (~0.55 ms).
+// H100 has no FP4 tensor cores, so each FP4 weight is decoded to bf16 in
+// shared memory and multiplied on the bf16 tensor cores (WMMA 16x16x16, f32
+// accumulate).  The f32 instantiations (parity checks) multiply with plain
+// f32 FMAs.
 //
 // Design:
 //  * the down product is a kernel of its own.  The Pallas kernel keeps a
 //    [bm, D] f32 accumulator resident (1 MiB at bm = 128), which does not
-//    fit in 227 KB of shared memory.  Kernel A computes gate/up/SwiGLU/a4
+//    fit in 227 KB of shared memory.  Kernel A computes gate/up/SwiGLU(/a4)
 //    for a [64, 64] tile of h and writes hq (type T) to device memory;
 //    kernel B computes the down product.  This is numerically the same,
-//    because the reference casts hq to T before the down product.
+//    because the reference casts h to T before the down product.
 //  * a tile schedule built on the device: block x walks the per-slot counts
 //    and takes the x-th 64-row tile of the slot sequence, so empty slots
 //    cost nothing and no tile mixes two slots.  The grid is sized by the
-//    upper bound ceil(M / 64) + G; surplus blocks exit at once.  The host
-//    never reads gs.
-//  * a prep kernel applies a4 to x once (xq, type T, to device memory) and
-//    flags the rows that hold a nonzero value; a4 of h runs in kernel A's
-//    epilogue (a 64-column tile holds whole groups).
+//    upper bound ceil(M / 64) + G; surplus blocks exit at once.
+//  * a prep kernel flags the rows that hold a nonzero value and, for FP4,
+//    applies a4 to x once (xq, type T, to device memory); a4 of h runs in
+//    kernel A's epilogue (a 64-column tile holds whole groups).  It stops at
+//    the last row of the last slot with weights.
 //  * a tile whose rows are all zero is skipped by A and B: its output rows
 //    are exactly 0 (a4(0) = 0, finite weights), which the caller's zeroed
 //    output already holds.  On the serving path these are the pad slot's
 //    unfilled capacity rows, most of a prefill chunk's dispatch buffer.
+//  * FP4 weight tiles are decoded into [n][k] shared-memory tiles; plain
+//    weight tiles, [k][n] in device memory, are copied as they are into
+//    [k][n] tiles with 16-byte loads and read by the MMA in that layout.
 //  * no cp.async/TMA pipelining and no wgmma yet: loads, decode and MMA
 //    alternate, separated by __syncthreads.
 #include <cuda_bf16.h>
@@ -63,12 +81,20 @@ template <>
 struct Tiling<__nv_bfloat16> {
   static constexpr int BK = 64;
   static constexpr int LDS = BK + 8;  // keeps WMMA rows 32-byte aligned
+  static constexpr int LDN = BN + 8;  // [k][n] weight tiles, the same
 };
 template <>
 struct Tiling<float> {
   static constexpr int BK = 32;
   static constexpr int LDS = BK + 1;
+  static constexpr int LDN = BN + 4;  // rows stay 16-byte aligned
 };
+
+// Elements of one weight tile: [BN][LDS] decoded FP4, [BK][LDN] plain.
+template <typename T, bool FP4>
+__host__ __device__ constexpr int weight_tile_elems() {
+  return FP4 ? BN * Tiling<T>::LDS : Tiling<T>::BK * Tiling<T>::LDN;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -213,14 +239,50 @@ __device__ void load_weight(const uint8_t* __restrict__ packed,
   }
 }
 
-// C[BM][BN] += A[BM][BK] . B[BN][BK]^T over one K tile, for NB products that
-// share A (gate and up share xq).  bf16: WMMA on the tensor cores, each warp
-// a 32 x 32 quarter of C.  f32: FMAs, each thread 8 rows x 4 columns.
-template <typename T, int NB>
+// Weight tile [BK along K][BN columns n] of slot `slot` from plain weights
+// w [G, K, N] (type T, N contiguous) into a [k][n] tile, 16 bytes at a time;
+// columns past N and rows past K are zero.  N must be a multiple of 8.
+template <typename T>
+__device__ void load_weight_plain(const T* __restrict__ w, int64_t N,
+                                  int64_t K, int slot, int64_t n0,
+                                  int64_t k0, T* __restrict__ dst) {
+  constexpr int BK = Tiling<T>::BK, LDN = Tiling<T>::LDN;
+  constexpr int PER_VEC = 16 / sizeof(T);
+  constexpr int NV = BN / PER_VEC;
+  for (int task = threadIdx.x; task < BK * NV; task += NT) {
+    const int kk = task / NV, nv = task % NV;
+    const int64_t k = k0 + kk, n = n0 + nv * PER_VEC;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (k < K && n < N)
+      raw = *reinterpret_cast<const uint4*>(
+          w + (static_cast<int64_t>(slot) * K + k) * N + n);
+    *reinterpret_cast<uint4*>(dst + kk * LDN + nv * PER_VEC) = raw;
+  }
+}
+
+// One weight tile in the layout of the variant.
+template <typename T, bool FP4>
+__device__ __forceinline__ void load_w(const void* __restrict__ w,
+                                       const float* __restrict__ scales,
+                                       float gsc, int64_t N, int64_t K,
+                                       int slot, int64_t n0, int64_t k0,
+                                       T* __restrict__ dst) {
+  if constexpr (FP4)
+    load_weight<T>(static_cast<const uint8_t*>(w), scales, gsc, N, K, slot,
+                   n0, k0, dst);
+  else
+    load_weight_plain<T>(static_cast<const T*>(w), N, K, slot, n0, k0, dst);
+}
+
+// C[BM][BN] += A[BM][BK] . B^T over one K tile, for NB products that
+// share A (gate and up share xq).  B is a [BN][LDS] tile ([n][k]) or, with
+// KMAJOR, a [BK][LDN] tile ([k][n]).  bf16: WMMA on the tensor cores, each
+// warp a 32 x 32 quarter of C.  f32: FMAs, each thread 8 rows x 4 columns.
+template <typename T, int NB, bool KMAJOR>
 struct Mma;
 
-template <int NB>
-struct Mma<__nv_bfloat16, NB> {
+template <int NB, bool KMAJOR>
+struct Mma<__nv_bfloat16, NB, KMAJOR> {
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   FragC acc[NB][2][2];
 
@@ -237,6 +299,9 @@ struct Mma<__nv_bfloat16, NB> {
                        const __nv_bfloat16* const* B) {
     constexpr int BK = Tiling<__nv_bfloat16>::BK;
     constexpr int LDS = Tiling<__nv_bfloat16>::LDS;
+    constexpr int LDN = Tiling<__nv_bfloat16>::LDN;
+    using LayoutB = typename std::conditional<KMAJOR, wmma::row_major,
+                                              wmma::col_major>::type;
     const int warp = threadIdx.x / 32;
     const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
 #pragma unroll
@@ -251,8 +316,11 @@ struct Mma<__nv_bfloat16, NB> {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, B[b] + (wc + j * 16) * LDS + kk, LDS);
+                         LayoutB> fb;
+          if constexpr (KMAJOR)
+            wmma::load_matrix_sync(fb, B[b] + kk * LDN + wc + j * 16, LDN);
+          else
+            wmma::load_matrix_sync(fb, B[b] + (wc + j * 16) * LDS + kk, LDS);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             wmma::mma_sync(acc[b][i][j], a[i], fb, acc[b][i][j]);
@@ -274,8 +342,8 @@ struct Mma<__nv_bfloat16, NB> {
   }
 };
 
-template <int NB>
-struct Mma<float, NB> {
+template <int NB, bool KMAJOR>
+struct Mma<float, NB, KMAJOR> {
   float acc[NB][8][4];
 
   __device__ void zero() {
@@ -289,6 +357,7 @@ struct Mma<float, NB> {
 
   __device__ void step(const float* A, const float* const* B) {
     constexpr int BK = Tiling<float>::BK, LDS = Tiling<float>::LDS;
+    constexpr int LDN = Tiling<float>::LDN;
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     for (int kk = 0; kk < BK; ++kk) {
       float a[8];
@@ -298,7 +367,9 @@ struct Mma<float, NB> {
       for (int b = 0; b < NB; ++b) {
         float bv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = B[b][(tx * 4 + j) * LDS + kk];
+        for (int j = 0; j < 4; ++j)
+          bv[j] = KMAJOR ? B[b][kk * LDN + tx * 4 + j]
+                         : B[b][(tx * 4 + j) * LDS + kk];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -320,9 +391,11 @@ struct Mma<float, NB> {
   }
 };
 
-template <typename T>
-__host__ __device__ constexpr int input_tile_bytes(int n_tiles) {
-  return n_tiles * BM * Tiling<T>::LDS * static_cast<int>(sizeof(T));
+// one activation tile [BM][LDS] and n_w weight tiles
+template <typename T, bool FP4>
+__host__ __device__ constexpr int input_tile_bytes(int n_w) {
+  return (BM * Tiling<T>::LDS + n_w * weight_tile_elems<T, FP4>()) *
+         static_cast<int>(sizeof(T));
 }
 __host__ __device__ constexpr int epilogue_bytes(int n_tiles) {
   return n_tiles * BM * LDE * static_cast<int>(sizeof(float));
@@ -333,58 +406,76 @@ __host__ __device__ constexpr int cmax(int a, int b) {
 
 constexpr int PREP_ROWS = 8;  // one warp per row
 
-// Prep: xq = T(a4(x)) and nz[row] = any(x[row] != 0).
-template <typename T>
+// Rows of the slots that have weights: sum of gs[g] for g < min(G, Gw)
+// (slots are laid out in order, so these are the first rows).
+__device__ __forceinline__ int64_t live_rows(const int* __restrict__ gs,
+                                             int G, int Gw) {
+  int64_t n = 0;
+  for (int g = 0; g < min(G, Gw); ++g) n += max(gs[g], 0);
+  return n;
+}
+
+// Prep: nz[row] = any(x[row] != 0) and, with A4, xq = T(a4(x)), over the
+// rows of the slots that have weights (no other row is read later).
+template <typename T, bool A4>
 __global__ void __launch_bounds__(PREP_ROWS * 32)
-    ffn_prep_kernel(const T* __restrict__ xs, T* __restrict__ xq,
-                    int* __restrict__ nz, int64_t M, int64_t D) {
+    ffn_prep_kernel(const T* __restrict__ xs, const int* __restrict__ gs,
+                    int G, int Gw, T* __restrict__ xq, int* __restrict__ nz,
+                    int64_t M, int64_t D) {
+  __shared__ int64_t live;
+  if (threadIdx.x == 0) live = live_rows(gs, G, Gw);
+  __syncthreads();
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * PREP_ROWS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= M) return;  // whole warps
+  if (row >= M || row >= live) return;  // whole warps
   bool any = false;
   for (int64_t k = lane * nvfp4::GROUP; k < D; k += 32 * nvfp4::GROUP) {
     float v[nvfp4::GROUP];
     load16<T>(xs + row * D + k, v);
 #pragma unroll
     for (int i = 0; i < nvfp4::GROUP; ++i) any |= v[i] != 0.0f;
-    nvfp4::fake_quant_a4_group(v);
-    store16<T>(xq + row * D + k, v);
+    if constexpr (A4) {
+      nvfp4::fake_quant_a4_group(v);
+      store16<T>(xq + row * D + k, v);
+    }
   }
   any = __any_sync(0xffffffffu, any);
   if (lane == 0) nz[row] = any ? 1 : 0;
 }
 
-// Kernel A: hq[rows, f0:f0+64] = a4(T(silu(T(xq.Wg^T))) * T(xq.Wu^T)).
-template <typename T>
+// Kernel A: hq[rows, f0:f0+64] = a4?(T(silu(T(x.Wg^T))) * T(x.Wu^T)), x
+// being xq (FP4) or xs (plain).
+template <typename T, bool FP4>
 __global__ void __launch_bounds__(NT)
-    ffn_gate_up_kernel(const T* __restrict__ xq, const int* __restrict__ nz,
-                       const int* __restrict__ gs,
-                       int G, const uint8_t* __restrict__ gate_packed,
+    ffn_gate_up_kernel(const T* __restrict__ x, const int* __restrict__ nz,
+                       const int* __restrict__ gs, int G, int Gw,
+                       const void* __restrict__ gate_w,
                        const float* __restrict__ gate_scales,
-                       const uint8_t* __restrict__ up_packed,
+                       const void* __restrict__ up_w,
                        const float* __restrict__ up_scales,
                        const float* __restrict__ gscales, T* __restrict__ hq,
                        int64_t M, int64_t D, int64_t F) {
   constexpr int BK = Tiling<T>::BK, LDS = Tiling<T>::LDS;
-  constexpr int SMEM = cmax(input_tile_bytes<T>(3), epilogue_bytes(2));
+  constexpr int SMEM = cmax(input_tile_bytes<T, FP4>(2), epilogue_bytes(2));
   __shared__ __align__(128) unsigned char smem[SMEM];
   Tile t;
-  if (!find_tile(gs, G, t) || !tile_live(nz, M, t)) return;
+  if (!find_tile(gs, G, t) || t.slot >= Gw) return;  // block-uniform
+  if (!tile_live(nz, M, t)) return;
   const int64_t f0 = static_cast<int64_t>(blockIdx.y) * BN;
   T* xt = reinterpret_cast<T*>(smem);
   T* wg = xt + BM * LDS;
-  T* wu = wg + BN * LDS;
+  T* wu = wg + weight_tile_elems<T, FP4>();
   const T* wts[2] = {wg, wu};
-  const float g_scale = gscales[0], u_scale = gscales[1];
+  const float g_scale = FP4 ? gscales[0] : 1.0f;
+  const float u_scale = FP4 ? gscales[1] : 1.0f;
 
-  Mma<T, 2> mma;
+  Mma<T, 2, !FP4> mma;
   mma.zero();
   for (int64_t k0 = 0; k0 < D; k0 += BK) {
-    load_act<T>(xq, M, D, t, k0, xt);
-    load_weight<T>(gate_packed, gate_scales, g_scale, F, D, t.slot, f0, k0,
-                   wg);
-    load_weight<T>(up_packed, up_scales, u_scale, F, D, t.slot, f0, k0, wu);
+    load_act<T>(x, M, D, t, k0, xt);
+    load_w<T, FP4>(gate_w, gate_scales, g_scale, F, D, t.slot, f0, k0, wg);
+    load_w<T, FP4>(up_w, up_scales, u_scale, F, D, t.slot, f0, k0, wu);
     __syncthreads();
     mma.step(xt, wts);
     __syncthreads();
@@ -409,7 +500,7 @@ __global__ void __launch_bounds__(NT)
       const float act = round_to<T>(g * (1.0f / (1.0f + expf(-g))));
       v[i] = round_to<T>(act * u);
     }
-    nvfp4::fake_quant_a4_group(v);
+    if constexpr (FP4) nvfp4::fake_quant_a4_group(v);
 #pragma unroll
     for (int i = 0; i < nvfp4::GROUP; ++i)
       hq[row * F + f + i] = from_f32<T>(v[i]);
@@ -417,30 +508,31 @@ __global__ void __launch_bounds__(NT)
 }
 
 // Kernel B: out[rows, d0:d0+64] = T(hq . Wd^T).
-template <typename T>
+template <typename T, bool FP4>
 __global__ void __launch_bounds__(NT)
     ffn_down_kernel(const T* __restrict__ hq, const int* __restrict__ nz,
-                    const int* __restrict__ gs, int G, const uint8_t* __restrict__ down_packed,
+                    const int* __restrict__ gs, int G, int Gw,
+                    const void* __restrict__ down_w,
                     const float* __restrict__ down_scales,
                     const float* __restrict__ gscales, T* __restrict__ out,
                     int64_t M, int64_t D, int64_t F) {
   constexpr int BK = Tiling<T>::BK, LDS = Tiling<T>::LDS;
-  constexpr int SMEM = cmax(input_tile_bytes<T>(2), epilogue_bytes(1));
+  constexpr int SMEM = cmax(input_tile_bytes<T, FP4>(1), epilogue_bytes(1));
   __shared__ __align__(128) unsigned char smem[SMEM];
   Tile t;
-  if (!find_tile(gs, G, t) || !tile_live(nz, M, t)) return;
+  if (!find_tile(gs, G, t) || t.slot >= Gw) return;  // block-uniform
+  if (!tile_live(nz, M, t)) return;
   const int64_t d0 = static_cast<int64_t>(blockIdx.y) * BN;
   T* ht = reinterpret_cast<T*>(smem);
   T* wd = ht + BM * LDS;
   const T* wts[1] = {wd};
-  const float d_scale = gscales[2];
+  const float d_scale = FP4 ? gscales[2] : 1.0f;
 
-  Mma<T, 1> mma;
+  Mma<T, 1, !FP4> mma;
   mma.zero();
   for (int64_t k0 = 0; k0 < F; k0 += BK) {
     load_act<T>(hq, M, F, t, k0, ht);
-    load_weight<T>(down_packed, down_scales, d_scale, D, F, t.slot, d0, k0,
-                   wd);
+    load_w<T, FP4>(down_w, down_scales, d_scale, D, F, t.slot, d0, k0, wd);
     __syncthreads();
     mma.step(ht, wts);
     __syncthreads();
@@ -459,41 +551,50 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T>
-int launch(const void* xs, const void* gs, int64_t G, const void* gate_packed,
-           const void* gate_scales, const void* up_packed,
-           const void* up_scales, const void* down_packed,
-           const void* down_scales, const void* gscales, void* xq, void* nz,
-           void* hq, void* out, int64_t M, int64_t D, int64_t F,
-           void* stream) {
-  if (M == 0 || G == 0) return 0;
+// Weights of one variant: FP4 packed codes + scales + device global scales,
+// or plain [G, K, N] stacks of type T (scales and gscales null).
+struct FfnWeights {
+  const void* gate;
+  const void* gate_scales;
+  const void* up;
+  const void* up_scales;
+  const void* down;
+  const void* down_scales;
+  const void* gscales;
+};
+
+template <typename T, bool FP4>
+int launch(const void* xs, const void* gs, int64_t G, int64_t Gw,
+           const FfnWeights& w, void* xq, void* nz, void* hq, void* out,
+           int64_t M, int64_t D, int64_t F, void* stream) {
+  if (M == 0 || G == 0 || Gw == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ffn_prep_kernel<T><<<static_cast<unsigned>((M + PREP_ROWS - 1) / PREP_ROWS),
-                       PREP_ROWS * 32, 0, s>>>(
-      static_cast<const T*>(xs), static_cast<T*>(xq), static_cast<int*>(nz),
-      M, D);
+  const int* gsi = static_cast<const int*>(gs);
+  ffn_prep_kernel<T, FP4>
+      <<<static_cast<unsigned>((M + PREP_ROWS - 1) / PREP_ROWS),
+         PREP_ROWS * 32, 0, s>>>(static_cast<const T*>(xs), gsi,
+                                 static_cast<int>(G), static_cast<int>(Gw),
+                                 static_cast<T*>(xq), static_cast<int*>(nz),
+                                 M, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const T* x = FP4 ? static_cast<const T*>(xq) : static_cast<const T*>(xs);
   // upper bound of sum_g ceil(gs[g] / BM) when sum_g gs[g] <= M
   const unsigned row_tiles = static_cast<unsigned>((M + BM - 1) / BM + G);
   const dim3 grid_a(row_tiles, static_cast<unsigned>((F + BN - 1) / BN));
-  ffn_gate_up_kernel<T><<<grid_a, NT, 0, s>>>(
-      static_cast<const T*>(xq), static_cast<const int*>(nz),
-      static_cast<const int*>(gs), static_cast<int>(G),
-      static_cast<const uint8_t*>(gate_packed),
-      static_cast<const float*>(gate_scales),
-      static_cast<const uint8_t*>(up_packed),
-      static_cast<const float*>(up_scales),
-      static_cast<const float*>(gscales), static_cast<T*>(hq), M, D, F);
+  ffn_gate_up_kernel<T, FP4><<<grid_a, NT, 0, s>>>(
+      x, static_cast<const int*>(nz), gsi, static_cast<int>(G),
+      static_cast<int>(Gw), w.gate, static_cast<const float*>(w.gate_scales),
+      w.up, static_cast<const float*>(w.up_scales),
+      static_cast<const float*>(w.gscales), static_cast<T*>(hq), M, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_b(row_tiles, static_cast<unsigned>((D + BN - 1) / BN));
-  ffn_down_kernel<T><<<grid_b, NT, 0, s>>>(
-      static_cast<const T*>(hq), static_cast<const int*>(nz),
-      static_cast<const int*>(gs), static_cast<int>(G),
-      static_cast<const uint8_t*>(down_packed),
-      static_cast<const float*>(down_scales),
-      static_cast<const float*>(gscales), static_cast<T*>(out), M, D, F);
+  ffn_down_kernel<T, FP4><<<grid_b, NT, 0, s>>>(
+      static_cast<const T*>(hq), static_cast<const int*>(nz), gsi,
+      static_cast<int>(G), static_cast<int>(Gw), w.down,
+      static_cast<const float*>(w.down_scales),
+      static_cast<const float*>(w.gscales), static_cast<T*>(out), M, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,35 +602,60 @@ int launch(const void* xs, const void* gs, int64_t G, const void* gate_packed,
 
 extern "C" {
 
-// xs: [M, D] rows sorted by slot; gs: int32 [G] rows per slot (sum <= M);
-// gate/up: u8 [G, F, D/2] + f32 [G, F, D/16]; down: u8 [G, D, F/2] + f32
-// [G, D, F/16]; gscales: f32 [3] (gate, up, down) on the device; scratch:
+// FP4 entries.  xs: [M, D] rows sorted by slot; gs: int32 [G] rows per slot
+// (sum <= M); slots g >= Gw have no weights and give 0; gate/up: u8
+// [Gw, F, D/2] + f32 [Gw, F, D/16]; down: u8 [Gw, D, F/2] + f32
+// [Gw, D, F/16]; gscales: f32 [3] (gate, up, down) on the device; scratch:
 // xq [M, D] and hq [M, F] of the input type, nz int32 [M]; out: [M, D],
-// zeroed by the caller (rows outside every slot, and all-zero tiles, are not
-// written).  D and F must be multiples of 32; all arrays contiguous.
-// Returns cudaGetLastError() after the launches.
+// zeroed by the caller (rows outside every slot with weights, and all-zero
+// tiles, are not written).  D and F must be multiples of 32; all arrays
+// contiguous.  Returns cudaGetLastError() after the launches.
 int grouped_fp4_ffn_bf16(const void* xs, const void* gs, int64_t G,
-                         const void* gate_packed, const void* gate_scales,
-                         const void* up_packed, const void* up_scales,
-                         const void* down_packed, const void* down_scales,
-                         const void* gscales, void* xq, void* nz, void* hq,
-                         void* out, int64_t M, int64_t D, int64_t F,
-                         void* stream) {
-  return launch<__nv_bfloat16>(xs, gs, G, gate_packed, gate_scales, up_packed,
-                               up_scales, down_packed, down_scales, gscales,
-                               xq, nz, hq, out, M, D, F, stream);
+                         int64_t Gw, const void* gate_packed,
+                         const void* gate_scales, const void* up_packed,
+                         const void* up_scales, const void* down_packed,
+                         const void* down_scales, const void* gscales,
+                         void* xq, void* nz, void* hq, void* out, int64_t M,
+                         int64_t D, int64_t F, void* stream) {
+  const FfnWeights w{gate_packed, gate_scales, up_packed, up_scales,
+                     down_packed, down_scales, gscales};
+  return launch<__nv_bfloat16, true>(xs, gs, G, Gw, w, xq, nz, hq, out, M, D,
+                                     F, stream);
 }
 
-int grouped_fp4_ffn_f32(const void* xs, const void* gs, int64_t G,
+int grouped_fp4_ffn_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,
                         const void* gate_packed, const void* gate_scales,
                         const void* up_packed, const void* up_scales,
                         const void* down_packed, const void* down_scales,
                         const void* gscales, void* xq, void* nz, void* hq,
                         void* out, int64_t M, int64_t D, int64_t F,
                         void* stream) {
-  return launch<float>(xs, gs, G, gate_packed, gate_scales, up_packed,
-                       up_scales, down_packed, down_scales, gscales, xq, nz,
-                       hq, out, M, D, F, stream);
+  const FfnWeights w{gate_packed, gate_scales, up_packed, up_scales,
+                     down_packed, down_scales, gscales};
+  return launch<float, true>(xs, gs, G, Gw, w, xq, nz, hq, out, M, D, F,
+                             stream);
+}
+
+// Plain entries: as above with w_gate, w_up [Gw, D, F] and w_down
+// [Gw, F, D] of the input type, and no a4 (no xq scratch).
+int grouped_ffn_bf16(const void* xs, const void* gs, int64_t G, int64_t Gw,
+                     const void* w_gate, const void* w_up, const void* w_down,
+                     void* nz, void* hq, void* out, int64_t M, int64_t D,
+                     int64_t F, void* stream) {
+  const FfnWeights w{w_gate, nullptr, w_up, nullptr, w_down, nullptr,
+                     nullptr};
+  return launch<__nv_bfloat16, false>(xs, gs, G, Gw, w, nullptr, nz, hq, out,
+                                      M, D, F, stream);
+}
+
+int grouped_ffn_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,
+                    const void* w_gate, const void* w_up, const void* w_down,
+                    void* nz, void* hq, void* out, int64_t M, int64_t D,
+                    int64_t F, void* stream) {
+  const FfnWeights w{w_gate, nullptr, w_up, nullptr, w_down, nullptr,
+                     nullptr};
+  return launch<float, false>(xs, gs, G, Gw, w, nullptr, nz, hq, out, M, D, F,
+                              stream);
 }
 
 }  // extern "C"

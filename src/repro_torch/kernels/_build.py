@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, ctypes._CFuncPtr] = {}
 build_seconds: Optional[float] = None   # wall seconds of the last load()
 
 
@@ -92,6 +93,17 @@ def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
                 str(BUILD_DIR / f"lib{src.stem}_{digest}.so"))
         build_seconds = time.perf_counter() - t0
         return _libs
+
+
+def entry(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of the kernel library ``lib`` (a source
+    stem), with its argument types set once; every entry returns int."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load()[lib], name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entries[name] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

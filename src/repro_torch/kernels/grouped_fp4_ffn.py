@@ -1,19 +1,28 @@
-"""Grouped W4A4 SwiGLU expert FFN: the CUDA kernel, its plain version, its
-counter.
+"""Grouped SwiGLU expert FFN, FP4 (W4A4) and plain: the CUDA kernels, their
+plain versions, their counters.
 
 Counterpart of ``repro.kernels.grouped_fp4_ffn`` (the Pallas
-``grouped_fp4_ffn_kernel``).  Over slot-sorted rows ``xs [M, D]`` with
-per-slot counts ``gs [G]``: ``xq = a4(x)``; ``gate, up = xq·deq(W)ᵀ``;
-``h = silu(gate)·up``; ``y = a4(h)·deq(Wd)ᵀ``, with gate/up quantized along D
-(``[G, F, D/2]`` + ``[G, F, D/16]``), down along F (``[G, D, F/2]`` +
-``[G, D, F/16]``) and three global scales.  The kernel source is
-``csrc/grouped_fp4_ffn.cu``; ``grouped_fp4_ffn_plain`` is the reference's
-jnp oracle (dequantize, then one product per slot).
+``grouped_fp4_ffn_kernel``) and of the reference MoE layer's BF16 branch
+(``_grouped_ffn``: three ``jax.lax.ragged_dot``).  Over slot-sorted rows
+``xs [M, D]`` with per-slot counts ``gs [G]``:
+
+* FP4: ``xq = a4(x)``; ``gate, up = xq·deq(W)ᵀ``; ``h = silu(gate)·up``;
+  ``y = a4(h)·deq(Wd)ᵀ``, with gate/up quantized along D (``[Gw, F, D/2]`` +
+  ``[Gw, F, D/16]``), down along F (``[Gw, D, F/2]`` + ``[Gw, D, F/16]``) and
+  three global scales;
+* plain: ``g = x·Wg``, ``u = x·Wu``, ``h = silu(g)·u``, ``y = h·Wd`` with
+  ``w_gate``/``w_up [Gw, D, F]`` and ``w_down [Gw, F, D]``, each product
+  accumulated in f32 and cast to x's dtype.
+
+``gs`` may be longer than the weight stacks (``Gw`` slots): rows of slots
+``g >= Gw`` give 0, as do rows past ``sum(gs)``.  The MoE layer's pad slot
+of unfilled capacity rows (all zero) is such a slot.  The kernel source is
+``csrc/grouped_fp4_ffn.cu``; the plain versions are the reference's jnp
+oracles (dequantize, then one product per slot) and run on the CPU only.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -23,34 +32,50 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.nvfp4 import fake_quant_a4
 
 launches = 0        # kernel launches made by grouped_fp4_ffn_cuda
+plain_launches = 0  # kernel launches made by grouped_ffn_cuda
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-             + [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_int64] + [ctypes.c_void_p] * 11
+             + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+_PLAIN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 _ENTRY = {torch.bfloat16: "grouped_fp4_ffn_bf16",
           torch.float32: "grouped_fp4_ffn_f32"}
+_PLAIN_ENTRY = {torch.bfloat16: "grouped_ffn_bf16",
+                torch.float32: "grouped_ffn_f32"}
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, gs: torch.Tensor
                    ) -> torch.Tensor:
     """Ragged product: rows of group g (``gs[g]`` consecutive rows) times
     ``w[g] [K, N]``, f32 accumulate, cast to x's dtype; rows past
-    ``sum(gs)`` are 0 (``jax.lax.ragged_dot`` semantics)."""
+    ``sum(gs)`` and rows of groups past ``w.shape[0]`` are 0
+    (``jax.lax.ragged_dot`` semantics).  It reads ``gs`` on the host."""
     out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype,
                       device=x.device)
     r0 = 0
-    for g, c in enumerate(gs.tolist()):        # one host sync per call
-        if c:
+    for g, c in enumerate(gs.tolist()):
+        if c and g < w.shape[0]:
             out[r0:r0 + c] = torch.matmul(x[r0:r0 + c], w[g])
         r0 += c
     return out
 
 
+def grouped_ffn_plain(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
+    """The plain kernel's function in plain PyTorch (the reference's
+    ``_grouped_ffn``)."""
+    dt = xs.dtype
+    g = grouped_matmul(xs, w_gate.to(dt), gs)
+    u = grouped_matmul(xs, w_up.to(dt), gs)
+    h = F.silu(g.to(torch.float32)).to(dt) * u
+    return grouped_matmul(h, w_down.to(dt), gs)
+
+
 def grouped_fp4_ffn_plain(xs, gs, gate_packed, gate_scales, up_packed,
                           up_scales, down_packed, down_scales, global_scales,
-                          group: int = quant.GROUP,
-                          act: Callable = F.silu) -> torch.Tensor:
-    """The kernel's function in plain PyTorch."""
+                          group: int = quant.GROUP) -> torch.Tensor:
+    """The FP4 kernel's function in plain PyTorch."""
     dtype = xs.dtype
 
     def dq_t(packed, scales, gsc):     # [G, N, K] codes -> [G, K, N] dtype
@@ -61,50 +86,95 @@ def grouped_fp4_ffn_plain(xs, gs, gate_packed, gate_scales, up_packed,
     g = grouped_matmul(xq, dq_t(gate_packed, gate_scales, global_scales[0]),
                        gs)
     u = grouped_matmul(xq, dq_t(up_packed, up_scales, global_scales[1]), gs)
-    h = act(g.to(torch.float32)).to(dtype) * u
+    h = F.silu(g.to(torch.float32)).to(dtype) * u
     hq = fake_quant_a4(h, group).to(dtype)
     return grouped_matmul(hq, dq_t(down_packed, down_scales,
                                    global_scales[2]), gs)
 
 
-def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
-                         up_scales, down_packed, down_scales, global_scales
-                         ) -> torch.Tensor:
-    """Launch the kernel (SwiGLU, group 16) on CUDA tensors; ``xs`` bf16 or
-    f32 with D and F multiples of 32."""
-    global launches
+def _require_cuda(name, xs):
+    if xs.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+
+
+def _common_args(name, xs, gs, weights, n_g, d, f):
+    """Validated contiguous inputs of one launch."""
     dev = xs.device
-    if dev.type != "cuda":
-        raise ValueError("grouped_fp4_ffn_cuda takes CUDA tensors")
     if xs.dtype not in _ENTRY:
-        raise TypeError(f"grouped_fp4_ffn_cuda: unsupported dtype {xs.dtype}")
-    m, d = xs.shape
-    n_g, f, d2 = gate_packed.shape
-    if d % 32 or f % 32 or d2 * 2 != d or gs.shape != (n_g,) \
-            or down_packed.shape != (n_g, d, f // 2):
-        raise ValueError(f"grouped_fp4_ffn_cuda: bad shapes xs {tuple(xs.shape)}"
-                         f" gs {tuple(gs.shape)} gate {tuple(gate_packed.shape)}"
-                         f" down {tuple(down_packed.shape)}")
-    args = [xs, gs.to(torch.int32), gate_packed, gate_scales.float(),
-            up_packed, up_scales.float(), down_packed, down_scales.float(),
-            global_scales.to(torch.float32).reshape(3)]
+        raise TypeError(f"{name}: unsupported dtype {xs.dtype}")
+    if d % 32 or f % 32 or gs.dim() != 1 or gs.shape[0] < n_g:
+        raise ValueError(f"{name}: bad shapes xs {tuple(xs.shape)} gs "
+                         f"{tuple(gs.shape)} for {n_g} weight slots, "
+                         f"d_ff {f}")
+    args = [xs, gs.to(torch.int32)] + list(weights)
     args = [a.contiguous() for a in args]
     for a in args:
         if a.device != dev or a.data_ptr() % 16:
-            raise ValueError("grouped_fp4_ffn_cuda: every input must be a "
-                             "16-byte aligned tensor on the device of xs")
+            raise ValueError(f"{name}: every input must be a 16-byte "
+                             "aligned tensor on the device of xs")
+    return args
+
+
+def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
+                         up_scales, down_packed, down_scales, global_scales
+                         ) -> torch.Tensor:
+    """Launch the FP4 kernel (SwiGLU, group 16) on CUDA tensors; ``xs``
+    bf16 or f32 with D and F multiples of 32."""
+    global launches
+    _require_cuda("grouped_fp4_ffn_cuda", xs)
+    m, d = xs.shape
+    n_g, f, d2 = gate_packed.shape
+    if d2 * 2 != d or down_packed.shape != (n_g, d, f // 2):
+        raise ValueError(f"grouped_fp4_ffn_cuda: bad shapes xs "
+                         f"{tuple(xs.shape)} gate {tuple(gate_packed.shape)}"
+                         f" down {tuple(down_packed.shape)}")
+    x, g32, gp, gsc, up, usc, dp, dsc, gscales = _common_args(
+        "grouped_fp4_ffn_cuda", xs, gs,
+        [gate_packed, gate_scales.float(), up_packed, up_scales.float(),
+         down_packed, down_scales.float(),
+         global_scales.to(torch.float32).reshape(3)], n_g, d, f)
+    dev = xs.device
     xq = torch.empty((m, d), dtype=xs.dtype, device=dev)
     nz = torch.empty((m,), dtype=torch.int32, device=dev)
     hq = torch.empty((m, f), dtype=xs.dtype, device=dev)
     out = torch.zeros((m, d), dtype=xs.dtype, device=dev)
-    fn = getattr(_build.load()["grouped_fp4_ffn"], _ENTRY[xs.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    x, g32, gp, gsc, up, usc, dp, dsc, gscales = args
-    err = fn(x.data_ptr(), g32.data_ptr(), n_g, gp.data_ptr(), gsc.data_ptr(),
-             up.data_ptr(), usc.data_ptr(), dp.data_ptr(), dsc.data_ptr(),
-             gscales.data_ptr(), xq.data_ptr(), nz.data_ptr(), hq.data_ptr(),
-             out.data_ptr(), m, d, f,
+    fn = _build.entry("grouped_fp4_ffn", _ENTRY[xs.dtype], _ARGTYPES)
+    err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, gp.data_ptr(),
+             gsc.data_ptr(), up.data_ptr(), usc.data_ptr(), dp.data_ptr(),
+             dsc.data_ptr(), gscales.data_ptr(), xq.data_ptr(),
+             nz.data_ptr(), hq.data_ptr(), out.data_ptr(), m, d, f,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "grouped_fp4_ffn")
     launches += 1
+    return out
+
+
+def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
+    """Launch the plain kernel (SwiGLU) on CUDA tensors: ``xs`` bf16 or f32,
+    weights ``[Gw, D, F]``/``[Gw, F, D]`` cast to its dtype, D and F
+    multiples of 32."""
+    global plain_launches
+    _require_cuda("grouped_ffn_cuda", xs)
+    m, d = xs.shape
+    n_g, d1, f = w_gate.shape
+    if d1 != d or w_up.shape != w_gate.shape \
+            or w_down.shape != (n_g, f, d):
+        raise ValueError(f"grouped_ffn_cuda: bad shapes xs {tuple(xs.shape)}"
+                         f" gate {tuple(w_gate.shape)} down "
+                         f"{tuple(w_down.shape)}")
+    dt = xs.dtype
+    x, g32, wg, wu, wd = _common_args(
+        "grouped_ffn_cuda", xs, gs,
+        [w_gate.to(dt), w_up.to(dt), w_down.to(dt)], n_g, d, f)
+    dev = xs.device
+    nz = torch.empty((m,), dtype=torch.int32, device=dev)
+    hq = torch.empty((m, f), dtype=dt, device=dev)
+    out = torch.zeros((m, d), dtype=dt, device=dev)
+    fn = _build.entry("grouped_fp4_ffn", _PLAIN_ENTRY[dt], _PLAIN_ARGTYPES)
+    err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, wg.data_ptr(),
+             wu.data_ptr(), wd.data_ptr(), nz.data_ptr(), hq.data_ptr(),
+             out.data_ptr(), m, d, f,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "grouped_ffn")
+    plain_launches += 1
     return out

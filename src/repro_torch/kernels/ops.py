@@ -1,20 +1,24 @@
-"""Entry points of the serving hot loop into the kernels.
+"""Entry points into the kernels: the serving hot loop's and the kernels
+package's own (``fp4_linear``).
 
 Counterpart of ``repro.kernels.ops`` (``quantize_experts_fp4``,
-``grouped_fp4_ffn``).  Dispatch is by the device of the tensor: a CPU tensor
-takes the plain PyTorch version, a CUDA tensor launches the CUDA kernel or
-raises.  Nothing (no switch, no environment variable) sends a CUDA tensor
-to the plain version.  The kernels mask ragged edges themselves, so callers
-pass real shapes (any token count, any d_ff that is a multiple of 32) with
-no padding.
+``grouped_fp4_ffn``, ``quantize_fp4``, ``fp4_matmul``, ``fp4_linear``) and
+of the reference MoE layer's BF16 expert FFN (``grouped_ffn``).  Dispatch
+is by the device of the tensor: a CPU tensor takes the plain PyTorch
+version, a CUDA tensor launches the CUDA kernel or raises.  Nothing (no
+switch, no environment variable) sends a CUDA tensor to the plain version.
+The kernels mask ragged edges themselves, so callers pass real shapes (any
+token count, any d_ff that is a multiple of 32) with no padding, and no
+block-size arguments.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.quant import GROUP, QTensor, global_scale_for
+from repro_torch.core.quant import GROUP, QTensor
+from repro_torch.kernels import fp4_matmul as _mm
 from repro_torch.kernels import grouped_fp4_ffn as _ffn
 from repro_torch.kernels import quantize_fp4 as _quant
 
@@ -22,25 +26,39 @@ from repro_torch.kernels import quantize_fp4 as _quant
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"quantize_fp4": _quant.launches,
-            "grouped_fp4_ffn": _ffn.launches}
+            "global_scale_fp4": _quant.scale_launches,
+            "grouped_fp4_ffn": _ffn.launches,
+            "grouped_ffn": _ffn.plain_launches,
+            "fp4_matmul": _mm.launches}
 
 
 def reset_launch_counts() -> None:
-    _quant.launches = 0
-    _ffn.launches = 0
+    _quant.launches = _quant.scale_launches = 0
+    _ffn.launches = _ffn.plain_launches = 0
+    _mm.launches = 0
 
 
-def quantize_experts_fp4(wt: torch.Tensor, *, group: int = GROUP) -> QTensor:
+def _check_group(group: int, what: str) -> None:
+    if group != GROUP:
+        raise ValueError(f"the CUDA {what} is built for group {GROUP}")
+
+
+def quantize_experts_fp4(wt: torch.Tensor, *, group: int = GROUP,
+                         pred: Optional[torch.Tensor] = None) -> QTensor:
     """Quantize a ``[G, N, K]`` expert weight stack along K (any strides,
     e.g. ``w.transpose(-1, -2)`` of the ``[E, D, F]`` parameter).  Bitwise
-    equal to ``quant.quantize_fp4`` (one global scale over the stack)."""
-    gscale = global_scale_for(wt)
+    equal to ``quant.quantize_fp4`` (one global scale over the stack).
+    ``pred``: ReaLB's FP4 decision as a 0-dim tensor on ``wt``'s device;
+    when it is 0 nothing is computed (on the card the kernels exit at once
+    and the returned tensors hold whatever was in memory; on the CPU they
+    are zeros)."""
     if wt.device.type == "cpu":
-        packed, scales = _quant.quantize_fp4_plain(wt, gscale, group)
+        gscale = _quant.global_scale_plain(wt, pred)
+        packed, scales = _quant.quantize_fp4_plain(wt, gscale, group, pred)
     else:
-        if group != GROUP:
-            raise ValueError(f"the CUDA quantizer is built for group {GROUP}")
-        packed, scales = _quant.quantize_fp4_cuda(wt, gscale)
+        _check_group(group, "quantizer")
+        gscale = _quant.global_scale_cuda(wt, pred)
+        packed, scales = _quant.quantize_fp4_cuda(wt, gscale, pred)
     return QTensor(packed, scales, gscale)
 
 
@@ -49,8 +67,9 @@ def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
                     group: int = GROUP) -> torch.Tensor:
     """Fused grouped FP4 SwiGLU FFN over slot-sorted rows ``xs [M, D]`` with
     per-slot counts ``gs [G]``.  ``wq`` holds ``w_gate``/``w_up`` quantized
-    along D and ``w_down`` along d_ff, with G rows each, as
-    ``ep_moe._quantize_experts`` produces them."""
+    along D and ``w_down`` along d_ff, with ``Gw <= G`` rows each, as
+    ``ep_moe._quantize_experts`` produces them; rows of slots past ``Gw``
+    give 0."""
     qg, qu, qd = wq["w_gate"], wq["w_up"], wq["w_down"]
     gscales = torch.stack([qg.global_scale.reshape(()),
                            qu.global_scale.reshape(()),
@@ -59,6 +78,51 @@ def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
             qd.packed, qd.scales, gscales)
     if xs.device.type == "cpu":
         return _ffn.grouped_fp4_ffn_plain(*args, group=group)
-    if group != GROUP:
-        raise ValueError(f"the CUDA FFN kernel is built for group {GROUP}")
+    _check_group(group, "FFN kernel")
     return _ffn.grouped_fp4_ffn_cuda(*args)
+
+
+def grouped_ffn(xs: torch.Tensor, gs: torch.Tensor,
+                w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Grouped SwiGLU FFN with the plain expert weights ``w_gate``/``w_up
+    [Gw, D, F]`` and ``w_down [Gw, F, D]`` (the reference's
+    ``_grouped_ffn``); rows of slots past ``Gw`` give 0."""
+    args = (xs, gs, w["w_gate"], w["w_up"], w["w_down"])
+    if xs.device.type == "cpu":
+        return _ffn.grouped_ffn_plain(*args)
+    return _ffn.grouped_ffn_cuda(*args)
+
+
+def quantize_fp4(w: torch.Tensor, *, group: int = GROUP
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NVFP4-quantize ``w [N, K]`` (any strides) along K with its own
+    global scale.  Returns ``(packed [N, K/2], scales [N, K/group],
+    gscale)``; K must be a multiple of ``2·group``."""
+    n, k = w.shape
+    if k % (2 * group):
+        raise ValueError(f"quantize_fp4: K {k} is not a multiple of "
+                         f"{2 * group}")
+    q = quantize_experts_fp4(w[None], group=group)
+    return q.packed[0], q.scales[0], q.global_scale.reshape(())
+
+
+def fp4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+               global_scale: torch.Tensor, *, group: int = GROUP,
+               a4: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """``x [M, K] @ Wᵀ`` with W stored as packed NVFP4 ``[N, K/2]``: any M
+    and N, K a multiple of ``2·group``."""
+    if x.device.type == "cpu":
+        return _mm.fp4_matmul_plain(x, packed, scales, global_scale, a4=a4,
+                                    group=group, out_dtype=out_dtype)
+    _check_group(group, "W4A4 GEMM")
+    return _mm.fp4_matmul_cuda(x, packed, scales, global_scale, a4=a4,
+                               out_dtype=out_dtype)
+
+
+def fp4_linear(x: torch.Tensor, w: torch.Tensor, *, a4: bool = False,
+               group: int = GROUP) -> torch.Tensor:
+    """Quantize-then-matmul (the on-the-fly transformation plus the GEMM):
+    ``x [M, K] @ w [K, N] → [M, N]`` f32 with NVFP4 weight (and optionally
+    activation) numerics."""
+    packed, scales, gs = quantize_fp4(w.transpose(0, 1), group=group)
+    return fp4_matmul(x, packed, scales, gs, group=group, a4=a4)

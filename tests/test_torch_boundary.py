@@ -74,11 +74,21 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch or raise; a CPU tensor is refused."""
-    from repro_torch.kernels import grouped_fp4_ffn, quantize_fp4
+    from repro_torch.kernels import fp4_matmul, grouped_fp4_ffn, quantize_fp4
     w = torch.zeros(2, 8, 32)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA"):
         quantize_fp4.quantize_fp4_cuda(w, torch.ones(()))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_fp4.global_scale_cuda(w)
+    with pytest.raises(ValueError, match="CUDA"):
         grouped_fp4_ffn.grouped_fp4_ffn_cuda(
             torch.zeros(4, 32), torch.tensor([4, 0]),
             *([torch.zeros(1)] * 7))
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_fp4_ffn.grouped_ffn_cuda(
+            torch.zeros(4, 32), torch.tensor([4, 0]),
+            *([torch.zeros(2, 32, 32)] * 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        fp4_matmul.fp4_matmul_cuda(
+            torch.zeros(4, 32), torch.zeros(8, 16, dtype=torch.uint8),
+            torch.zeros(8, 2), torch.ones(()))

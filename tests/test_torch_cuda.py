@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and the
-reduced model through the kernels against the same model on the CPU.
+"""The port on a CUDA card: each kernel against its plain version, the
+reduced model through the kernels against the same model on the CPU, and
+its forwards free of device-to-host syncs.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so the card's machine runs it as it is:
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.configs import ReaLBConfig, get_config, reduced
 from repro_torch.core import quant
+from repro_torch.kernels import _build
+from repro_torch.kernels import fp4_matmul as mm
 from repro_torch.kernels import grouped_fp4_ffn as ffn
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize_fp4 as qk
@@ -29,6 +32,11 @@ GROUPED_CASES = [
     (8, 32, 32, [1, 2, 0, 5]),
     (300, 256, 192, [70, 0, 1, 64, 65, 0, 0, 40, 60]),
 ]
+# the reference's fp4_matmul SHAPES and ODD_SHAPES (tests/test_kernels.py)
+# plus the expert projection of moonshot at a short token count
+MATMUL_SHAPES = [(128, 256, 512), (64, 128, 128), (256, 384, 1024),
+                 (8, 128, 64), (37, 130, 96), (5, 17, 64), (100, 200, 544),
+                 (1, 1, 32), (300, 1408, 2048)]
 
 
 @pytest.fixture
@@ -177,8 +185,196 @@ def test_reduced_model_through_kernels_matches_cpu(cuda):
                          res2.m_state.cpu(), ops.launch_counts(),
                          res.aux["moe_stats"].cpu())
     cpu, gpu = out["cpu"], out[str(cuda)]
-    assert cpu[3] == {"quantize_fp4": 0, "grouped_fp4_ffn": 0}
-    assert gpu[3]["quantize_fp4"] > 0 and gpu[3]["grouped_fp4_ffn"] > 0
+    assert set(cpu[3].values()) == {0}
+    for name in ("quantize_fp4", "global_scale_fp4", "grouped_fp4_ffn",
+                 "grouped_ffn"):
+        assert gpu[3][name] > 0, gpu[3]
     torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gpu[1], cpu[1], rtol=1e-4, atol=1e-4)
     assert torch.equal(gpu[2], cpu[2]) and torch.equal(gpu[4], cpu[4])
+
+
+def _plain_ffn_args(cuda, m, d, f, gs, n_w, dtype, seed):
+    """xs [m, d], counts gs, plain weights of n_w slots (n_w <= len(gs));
+    rows of slots past n_w are zero, as the MoE layer's pad slot's are."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = {}
+    for name, (rows, cols) in dict(w_gate=(d, f), w_up=(d, f),
+                                   w_down=(f, d)).items():
+        w[name] = (torch.randn(n_w, rows, cols, generator=gen, device=cuda)
+                   * 0.3 * min(1.0, (64 / rows) ** 0.5)).to(dtype)
+    xs = torch.randn(m, d, generator=gen, device=cuda).to(dtype)
+    xs[sum(gs[:n_w]):] = 0
+    gs_t = torch.tensor(gs, dtype=torch.int32, device=cuda)
+    return xs, gs_t, w["w_gate"], w["w_up"], w["w_down"]
+
+
+def check_plain_ffn(y: torch.Tensor, ref: torch.Tensor) -> float:
+    """f32: the reference's rtol 1e-5 / atol 1e-4.  bf16: within two bf16
+    ulps (2^-6 relative) of each value and of the output's largest
+    magnitude (the tensor cores and cuBLAS accumulate in another order, and
+    a one-ulp difference in g or u carries through the bf16 roundings of h
+    into the down product).  Returns max |y - ref|."""
+    ya, ra = y.float().cpu(), ref.float().cpu()
+    assert ya.shape == ra.shape
+    if y.dtype == torch.bfloat16:
+        tol = 2.0 ** -6 * float(ra.abs().max())
+        torch.testing.assert_close(ya, ra, rtol=2.0 ** -6, atol=tol)
+    else:
+        torch.testing.assert_close(ya, ra, rtol=1e-5, atol=1e-4)
+    return float((ya - ra).abs().max())
+
+
+@pytest.mark.parametrize("m,d,f,gs", GROUPED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_plain_ffn_cuda_matches_plain(cuda, m, d, f, gs, dtype):
+    """The BF16 branch's kernel, the last slot a pad slot without weights."""
+    args = _plain_ffn_args(cuda, m, d, f, gs, len(gs) - 1, dtype, m + d)
+    y = ffn.grouped_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    check_plain_ffn(y, ffn.grouped_ffn_plain(*args))
+    assert torch.all(y[sum(gs[:-1]):] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffns_cuda_zero_counts(cuda, dtype):
+    """All-zero counts (the branch the decision did not take): every
+    output row is exactly 0."""
+    gs = [0, 0, 0, 0]
+    plain = _plain_ffn_args(cuda, 64, 64, 64, [20, 30, 14, 0], 4, dtype, 2)
+    plain = (plain[0], torch.zeros(4, dtype=torch.int32, device=cuda),
+             *plain[2:])
+    fp4 = _ffn_args(cuda, 64, 64, 64, gs, dtype, 3)
+    assert torch.all(ffn.grouped_ffn_cuda(*plain) == 0)
+    assert torch.all(ffn.grouped_fp4_ffn_cuda(*fp4) == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_fp4_ffn_cuda_pad_slot(cuda, dtype):
+    """The FP4 kernel with one more count than weight slots (the pad slot):
+    its rows stay 0, the others match the plain version."""
+    gs = [10, 0, 12, 15]
+    args = list(_ffn_args(cuda, 48, 64, 64, gs, dtype, 4))
+    args[1] = torch.tensor(gs + [11], dtype=torch.int32, device=cuda)
+    args[0][37:] = 0
+    y = ffn.grouped_fp4_ffn_cuda(*args)
+    assert torch.all(y[37:] == 0)
+    check_ffn(y, ffn.grouped_fp4_ffn_plain(*args))
+
+
+def _quantize_into(w, gs, pred, packed, scales):
+    """The quantizer's C entry writing into given buffers."""
+    fn = _build.entry("quantize_fp4", qk._ENTRY[w.dtype], qk._ARGTYPES)
+    p32 = pred.to(torch.int32).reshape(1)
+    _build.check(fn(w.data_ptr(), gs.reshape(1).data_ptr(), packed.data_ptr(),
+                    scales.data_ptr(), *w.shape, *w.stride(), p32.data_ptr(),
+                    torch.cuda.current_stream(w.device).cuda_stream),
+                 "quantize_fp4")
+    return packed, scales
+
+
+def test_quantize_cuda_predicate(cuda):
+    """Predicate 0: the quantizer writes nothing into its output buffers;
+    predicate 1: bitwise the unpredicated result, global scale included."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(4, 96, 64, generator=gen, device=cuda) \
+        .to(torch.bfloat16).transpose(-1, -2)
+    gs = quant.global_scale_for(w)
+    for on in (False, True):
+        pred = torch.tensor(on, device=cuda)
+        bufs = (torch.full((4, 64, 48), 0xAB, dtype=torch.uint8,
+                           device=cuda),
+                torch.full((4, 64, 6), -7.0, device=cuda))
+        pk, sc = _quantize_into(w, gs, pred, *bufs)
+        torch.cuda.synchronize()
+        if on:
+            pk_p, sc_p = qk.quantize_fp4_plain(w, gs)
+            assert torch.equal(pk, pk_p) and torch.equal(sc, sc_p)
+            assert torch.equal(qk.global_scale_cuda(w, pred).view(
+                torch.int32), gs.view(torch.int32))
+        else:
+            assert torch.all(pk == 0xAB) and torch.all(sc == -7.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_scale_cuda_bitwise(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(5, 130, 96, generator=gen, device=cuda).to(dtype)
+    for view in (w, w[:, :, :64], w[:, :128].transpose(-1, -2)):
+        assert torch.equal(qk.global_scale_cuda(view).view(torch.int32),
+                           quant.global_scale_for(view).view(torch.int32))
+
+
+def _mm_args(cuda, m, n, k, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = (torch.randn(n, k, generator=gen, device=cuda) * 0.05).to(dtype)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    packed, scales, gs = ops.quantize_fp4(w)
+    return x, packed, scales, gs
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_SHAPES)
+@pytest.mark.parametrize("a4", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp4_matmul_cuda_matches_plain(cuda, m, n, k, a4, dtype):
+    args = _mm_args(cuda, m, n, k, dtype, m + n + k)
+    y = mm.fp4_matmul_cuda(*args, a4=a4)
+    torch.cuda.synchronize()
+    ref = mm.fp4_matmul_plain(*args, a4=a4)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    # bf16 output: the f32 result rounded once, so within one bf16 ulp
+    y16 = mm.fp4_matmul_cuda(*args, a4=a4, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(y16.float(), ref, rtol=2.0 ** -8, atol=1e-4)
+
+
+def test_fp4_linear_cuda_counts_its_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(70, 256, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(256, 96, generator=gen, device=cuda) * 0.05) \
+        .to(torch.bfloat16)
+    ops.reset_launch_counts()
+    y = ops.fp4_linear(x, w, a4=True)
+    counts = ops.launch_counts()
+    assert counts["fp4_matmul"] == 1 and counts["quantize_fp4"] == 1
+    assert counts["global_scale_fp4"] == 1
+    ref = ops.fp4_linear(x.cpu(), w.cpu(), a4=True)
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("policy", ["fp4", "bf16"])
+def test_reduced_forwards_are_sync_free(cuda, policy):
+    """chunk_forward and decode_forward on the card raise no device-to-host
+    sync under set_sync_debug_mode("error"), FP4 firing or not."""
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    kw = dict(gate_gamma=8, md_init=0.0, adaptive=False) if policy == "fp4" \
+        else dict(gate_gamma=10 ** 9)
+    rcfg = ReaLBConfig(**kw)
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    b, s, l = 4, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"tokens": torch.randint(0, 512, (b, s), generator=gen,
+                                     device=cuda, dtype=torch.int32),
+             "start": torch.tensor([0, 3, 0, 0], dtype=torch.int32,
+                                   device=cuda),
+             "chunk_len": torch.tensor([16, 10, 0, 5], dtype=torch.int32,
+                                       device=cuda),
+             "modality": torch.rand((b, s), generator=gen, device=cuda)
+             < 0.6}
+    dec = {"tokens": batch["tokens"][:, :1],
+           "pos": torch.tensor([16, 13, l, 5], dtype=torch.int32,
+                               device=cuda)}
+    cache = tf.init_cache(cfg, b, l, device=cuda)
+    m = torch.zeros((1, 4), device=cuda)
+    tf.chunk_forward(params, cfg, rcfg, batch, cache, m)   # builds kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tf.chunk_forward(params, cfg, rcfg, batch, cache, m)
+        res2 = tf.decode_forward(params, cfg, rcfg, dec, res.cache,
+                                 res.m_state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fired = float(res.aux["fp4_ranks"]) > 0
+    assert fired == (policy == "fp4")
+    assert torch.isfinite(res.logits).all() and torch.isfinite(
+        res2.logits).all()

@@ -69,8 +69,8 @@ def served():
     done_j = _serve(eng_j, specs_j, clock_j)
 
     clock_t = t_arrivals.VirtualClock()
-    eng_t = TEngine(cfg_t, params_from_numpy(jax.tree.map(np.asarray,
-                                                          params)),
+    eng_t = TEngine(cfg_t, params_from_numpy(jax.tree.map(np.asarray, params),
+                                      device="cpu"),
                     TCfg(**POLICY), clock=clock_t,
                     cost_model=t_arrivals.IterationCostModel(),
                     device="cpu", **ENGINE)

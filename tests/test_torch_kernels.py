@@ -67,7 +67,7 @@ def _weights(seed, g, rows, cols, dtype):
 def test_quantize_plain_matches_pallas(g, n, k, dtype):
     w = _weights(g * n + k, g, n, k, dtype)
     ref = _pallas_quantize(w)
-    q = tops.quantize_experts_fp4(tensor_from_numpy(np.asarray(w)))
+    q = tops.quantize_experts_fp4(tensor_from_numpy(np.asarray(w), "cpu"))
     _bits_equal(ref.packed, q.packed.numpy())
     _bits_equal(ref.scales, q.scales.numpy())
     _bits_equal(ref.global_scale, q.global_scale.numpy())
@@ -80,7 +80,7 @@ def test_quantize_plain_strided_view(dtype):
     w = _weights(7, 4, 64, 48, dtype)                       # [E, D, F]
     ref = _pallas_quantize(jnp.swapaxes(w, -1, -2))
     q = tops.quantize_experts_fp4(
-        tensor_from_numpy(np.asarray(w)).transpose(-1, -2))
+        tensor_from_numpy(np.asarray(w), "cpu").transpose(-1, -2))
     _bits_equal(ref.packed, q.packed.numpy())
     _bits_equal(ref.scales, q.scales.numpy())
 
@@ -96,7 +96,8 @@ def _quantized_experts(seed, n_groups, d, f, dtype):
 
 
 def _to_port(wq):
-    return {n: tquant.QTensor(*(tensor_from_numpy(np.asarray(a)) for a in q))
+    return {n: tquant.QTensor(*(tensor_from_numpy(np.asarray(a), "cpu")
+                                   for a in q))
             for n, q in wq.items()}
 
 
@@ -125,9 +126,9 @@ def test_grouped_ffn_plain_matches_pallas(m, d, f, gs, dtype):
         .astype(dtype)
     ref = jax.jit(partial(jops.grouped_fp4_ffn, group=ReaLBConfig().group_size,
                           act=jax.nn.silu, interpret=True))(xs, gs_j, wq)
-    y = tops.grouped_fp4_ffn(tensor_from_numpy(np.asarray(xs)),
+    y = tops.grouped_fp4_ffn(tensor_from_numpy(np.asarray(xs), "cpu"),
                              torch.tensor(gs, dtype=torch.int32), _to_port(wq))
-    assert y.dtype == tensor_from_numpy(np.asarray(xs)).dtype
+    assert y.dtype == tensor_from_numpy(np.asarray(xs), "cpu").dtype
     _check_ffn(to_numpy(y), ref, dtype == jnp.bfloat16)
 
 

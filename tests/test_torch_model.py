@@ -48,7 +48,7 @@ def model():
     cfg_j, cfg_t = jreduced(jget(ARCH)), reduced(get_config(ARCH))
     params = jtf.init_model(cfg_j, jax.random.PRNGKey(0))
     return cfg_j, cfg_t, params, params_from_numpy(
-        jax.tree.map(np.asarray, params))
+        jax.tree.map(np.asarray, params), "cpu")
 
 
 def test_config_copy_matches_reference():
@@ -110,7 +110,7 @@ def test_chunk_then_decode_match_reference(model, policy):
     chunk = jax.jit(partial(jtf.chunk_forward, cfg=cfg_j, rcfg=jr))
     res_j = chunk(params, batch=jax.tree.map(jnp.asarray, batch),
                   cache=cache_j, m_state=jnp.asarray(m))
-    tcache = cache_from_numpy(jax.tree.map(np.asarray, cache_j))
+    tcache = cache_from_numpy(jax.tree.map(np.asarray, cache_j), "cpu")
     res_t = ttf.chunk_forward(tparams, cfg_t, tr,
                               {k: torch.from_numpy(v) for k, v in
                                batch.items()}, tcache, torch.from_numpy(m))

@@ -108,7 +108,7 @@ def test_ep_moe_local_matches_reference(mode, pol, table):
                          modality=jnp.asarray(mod), valid=jnp.asarray(valid),
                          placement=place_j)
     y_t, m_t, aux_t = tmoe.ep_moe_forward(
-        params_from_numpy(p), torch.from_numpy(x), cfg_t, tr,
+        params_from_numpy(p, "cpu"), torch.from_numpy(x), cfg_t, tr,
         torch.from_numpy(m), torch.from_numpy(mod), mode=mode,
         valid=torch.from_numpy(valid), placement=place_t)
 
@@ -144,7 +144,8 @@ def test_capacity_drops_match_reference():
         m_state=jnp.asarray(m), modality=jnp.asarray(mod),
         valid=jnp.asarray(valid))
     y_t, _, aux_t = tmoe.ep_moe_forward(
-        params_from_numpy(p), torch.from_numpy(x), cfg_t, TCfg(**FP4),
+        params_from_numpy(p, "cpu"), torch.from_numpy(x), cfg_t,
+        TCfg(**FP4),
         torch.from_numpy(m), torch.from_numpy(mod),
         valid=torch.from_numpy(valid))
     assert float(aux_t["drop_frac"]) > 0

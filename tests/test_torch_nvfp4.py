@@ -111,7 +111,7 @@ def test_quantize_dequantize_bitwise(dtype, scale):
                     .astype(np.float32)).astype(dtype)
     wn = np.asarray(w)
     q = jax.jit(jquant.quantize_fp4)(w)
-    qt = tquant.quantize_fp4(tensor_from_numpy(wn))
+    qt = tquant.quantize_fp4(tensor_from_numpy(wn, "cpu"))
     _bits_equal(q.packed, qt.packed.numpy())
     _bits_equal(q.scales, qt.scales.numpy())
     _bits_equal(q.global_scale, qt.global_scale.numpy())
