@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-1. prints the card (nvidia-smi) and builds the CUDA kernels from
-   ``src/repro_torch/csrc`` with nvcc;
+1. prints the card (nvidia-smi), builds the CUDA kernels from
+   ``src/repro_torch/csrc`` with nvcc and prints each kernel's registers,
+   static shared memory and spills (``-Xptxas -v``);
 2. holds the NVFP4 quantize kernel and the global-scale kernel bitwise
-   against their plain PyTorch versions, on full-width expert stacks and on
+   against their plain PyTorch versions, on full-width expert stacks (the
+   serving views, N contiguous, and the same stacks K contiguous) and on
    a power-of-two edge sweep, and the quantizer's device predicate (0:
-   nothing written);
+   nothing written); times both, also under a 0 predicate (on the host and
+   the profiler's device time), and the global scale's yardstick
+   ``torch.linalg.vector_norm(view, ord=inf)`` (never called by the port);
 3. holds the grouped FFN kernels against their plain versions: W4A4 and
    plain weights, f32 at rtol 1e-5 / atol 1e-4 over ragged, empty,
    one-slot, cap-dropped and pad-slot patterns, bf16 at full width;
@@ -37,8 +41,10 @@
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path) and working launches, error, time
-   (the FFNs': over the serve run's working launches), time of a launch
-   that exits at once, bound and plain-version time;
+   (the FFNs': over the serve run's working launches; the W4A4 FFN's also
+   at the decode forward's launch and the forced full-budget chunk), time
+   of a launch that exits at once (host-set) and its kernels' device time,
+   bound, plain-version time and library yardstick;
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -66,6 +72,32 @@ def log(*a):
     print(*a, flush=True)
 
 
+def ptxas_summary(logs):
+    """``[(kernel, registers, smem bytes, spill bytes)]`` from the
+    ``-Xptxas -v`` output of the build, by source."""
+    import re
+    rows = []
+    for stem, text in sorted(logs.items()):
+        name = None
+        spill = 0
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line) \
+                or re.search(r"Used (\d+) registers", line)
+            if m and name:
+                smem = int(m.group(2)) if m.lastindex == 2 else 0
+                short = re.sub(r"^_Z\w*?\d+(?=[a-z_]+kernel)", "", name)[:48]
+                rows.append((f"{stem}:{short}", int(m.group(1)), smem, spill))
+                name = None
+    return rows
+
+
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean milliseconds per call, CUDA events around ``iters`` calls."""
     import torch
@@ -80,6 +112,28 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``, from a ``torch.profiler`` trace of
+    ``calls`` calls: the summed duration of the port's own kernels (not
+    PyTorch's, such as a wrapper's zero fill of its output) over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "device_ms_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    us = sum(e["dur"] for e in events if e.get("cat") == "kernel"
+             and "at::" not in e["name"])
+    return us / 1e3 / calls
 
 
 def check_quantize(dev):
@@ -119,7 +173,18 @@ def check_quantize(dev):
         ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs), iters=10)
         idle_ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs, off),
                           iters=10)
+        idle_dev = device_ms_per_call(
+            lambda: qk.quantize_fp4_cuda(view, gs, off))
         plain_ms = time_ms(lambda: qk.quantize_fp4_plain(view, gs), iters=2)
+        # the same stack with K contiguous (fp4_linear's [N, K] weights)
+        rows = view.contiguous()
+        pk_r, sc_r = qk.quantize_fp4_cuda(rows, gs)
+        if not (torch.equal(pk_r, pk_p) and torch.equal(
+                sc_r.view(torch.int32), sc_p.view(torch.int32))):
+            raise AssertionError(f"quantize_fp4 {name}, K contiguous: not "
+                                 "bitwise")
+        rows_ms = time_ms(lambda: qk.quantize_fp4_cuda(rows, gs), iters=10)
+        del rows, pk_r, sc_r
         n = view.numel()
         nbytes = n * 2 + n // 2 + (n // 16) * 4
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -127,30 +192,39 @@ def check_quantize(dev):
         # select, shift/or) off the tensor cores
         bound_ops = n * 12 / F32_FLOP_PER_S * 1e3
         log(f"quantize_fp4 {name}: {ms:.4f} ms (predicate 0: "
-            f"{idle_ms:.4f} ms; plain {plain_ms:.4f} ms), "
+            f"{idle_ms:.4f} ms, device {idle_dev:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; K contiguous, bitwise: {rows_ms:.4f} ms), "
             f"bound {max(bound_bytes, bound_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s")
         rec.setdefault("name", "quantize_fp4")
         s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=10)
         s_idle_ms = time_ms(lambda: qk.global_scale_cuda(view, off),
                             iters=10)
+        s_idle_dev = device_ms_per_call(
+            lambda: qk.global_scale_cuda(view, off))
         s_plain_ms = time_ms(lambda: quant.global_scale_for(view), iters=10)
+        # yardstick of its max only, never called by the port
+        s_lib_ms = time_ms(lambda: torch.linalg.vector_norm(
+            view, ord=float("inf")), iters=10)
         # it reads the stack once; ~2 operations (abs, max) per weight
         s_bytes = n * view.element_size() / HBM_BYTES_PER_S * 1e3
         s_ops = n * 2 / F32_FLOP_PER_S * 1e3
         log(f"global_scale_fp4 {name}: bitwise equal; {s_ms:.4f} ms "
-            f"(predicate 0: {s_idle_ms:.4f} ms; plain "
-            f"{s_plain_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
+            f"(predicate 0: {s_idle_ms:.4f} ms, device {s_idle_dev:.4f} ms; "
+            f"plain {s_plain_ms:.4f} ms; torch.linalg.vector_norm(inf) "
+            f"{s_lib_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
             f"({n * view.element_size() / 1e6:.1f} MB), "
             f"{n * view.element_size() / s_ms / 1e6:.1f} GB/s")
         if name == "gate_up":
             rec.update(max_abs_err=err, ms=ms, idle_ms=idle_ms,
-                       plain_ms=plain_ms,
+                       idle_device_ms=idle_dev, plain_ms=plain_ms,
+                       k_contiguous_ms=rows_ms,
                        bound_ms=max(bound_bytes, bound_ops),
                        bound_by="bytes" if bound_bytes >= bound_ops
                        else "operations")
             srec.update(max_abs_err=0.0, ms=s_ms, idle_ms=s_idle_ms,
-                        plain_ms=s_plain_ms,
+                        idle_device_ms=s_idle_dev, plain_ms=s_plain_ms,
+                        library_ms=s_lib_ms,
                         bound_ms=max(s_bytes, s_ops),
                         bound_by="bytes" if s_bytes >= s_ops
                         else "operations")
@@ -256,7 +330,8 @@ def check_ffn_at_main_shapes(kept):
     """Phase 5b: the grouped FFN kernels against their plain versions on
     the inputs the full-width forwards gave their first launch (FP4 kernel:
     the chunk forward with FP4 firing, and the decode forward; plain kernel:
-    the chunk forward with FP4 off), consuming ``kept``."""
+    the chunk forward with FP4 off), consuming ``kept``; returns the
+    kernel's ms at each forward's launch, by key."""
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from test_torch_cuda import check_ffn, check_plain_ffn
 
@@ -266,6 +341,7 @@ def check_ffn_at_main_shapes(kept):
               ffn.grouped_fp4_ffn_plain, check_ffn, True),
              ("chunk_bf16", "grouped_ffn_cuda", "grouped_ffn",
               ffn.grouped_ffn_plain, check_plain_ffn, False))
+    times = {}
     for key, wrapper, name, plain, check, fp4 in cases:
         args = kept.pop(key)
         launch = getattr(ffn, wrapper)
@@ -279,7 +355,9 @@ def check_ffn_at_main_shapes(kept):
             f"({routed} rows in slots with weights, G={args[1].numel()}) "
             f"{args[0].dtype}: max abs err {err:.4g}; {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms), bound {bound:.4f} ms ({by})")
+        times[key] = ms
         del args
+    return times
 
 
 class ServeLaunches:
@@ -432,10 +510,11 @@ def check_ffn_at_serve_launches(note, working):
                                 device=args[0].device),
                     torch.zeros_like(args[1])) + tuple(args[2:])
             idle_ms = time_ms(lambda: launch(*idle), iters=5)
+            idle_dev = device_ms_per_call(lambda: launch(*idle))
             log(f"{name}: {n_idle} launches of the serve run at M={m} did no "
                 f"work; such a launch (all-zero counts) takes {idle_ms:.4f} "
-                "ms")
-            idle_rows.append((n_idle, idle_ms))
+                f"ms, {idle_dev:.4f} ms of it in its kernels on the device")
+            idle_rows.append((n_idle, idle_ms, idle_dev))
         del args
         total = sum(r[0] for r in rows)
         mean = lambda i: sum(r[0] * r[i] for r in rows) / total  # noqa: E731
@@ -443,8 +522,10 @@ def check_ffn_at_serve_launches(note, working):
         recs[name] = {"name": name, "max_abs_err": max(r[1] for r in rows),
                       "ms": mean(2), "plain_ms": mean(3), "bound_ms": mean(4),
                       "bound_by": max(rows, key=lambda r: r[0])[5],
-                      "idle_ms": sum(n * t for n, t in idle_rows) / n_idle
-                      if n_idle else None}
+                      "idle_ms": sum(r[0] * r[1] for r in idle_rows) / n_idle
+                      if n_idle else None,
+                      "idle_device_ms": sum(r[0] * r[2] for r in idle_rows)
+                      / n_idle if n_idle else None}
     note.first = {n: {} for n in note.FFN}
     return recs
 
@@ -453,7 +534,7 @@ def check_grouped_ffn(dev):
     """Phase 3: both grouped FFN kernels against their plain versions over
     the reference's patterns (f32 and bf16, the plain kernel's last slot a
     pad slot without weights), all-zero counts, and at full width on a
-    1024-token chunk."""
+    1024-token chunk; returns each kernel's ms there, by name."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from repro_torch.kernels import ops
@@ -505,6 +586,7 @@ def check_grouped_ffn(dev):
                 wq["w_up"].packed, wq["w_up"].scales, wq["w_down"].packed,
                 wq["w_down"].scales, gsc)
     plain_args = (xs, gs, w["w_gate"], w["w_up"], w["w_down"])
+    times = {}
     for name, args, launch, plain, check, fp4 in (
             ("grouped_fp4_ffn", fp4_args, ffn.grouped_fp4_ffn_cuda,
              ffn.grouped_fp4_ffn_plain, check_ffn, True),
@@ -519,6 +601,8 @@ def check_grouped_ffn(dev):
             f"{err:.4g}; {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
             f"{bound:.4f} ms ({by}), "
             f"{6.0 * t * k * d * f / ms / 1e9:.1f} TFLOP/s")
+        times[name] = ms
+    return times
 
 
 def check_fp4_linear(dev):
@@ -748,7 +832,7 @@ def serve(dev):
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
         f"{tree_bytes(params) / 1e9:.2f} GB of weights in "
         f"{time.perf_counter() - t0:.1f} s")
-    check_ffn_at_main_shapes(sync_free_forwards(dev, params, cfg))
+    main_ms = check_ffn_at_main_shapes(sync_free_forwards(dev, params, cfg))
     torch.cuda.empty_cache()
 
     rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
@@ -832,6 +916,7 @@ def serve(dev):
         raise AssertionError(f"a kernel of the path never did work: "
                              f"{working}")
     ffn_recs = check_ffn_at_serve_launches(note, working_by_m)
+    ffn_recs["grouped_fp4_ffn"]["decode_ms"] = main_ms["decode_fp4"]
     for r in done:
         if not all(0 <= t < cfg.vocab_size for t in r.generated):
             raise AssertionError(f"request {r.uid}: token out of range")
@@ -881,14 +966,22 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     _build.load(verbose=True)
     log(f"kernels built and loaded in {_build.build_seconds:.1f} s")
+    for name, regs, smem, spill in ptxas_summary(_build.build_log):
+        log(f"ptxas {name}: {regs} registers, {smem} B static smem, "
+            f"{spill} B spilled")
+    if not _build.build_log:
+        log("ptxas: the libraries came from the build cache (no compiler "
+            "output)")
 
     q_rec, s_rec = check_quantize(dev)
-    check_grouped_ffn(dev)
+    forced_ms = check_grouped_ffn(dev)
     torch.cuda.empty_cache()
     mm_rec, linear_counts = check_fp4_linear(dev)
     torch.cuda.empty_cache()
     ffn_recs, counts, working = serve(dev)
     check_small_against_cpu(dev)
+    for name, ms in forced_ms.items():
+        ffn_recs[name]["forced_ms"] = ms
 
     # (record, launches and working launches on its path, source, what it
     # replaces); fp4_matmul has no predicate: every launch works
@@ -904,7 +997,8 @@ def main() -> int:
         (ffn_recs["grouped_ffn"], counts, working,
          "src/repro_torch/csrc/grouped_fp4_ffn.cu",
          "jax.lax.ragged_dot (XLA), src/repro/core/ep_moe.py:325"),
-        (dict(mm_rec, idle_ms=None), linear_counts, linear_counts,
+        (dict(mm_rec, idle_ms=None, idle_device_ms=None), linear_counts,
+         linear_counts,
          "src/repro_torch/csrc/fp4_matmul.cu",
          "src/repro/kernels/fp4_matmul.py:68"),
     ]
@@ -914,9 +1008,13 @@ def main() -> int:
                         "replaces": rep, "launches": path_counts[r["name"]],
                         "working_launches": path_working[r["name"]],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "idle_ms": r["idle_ms"], "plain_ms": r["plain_ms"],
+                        "idle_ms": r["idle_ms"],
+                        "idle_device_ms": r["idle_device_ms"],
+                        "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": None})
+                        "library_ms": r.get("library_ms")})
+        kernels[-1].update((k, r[k]) for k in ("k_contiguous_ms", "decode_ms",
+                                               "forced_ms") if k in r)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

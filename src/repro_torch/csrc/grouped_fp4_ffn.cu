@@ -20,20 +20,72 @@
 // The device-side branch.  ReaLB picks FP4 or BF16 per MoE layer on the
 // device (the reference's lax.cond).  The MoE layer launches both variants,
 // the FP4 one with counts gs * f and the plain one with gs * (1 - f); with
-// all-zero counts every block finds no tile and exits, and the prep kernel
+// all-zero counts every block finds no work and exits, and the prep kernel
 // stops at row sum(gs) = 0.  The host never reads gs or f.
 //
-// What bounds it on the H100: at the serving shapes (M ~ 7.7k slot rows of
-// a 1024-token prefill chunk, D = 2048, F = 1408, 65 slots) bytes and
-// operations about evenly: the packed weights (4.25 bits each) take
-// ~0.145 ms at 3.35 TB/s, the bf16 products ~0.134 ms at 989 TFLOP/s.
-// With plain bf16 weights the weight bytes are 3.8x more (~0.55 ms).
-// H100 has no FP4 tensor cores, so each FP4 weight is decoded to bf16 in
-// shared memory and multiplied on the bf16 tensor cores (WMMA 16x16x16, f32
-// accumulate).  The f32 instantiations (parity checks) multiply with plain
-// f32 FMAs.
+// What bounds it on the H100: bytes.  At the serving shapes (D = 2048,
+// F = 1408, 64 slots with weights plus the pad slot) the codes and their
+// f32 scales (6 bits a weight, 0.415 GB over 64 live slots) and x and y of
+// the 15360-row dispatch buffer (0.126 GB) take 0.16 ms at 3.35 TB/s,
+// while the bf16 products of a prefill chunk's 1-6k routed rows need
+// 0.02-0.1 ms at 989 TFLOP/s.  H100 has no FP4 tensor cores, so every
+// weight is decoded to bf16 in shared memory; that decode (~4 instructions
+// a weight) costs about as much issue time as the bytes take, so it has to
+// run while the loads and the tensor cores work.
 //
-// Design:
+// The bf16 FP4 entry (grouped_fp4_ffn_sm90.cuh), the serving path:
+//  * swap A and B: Y^T = W . X^T.  Weight rows take wgmma's 64-row M side,
+//    a slot's tokens its N side, rounded up to 8, 16, 32 or 64 (a slot of
+//    17 rows pads to 32, not to a 64-row tile, and decode's 8 rows a slot
+//    fill N = 8 exactly).  Both operands are K-major bf16 in the 128-byte
+//    swizzle, read by wgmma.mma_async m64nNk16 with f32 accumulators.
+//  * a work item is two parts of 64 weight rows, one a warpgroup: 64 rows
+//    of gate and the same rows of up (warpgroup 1 hands its accumulators
+//    to warpgroup 0 through shared memory for the epilogue), or 128 rows
+//    of down.  One accumulator of N/2 registers a thread keeps a block
+//    under 128 registers and 113 KB, so two blocks share an SM and each
+//    fills the other's waits (one block per SM, each warpgroup holding
+//    gate and up of 64 rows: 0.44 ms on the decode shape, against 0.37
+//    with two blocks).
+//  * a pipeline per work item, stages of 64 along K: thread 0 brings the
+//    packed codes of both parts, 128 along K at a time (64 bytes a row),
+//    into a ring of 3 and each stage's token tile into a ring of 4 with
+//    TMA (tensor maps encoded on the host, cuTensorMapEncodeTiled taken
+//    through cudaGetDriverEntryPoint, so no -lcuda; the token tile lands
+//    in the 128-byte swizzle that wgmma reads), completing on mbarriers;
+//    the scales come by 8-byte cp.async, two a thread, as TMA takes row
+//    strides in multiples of 16 bytes and theirs are K/4.  At stage s all
+//    256 threads decode stage s+1 into the other of two swizzled bf16
+//    tiles while the tensor cores multiply stage s; one barrier a stage.  (clock64 marks in a test build, on the decode shape
+//    with 16-byte cp.async for every copy: of ~2250 cycles a stage, 630
+//    went to issuing the copies, 1100 to the decode, 230 to the wgmma
+//    issue and 300 to the barrier and waits; TMA took 8-13 % off the
+//    launch.)  The decode takes, per group of 16, the bf16 bits of its
+//    eight magnitudes T((level * s) * gsc) from a table that each block
+//    builds once for all 127 E4M3 scales (built on the spot for a scale
+//    off that grid), and looks codes up with byte permutes: no
+//    int-to-float or float-to-bf16 conversion per weight (conversions
+//    issue at a quarter of the rate; a first version converting each
+//    weight ran 2x slower).  A slot with more than 64 rows loops over its
+//    token tiles; otherwise each weight is decoded once per launch.
+//  * a persistent schedule built on the device: two blocks per SM; warp 0
+//    scans the counts into item and row offsets in shared memory and the
+//    block walks the items (slot < Gw, weight tile, token tile) by a
+//    stride of the grid.  With all-zero counts every block scans and
+//    exits: one wave.
+//  * gate/up's epilogue applies SwiGLU and a4 of h on the accumulators (a
+//    warp holds 16 consecutive F rows of each token column: one a4 group,
+//    reduced over the 8 lanes with equal lane % 4 by three shuffles) and
+//    writes hq [M, F]; the down product is a second persistent kernel of
+//    the same design.
+//  * a4 of x runs once per routed row in a grid-stride prep kernel (4
+//    blocks per SM) into xq: in the token-tile loader it would be computed
+//    again for every weight tile (22 times for gate/up), and the token
+//    tiles could not come by cp.async.
+// The f32 FP4 entry (parity checks only) and the plain-weight entries
+// (BF16/f32, the reference's BF16 branch) keep the first design below.
+//
+// First design (f32 FP4 and plain entries):
 //  * the down product is a kernel of its own.  The Pallas kernel keeps a
 //    [bm, D] f32 accumulator resident (1 MiB at bm = 128), which does not
 //    fit in 227 KB of shared memory.  Kernel A computes gate/up/SwiGLU(/a4)
@@ -50,20 +102,18 @@
 //    the last row of the last slot with weights.
 //  * a tile whose rows are all zero is skipped by A and B: its output rows
 //    are exactly 0 (a4(0) = 0, finite weights), which the caller's zeroed
-//    output already holds.  On the serving path these are the pad slot's
-//    unfilled capacity rows, most of a prefill chunk's dispatch buffer.
-//  * FP4 weight tiles are decoded into [n][k] shared-memory tiles; plain
-//    weight tiles, [k][n] in device memory, are copied as they are into
-//    [k][n] tiles with 16-byte loads and read by the MMA in that layout.
-//  * no cp.async/TMA pipelining and no wgmma yet: loads, decode and MMA
-//    alternate, separated by __syncthreads.
+//    output already holds.
+//  * FP4 weight tiles (f32) are decoded into [n][k] shared-memory tiles;
+//    plain weight tiles, [k][n] in device memory, are copied as they are
+//    into [k][n] tiles with 16-byte loads; WMMA 16x16x16 (bf16) or f32
+//    FMAs multiply them; loads, decode and MMA alternate, separated by
+//    __syncthreads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "grouped_fp4_ffn_sm90.cuh"
 #include "nvfp4.cuh"
 
 namespace {
@@ -283,6 +333,8 @@ struct Mma;
 
 template <int NB, bool KMAJOR>
 struct Mma<__nv_bfloat16, NB, KMAJOR> {
+  // bf16 FP4 weights take the Hopper design (grouped_fp4_ffn_sm90.cuh)
+  static_assert(KMAJOR, "bf16 runs here with plain [k][n] weight tiles only");
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   FragC acc[NB][2][2];
 
@@ -300,8 +352,6 @@ struct Mma<__nv_bfloat16, NB, KMAJOR> {
     constexpr int BK = Tiling<__nv_bfloat16>::BK;
     constexpr int LDS = Tiling<__nv_bfloat16>::LDS;
     constexpr int LDN = Tiling<__nv_bfloat16>::LDN;
-    using LayoutB = typename std::conditional<KMAJOR, wmma::row_major,
-                                              wmma::col_major>::type;
     const int warp = threadIdx.x / 32;
     const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
 #pragma unroll
@@ -316,11 +366,8 @@ struct Mma<__nv_bfloat16, NB, KMAJOR> {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         LayoutB> fb;
-          if constexpr (KMAJOR)
-            wmma::load_matrix_sync(fb, B[b] + kk * LDN + wc + j * 16, LDN);
-          else
-            wmma::load_matrix_sync(fb, B[b] + (wc + j * 16) * LDS + kk, LDS);
+                         wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, B[b] + kk * LDN + wc + j * 16, LDN);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             wmma::mma_sync(acc[b][i][j], a[i], fb, acc[b][i][j]);
@@ -606,10 +653,11 @@ extern "C" {
 // (sum <= M); slots g >= Gw have no weights and give 0; gate/up: u8
 // [Gw, F, D/2] + f32 [Gw, F, D/16]; down: u8 [Gw, D, F/2] + f32
 // [Gw, D, F/16]; gscales: f32 [3] (gate, up, down) on the device; scratch:
-// xq [M, D] and hq [M, F] of the input type, nz int32 [M]; out: [M, D],
-// zeroed by the caller (rows outside every slot with weights, and all-zero
-// tiles, are not written).  D and F must be multiples of 32; all arrays
-// contiguous.  Returns cudaGetLastError() after the launches.
+// xq [M, D] and hq [M, F] of the input type, nz int32 [M] (f32 only; the
+// bf16 entry takes null); out: [M, D], zeroed by the caller (rows outside
+// every slot with weights, and for f32 all-zero tiles, are not written).
+// D and F must be multiples of 32, the bf16 entry takes at most 512 counts;
+// all arrays contiguous.  Returns cudaGetLastError() after the launches.
 int grouped_fp4_ffn_bf16(const void* xs, const void* gs, int64_t G,
                          int64_t Gw, const void* gate_packed,
                          const void* gate_scales, const void* up_packed,
@@ -617,10 +665,10 @@ int grouped_fp4_ffn_bf16(const void* xs, const void* gs, int64_t G,
                          const void* down_scales, const void* gscales,
                          void* xq, void* nz, void* hq, void* out, int64_t M,
                          int64_t D, int64_t F, void* stream) {
-  const FfnWeights w{gate_packed, gate_scales, up_packed, up_scales,
-                     down_packed, down_scales, gscales};
-  return launch<__nv_bfloat16, true>(xs, gs, G, Gw, w, xq, nz, hq, out, M, D,
-                                     F, stream);
+  (void)nz;  // the Hopper design needs no zero-row flags
+  return sm90::launch(xs, gs, G, Gw, gate_packed, gate_scales, up_packed,
+                      up_scales, down_packed, down_scales, gscales, xq, hq,
+                      out, M, D, F, static_cast<cudaStream_t>(stream));
 }
 
 int grouped_fp4_ffn_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,

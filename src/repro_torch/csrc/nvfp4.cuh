@@ -18,10 +18,14 @@ constexpr int GROUP = 16;
 constexpr float INV_FP4_MAX = 0.16666667163372040f;  // f32(1) / f32(6)
 constexpr float E4M3_MAX = 448.0f;
 
-// Level index in [0, 7] of a magnitude: the count of E2M1 midpoints below it.
+// Level index in [0, 7] of a magnitude: the count of E2M1 midpoints below
+// it, found by a three-step binary search over the sorted midpoints (the
+// same count for every input, NaN included, in three compares, not seven).
 __device__ __forceinline__ int fp4_index(float mag) {
-  return (mag > 0.25f) + (mag > 0.75f) + (mag > 1.25f) + (mag > 1.75f) +
-         (mag > 2.5f) + (mag > 3.5f) + (mag > 5.0f);
+  const bool b2 = mag > 1.75f;
+  const bool b1 = mag > (b2 ? 3.5f : 0.75f);
+  const bool b0 = mag > (b2 ? (b1 ? 5.0f : 2.5f) : (b1 ? 1.25f : 0.25f));
+  return (b2 ? 4 : 0) | (b1 ? 2 : 0) | (b0 ? 1 : 0);
 }
 
 // E2M1 magnitude of a level index: {0, .5, 1, 1.5, 2, 3, 4, 6}.

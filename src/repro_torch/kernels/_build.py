@@ -31,6 +31,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 build_seconds: Optional[float] = None   # wall seconds of the last load()
+build_log: Dict[str, str] = {}          # nvcc output by source stem
 
 
 def _nvcc() -> str:
@@ -80,6 +81,7 @@ def load(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
         failed = []
         for stem, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
+            build_log[stem] = log
             if verbose and log:
                 print(f"[nvcc {stem}]\n{log}", flush=True)
             if proc.returncode != 0:

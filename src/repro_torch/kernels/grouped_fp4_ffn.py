@@ -31,6 +31,8 @@ from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.nvfp4 import fake_quant_a4
 
+MAX_SLOTS = 512     # counts the bf16 FP4 kernel's device schedule takes
+
 launches = 0        # kernel launches made by grouped_fp4_ffn_cuda
 plain_launches = 0  # kernel launches made by grouped_ffn_cuda
 
@@ -119,7 +121,8 @@ def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
                          up_scales, down_packed, down_scales, global_scales
                          ) -> torch.Tensor:
     """Launch the FP4 kernel (SwiGLU, group 16) on CUDA tensors; ``xs``
-    bf16 or f32 with D and F multiples of 32."""
+    bf16 or f32 with D and F multiples of 32 (bf16: at most ``MAX_SLOTS``
+    counts)."""
     global launches
     _require_cuda("grouped_fp4_ffn_cuda", xs)
     m, d = xs.shape
@@ -133,16 +136,22 @@ def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
         [gate_packed, gate_scales.float(), up_packed, up_scales.float(),
          down_packed, down_scales.float(),
          global_scales.to(torch.float32).reshape(3)], n_g, d, f)
+    if xs.dtype == torch.bfloat16 and g32.shape[0] > MAX_SLOTS:
+        raise ValueError(f"grouped_fp4_ffn_cuda: {g32.shape[0]} counts, the "
+                         f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
     xq = torch.empty((m, d), dtype=xs.dtype, device=dev)
-    nz = torch.empty((m,), dtype=torch.int32, device=dev)
+    # zero-row flags of the f32 design; the bf16 design takes none
+    nz = torch.empty((m,), dtype=torch.int32, device=dev) \
+        if xs.dtype == torch.float32 else None
     hq = torch.empty((m, f), dtype=xs.dtype, device=dev)
     out = torch.zeros((m, d), dtype=xs.dtype, device=dev)
     fn = _build.entry("grouped_fp4_ffn", _ENTRY[xs.dtype], _ARGTYPES)
     err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, gp.data_ptr(),
              gsc.data_ptr(), up.data_ptr(), usc.data_ptr(), dp.data_ptr(),
              dsc.data_ptr(), gscales.data_ptr(), xq.data_ptr(),
-             nz.data_ptr(), hq.data_ptr(), out.data_ptr(), m, d, f,
+             None if nz is None else nz.data_ptr(), hq.data_ptr(),
+             out.data_ptr(), m, d, f,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "grouped_fp4_ffn")
     launches += 1

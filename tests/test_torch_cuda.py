@@ -17,6 +17,8 @@ from repro_torch.kernels import fp4_matmul as mm
 from repro_torch.kernels import grouped_fp4_ffn as ffn
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize_fp4 as qk
+from repro_torch.kernels.nvfp4 import (FP4_MIDPOINTS, INV_FP4_MAX,
+                                       fake_quant_a4)
 from repro_torch.models import common
 from repro_torch.models import transformer as tf
 
@@ -90,6 +92,37 @@ def test_quantize_cuda_pow2_edges_bitwise(cuda):
     assert torch.equal(sc.view(torch.int32), sc_p.view(torch.int32))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_cuda_pow2_edges_bitwise_n_contiguous(cuda, dtype):
+    """The edge sweep through the staged kernel: the same values as a view
+    whose unit stride is N (as the serving path's are)."""
+    w = _pow2_edge_weights(cuda).to(dtype)
+    view = w.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert view.stride(1) == 1
+    gs = torch.ones((), device=cuda)
+    pk, sc = qk.quantize_fp4_cuda(view, gs)
+    pk_p, sc_p = qk.quantize_fp4_plain(w, gs)
+    assert torch.equal(pk, pk_p)
+    assert torch.equal(sc.view(torch.int32), sc_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(3, 65, 32), (2, 200, 96), (2, 64, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_cuda_ragged_tiles_bitwise(cuda, shape, dtype):
+    """N and K that are not multiples of the staged kernel's 64 x 128
+    tile, in both orientations (K contiguous, N contiguous); N = 65 also
+    takes the element loads (its K stride is not a multiple of 16 bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    g, n, k = shape
+    w = torch.randn(g, k, n, generator=gen, device=cuda).to(dtype)
+    for view in (w.transpose(-1, -2), w.transpose(-1, -2).contiguous()):
+        gs = quant.global_scale_for(view)
+        pk, sc = qk.quantize_fp4_cuda(view, gs)
+        pk_p, sc_p = qk.quantize_fp4_plain(view, gs)
+        assert torch.equal(pk, pk_p)
+        assert torch.equal(sc.view(torch.int32), sc_p.view(torch.int32))
+
+
 def _ffn_args(cuda, m, d, f, gs, dtype, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     wq = {}
@@ -144,8 +177,8 @@ def test_grouped_ffn_cuda_rows_past_counts_are_zero(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_ffn_cuda_zero_rows(cuda, dtype):
-    """All-zero tiles (the pad slot's unfilled capacity rows) are skipped
-    and stay exactly 0; a tile mixing zero and nonzero rows is computed."""
+    """All-zero rows (the pad slot's unfilled capacity rows) stay exactly 0,
+    whole tiles of them and single rows among nonzero ones."""
     gs = [70, 0, 130, 40]
     args = _ffn_args(cuda, 240, 64, 64, gs, dtype, 5)
     xs = args[0]
@@ -154,6 +187,87 @@ def test_grouped_ffn_cuda_zero_rows(cuda, dtype):
     y = ffn.grouped_fp4_ffn_cuda(*args)
     assert torch.all(y[70:200] == 0) and torch.all(y[210:215] == 0)
     check_ffn(y, ffn.grouped_fp4_ffn_plain(*args))
+
+
+def a4_cliff_rows(args, rel: float) -> torch.Tensor:
+    """Rows (bool [M]) whose h = silu(gate)·up, as the plain version computes
+    it in f32, holds a value within ``rel`` (relative) of an a4 rounding
+    midpoint of its group of 16.  There the last bits of an f32 sum taken
+    in another order can move the value a whole FP4 level, which changes
+    the row's down product far beyond rtol 1e-5; the reference's small
+    cases have no such row, large ones do.  Only f32 arguments."""
+    xs, gs, gp, gsc, upk, usc, dp, dsc, gscales = args
+    xq = fake_quant_a4(xs)
+    deq = lambda p, sc, g: quant.dequantize_fp4(  # noqa: E731
+        quant.QTensor(p, sc, g)).transpose(-1, -2).float()
+    g = ffn.grouped_matmul(xq, deq(gp, gsc, gscales[0]), gs)
+    u = ffn.grouped_matmul(xq, deq(upk, usc, gscales[1]), gs)
+    h = torch.nn.functional.silu(g) * u
+    hg = h.reshape(h.shape[0], -1, 16)
+    scale = torch.clamp(hg.abs().amax(-1, keepdim=True) * INV_FP4_MAX,
+                        min=1e-20)
+    r = (hg / scale).abs()
+    mids = torch.tensor(FP4_MIDPOINTS, device=h.device)
+    near = ((r[..., None] - mids).abs() <= rel * mids).any(-1)
+    return near.flatten(1).any(-1)
+
+
+def check_ffn_off_cliffs(y, ref, args, rel: float = 3e-5) -> None:
+    """``check_ffn``; in f32, on the rows without an a4 cliff in h
+    (``a4_cliff_rows``), which must be at least 90 % of the rows, while
+    all rows together stay within the bf16 criterion (rel-L2 < 3e-2)."""
+    if y.dtype != torch.float32:
+        check_ffn(y, ref)
+        return
+    cliff = a4_cliff_rows(args, rel)
+    assert int(cliff.sum()) <= cliff.numel() // 10, int(cliff.sum())
+    check_ffn(y[~cliff], ref[~cliff])
+    ya, ra = y.float().cpu(), ref.float().cpu()
+    assert float((ya - ra).norm() / ra.norm().clamp(min=1e-9)) < 3e-2
+
+
+# slot counts around the token-tile widths (8, 16, 32, 64, 128) and past
+# one 128-row token tile, then the pad slot without weights
+TILE_COUNTS = [0, 1, 7, 8, 9, 17, 63, 64, 65, 128, 255, 256, 257, 300]
+
+
+@pytest.mark.parametrize("d,f", [(160, 96), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_fp4_ffn_cuda_token_tiles(cuda, d, f, dtype):
+    """Slots of 0-300 rows (token tiles of every width, several tiles a
+    slot), D and F not multiples of 64, a pad slot past the weights and
+    rows past every count: the slots with weights match the plain version,
+    every other row is exactly 0."""
+    n = sum(TILE_COUNTS)
+    args = list(_ffn_args(cuda, n + 16, d, f, TILE_COUNTS, dtype, d + f))
+    args[1] = torch.tensor(TILE_COUNTS + [11], dtype=torch.int32,
+                           device=cuda)
+    y = ffn.grouped_fp4_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.all(y[n:] == 0)
+    check_ffn_off_cliffs(y, ffn.grouped_fp4_ffn_plain(*args), args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_fp4_ffn_cuda_decode_shape(cuda, dtype):
+    """The decode forward's FP4 launch at full width: 8 rows in each of 64
+    slots, D 2048, F 1408; with all-zero counts the output is exactly 0."""
+    gs = [8] * 64
+    args = list(_ffn_args(cuda, 512, 2048, 1408, gs, dtype, 9))
+    y = ffn.grouped_fp4_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    check_ffn_off_cliffs(y, ffn.grouped_fp4_ffn_plain(*args), args)
+    args[1] = torch.zeros(64, dtype=torch.int32, device=cuda)
+    assert torch.all(ffn.grouped_fp4_ffn_cuda(*args) == 0)
+
+
+def test_grouped_fp4_ffn_cuda_refuses_too_many_counts(cuda):
+    """The bf16 kernel's device schedule holds MAX_SLOTS counts; the
+    wrapper refuses more instead of launching."""
+    args = list(_ffn_args(cuda, 16, 64, 64, [4, 4], torch.bfloat16, 6))
+    args[1] = torch.zeros(ffn.MAX_SLOTS + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        ffn.grouped_fp4_ffn_cuda(*args)
 
 
 def test_reduced_model_through_kernels_matches_cpu(cuda):
@@ -294,6 +408,18 @@ def test_quantize_cuda_predicate(cuda):
                 torch.int32), gs.view(torch.int32))
         else:
             assert torch.all(pk == 0xAB) and torch.all(sc == -7.0)
+
+
+def test_quantize_cuda_predicate_k_contiguous(cuda):
+    """Predicate 0 writes nothing with K contiguous too (the row kernel)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    w = torch.randn(4, 64, 96, generator=gen, device=cuda).to(torch.bfloat16)
+    gs = quant.global_scale_for(w)
+    bufs = (torch.full((4, 64, 48), 0xAB, dtype=torch.uint8, device=cuda),
+            torch.full((4, 64, 6), -7.0, device=cuda))
+    pk, sc = _quantize_into(w, gs, torch.tensor(False, device=cuda), *bufs)
+    torch.cuda.synchronize()
+    assert torch.all(pk == 0xAB) and torch.all(sc == -7.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
