@@ -11,8 +11,9 @@
    serving views, N contiguous, and the same stacks K contiguous) and on
    a power-of-two edge sweep, and the quantizer's device predicate (0:
    nothing written); times both, also under a 0 predicate (on the host and
-   the profiler's device time), and the global scale's yardstick
-   ``torch.linalg.vector_norm(view, ord=inf)`` (never called by the port);
+   the profiler's device time), and the global scale's yardsticks
+   ``torch.linalg.vector_norm(view, ord=inf)`` and ``view.abs().amax()``
+   (never called by the port);
 3. holds the grouped FFN kernels against their plain versions: W4A4 and
    plain weights, f32 at rtol 1e-5 / atol 1e-4 over ragged, empty,
    one-slot, cap-dropped and pad-slot patterns, bf16 at full width;
@@ -203,16 +204,17 @@ def check_quantize(dev):
         s_idle_dev = device_ms_per_call(
             lambda: qk.global_scale_cuda(view, off))
         s_plain_ms = time_ms(lambda: quant.global_scale_for(view), iters=10)
-        # yardstick of its max only, never called by the port
+        # yardsticks of its max only, never called by the port
         s_lib_ms = time_ms(lambda: torch.linalg.vector_norm(
             view, ord=float("inf")), iters=10)
+        s_amax_ms = time_ms(lambda: view.abs().amax(), iters=10)
         # it reads the stack once; ~2 operations (abs, max) per weight
         s_bytes = n * view.element_size() / HBM_BYTES_PER_S * 1e3
         s_ops = n * 2 / F32_FLOP_PER_S * 1e3
         log(f"global_scale_fp4 {name}: bitwise equal; {s_ms:.4f} ms "
             f"(predicate 0: {s_idle_ms:.4f} ms, device {s_idle_dev:.4f} ms; "
             f"plain {s_plain_ms:.4f} ms; torch.linalg.vector_norm(inf) "
-            f"{s_lib_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
+            f"{s_lib_ms:.4f} ms, view.abs().amax() {s_amax_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
             f"({n * view.element_size() / 1e6:.1f} MB), "
             f"{n * view.element_size() / s_ms / 1e6:.1f} GB/s")
         if name == "gate_up":
@@ -224,7 +226,7 @@ def check_quantize(dev):
                        else "operations")
             srec.update(max_abs_err=0.0, ms=s_ms, idle_ms=s_idle_ms,
                         idle_device_ms=s_idle_dev, plain_ms=s_plain_ms,
-                        library_ms=s_lib_ms,
+                        library_ms=s_lib_ms, abs_amax_ms=s_amax_ms,
                         bound_ms=max(s_bytes, s_ops),
                         bound_by="bytes" if s_bytes >= s_ops
                         else "operations")
@@ -992,10 +994,10 @@ def main() -> int:
          "jnp.max(jnp.abs(w)) in global_scale_for (XLA), "
          "src/repro/core/quant.py:68"),
         (ffn_recs["grouped_fp4_ffn"], counts, working,
-         "src/repro_torch/csrc/grouped_fp4_ffn.cu",
+         "src/repro_torch/csrc/grouped_fp4_ffn_sm90.cuh",
          "src/repro/kernels/grouped_fp4_ffn.py:122"),
         (ffn_recs["grouped_ffn"], counts, working,
-         "src/repro_torch/csrc/grouped_fp4_ffn.cu",
+         "src/repro_torch/csrc/grouped_ffn_sm90.cuh",
          "jax.lax.ragged_dot (XLA), src/repro/core/ep_moe.py:325"),
         (dict(mm_rec, idle_ms=None, idle_device_ms=None), linear_counts,
          linear_counts,
@@ -1014,7 +1016,8 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
         kernels[-1].update((k, r[k]) for k in ("k_contiguous_ms", "decode_ms",
-                                               "forced_ms") if k in r)
+                                               "forced_ms", "abs_amax_ms")
+                           if k in r)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -82,10 +82,13 @@
 //    blocks per SM) into xq: in the token-tile loader it would be computed
 //    again for every weight tile (22 times for gate/up), and the token
 //    tiles could not come by cp.async.
-// The f32 FP4 entry (parity checks only) and the plain-weight entries
-// (BF16/f32, the reference's BF16 branch) keep the first design below.
+// The bf16 plain entry (grouped_ffn_sm90.cuh), the serving path's BF16
+// branch: the same schedule and swap, with the bf16 weights streamed by TMA
+// straight from device memory into wgmma's MN-major A operand (that
+// header says why); the code both designs share is in sm90_common.cuh.
+// The f32 entries (parity checks only) keep the first design below.
 //
-// First design (f32 FP4 and plain entries):
+// First design (f32 entries):
 //  * the down product is a kernel of its own.  The Pallas kernel keeps a
 //    [bm, D] f32 accumulator resident (1 MiB at bm = 128), which does not
 //    fit in 227 KB of shared memory.  Kernel A computes gate/up/SwiGLU(/a4)
@@ -103,22 +106,18 @@
 //  * a tile whose rows are all zero is skipped by A and B: its output rows
 //    are exactly 0 (a4(0) = 0, finite weights), which the caller's zeroed
 //    output already holds.
-//  * FP4 weight tiles (f32) are decoded into [n][k] shared-memory tiles;
-//    plain weight tiles, [k][n] in device memory, are copied as they are
-//    into [k][n] tiles with 16-byte loads; WMMA 16x16x16 (bf16) or f32
-//    FMAs multiply them; loads, decode and MMA alternate, separated by
-//    __syncthreads.
-#include <cuda_bf16.h>
+//  * FP4 weight tiles are decoded into [n][k] shared-memory tiles; plain
+//    weight tiles, [k][n] in device memory, are copied as they are into
+//    [k][n] tiles with 16-byte loads; f32 FMAs multiply them; loads, decode
+//    and MMA alternate, separated by __syncthreads.
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "grouped_ffn_sm90.cuh"
 #include "grouped_fp4_ffn_sm90.cuh"
 #include "nvfp4.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int BM = 64;   // rows (tokens) per tile
 constexpr int BN = 64;   // output columns per tile
@@ -127,12 +126,6 @@ constexpr int LDE = BN + 4;  // f32 epilogue row stride
 
 template <typename T>
 struct Tiling;
-template <>
-struct Tiling<__nv_bfloat16> {
-  static constexpr int BK = 64;
-  static constexpr int LDS = BK + 8;  // keeps WMMA rows 32-byte aligned
-  static constexpr int LDN = BN + 8;  // [k][n] weight tiles, the same
-};
 template <>
 struct Tiling<float> {
   static constexpr int BK = 32;
@@ -150,19 +143,11 @@ template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
 __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Rounds v to T and back (the reference's .astype(dtype) between stages).
 template <typename T>
@@ -326,68 +311,9 @@ __device__ __forceinline__ void load_w(const void* __restrict__ w,
 
 // C[BM][BN] += A[BM][BK] . B^T over one K tile, for NB products that
 // share A (gate and up share xq).  B is a [BN][LDS] tile ([n][k]) or, with
-// KMAJOR, a [BK][LDN] tile ([k][n]).  bf16: WMMA on the tensor cores, each
-// warp a 32 x 32 quarter of C.  f32: FMAs, each thread 8 rows x 4 columns.
+// KMAJOR, a [BK][LDN] tile ([k][n]).  FMAs, each thread 8 rows x 4 columns.
 template <typename T, int NB, bool KMAJOR>
 struct Mma;
-
-template <int NB, bool KMAJOR>
-struct Mma<__nv_bfloat16, NB, KMAJOR> {
-  // bf16 FP4 weights take the Hopper design (grouped_fp4_ffn_sm90.cuh)
-  static_assert(KMAJOR, "bf16 runs here with plain [k][n] weight tiles only");
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  FragC acc[NB][2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[b][i][j], 0.0f);
-  }
-
-  __device__ void step(const __nv_bfloat16* A,
-                       const __nv_bfloat16* const* B) {
-    constexpr int BK = Tiling<__nv_bfloat16>::BK;
-    constexpr int LDS = Tiling<__nv_bfloat16>::LDS;
-    constexpr int LDN = Tiling<__nv_bfloat16>::LDN;
-    const int warp = threadIdx.x / 32;
-    const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], A + (wr + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, B[b] + kk * LDN + wc + j * 16, LDN);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::mma_sync(acc[b][i][j], a[i], fb, acc[b][i][j]);
-        }
-    }
-  }
-
-  __device__ void store(float* const* C) {
-    const int warp = threadIdx.x / 32;
-    const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(C[b] + (wr + i * 16) * LDE + wc + j * 16,
-                                  acc[b][i][j], LDE, wmma::mem_row_major);
-  }
-};
 
 template <int NB, bool KMAJOR>
 struct Mma<float, NB, KMAJOR> {
@@ -686,14 +612,15 @@ int grouped_fp4_ffn_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,
 
 // Plain entries: as above with w_gate, w_up [Gw, D, F] and w_down
 // [Gw, F, D] of the input type, and no a4 (no xq scratch).
+// nz: int32 [M] scratch of the f32 entry; the bf16 entry ignores it (its
+// Hopper design needs no zero-row flags) and takes at most 512 counts.
 int grouped_ffn_bf16(const void* xs, const void* gs, int64_t G, int64_t Gw,
                      const void* w_gate, const void* w_up, const void* w_down,
                      void* nz, void* hq, void* out, int64_t M, int64_t D,
                      int64_t F, void* stream) {
-  const FfnWeights w{w_gate, nullptr, w_up, nullptr, w_down, nullptr,
-                     nullptr};
-  return launch<__nv_bfloat16, false>(xs, gs, G, Gw, w, nullptr, nz, hq, out,
-                                      M, D, F, stream);
+  (void)nz;
+  return sm90::launch_plain(xs, gs, G, Gw, w_gate, w_up, w_down, hq, out, M,
+                            D, F, static_cast<cudaStream_t>(stream));
 }
 
 int grouped_ffn_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,

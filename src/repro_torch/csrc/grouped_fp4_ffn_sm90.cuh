@@ -3,49 +3,33 @@
 // what it computes and why this design.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (no libcuda link: the
-                    // encoder comes through cudaGetDriverEntryPoint)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "nvfp4.cuh"
+#include "sm90_common.cuh"
 
-// Internal linkage throughout: two builds of this file loaded in one
-// process (tools/kernel_ab.py) must not share the function-local statics
-// below, nor kernel stubs.
+// Internal linkage, as in sm90_common.cuh.
 namespace {
 namespace sm90 {
 
-constexpr int THREADS = 256;        // two warpgroups
-constexpr int BK = 64;              // K per stage: one 128-byte bf16 row
-constexpr int NTOK = 64;            // token columns per work item, at most
-constexpr int PART_ROWS = 64;       // weight rows a warpgroup multiplies
 constexpr int RK = 128;             // K per raw stage: two decode stages
 constexpr int DEC_BUFS = 2;         // decoded weight tiles
 constexpr int RS = 3;               // ring of raw stages (codes, scales)
 constexpr int TS = 4;               // ring of token tiles
-constexpr int MAX_SLOTS = 512;      // counts per launch (the scan's table)
 constexpr int PART_BYTES = PART_ROWS * BK * 2;       // decoded [64][64]
 constexpr int TILE_BYTES = 2 * PART_BYTES;           // both warpgroups'
-constexpr int TOK_BYTES = NTOK * BK * 2;             // token tile [64][64]
 constexpr int PACKED_BYTES = PART_ROWS * RK / 2;     // codes of a part
 constexpr int SCALE_BYTES = PART_ROWS * (RK / 16) * 4;  // its scales
-constexpr int SMEM_BYTES = 115712;  // two blocks per SM
 constexpr int LUT_ENTRIES = 128;    // E4M3 codes of positive scales
 constexpr int LUT_BYTES = LUT_ENTRIES * (16 + 4);  // tables, then scales
 
-// A work item's weights are two parts of 64 rows, one for each warpgroup:
-// gate/up (NMAT = 2) takes 64 rows of gate (warpgroup 0) and the same 64
-// rows of up (warpgroup 1); down (NMAT = 1) takes 128 rows of down, 64 a
-// warpgroup.  Each warpgroup keeps one accumulator of N/2 registers, so a
-// block fits in 128 registers a thread and two blocks share an SM, each
-// block's phases (decode, wgmma, barrier) filling the other's gaps.
-template <int NMAT>
-__host__ __device__ constexpr int item_rows() {
-  return NMAT == 2 ? PART_ROWS : 2 * PART_ROWS;
-}
-
+// Work items as in sm90_common.cuh.  Each warpgroup keeps one accumulator
+// of N/2 registers, so a block fits in 128 registers a thread and two
+// blocks share an SM, each block's phases (decode, wgmma, barrier) filling
+// the other's gaps.
+//
 // Shared-memory layout of a block with NMAT weight matrices: the scan's
 // tables, the rings' mbarriers, each matrix's level tables by scale code,
 // DEC_BUFS decoded tiles, TS token tiles, RS raw stages of codes (both
@@ -55,7 +39,7 @@ __host__ __device__ constexpr int item_rows() {
 template <int NMAT>
 struct Smem {
   static constexpr int SCAN = 0;
-  static constexpr int BARS = (2 * (MAX_SLOTS + 1) * 4 + 15) / 16 * 16;
+  static constexpr int BARS = (SCAN_BYTES + 15) / 16 * 16;
   static constexpr int LUT = (BARS + (RS + TS) * 8 + 15) / 16 * 16;
   static constexpr int A = (LUT + NMAT * LUT_BYTES + 1023) / 1024 * 1024;
   static constexpr int B = A + DEC_BUFS * TILE_BYTES;
@@ -64,10 +48,6 @@ struct Smem {
   static_assert(S + RS * 2 * SCALE_BYTES + 1024 <= SMEM_BYTES,
                 "shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 8 bytes global -> shared, asynchronously; zeros when !valid.
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
@@ -83,158 +63,10 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// Shared-memory writes of this thread (st.shared, cp.async) become visible
-// to the async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-// Arrive on a barrier and expect `bytes` of TMA transfers for its phase.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// Wait until the barrier's phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// TMA tile loads into shared memory, completing on a barrier.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// Orders later uses of an accumulator after the wgmma wait.
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// wgmma descriptor of a K-major bf16 operand in the 128-byte-swizzled
-// layout: 8-row atoms of 128-byte rows, 1024 bytes apart (SBO); the start
-// address moves 32 bytes per k16 step inside the atom.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
 // Byte offset of 16-byte chunk c of row r of a [rows][128 B] tile in the
 // 128-byte swizzle (chunk index XOR row mod 8).
 __device__ __forceinline__ int sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// wgmma m64nNk16, bf16 in, f32 accumulate, A and B K-major from shared
-// memory (generated: one per token-tile width N).
-__device__ __forceinline__ void wgmma_n8(float* d, uint64_t a, uint64_t b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_n16(float* d, uint64_t a, uint64_t b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b,
-                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b) {
-  if constexpr (N == 8) wgmma_n8(d, a, b, 1);
-  else if constexpr (N == 16) wgmma_n16(d, a, b, 1);
-  else if constexpr (N == 32) wgmma_n32(d, a, b, 1);
-  else wgmma_n64(d, a, b, 1);
 }
 
 // The scales [Gw, NR, K/16] of one FP4 weight matrix (its codes come by
@@ -242,36 +74,6 @@ __device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b) {
 struct Mat {
   const float* scales;
 };
-
-// One work item: weight rows n0.. (item_rows of them) of slot `slot`
-// against tokens row0..row0+ntok-1 (ntok <= NTOK) of that slot.
-struct Item {
-  int slot;
-  int64_t n0, row0;
-  int ntok;
-};
-
-// Matrix and first row (within the item) of part p.
-template <int NMAT>
-__device__ __forceinline__ int part_mat(int p) { return NMAT == 2 ? p : 0; }
-template <int NMAT>
-__device__ __forceinline__ int part_row0(int p) {
-  return NMAT == 2 ? 0 : p * PART_ROWS;
-}
-
-// The tensor maps of a launch, kernel parameters (TMA reads them there):
-// the codes of each part's matrix as [Gw, NR, K/2] bytes, boxes of 64 rows
-// by 64 bytes (one raw stage), and the token rows [M, K] bf16 in the
-// 128-byte swizzle, boxes of 64 along K by 8, 16, 32 or 64 rows.
-struct Maps {
-  CUtensorMap packed[2];
-  CUtensorMap tok[4];
-};
-
-template <int N>
-__device__ __forceinline__ const CUtensorMap* tok_map(const Maps& maps) {
-  return &maps.tok[N == 8 ? 0 : N == 16 ? 1 : N == 32 ? 2 : 3];
-}
 
 // Thread 0: the TMA loads of raw stage R (both parts' codes) into raw ring
 // slot gr % RS, completing on that slot's barrier.
@@ -284,7 +86,7 @@ __device__ __forceinline__ void tma_raw(unsigned char* sm, const Maps& maps,
   for (int p = 0; p < 2; ++p)
     tma_load_3d(
         smem_u32(sm + Smem<NMAT>::P + ((gr % RS) * 2 + p) * PACKED_BYTES),
-        &maps.packed[part_mat<NMAT>(p)], bar, R * (RK / 2),
+        &maps.w[part_mat<NMAT>(p)], bar, R * (RK / 2),
         static_cast<int>(it.n0) + part_row0<NMAT>(p), it.slot);
 }
 
@@ -546,14 +348,7 @@ __device__ void mainloop(unsigned char* sm, const Maps& maps,
   }
 }
 
-// Rounds v to bf16 and back (the reference's casts between stages).
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Accumulator element i of thread (warp w of its warpgroup, lane l) sits
-// at row w*16 + l/4 + 8*((i/2)%2) of the warpgroup's part and token column
-// 8*(i/4) + 2*(l%4) + i%2.
+// Accumulators are laid out as sm90_common.cuh says.
 //
 // Gate/up epilogue, on warpgroup 0 (gate) with up from warpgroup 1 through
 // shared memory: h = T(T(silu(T(gate))) * T(up)), then a4 over each group
@@ -601,24 +396,6 @@ __device__ void epilogue_gate_up(const float (&acc)[N / 2],
   }
 }
 
-// Down epilogue, both warpgroups: out [M, D] = T(acc).
-template <int N>
-__device__ void epilogue_down(const float (&acc)[N / 2], const Item& it,
-                              __nv_bfloat16* __restrict__ out, int64_t M,
-                              int64_t D) {
-  const int wg = threadIdx.x / 128, w = (threadIdx.x / 32) % 4;
-  const int l = threadIdx.x % 32;
-  const int64_t d_lo = it.n0 + wg * PART_ROWS + w * 16 + l / 4;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int t = 8 * (i / 4) + 2 * (l % 4) + i % 2;
-    const int64_t d = d_lo + 8 * ((i / 2) % 2);
-    const int64_t row = it.row0 + t;
-    if (t < it.ntok && row < M && d < D)
-      out[row * D + d] = __float2bfloat16_rn(acc[i]);
-  }
-}
-
 template <int NMAT, int N>
 __device__ void run_item(unsigned char* sm, const Maps& maps, const Mat* mats,
                          const float* gsc, int64_t NR, int64_t K,
@@ -642,39 +419,6 @@ __device__ void run_item(unsigned char* sm, const Maps& maps, const Mat* mats,
   }
 }
 
-// The schedule, built on the device by every block: warp 0 scans the
-// counts of the slots with weights into item and row offsets (a slot of c
-// rows has ceil(c / NTOK) token tiles times nwt weight tiles).
-__device__ void scan_slots(const int* __restrict__ gs, int n_slots, int nwt,
-                           int* tstart, int* rstart) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int tcarry = 0, rcarry = 0;
-    for (int base = 0; base < n_slots; base += 32) {
-      const int g = base + lane;
-      const int c = g < n_slots ? max(gs[g], 0) : 0;
-      int t = (c + NTOK - 1) / NTOK * nwt, r = c;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int tt = __shfl_up_sync(0xffffffffu, t, o);
-        const int rr = __shfl_up_sync(0xffffffffu, r, o);
-        if (lane >= o) {
-          t += tt;
-          r += rr;
-        }
-      }
-      if (g < n_slots) {
-        tstart[g + 1] = tcarry + t;
-        rstart[g + 1] = rcarry + r;
-      }
-      tcarry += __shfl_sync(0xffffffffu, t, 31);
-      rcarry += __shfl_sync(0xffffffffu, r, 31);
-    }
-    if (lane == 0) tstart[0] = rstart[0] = 0;
-  }
-  __syncthreads();
-}
-
 // Persistent grouped product: block b takes work items b, b + grid, ...
 // (slot, weight tile, token tile), ordered by slot, so that the blocks
 // working at one time share a slot's tokens in L2.  NMAT 2: gate and up of
@@ -688,8 +432,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                __nv_bfloat16* __restrict__ dst, int64_t M, int64_t NR,
                int64_t K) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm =
-      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sm = aligned_smem(smem_raw);
   int* tstart = reinterpret_cast<int*>(sm + Smem<NMAT>::SCAN);
   int* rstart = tstart + MAX_SLOTS + 1;
   const int n_slots = min(G, Gw);
@@ -699,44 +442,24 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int m = 0; m < NMAT; ++m) gsc[m] = gscales[gsc0 + m];
   scan_slots(gs, n_slots, nwt, tstart, rstart);  // ends in a barrier
-  const int total = tstart[n_slots];
-  if (static_cast<int>(blockIdx.x) >= total) return;
+  if (static_cast<int>(blockIdx.x) >= tstart[n_slots]) return;
   build_luts<NMAT>(sm + Smem<NMAT>::LUT, gsc);
   if (threadIdx.x == 0) {
     for (int i = 0; i < RS + TS; ++i)
       mbar_init(smem_u32(sm + Smem<NMAT>::BARS + i * 8));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   const Mat mats[2] = {m0, m1};
   const int n_stages = static_cast<int>((K + BK - 1) / BK);
   const int n_raw = static_cast<int>((K + RK - 1) / RK);
-  int gr = 0, gt = 0;  // raw and token stages of this block's earlier items
-  for (int item = blockIdx.x; item < total;
-       item += gridDim.x, gr += n_raw, gt += n_stages) {
-    int lo = 0, hi = n_slots;  // the last slot with tstart <= item
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) / 2;
-      if (tstart[mid] <= item) lo = mid;
-      else hi = mid;
-    }
-    const int c = rstart[lo + 1] - rstart[lo];
-    const int ntt = (c + NTOK - 1) / NTOK;
-    const int local = item - tstart[lo];
-    Item it;
-    it.slot = lo;
-    it.n0 = static_cast<int64_t>(local / ntt) * item_rows<NMAT>();
-    it.row0 = rstart[lo] + static_cast<int64_t>(local % ntt) * NTOK;
-    it.ntok = min(NTOK, c - (local % ntt) * NTOK);
-    if (it.ntok <= 8)
-      run_item<NMAT, 8>(sm, maps, mats, gsc, NR, K, it, gr, gt, dst, M);
-    else if (it.ntok <= 16)
-      run_item<NMAT, 16>(sm, maps, mats, gsc, NR, K, it, gr, gt, dst, M);
-    else if (it.ntok <= 32)
-      run_item<NMAT, 32>(sm, maps, mats, gsc, NR, K, it, gr, gt, dst, M);
-    else
-      run_item<NMAT, 64>(sm, maps, mats, gsc, NR, K, it, gr, gt, dst, M);
-  }
+  // the block's j-th item starts at raw stage j * n_raw and token stage
+  // j * n_stages of its rings
+  for_each_item<NMAT>(tstart, rstart, n_slots,
+                      [&](const Item& it, int j, auto width) {
+    run_item<NMAT, decltype(width)::value>(sm, maps, mats, gsc, NR, K, it,
+                                           j * n_raw, j * n_stages, dst, M);
+  });
 }
 
 constexpr int PREP_THREADS = 256;
@@ -776,56 +499,6 @@ __global__ void __launch_bounds__(PREP_THREADS)
   }
 }
 
-// Multiprocessors of the current device (read once per device).
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
-
-template <int NMAT>
-cudaError_t allow_smem() {
-  static bool done[64] = {false};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_kernel<NMAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err == cudaSuccess)  // all of L1's carveout to shared memory
-    err = cudaFuncSetAttribute(ffn_kernel<NMAT>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               100);
-  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
-  return err;
-}
-
-// cuTensorMapEncodeTiled, looked up once with cudaGetDriverEntryPoint,
-// so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // Codes [Gw, NR, K/2] bytes, boxes of 64 bytes by 64 rows of one slot.
 bool packed_map(CUtensorMap* map, const void* packed, int64_t Gw, int64_t NR,
                 int64_t K) {
@@ -842,30 +515,12 @@ bool packed_map(CUtensorMap* map, const void* packed, int64_t Gw, int64_t NR,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Token rows [M, K] bf16, boxes of 64 along K by `rows`, 128-byte swizzle.
-bool token_map(CUtensorMap* map, const void* act, int64_t M, int64_t K,
-               int rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K * 2)};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                   const_cast<void*>(act), dims, strides, box, step,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool maps_for(Maps* maps, const void* packed0, const void* packed1,
               const void* act, int64_t Gw, int64_t NR, int64_t K, int64_t M) {
   if (encoder() == nullptr) return false;
-  bool ok = packed_map(&maps->packed[0], packed0, Gw, NR, K) &&
-            packed_map(&maps->packed[1], packed1, Gw, NR, K);
-  const int rows[4] = {8, 16, 32, 64};
-  for (int i = 0; i < 4; ++i)
-    ok = ok && token_map(&maps->tok[i], act, M, K, rows[i]);
-  return ok;
+  return packed_map(&maps->w[0], packed0, Gw, NR, K) &&
+         packed_map(&maps->w[1], packed1, Gw, NR, K) &&
+         token_maps(maps, act, M, K);
 }
 
 // The three launches of the bf16 FP4 FFN: a4 of x, gate/up, down.
@@ -876,8 +531,8 @@ int launch(const void* xs, const void* gs, int64_t G, int64_t Gw,
            int64_t D, int64_t F, cudaStream_t s) {
   if (M == 0 || G == 0 || Gw == 0) return 0;
   if (G > MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem<2>();
-  if (err == cudaSuccess) err = allow_smem<1>();
+  cudaError_t err = allow_smem<&ffn_kernel<2>>();
+  if (err == cudaSuccess) err = allow_smem<&ffn_kernel<1>>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();
   const int* gsi = static_cast<const int*>(gs);

@@ -38,14 +38,30 @@
 // when it is 0, so the host enqueues the launch without reading the flag.
 //
 // The global scale.  global_scale_fp4_* computes the reference's
-// global_scale_for(w) = max(max|w| * (1 / (6 * 448)), 1e-20) under the same
-// predicate: a grid-stride pass takes max|w| of each group of 16 (the same
-// addressing as the quantizer), reduces it over the block, and raises one
-// int32 in device memory with atomicMax on the float's bits (non-negative
-// floats order as their bits do); a one-thread kernel then applies the
-// multiply and the clamp.  max is exact in any order, so the scale is
-// bitwise equal to the plain version's.  Bytes bound it: it reads the stack
-// once.
+// global_scale_for(w) = max(max|w| * (1 / (6 * 448)), 1e-20) (jitted: a
+// multiply by the f32 reciprocal) under the same predicate, in one launch.
+// Bytes bound it: it reads the stack once (369 MB, 0.110 ms at 3.35 TB/s
+// for a serving view).
+//  * Every serving view, and fp4_linear's w.transpose(0, 1)[None], is a
+//    permutation of one contiguous block (its strides, sorted, are 1,
+//    s0, s0 s1).  Then max|w| is the max over numel contiguous elements in
+//    any order: a grid from the SM count reads them flat, four 16-byte
+//    loads in flight a thread, with a head and a tail for a base that is
+//    not 16-byte aligned or a numel that is not a multiple of the vector.
+//    Other views walk groups of 16 along K, as the quantizer addresses
+//    them; on the serving views that walk makes 16 scalar loads a thread,
+//    sk apart (64 bytes a warp load), and issue slots, not bytes, set its
+//    pace.
+//  * The max is taken on bits: for non-negative floats integer order is
+//    float order, so |v| is the bits with the sign cleared and two bf16
+//    magnitudes a word reduce with one __vmaxu2.  A NaN's bits lie above
+//    infinity's, so a NaN wins, as in the plain version (torch.amax and
+//    jnp.max propagate it; fmaxf would drop it).
+//  * Blocks meet in a two-word scratch in device memory: each raises word 0
+//    with atomicMax and takes a ticket from word 1; the last block reads
+//    the max, zeroes both words for the next launch and applies the
+//    multiply and the clamp.  max is exact in any order, so the scale is
+//    bitwise equal to the plain version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +82,8 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
 // f32(1) / f32(6 * 448), the reciprocal XLA multiplies by
 constexpr float INV_FP4_E4M3 = 1.0f / 2688.0f;
 constexpr int AMAX_THREADS = 256;
+constexpr int AMAX_BLOCKS_PER_SM = 4;  // 1024 threads an SM
+constexpr int AMAX_UNROLL = 4;         // 16-byte loads in flight a thread
 
 // False when the optional device predicate is present and 0.
 __device__ __forceinline__ bool enabled(const int* pred) {
@@ -114,42 +132,124 @@ __device__ __forceinline__ void load_group(const T* src, int64_t sk,
   }
 }
 
+// Running max of magnitudes as integer bits: bf16 keeps two magnitudes a
+// word (one a half), f32 one.
+template <typename T>
+struct AbsMax;
+template <>
+struct AbsMax<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t word(uint32_t m, uint32_t w) {
+    return __vmaxu2(m, w & 0x7fff7fffu);
+  }
+  static __device__ __forceinline__ uint32_t elem(uint32_t m,
+                                                  __nv_bfloat16 v) {
+    return __vmaxu2(m, __bfloat16_as_ushort(v) & 0x7fffu);
+  }
+  // the larger half as the bits of the f32 of the same value
+  static __device__ __forceinline__ uint32_t f32_bits(uint32_t m) {
+    return max(m & 0xffffu, m >> 16) << 16;
+  }
+};
+template <>
+struct AbsMax<float> {
+  static __device__ __forceinline__ uint32_t word(uint32_t m, uint32_t w) {
+    return max(m, w & 0x7fffffffu);
+  }
+  static __device__ __forceinline__ uint32_t elem(uint32_t m, float v) {
+    return max(m, __float_as_uint(v) & 0x7fffffffu);
+  }
+  static __device__ __forceinline__ uint32_t f32_bits(uint32_t m) {
+    return m;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t max_vec(uint32_t m, uint4 v) {
+  m = AbsMax<T>::word(m, v.x);
+  m = AbsMax<T>::word(m, v.y);
+  m = AbsMax<T>::word(m, v.z);
+  return AbsMax<T>::word(m, v.w);
+}
+
+// Every block: its max into scratch[0] and a ticket from scratch[1]; the
+// last block writes the scale and leaves the scratch zeroed.
+template <typename T>
+__device__ void finish_scale(uint32_t m, unsigned* __restrict__ scratch,
+                             float* __restrict__ gscale) {
+  __shared__ unsigned warp_max[AMAX_THREADS / 32];
+  unsigned bits = __reduce_max_sync(0xffffffffu, AbsMax<T>::f32_bits(m));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = bits;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int i = 0; i < AMAX_THREADS / 32; ++i) bits = max(bits, warp_max[i]);
+  atomicMax(&scratch[0], bits);
+  __threadfence();  // the max lands before the ticket
+  if (atomicAdd(&scratch[1], 1u) != gridDim.x - 1) return;
+  __threadfence();  // every block's max is seen after every ticket
+  const float s = __uint_as_float(atomicExch(&scratch[0], 0u)) *
+                  INV_FP4_E4M3;
+  scratch[1] = 0u;
+  *gscale = s != s ? s : fmaxf(s, 1e-20f);  // a NaN stays a NaN
+}
+
+// A dense view: n elements from w, flat.
 template <typename T>
 __global__ void __launch_bounds__(AMAX_THREADS)
-    amax_kernel(const T* __restrict__ w, const int* __restrict__ pred,
-                unsigned* __restrict__ amax_bits, int64_t G, int64_t N,
-                int64_t K, int64_t sg, int64_t sn, int64_t sk) {
+    amax_flat_kernel(const T* __restrict__ w, int64_t n,
+                     const int* __restrict__ pred,
+                     unsigned* __restrict__ scratch,
+                     float* __restrict__ gscale) {
+  if (!enabled(pred)) return;
+  constexpr int VEC = 16 / sizeof(T);
+  const int64_t head = min(
+      n, static_cast<int64_t>(
+             ((16u - (reinterpret_cast<uintptr_t>(w) & 15u)) & 15u) /
+             sizeof(T)));
+  const int64_t nvec = (n - head) / VEC;
+  const int64_t tail = head + nvec * VEC;  // first element after the body
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * AMAX_THREADS +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * AMAX_THREADS;
+  uint32_t m = 0;
+  // head and tail, fewer than 2 * VEC elements: the grid's first threads
+  if (tid < head + (n - tail))
+    m = AbsMax<T>::elem(m, w[tid < head ? tid : tail + (tid - head)]);
+  const uint4* body = reinterpret_cast<const uint4*>(w + head);
+  int64_t i = tid;
+  for (; i + (AMAX_UNROLL - 1) * stride < nvec; i += AMAX_UNROLL * stride) {
+    uint4 v[AMAX_UNROLL];
+#pragma unroll
+    for (int u = 0; u < AMAX_UNROLL; ++u) v[u] = __ldg(body + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < AMAX_UNROLL; ++u) m = max_vec<T>(m, v[u]);
+  }
+  for (; i < nvec; i += stride) m = max_vec<T>(m, __ldg(body + i));
+  finish_scale<T>(m, scratch, gscale);
+}
+
+// Any other view (K a multiple of 16): groups of 16 along K, neighbouring
+// indices along the unit-stride dimension, as the quantizer addresses them.
+template <typename T>
+__global__ void __launch_bounds__(AMAX_THREADS)
+    amax_groups_kernel(const T* __restrict__ w, const int* __restrict__ pred,
+                       unsigned* __restrict__ scratch,
+                       float* __restrict__ gscale, int64_t G, int64_t N,
+                       int64_t K, int64_t sg, int64_t sn, int64_t sk) {
   if (!enabled(pred)) return;
   const int64_t ng = K / nvfp4::GROUP;
   const int64_t total = G * N * ng;
-  float amax = 0.0f;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+  uint32_t m = 0;
+  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * AMAX_THREADS +
                      threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * AMAX_THREADS) {
     const Group q = group_at(idx, N, ng, sk);
-    float v[nvfp4::GROUP];
-    load_group<T>(w + q.g * sg + q.n * sn + q.kg * nvfp4::GROUP * sk, sk, v);
+    const T* src = w + q.g * sg + q.n * sn + q.kg * nvfp4::GROUP * sk;
 #pragma unroll
-    for (int i = 0; i < nvfp4::GROUP; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    for (int i = 0; i < nvfp4::GROUP; ++i)
+      m = AbsMax<T>::elem(m, src[i * sk]);
   }
-  unsigned bits = __float_as_uint(amax);
-  bits = __reduce_max_sync(0xffffffffu, bits);
-  __shared__ unsigned warp_max[AMAX_THREADS / 32];
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = bits;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned m = 0;
-#pragma unroll
-    for (int i = 0; i < AMAX_THREADS / 32; ++i) m = max(m, warp_max[i]);
-    atomicMax(amax_bits, m);
-  }
-}
-
-__global__ void global_scale_kernel(const int* __restrict__ pred,
-                                    const unsigned* __restrict__ amax_bits,
-                                    float* __restrict__ gscale) {
-  if (!enabled(pred)) return;
-  *gscale = fmaxf(__uint_as_float(*amax_bits) * INV_FP4_E4M3, 1e-20f);
+  finish_scale<T>(m, scratch, gscale);
 }
 
 // Quantize the 16 values v of one group: its E4M3-valued scale and its 16
@@ -353,25 +453,54 @@ int launch(const void* w, const void* gscale, void* packed, void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
+// True when the view [G, N, K] with these strides is a permutation of
+// one contiguous block: its strides, sorted (size-1 dimensions aside), are
+// 1, s0, s0 s1.
+bool dense(int64_t G, int64_t N, int64_t K, int64_t sg, int64_t sn,
+           int64_t sk) {
+  int64_t size[3] = {G, N, K}, stride[3] = {sg, sn, sk};
+  for (int a = 0; a < 3; ++a)  // sort by stride
+    for (int b = a + 1; b < 3; ++b)
+      if (stride[b] < stride[a]) {
+        const int64_t t = stride[a], u = size[a];
+        stride[a] = stride[b], size[a] = size[b];
+        stride[b] = t, size[b] = u;
+      }
+  int64_t expect = 1;
+  for (int a = 0; a < 3; ++a) {
+    if (size[a] == 1) continue;
+    if (stride[a] != expect) return false;
+    expect *= size[a];
+  }
+  return true;
+}
+
 template <typename T>
-int launch_scale(const void* w, const void* pred, void* amax_bits,
+int launch_scale(const void* w, const void* pred, void* scratch,
                  void* gscale, int64_t G, int64_t N, int64_t K, int64_t sg,
                  int64_t sn, int64_t sk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t total = G * N * (K / nvfp4::GROUP);
-  if (total > 0) {
-    // a few blocks per SM, each looping over its share of the groups
-    const int64_t want = (total + AMAX_THREADS - 1) / AMAX_THREADS;
-    const int64_t blocks = want < 132 * 8 ? want : 132 * 8;
-    amax_kernel<T><<<static_cast<unsigned>(blocks), AMAX_THREADS, 0, s>>>(
-        static_cast<const T*>(w), static_cast<const int*>(pred),
-        static_cast<unsigned*>(amax_bits), G, N, K, sg, sn, sk);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* wt = static_cast<const T*>(w);
+  const auto* p = static_cast<const int*>(pred);
+  auto* sc = static_cast<unsigned*>(scratch);
+  auto* gsc = static_cast<float*>(gscale);
+  const int64_t cap = static_cast<int64_t>(sm_count()) * AMAX_BLOCKS_PER_SM;
+  if (dense(G, N, K, sg, sn, sk)) {
+    const int64_t per_block =
+        static_cast<int64_t>(AMAX_THREADS) * AMAX_UNROLL * (16 / sizeof(T));
+    const int64_t want = (G * N * K + per_block - 1) / per_block;
+    amax_flat_kernel<T><<<static_cast<unsigned>(want < 1 ? 1
+                                                : want < cap ? want : cap),
+                          AMAX_THREADS, 0, s>>>(wt, G * N * K, p, sc, gsc);
+  } else {
+    if (K % nvfp4::GROUP) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t want = (G * N * (K / nvfp4::GROUP) + AMAX_THREADS - 1) /
+                         AMAX_THREADS;
+    amax_groups_kernel<T><<<static_cast<unsigned>(want < 1 ? 1
+                                                  : want < cap ? want : cap),
+                            AMAX_THREADS, 0, s>>>(wt, p, sc, gsc, G, N, K, sg,
+                                                  sn, sk);
   }
-  global_scale_kernel<<<1, 1, 0, s>>>(static_cast<const int*>(pred),
-                                      static_cast<const unsigned*>(amax_bits),
-                                      static_cast<float*>(gscale));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,8 +529,11 @@ int quantize_fp4_f32(const void* w, const void* gscale, void* packed,
                        stream);
 }
 
-// The global scale of w (as above) into gscale f32[1]; amax_bits: int32[1]
-// scratch, zeroed by the caller.  With pred present and 0, writes nothing.
+// The global scale of w (as above, any K when the view is dense, else K a
+// multiple of 16) into gscale f32[1], in one kernel launch; amax_bits:
+// int32[2] scratch, zero before the first launch and left zero by each
+// (launches that share it must run in order, on one stream).  With pred
+// present and 0, writes nothing.
 int global_scale_fp4_bf16(const void* w, const void* pred, void* amax_bits,
                           void* gscale, int64_t G, int64_t N, int64_t K,
                           int64_t sg, int64_t sn, int64_t sk, void* stream) {

@@ -31,7 +31,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.nvfp4 import fake_quant_a4
 
-MAX_SLOTS = 512     # counts the bf16 FP4 kernel's device schedule takes
+MAX_SLOTS = 512     # counts the bf16 kernels' device schedule takes
 
 launches = 0        # kernel launches made by grouped_fp4_ffn_cuda
 plain_launches = 0  # kernel launches made by grouped_ffn_cuda
@@ -161,7 +161,7 @@ def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
 def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     """Launch the plain kernel (SwiGLU) on CUDA tensors: ``xs`` bf16 or f32,
     weights ``[Gw, D, F]``/``[Gw, F, D]`` cast to its dtype, D and F
-    multiples of 32."""
+    multiples of 32 (bf16: at most ``MAX_SLOTS`` counts)."""
     global plain_launches
     _require_cuda("grouped_ffn_cuda", xs)
     m, d = xs.shape
@@ -175,13 +175,19 @@ def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     x, g32, wg, wu, wd = _common_args(
         "grouped_ffn_cuda", xs, gs,
         [w_gate.to(dt), w_up.to(dt), w_down.to(dt)], n_g, d, f)
+    if dt == torch.bfloat16 and g32.shape[0] > MAX_SLOTS:
+        raise ValueError(f"grouped_ffn_cuda: {g32.shape[0]} counts, the "
+                         f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
-    nz = torch.empty((m,), dtype=torch.int32, device=dev)
+    # zero-row flags of the f32 design; the bf16 design takes none
+    nz = torch.empty((m,), dtype=torch.int32, device=dev) \
+        if dt == torch.float32 else None
     hq = torch.empty((m, f), dtype=dt, device=dev)
     out = torch.zeros((m, d), dtype=dt, device=dev)
     fn = _build.entry("grouped_fp4_ffn", _PLAIN_ENTRY[dt], _PLAIN_ARGTYPES)
     err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, wg.data_ptr(),
-             wu.data_ptr(), wd.data_ptr(), nz.data_ptr(), hq.data_ptr(),
+             wu.data_ptr(), wd.data_ptr(),
+             None if nz is None else nz.data_ptr(), hq.data_ptr(),
              out.data_ptr(), m, d, f,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "grouped_ffn")

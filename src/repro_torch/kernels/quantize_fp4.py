@@ -17,7 +17,7 @@ on the CPU only, branch on it there (free on the CPU) and return zeros.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,10 @@ _SCALE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
 _ENTRY = {torch.bfloat16: "quantize_fp4_bf16", torch.float32: "quantize_fp4_f32"}
 _SCALE_ENTRY = {torch.bfloat16: "global_scale_fp4_bf16",
                 torch.float32: "global_scale_fp4_f32"}
+# the global-scale kernel's two-word scratch, one per device: zeroed once,
+# left zeroed by every launch; the launches that share it run in order on
+# the current stream
+_scale_scratch: Dict[torch.device, torch.Tensor] = {}
 
 
 def _off(pred: Optional[torch.Tensor]) -> bool:
@@ -65,16 +69,30 @@ def global_scale_plain(w: torch.Tensor,
     return quant.global_scale_for(w)
 
 
-def _check(w: torch.Tensor, what: str, pred: Optional[torch.Tensor]) -> None:
+def dense(w: torch.Tensor) -> bool:
+    """True when ``w`` is a permutation of one contiguous block: its
+    strides, sorted, are 1, s0, s0·s1 (size-1 dimensions aside).  The
+    global-scale kernel reads such a view flat."""
+    expect = 1
+    for stride, size in sorted(zip(w.stride(), w.shape)):
+        if size == 1:
+            continue
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _check(w: torch.Tensor, what: str, pred: Optional[torch.Tensor],
+           shape_ok: bool, want: str) -> None:
     if w.device.type != "cuda":
         raise ValueError(f"{what} takes CUDA tensors")
     if pred is not None and pred.device != w.device:
         raise ValueError(f"{what}: pred must lie on the device of w")
     if w.dtype not in _ENTRY:
         raise TypeError(f"{what}: unsupported dtype {w.dtype}")
-    if w.dim() != 3 or w.shape[-1] % 32:
-        raise ValueError(f"{what}: want [G, N, K] with K % 32 == 0, got "
-                         f"{tuple(w.shape)}")
+    if not shape_ok:
+        raise ValueError(f"{what}: want {want}, got {tuple(w.shape)}")
 
 
 def _pred_ptr(pred: Optional[torch.Tensor]):
@@ -91,7 +109,9 @@ def quantize_fp4_cuda(w: torch.Tensor, gs: torch.Tensor,
     """Launch the kernel on ``w [G, N, K]`` (CUDA, bf16 or f32, any strides;
     K a multiple of 32) with the f32 scalar ``gs`` on the same device."""
     global launches
-    _check(w, "quantize_fp4_cuda", pred)
+    _check(w, "quantize_fp4_cuda", pred,
+           w.dim() == 3 and w.shape[-1] % 32 == 0,
+           "[G, N, K] with K % 32 == 0")
     if gs.device != w.device:
         raise ValueError("quantize_fp4_cuda: gs must lie on the device of w")
     g, n, k = w.shape
@@ -112,13 +132,18 @@ def quantize_fp4_cuda(w: torch.Tensor, gs: torch.Tensor,
 
 def global_scale_cuda(w: torch.Tensor,
                       pred: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the global-scale kernel on ``w [G, N, K]`` (as for the
-    quantizer); returns the f32 scalar on the device (unwritten when
-    ``pred`` is 0)."""
+    """Launch the global-scale kernel on ``w [G, N, K]`` (CUDA, bf16 or
+    f32; any shape when ``dense(w)``, else K a multiple of 16); returns the
+    f32 scalar on the device (unwritten when ``pred`` is 0)."""
     global scale_launches
-    _check(w, "global_scale_cuda", pred)
+    _check(w, "global_scale_cuda", pred,
+           w.dim() == 3 and (w.shape[-1] % 16 == 0 or dense(w)),
+           "[G, N, K], dense or with K % 16 == 0")
     g, n, k = w.shape
-    amax_bits = torch.zeros((1,), dtype=torch.int32, device=w.device)
+    amax_bits = _scale_scratch.get(w.device)
+    if amax_bits is None:
+        amax_bits = torch.zeros((2,), dtype=torch.int32, device=w.device)
+        _scale_scratch[w.device] = amax_bits
     gscale = torch.empty((1,), dtype=torch.float32, device=w.device)
     p32, p_ptr = _pred_ptr(pred)
     fn = _build.entry("quantize_fp4", _SCALE_ENTRY[w.dtype],

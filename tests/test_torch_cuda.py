@@ -6,6 +6,8 @@ Every test here needs a card and skips without one.  The file imports no
 JAX, so the card's machine runs it as it is:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -429,6 +431,135 @@ def test_global_scale_cuda_bitwise(cuda, dtype):
     for view in (w, w[:, :, :64], w[:, :128].transpose(-1, -2)):
         assert torch.equal(qk.global_scale_cuda(view).view(torch.int32),
                            quant.global_scale_for(view).view(torch.int32))
+
+
+def _scale_equal(view):
+    """The kernel's global scale of ``view`` is the plain version's, bitwise
+    (both NaN when w holds one)."""
+    got = qk.global_scale_cuda(view)
+    ref = quant.global_scale_for(view)
+    if torch.isnan(ref):
+        assert torch.isnan(got)
+    else:
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            (float(got), float(ref))
+
+
+@pytest.mark.parametrize("perm", list(itertools.permutations(range(3))))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_scale_cuda_dense_permutations(cuda, perm, dtype):
+    """Every permutation of a contiguous [G, N, K] block (the flat path),
+    bitwise; the serving views are two of them."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(perm))
+    shape = (5, 130, 96)
+    base = torch.randn([shape[p] for p in perm], generator=gen,
+                       device=cuda).to(dtype)
+    view = base.permute(*np.argsort(perm).tolist())
+    assert view.shape == shape and qk.dense(view)
+    _scale_equal(view)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_scale_cuda_edges(cuda, dtype):
+    """A strided slice (the group path), a base one element past a 16-byte
+    boundary, odd numels (heads and tails of the flat path), and a NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    w = torch.randn(4, 130, 96, generator=gen, device=cuda).to(dtype)
+    flat = torch.randn(1 + 3 * 37 * 41, generator=gen, device=cuda).to(dtype)
+    odd = flat[:3 * 37 * 41].view(3, 37, 41)
+    shifted = flat[1:].view(3, 37, 41)
+    assert shifted.data_ptr() % 16 and qk.dense(shifted)
+    for view in (w[:, ::2], w[:, :, :64], w[:, :128].transpose(-1, -2),
+                 odd, shifted, shifted.transpose(0, 2), flat[1:2].view(1, 1, 1),
+                 flat[1:16].view(1, 3, 5)):
+        _scale_equal(view)
+    for view in (w.clone(), w.clone()[:, ::2], w.clone().transpose(-1, -2)):
+        view[1, 2, 3] = float("nan")
+        _scale_equal(view)
+
+
+def test_global_scale_cuda_scratch_resets(cuda):
+    """Back to back on tensors with falling maxima, and a predicate 0, 1, 0
+    sequence: each scale is its own tensor's (the kernel leaves its
+    scratch zeroed); a predicate 0 writes nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ws = [(torch.randn(3, 64, 96, generator=gen, device=cuda) * 10.0 ** -i)
+          .to(torch.bfloat16).transpose(-1, -2) for i in range(4)]
+    got = [qk.global_scale_cuda(w) for w in ws]
+    torch.cuda.synchronize()
+    for w, g in zip(ws, got):
+        assert torch.equal(g.view(torch.int32),
+                           quant.global_scale_for(w).view(torch.int32))
+    fn = _build.entry("quantize_fp4", qk._SCALE_ENTRY[torch.bfloat16],
+                      qk._SCALE_ARGTYPES)
+    scratch = qk._scale_scratch[ws[0].device]
+    for i, on in enumerate((0, 1, 0, 1)):
+        w = ws[i]
+        pred = torch.tensor([on], dtype=torch.int32, device=cuda)
+        out = torch.full((1,), -7.0, device=cuda)
+        _build.check(fn(w.data_ptr(), pred.data_ptr(), scratch.data_ptr(),
+                        out.data_ptr(), *w.shape, *w.stride(),
+                        torch.cuda.current_stream(cuda).cuda_stream),
+                     "global_scale_fp4")
+        torch.cuda.synchronize()
+        if on:
+            assert torch.equal(out.view(torch.int32), quant.global_scale_for(
+                w).reshape(1).view(torch.int32))
+        else:
+            assert float(out) == -7.0
+        assert torch.all(scratch == 0)
+
+
+def test_global_scale_cuda_one_launch(cuda, tmp_path):
+    """One kernel, and no memset or copy, on the device per call."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    w = torch.randn(4, 64, 96, device=cuda).to(torch.bfloat16)
+    qk.global_scale_cuda(w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            qk.global_scale_cuda(w)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    device = [e["name"] for e in events if e.get("cat") in
+              ("kernel", "gpu_memset", "gpu_memcpy")]
+    assert len(device) == 3, device
+
+
+# slot counts around the bf16 design's token-tile widths (8, 16, 32, 64)
+# and past one 64-row tile
+PLAIN_TILE_COUNTS = [0, 1, 8, 9, 16, 17, 33, 64, 65, 200]
+
+
+@pytest.mark.parametrize("d,f", [(160, 96), (2048, 1408)])
+def test_grouped_plain_ffn_cuda_token_tiles(cuda, d, f):
+    """The BF16 branch's bf16 kernel over slots of every token-tile width,
+    a pad slot without weights and rows past every count (exactly 0), at a
+    narrow shape (D and F not multiples of 64) and at full width; with
+    all-zero counts the output is exactly 0."""
+    n = sum(PLAIN_TILE_COUNTS)
+    gs = PLAIN_TILE_COUNTS + [11]
+    args = list(_plain_ffn_args(cuda, n + 11 + 16, d, f, gs, len(gs) - 1,
+                                torch.bfloat16, d + f))
+    y = ffn.grouped_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.all(y[n:] == 0)
+    check_plain_ffn(y, ffn.grouped_ffn_plain(*args))
+    args[1] = torch.zeros_like(args[1])
+    assert torch.all(ffn.grouped_ffn_cuda(*args) == 0)
+
+
+def test_grouped_plain_ffn_cuda_refuses_too_many_counts(cuda):
+    """The bf16 kernel's device schedule holds MAX_SLOTS counts; the
+    wrapper refuses more instead of launching."""
+    args = list(_plain_ffn_args(cuda, 16, 64, 64, [4, 4], 2, torch.bfloat16,
+                                6))
+    args[1] = torch.zeros(ffn.MAX_SLOTS + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        ffn.grouped_ffn_cuda(*args)
 
 
 def _mm_args(cuda, m, n, k, dtype, seed):

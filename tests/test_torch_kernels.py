@@ -2,6 +2,7 @@
 interpret mode (quantize bitwise; grouped FFN at the reference's own kernel
 tolerance).  The CUDA kernels against these plain versions are in
 tests/test_torch_cuda.py, which runs on a card."""
+import itertools
 from functools import partial
 
 import jax
@@ -17,6 +18,7 @@ from repro_torch.convert import tensor_from_numpy, to_numpy
 from repro_torch.core import quant as tquant
 from repro_torch.kernels import grouped_fp4_ffn as tffn
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize_fp4 as tqk
 
 DTYPES = [jnp.float32, jnp.bfloat16]
 # (m, d, f, gs) — the reference's GROUPED_CASES (tests/test_kernels.py):
@@ -138,3 +140,36 @@ def test_grouped_matmul_rows_past_counts_are_zero():
     w = torch.ones(2, 32, 8)
     y = tffn.grouped_matmul(x, w, torch.tensor([2, 1]))
     assert torch.all(y[:3] == 32) and torch.all(y[3:] == 0)
+
+
+_jit_global_scale = jax.jit(jquant.global_scale_for)
+
+
+@pytest.mark.parametrize("perm", list(itertools.permutations(range(3))))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_global_scale_plain_dense_views_match_jax(perm, dtype):
+    """Every permutation of a contiguous [G, N, K] stack is dense (the CUDA
+    kernel reads it flat) and its global scale is the reference's, bitwise;
+    an odd numel included."""
+    w = _weights(sum(perm), 3, 5, 7, dtype)
+    base = tensor_from_numpy(np.asarray(jnp.transpose(w, perm)), "cpu")
+    view = base.permute(*np.argsort(perm).tolist())
+    assert view.shape == (3, 5, 7) and tqk.dense(view)
+    _bits_equal(_jit_global_scale(w), tqk.global_scale_plain(view).numpy())
+
+
+def test_global_scale_plain_strided_and_nan_match_jax():
+    """A strided slice is not dense; a NaN in w gives a NaN scale in both
+    frameworks (jnp.max and torch.amax propagate it)."""
+    w = _weights(3, 4, 64, 48, jnp.float32)
+    t = tensor_from_numpy(np.asarray(w), "cpu")
+    for view, ref in ((t[:, ::2], w[:, ::2]), (t[:, :, :32], w[:, :, :32]),
+                      (t.transpose(-1, -2)[:, :16], jnp.swapaxes(w, -1, -2)
+                       [:, :16])):
+        assert not tqk.dense(view)
+        _bits_equal(_jit_global_scale(ref),
+                    tqk.global_scale_plain(view).numpy())
+    w_nan = w.at[2, 5, 7].set(jnp.nan)
+    assert np.isnan(np.asarray(_jit_global_scale(w_nan)))
+    assert torch.isnan(tqk.global_scale_plain(
+        tensor_from_numpy(np.asarray(w_nan), "cpu").transpose(-1, -2)))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the quantizer and grouped-FFN kernels of two or more source trees
-in one process, on one card, in turns (A, B, B, A for two trees).
+"""Time the quantizer, global-scale, grouped-FFN and ``fp4_matmul`` kernels
+of two or more source trees in one process, on one card, in turns (A, B,
+B, A for two trees).
 
     python3 tools/kernel_ab.py PARENT_DIR .
 
@@ -10,13 +11,19 @@ built with nvcc into ``build/kernel_ab/<n>/`` and loaded with ctypes; the
 trees' C entries take the same arguments, so every library runs on the
 same inputs.  Inputs are the serving path's, from a seed: the quantizer on
 the ``[64, 1408, 2048]`` view of ``w_gate`` (N contiguous), the same stack
-K contiguous, and under a 0 predicate; the bf16 W4A4 FFN at M = 15360 with
+K contiguous, and under a 0 predicate; the global scale on both serving
+views (``[64, 1408, 2048]`` of ``w_gate``, ``[64, 2048, 1408]`` of
+``w_down``) and under a 0 predicate; the bf16 W4A4 FFN at M = 15360 with
 1092 routed rows over 64 slots plus the pad slot, and at the decode shape
-(8 rows in each of 64 slots); the BF16-weight FFN at M = 1920 with 186
-routed rows; ``fp4_matmul`` at x [4096, 2048] bf16 . W [1408, 2048]^T,
-f32 out, a4 off and on.  Prints one JSON object: ms per launch (CUDA events, mean of
-20 back-to-back launches) per tree and case, the W4A4 FFN's device time
-per call by kernel (torch.profiler), and the card.
+(8 rows in each of 64 slots); the BF16-weight FFN at the serve run's
+working shapes (M = 960, 1920, 7680 with 54, 186, 420 routed rows), at a
+forced full-budget chunk (M = 7680, 6144 routed rows) and with all-zero
+counts at M = 15360; ``fp4_matmul`` at x [4096, 2048] bf16 . W [1408,
+2048]^T, f32 out, a4 off and on.  Counts over the 64 experts fall off as
+rank^-0.8, the pad slot holds the rest of M.  Prints one JSON object: ms
+per launch (CUDA events, mean of 20 back-to-back launches) per tree and
+case, the FFNs' and the global scale's device time per call by kernel
+(torch.profiler), and the card.
 """
 from __future__ import annotations
 
@@ -78,6 +85,17 @@ def main() -> int:
     sc = torch.empty((e, f, d // 16), dtype=torch.float32, device=dev)
     one = torch.ones(1, dtype=torch.int32, device=dev)
     off = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    wd_view = randw(e, f, d, scale=0.02).transpose(-1, -2)
+    scratch = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in libs]
+    gscale = torch.empty(1, dtype=torch.float32, device=dev)
+
+    def global_scale(lib, x, pred):
+        fn = lib["quantize_fp4"].global_scale_fp4_bf16
+        fn.argtypes = qk._SCALE_ARGTYPES
+        sc_ = scratch[libs.index(lib)]
+        return lambda: fn(x.data_ptr(), pred.data_ptr(), sc_.data_ptr(),
+                          gscale.data_ptr(), *x.shape, *x.stride(), stream)
 
     def quantize(lib, x, pred):
         fn = lib["quantize_fp4"].quantize_fp4_bf16
@@ -150,14 +168,21 @@ def main() -> int:
 
     serve = fp4_inputs(15360, skewed(1092, 15360))
     decode = fp4_inputs(512, [8] * e)
-    small = fp4_inputs(1920, skewed(186, 1920))
+    plain = {f"bf16_ffn_{n}_rows_m{m}": fp4_inputs(m, skewed(n, m))
+             for m, n in ((960, 54), (1920, 186), (7680, 420), (7680, 6144))}
+    plain["bf16_ffn_zero_counts_m15360"] = fp4_inputs(15360, [0] * (e + 1))
     cases = {
         "quantize_n_contiguous": lambda lib: quantize(lib, view, one),
         "quantize_k_contiguous": lambda lib: quantize(lib, rows, one),
         "quantize_predicate_0": lambda lib: quantize(lib, view, off),
+        "global_scale_gate_up_view": lambda lib: global_scale(lib, view, one),
+        "global_scale_down_view": lambda lib: global_scale(lib, wd_view,
+                                                           one),
+        "global_scale_predicate_0": lambda lib: global_scale(lib, view, off),
         "fp4_ffn_serve_1092_rows": lambda lib: fp4_ffn(lib, serve),
         "fp4_ffn_decode_8x64": lambda lib: fp4_ffn(lib, decode),
-        "bf16_ffn_186_rows": lambda lib: bf16_ffn(lib, small),
+        **{name: (lambda lib, a=a: bf16_ffn(lib, a))
+           for name, a in plain.items()},
         "fp4_matmul": lambda lib: matmul(lib, 0),
         "fp4_matmul_a4": lambda lib: matmul(lib, 1),
     }
@@ -203,7 +228,8 @@ def main() -> int:
         for name, make in cases.items():
             res[str(trees[i])][name].append(time_ms(make(libs[i])))
     kernels = {str(t): {c: breakdown(make(lib)) for c, make in cases.items()
-                        if c.startswith("fp4_ffn")}
+                        if c.startswith(("fp4_ffn", "bf16_ffn",
+                                         "global_scale"))}
                for t, lib in zip(trees, libs)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
