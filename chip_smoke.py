@@ -20,8 +20,11 @@
 4. drives the ``fp4_linear`` path (the on-the-fly quantize plus the W4(A4)
    GEMM) on one full-width moonshot expert projection, a4 off and on, with
    the launch counters zeroed just before and read just after, and holds
-   the GEMM kernel against its plain version (f32 output at rtol 1e-5 /
-   atol 1e-4, bf16 output within one bf16 ulp);
+   the GEMM kernel against its plain version (bf16 and f32 x, f32 output
+   at rtol 1e-5 / atol 1e-4, bf16 output within one bf16 ulp); times the
+   bf16-x, a4 and f32-x entries beside their bounds (bf16 tensor ops,
+   three passes for f32 x, bytes, the promotion's FFMAs) and two
+   yardsticks, ``torch.matmul(x.float(), w_deq.T)`` and cuBLAS bf16;
 5. on full-width, 48-layer moonshot-v1-16b-a3b (random weights from a
    seed): one ``chunk_forward`` with FP4 firing, one with FP4 off and one
    ``decode_forward``, all under ``torch.cuda.set_sync_debug_mode("error")``
@@ -653,29 +656,44 @@ def check_fp4_linear(dev):
             f"{err16:.4g} (within one bf16 ulp)")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
-    run = lambda: mm.fp4_matmul_cuda(x, packed, scales, gs)  # noqa: E731
-    ms = time_ms(run, iters=20)
-    ms_a4 = time_ms(lambda: mm.fp4_matmul_cuda(x, packed, scales, gs,
-                                               a4=True), iters=20)
+    xf = x.float()
+    entries = {"bf16 x": (x, False), "a4": (x, True), "f32 x": (xf, False)}
+    times = {key: time_ms(lambda a=a, q=q: mm.fp4_matmul_cuda(
+        a, packed, scales, gs, a4=q), iters=50, warmup=3)
+        for key, (a, q) in entries.items()}
     plain_ms = time_ms(lambda: mm.fp4_matmul_plain(x, packed, scales, gs),
                        iters=5)
+    # yardsticks, never called by the port: the f32 product alone (TF32
+    # off) on a W dequantized ahead of time, and cuBLAS bf16 on a W rounded
+    # to bf16 (a rounded function: what a tensor-core GEMM reaches here)
     w_deq = mm.dequantize_kernel_order(packed, scales, gs)
-    xf = x.float()
-    cublas_ms = time_ms(lambda: torch.matmul(xf, w_deq.t()), iters=20)
+    w16 = w_deq.bfloat16()
+    f32_lib_ms = time_ms(lambda: torch.matmul(xf, w_deq.t()), iters=50,
+                         warmup=3)
+    bf16_lib_ms = time_ms(lambda: torch.matmul(x, w16.t()), iters=50,
+                          warmup=3)
     flops = 2.0 * m * n * k
     nbytes = m * k * 2 + n * k // 2 + n * k // 16 * 4 + m * n * 4
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_f32 = flops / F32_FLOP_PER_S * 1e3
     bound_tc = flops / BF16_FLOP_PER_S * 1e3
-    log(f"fp4_matmul [{m}, {k}] . [{n}, {k}]^T bf16 -> f32: {ms:.4f} ms "
-        f"(a4 {ms_a4:.4f} ms), {flops / ms / 1e9:.1f} TFLOP/s; plain "
-        f"{plain_ms:.4f} ms; bounds: f32 FMA {bound_f32:.4f} ms "
-        f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s, the design's), bf16 tensor "
-        f"cores {bound_tc:.4f} ms, bytes {bound_bytes:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB); context only: torch.matmul(x.float(), "
-        f"w_deq.T) on the pre-dequantized W {cublas_ms:.4f} ms")
-    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_f32),
-               bound_by="bytes" if bound_bytes >= bound_f32 else "operations")
+    # promotion: one FFMA per output and group (a4: an FMUL too)
+    bound_promo = 2.0 * m * n * (k // 16) / F32_FLOP_PER_S * 1e3
+    log(f"fp4_matmul [{m}, {k}] . [{n}, {k}]^T -> f32: bf16 x "
+        f"{times['bf16 x']:.4f} ms ({flops / times['bf16 x'] / 1e9:.1f} "
+        f"TFLOP/s), a4 {times['a4']:.4f} ms, f32 x {times['f32 x']:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; bounds: bf16 tensor ops "
+        f"{bound_tc:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s), f32 x "
+        f"three passes {3 * bound_tc:.4f} ms, bytes {bound_bytes:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB), promotion FFMA {bound_promo:.4f} ms "
+        f"(a4 {2 * bound_promo:.4f}) on the f32 pipes beside the tensor "
+        f"cores; yardsticks: torch.matmul(x.float(), w_deq.T) "
+        f"{f32_lib_ms:.4f} ms (f32, TF32 off), torch.matmul(x, "
+        f"w_deq.bfloat16().T) {bf16_lib_ms:.4f} ms (cuBLAS bf16, rounded)")
+    rec.update(ms=times["bf16 x"], a4_ms=times["a4"],
+               f32_x_ms=times["f32 x"], plain_ms=plain_ms,
+               bound_ms=max(bound_bytes, bound_tc),
+               bound_by="bytes" if bound_bytes >= bound_tc else "operations",
+               library_ms=f32_lib_ms, bf16_library_ms=bf16_lib_ms)
     return rec, counts
 
 
@@ -1015,9 +1033,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
-        kernels[-1].update((k, r[k]) for k in ("k_contiguous_ms", "decode_ms",
-                                               "forced_ms", "abs_amax_ms")
-                           if k in r)
+        kernels[-1].update((k, r[k]) for k in (
+            "k_contiguous_ms", "decode_ms", "forced_ms", "abs_amax_ms",
+            "a4_ms", "f32_x_ms", "bf16_library_ms") if k in r)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

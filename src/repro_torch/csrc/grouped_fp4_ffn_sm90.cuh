@@ -63,11 +63,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// Byte offset of 16-byte chunk c of row r of a [rows][128 B] tile in the
-// 128-byte swizzle (chunk index XOR row mod 8).
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
 
 // The scales [Gw, NR, K/16] of one FP4 weight matrix (its codes come by
 // TMA, through Maps).
@@ -164,25 +159,6 @@ __device__ __forceinline__ void level_tables(float s, float g, uint32_t* lo,
   hi[0] = __byte_perm(w[0], w[1], 0x7531);
   lo[1] = __byte_perm(w[2], w[3], 0x6420);
   hi[1] = __byte_perm(w[2], w[3], 0x7531);
-}
-
-// Four codes (bits 0..15 of x, code k in bits 4k..4k+3) to four bf16
-// values, two a word, with integer byte permutes only (a conversion per
-// weight issues at a quarter of the rate).
-__device__ __forceinline__ void decode4(uint32_t x, const uint32_t* lo,
-                                        const uint32_t* hi, uint32_t& out0,
-                                        uint32_t& out1) {
-  const uint32_t sel = x & 0x7777u;
-  const uint32_t l = __byte_perm(lo[0], lo[1], sel);
-  const uint32_t h = __byte_perm(hi[0], hi[1], sel);
-  // sign of code k to bit 7 of byte k: with the code itself as selector,
-  // prmt replicates the sign bit of a 0x80 byte (0xff) when the code's bit
-  // 3 is set and copies the byte (0x80) when not; bit 6 then says which
-  uint32_t m;
-  asm("prmt.b32 %0, %1, %1, %2;" : "=r"(m) : "r"(0x80808080u), "r"(x));
-  const uint32_t hs = h | ((m << 1) & 0x80808080u);
-  out0 = __byte_perm(l, hs, 0x5140);
-  out1 = __byte_perm(l, hs, 0x7362);
 }
 
 // The E4M3 code (0..127) of a positive scale on the E4M3 grid; anything

@@ -1,8 +1,9 @@
-// What the two Hopper designs of the grouped expert FFN share (the W4A4
+// What the Hopper designs share: the grouped expert FFN's two (the W4A4
 // design in grouped_fp4_ffn_sm90.cuh, the BF16-weight design in
-// grouped_ffn_sm90.cuh; both included by grouped_fp4_ffn.cu): the work
-// items and their device-built schedule, mbarriers, TMA loads and the host
-// encoder of their tensor maps, and wgmma on 128-byte-swizzled tiles.
+// grouped_ffn_sm90.cuh; both included by grouped_fp4_ffn.cu) their work
+// items and device-built schedule; they and fp4_matmul.cu the mbarriers,
+// TMA loads, the host encoder of tensor maps, the FP4 code decode, and
+// wgmma on 128-byte-swizzled tiles.
 //
 // Both designs swap A and B (Y^T = W . X^T): weight rows take wgmma's
 // 64-row M side, a slot's tokens its N side, rounded up to 8, 16, 32 or 64.
@@ -74,8 +75,10 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+// A barrier whose phase completes on `count` arrivals.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 // The barriers' initialisation becomes visible to the async proxy.
@@ -125,6 +128,31 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// Byte offset of 16-byte chunk c of row r of a [rows][128 B] tile in the
+// 128-byte swizzle (chunk index XOR row mod 8).
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Four codes (bits 0..15 of x, code k in bits 4k..4k+3) to four bf16
+// values, two a word, with integer byte permutes only (a conversion per
+// weight issues at a quarter of the rate).
+__device__ __forceinline__ void decode4(uint32_t x, const uint32_t* lo,
+                                        const uint32_t* hi, uint32_t& out0,
+                                        uint32_t& out1) {
+  const uint32_t sel = x & 0x7777u;
+  const uint32_t l = __byte_perm(lo[0], lo[1], sel);
+  const uint32_t h = __byte_perm(hi[0], hi[1], sel);
+  // sign of code k to bit 7 of byte k: with the code itself as selector,
+  // prmt replicates the sign bit of a 0x80 byte (0xff) when the code's bit
+  // 3 is set and copies the byte (0x80) when not; bit 6 then says which
+  uint32_t m;
+  asm("prmt.b32 %0, %1, %1, %2;" : "=r"(m) : "r"(0x80808080u), "r"(x));
+  const uint32_t hs = h | ((m << 1) & 0x80808080u);
+  out0 = __byte_perm(l, hs, 0x5140);
+  out1 = __byte_perm(l, hs, 0x7362);
+}
+
 // Orders later uses of an accumulator after the wgmma wait.
 __device__ __forceinline__ void fence_reg(float& r) {
   asm volatile("" : "+f"(r)::"memory");
@@ -143,7 +171,8 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 }
 
 // wgmma m64nNk16, bf16 in, f32 accumulate, A and B from shared memory, B
-// K-major; TA = 1: A MN-major (generated: one per token-tile width N).
+// K-major; TA = 1: A MN-major (generated: one per width N); scale_d 0
+// overwrites d with the product.
 template <int TA>
 __device__ __forceinline__ void wgmma_n8(float* d, uint64_t a, uint64_t b,
                                          int scale_d) {
@@ -208,6 +237,42 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+}
+
+template <int TA>
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
 }
 
@@ -348,16 +413,16 @@ int sm_count() {
   return counts[dev];
 }
 
-// Lets KERNEL take SMEM_BYTES of dynamic shared memory and all of L1's
+// Lets KERNEL take BYTES of dynamic shared memory and all of L1's
 // carveout, once per device.
-template <auto KERNEL>
+template <auto KERNEL, int BYTES = SMEM_BYTES>
 cudaError_t allow_smem() {
   static bool done[64] = {false};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         KERNEL, cudaFuncAttributePreferredSharedMemoryCarveout, 100);

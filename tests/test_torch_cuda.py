@@ -584,6 +584,82 @@ def test_fp4_matmul_cuda_matches_plain(cuda, m, n, k, a4, dtype):
     torch.testing.assert_close(y16.float(), ref, rtol=2.0 ** -8, atol=1e-4)
 
 
+def _f64_error_ratio(y, x, packed, scales, gs, a4):
+    """max |y - y64| / (|x|·|w|)[m, n], y64 the f64 product of the same
+    operands (x after its a4, W dequantized in the kernel's order)."""
+    xf = x.float()
+    if a4:
+        xf = fake_quant_a4(xf)
+    w = mm.dequantize_kernel_order(packed, scales, gs)
+    y64 = xf.double() @ w.double().t()
+    mag = xf.double().abs() @ w.double().abs().t()
+    err = (y.double() - y64).abs()
+    assert bool((err[mag == 0] == 0).all())
+    return float((err / mag.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("m,n,k", [(300, 1408, 2048), (37, 130, 96)])
+@pytest.mark.parametrize("x_scale", [1e-3, 1.0, 1e3])
+@pytest.mark.parametrize("a4", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp4_matmul_cuda_scale_free_error(cuda, m, n, k, x_scale, a4,
+                                          dtype):
+    """Within 1e-6 of (|x|·|w|)[m, n] of an f64 product at any scale of x
+    (the fixed atol of the plain-version test is not scale-free)."""
+    x, packed, scales, gs = _mm_args(cuda, m, n, k, torch.float32, m + k)
+    x = (x * x_scale).to(dtype)
+    y = mm.fp4_matmul_cuda(x, packed, scales, gs, a4=a4)
+    assert torch.isfinite(y).all()
+    assert _f64_error_ratio(y, x, packed, scales, gs, a4) <= 1e-6
+
+
+@pytest.mark.parametrize("a4", [False, True])
+def test_fp4_matmul_cuda_f32_x_near_max(cuda, a4):
+    """An x row of ±3.4e38 (above the midpoint between bf16's largest
+    finite value and 2^128) against a W row of zeros gives 0: the split of
+    f32 x into bf16 terms truncates, where rounding to nearest would make
+    inf, and inf · 0 NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    m, n, k = 5, 64, 128
+    w = torch.randn(n, k, generator=gen, device=cuda) * 0.05
+    w[0] = 0.0
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    x[0] = 3.4e38 * (1.0 - 2.0 * (torch.arange(k, device=cuda) % 2))
+    packed, scales, gs = ops.quantize_fp4(w)
+    y = mm.fp4_matmul_cuda(x, packed, scales, gs, a4=a4)
+    assert float(y[0, 0]) == 0.0
+    ref = mm.fp4_matmul_plain(x, packed, scales, gs, a4=a4)
+    torch.testing.assert_close(y[1:], ref[1:], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp4_matmul_cuda_a4_zero_groups(cuda, dtype):
+    """a4 over whole groups of zeros (scale 1e-20, every level 0), a zero
+    row among them, matches the plain version; the zero row gives 0."""
+    x, packed, scales, gs = _mm_args(cuda, 70, 96, 256, dtype, 22)
+    x = x.clone()
+    x[:, 16:32] = 0
+    x[::3, 128:192] = 0
+    x[5] = 0
+    y = mm.fp4_matmul_cuda(x, packed, scales, gs, a4=True)
+    ref = mm.fp4_matmul_plain(x, packed, scales, gs, a4=True)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    assert bool((y[5] == 0).all())
+
+
+@pytest.mark.parametrize("m,n", [(3, 200), (130, 257)])
+@pytest.mark.parametrize("a4", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp4_matmul_cuda_k32_ragged(cuda, m, n, a4, dtype):
+    """K = 32, half a 64-deep stage, with M and N off the 128 tiles."""
+    args = _mm_args(cuda, m, n, 32, dtype, m + n)
+    ref = mm.fp4_matmul_plain(*args, a4=a4)
+    torch.testing.assert_close(mm.fp4_matmul_cuda(*args, a4=a4), ref,
+                               rtol=1e-5, atol=1e-4)
+    y16 = mm.fp4_matmul_cuda(*args, a4=a4, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(y16.float(), ref, rtol=2.0 ** -8, atol=1e-4)
+
+
 def test_fp4_linear_cuda_counts_its_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(70, 256, generator=gen, device=cuda).to(torch.bfloat16)

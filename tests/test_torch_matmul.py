@@ -186,3 +186,86 @@ def test_quant_error_matches_reference(scale):
     ref = float(jax.jit(jquant.quant_error)(jnp.asarray(w)))
     got = float(tquant.quant_error(torch.from_numpy(w)))
     assert abs(got - ref) <= 1e-6, (got, ref)
+
+
+# The CUDA kernel's arithmetic, emulated: per group of 16 along K an exact
+# product of x's bf16 terms (or a4 levels) with W's E2M1 levels, rounded
+# once to f32 (the tensor cores' sum), then promoted into an f32
+# accumulator in group order, acc = fma(P, c, acc) (c = scale·gs, times
+# the a4 scale s with a4).
+
+def _split3(x32):
+    """f32 x as three bf16-valued f32 terms, each the top 16 bits of what
+    is left (truncation: never rounds up past the largest bf16)."""
+    terms, rest = [], x32.astype(np.float32)
+    for _ in range(3):
+        t = (rest.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+        terms.append(t)
+        rest = (rest - t).astype(np.float32)
+    return terms
+
+
+def _emulated_kernel(x, pk, sc, gs, a4):
+    from repro_torch.kernels.nvfp4 import (INV_FP4_MAX, decode_level,
+                                           fp4_index, fp4_level)
+    x32 = np.asarray(x, np.float32)
+    m, k = x32.shape
+    g = k // 16
+    lv = decode_level(tquant.unpack_u4(_t(pk))).numpy().astype(np.float64)
+    cw = np.asarray(sc, np.float32) * np.float32(np.asarray(gs))   # [n, g]
+    xg = x32.reshape(m, g, 16)
+    if a4:
+        amax = np.abs(xg).max(-1)
+        s = np.maximum(amax * np.float32(INV_FP4_MAX), np.float32(1e-20))
+        r = torch.from_numpy(xg / s[..., None])
+        terms = [(torch.sign(r) * fp4_level(fp4_index(r.abs()))).numpy()]
+    else:
+        terms = [t.reshape(m, g, 16) for t in _split3(x32)]
+    p = sum(np.einsum("mgk,ngk->mng", t.astype(np.float64),
+                      lv.reshape(-1, g, 16)) for t in terms)
+    p = p.astype(np.float32)
+    acc = np.zeros(p.shape[:2], np.float32)
+    for j in range(g):
+        c = cw[None, :, j]
+        if a4:
+            c = (s[:, j, None] * c).astype(np.float32)
+        acc = (acc.astype(np.float64)
+               + p[:, :, j].astype(np.float64) * c.astype(np.float64)
+               ).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES + ODD_SHAPES)
+@pytest.mark.parametrize("a4", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_arithmetic_matches_pallas(m, n, k, a4, dtype):
+    """The group-factored form (exact per-group products, f32 promotion)
+    within the plain version's tolerance of the Pallas kernel."""
+    x, w = _operands(m, n, k, DTYPES[dtype], m + n + k)
+    pk, sc, gs = _quantize(w)
+    y_pallas = _matmul(x, pk, sc, gs, a4=a4)
+    y = _emulated_kernel(np.asarray(x, np.float32), pk, sc, gs, a4)
+    np.testing.assert_allclose(y, np.asarray(y_pallas), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_truncation_split_is_exact():
+    """x = b1 + b2 + b3 bit for bit, each term bf16-valued, for finite f32
+    x with |x| ≥ 2^-100, 3.39e38, 3.4e38 and the largest f32 included (the
+    last two above the midpoint between bf16's largest finite value and
+    2^128, which round to nearest sends to inf)."""
+    rng = np.random.default_rng(0)
+    mant = rng.uniform(1.0, 2.0, 200_000)
+    expo = rng.integers(-100, 128, mant.size)
+    sign = rng.choice([-1.0, 1.0], mant.size)
+    big = [3.39e38, -3.4e38, np.finfo(np.float32).max, 2.0 ** -100]
+    x = np.concatenate([(sign * np.ldexp(mant, expo)).astype(np.float32),
+                        np.asarray(big, np.float32)])
+    x = x[np.isfinite(x)]
+    terms = _split3(x)
+    for t in terms:
+        assert np.isfinite(t).all()
+        assert not (t.view(np.uint32) & np.uint32(0xFFFF)).any()
+    total = sum(t.astype(np.float64) for t in terms)
+    assert np.array_equal(total, x.astype(np.float64))
+    assert torch.isinf(torch.tensor(3.4e38).to(torch.bfloat16))

@@ -4,6 +4,8 @@ of two or more source trees in one process, on one card, in turns (A, B,
 B, A for two trees).
 
     python3 tools/kernel_ab.py PARENT_DIR .
+    python3 tools/kernel_ab.py --phases TREE
+
 
 Each tree's ``src/repro_torch/csrc/{quantize_fp4,grouped_fp4_ffn,
 fp4_matmul}.cu`` is
@@ -18,12 +20,17 @@ views (``[64, 1408, 2048]`` of ``w_gate``, ``[64, 2048, 1408]`` of
 (8 rows in each of 64 slots); the BF16-weight FFN at the serve run's
 working shapes (M = 960, 1920, 7680 with 54, 186, 420 routed rows), at a
 forced full-budget chunk (M = 7680, 6144 routed rows) and with all-zero
-counts at M = 15360; ``fp4_matmul`` at x [4096, 2048] bf16 . W [1408,
-2048]^T, f32 out, a4 off and on.  Counts over the 64 experts fall off as
+counts at M = 15360; ``fp4_matmul`` at x [4096, 2048] . W [1408,
+2048]^T, f32 out: x bf16 with a4 off and on, and x f32 (the same values).  Counts over the 64 experts fall off as
 rank^-0.8, the pad slot holds the rest of M.  Prints one JSON object: ms
 per launch (CUDA events, mean of 20 back-to-back launches) per tree and
 case, the FFNs' and the global scale's device time per call by kernel
 (torch.profiler), and the card.
+
+``--phases TREE`` builds a copy of the tree's ``fp4_matmul.cu`` with
+``clock64()`` marks (``PHASES``) into ``build/kernel_ab/phases/`` and
+prints the cycles a 64-deep stage spends in each phase, per producer and
+consumer warpgroup, at the ``fp4_matmul`` shape (bf16 x, a4, f32 x).
 """
 from __future__ import annotations
 
@@ -55,8 +62,126 @@ def build(tree: Path, out: Path) -> dict:
     return libs
 
 
+# clock64() marks for ``--phases``: (anchor in fp4_matmul.cu, phase); each
+# anchored statement is timed by one thread a warpgroup, summed per phase
+# in shared memory and added to the device's totals once a warpgroup
+PHASES = [
+    ("    mbar_wait(smem_u32(sm + C::FULL) + (s % C::OS) * 8, "
+     "(s / C::OS) & 1);", "consumer: wait for a stage"),
+    ("      mbar_wait(smem_u32(sm + C::RAW_FULL) + (s % C::RS) * 8,\n"
+     "                (s / C::RS) & 1);", "consumer: wait for a stage"),
+    ("wgmma_wait<0>();", "consumer: wait for a wgmma"),
+    ("promote<A4>(acc, tmp, c0, c1, sx + g * BM, l);\n"
+     "      promote<A4>(acc + 32, tmp + 32, c0, c1, sx + g * BM + 64, l);",
+     "consumer: promote"),
+    ("      mbar_wait(empty + oslot * 8, (s / C::OS - 1) & 1);",
+     "producer: wait for a free slot"),
+    ("      decode(next[h], sm + oslot * C::OPB, t, h, gs);\n"
+     "      next[h] = load_codes(packed, scales, row, row_ok, s + 1, n_stages, "
+     "h,\n                           K);", "producer: decode W"),
+    ("      mbar_wait(raw_full + rslot * 8, (s / C::RS) & 1);",
+     "producer: wait for x"),
+    ("      transform_x<TX, A4>(sm, rslot, oslot, t);", "producer: transform x"),
+    ("    producer_sync();", "producer: barrier"),
+    ("    produce<TX, A4>(sm, maps, packed, scales, *gscale, n_stages, m0, "
+     "n0, N,\n                    K);", "producer: all"),
+    ("    consume<TX, A4, TY>(sm, n_stages, y, M, N, m0, n0);",
+     "consumer: all"),
+]
+
+
+def phases(tree: Path) -> int:
+    """Cycles a stage by phase in an instrumented copy of the tree's
+    fp4_matmul.cu, at the A/B shape (bf16 x, a4, f32 x)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fp4_matmul as mm
+    from repro_torch.kernels import ops
+    csrc = tree / "src" / "repro_torch" / "csrc"
+    src = (csrc / "fp4_matmul.cu").read_text()
+    names = list(dict.fromkeys(name for _, name in PHASES))
+    for anchor, name in PHASES:
+        if anchor not in src:
+            raise RuntimeError(f"--phases: anchor not found: {anchor!r}")
+        # a predicated red, not a branch: ptxas serializes wgmma in flight
+        # across a path it cannot prove uniform
+        i = names.index(name)
+        flush = ("for (int i_ = 0; i_ < 16; ++i_) if (threadIdx.x % 128 == 0)"
+                 " atomicAdd(&g_prof[i_], s_prof[threadIdx.x / 128][i_]);"
+                 if name.endswith(": all") else "")
+        src = src.replace(anchor, (
+            "{ const long long t_ = clock64(); " + anchor.strip() +
+            ' asm volatile("{ .reg .pred p; setp.eq.u32 p, %0, 0; '
+            '@p red.shared.add.u64 [%1], %2; }" :: "r"(threadIdx.x % 128), '
+            '"r"(static_cast<unsigned>(__cvta_generic_to_shared('
+            f'&s_prof[threadIdx.x / 128][{i}]))), '
+            '"l"(clock64() - t_) : "memory"); ' + flush + "}"))
+    src = src.replace("namespace {\nnamespace mm {",
+                      "__device__ unsigned long long g_prof[16];\n"
+                      "__shared__ unsigned long long s_prof[3][16];\n"
+                      "namespace {\nnamespace mm {", 1)
+    zero = "  __syncthreads();\n  // the warpgroup's role"
+    if zero not in src:
+        raise RuntimeError("--phases: anchor not found: the role split")
+    src = src.replace(zero, "  if (threadIdx.x < 48) s_prof[threadIdx.x / 16]"
+                      "[threadIdx.x % 16] = 0;\n" + zero, 1)
+    src += ('extern "C" int fp4mm_prof(unsigned long long* out) {\n'
+            "  cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n"
+            "  unsigned long long z[16] = {0};\n"
+            "  return static_cast<int>(cudaMemcpyToSymbol(g_prof, z, "
+            "sizeof(z)));\n}\n")
+    out = ROOT / "build" / "kernel_ab" / "phases"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "fp4_matmul.cu").write_text(src)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(out / "libphases.so"),
+                    str(out / "fp4_matmul.cu")], check=True)
+    lib = ctypes.CDLL(str(out / "libphases.so"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m, n, k = 4096, 1408, 2048
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=dev) * k ** -0.5)
+    pk, sc, gs = ops.quantize_fp4(w.to(torch.bfloat16))
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = (ctypes.c_ulonglong * 16)()
+    blocks = ((n + 127) // 128) * ((m + 127) // 128)
+    res = {}
+    for case, xx, a4 in (("bf16 x", x, 0), ("a4", x, 1),
+                         ("f32 x", x.float(), 0)):
+        fn = getattr(lib, f"fp4_matmul_{mm._TYPES[xx.dtype]}_f32")
+        fn.argtypes = mm._ARGTYPES
+        call = lambda: fn(xx.data_ptr(), pk.data_ptr(), sc.data_ptr(),
+                          gs.reshape(1).data_ptr(), y.data_ptr(), m, n, k,
+                          a4, stream)
+        call()
+        torch.cuda.synchronize()
+        lib.fp4mm_prof(buf)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        call()
+        b.record()
+        b.synchronize()
+        lib.fp4mm_prof(buf)
+        stages = blocks * (k // 64)
+        res[case] = {"ms (instrumented)": a.elapsed_time(b), **{
+            name + " (cycles a stage)": buf[i] / stages /
+            (2 if name.startswith("consumer") else 1)
+            for i, name in enumerate(names)}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"card": smi, "phases": res}, indent=1))
+    return 0
+
+
 def main() -> int:
     import torch
+    if torch.cuda.is_available() and len(sys.argv) == 3 \
+            and sys.argv[1] == "--phases":
+        return phases(Path(sys.argv[2]).resolve())
     if not torch.cuda.is_available() or len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)
         return 1
@@ -158,11 +283,14 @@ def main() -> int:
     mp, msc, mgs = ops.quantize_fp4(randw(d, f, scale=d ** -0.5).t())
     my = torch.empty((4096, f), dtype=torch.float32, device=dev)
 
-    def matmul(lib, a4):
-        fn = lib["fp4_matmul"].fp4_matmul_bf16_f32
+    mxf = mx.float()
+
+    def matmul(lib, a4, x=mx):
+        fn = getattr(lib["fp4_matmul"],
+                     f"fp4_matmul_{mm._TYPES[x.dtype]}_f32")
         fn.argtypes = mm._ARGTYPES
         g1 = mgs.reshape(1)
-        return lambda: fn(mx.data_ptr(), mp.data_ptr(), msc.data_ptr(),
+        return lambda: fn(x.data_ptr(), mp.data_ptr(), msc.data_ptr(),
                           g1.data_ptr(), my.data_ptr(), 4096, f, d, a4,
                           stream)
 
@@ -185,6 +313,7 @@ def main() -> int:
            for name, a in plain.items()},
         "fp4_matmul": lambda lib: matmul(lib, 0),
         "fp4_matmul_a4": lambda lib: matmul(lib, 1),
+        "fp4_matmul_f32x": lambda lib: matmul(lib, 0, mxf),
     }
 
     def time_ms(fn, iters=20):
