@@ -42,9 +42,26 @@
    that exited at once, and the FFN kernels are held against their plain
    versions and timed on the inputs of their first working launch at each
    row count;
+7. on the same weights, the rest of the serving engine: (a) one
+   ``prefill_forward`` of B = 1, S = 6144 (70 % vision) into an 8192-row
+   cache with FP4 forced on and off, sync-checked, the counters zeroed just
+   before and read just after, the FFN kernels held against their plain
+   versions on their first launch's inputs, the FP4 forward again under
+   ReaLB-seq (``overlap=False``: the same logits) with its token's cost
+   timed, each forward timed warm; (b) a
+   long-context serve, four MMMU requests of 2600-6000 prompt tokens (two
+   with vision embeds, prefilled in one shot) through ``Engine(max_slots=2,
+   max_len=8192, temperature=0.7, telemetry=Telemetry())``, every forward
+   sync-checked and counted, decode over 8192-row caches through the flash
+   path, the telemetry summary held against the request timestamps, and
+   the long-KV decode step timed with its cache rewrite's share; (c) phase
+   5's stream with ``prefill_budget=0`` (every request one-shot, all
+   finish); (d) a checkpoint round trip on reduced moonshot (same weights,
+   same greedy tokens);
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
-   kernel's launches (on its path) and working launches, error, time
+   kernel's launches (on its path, and on the one-shot and long-KV paths
+   of phase 7) and working launches, error, time
    (the FFNs': over the serve run's working launches; the W4A4 FFN's also
    at the decode forward's launch and the forced full-budget chunk), time
    of a launch that exits at once (host-set) and its kernels' device time,
@@ -70,6 +87,8 @@ sys.path.insert(0, str(ROOT / "tests"))   # the card's checks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+SERVE_KERNELS = ("quantize_fp4", "global_scale_fp4", "grouped_fp4_ffn",
+                 "grouped_ffn")
 
 
 def log(*a):
@@ -305,12 +324,14 @@ def keeping_first_inputs(kept, key, wrapper):
 
 @contextlib.contextmanager
 def sync_checked_forwards(counter):
-    """While open, every ``chunk_forward`` and ``decode_forward`` (as the
-    engine calls them) runs under ``set_sync_debug_mode("error")``, so a
-    device-to-host sync inside a forward raises; ``counter`` counts them."""
+    """While open, every ``prefill_forward``, ``chunk_forward`` and
+    ``decode_forward`` (as the engine calls them) runs under
+    ``set_sync_debug_mode("error")``, so a device-to-host sync inside a
+    forward raises; ``counter`` counts them."""
     import torch
     from repro_torch.models import transformer as tf
-    saved = {"chunk": tf.chunk_forward, "decode": tf.decode_forward}
+    saved = {"prefill": tf.prefill_forward, "chunk": tf.chunk_forward,
+             "decode": tf.decode_forward}
 
     def checked(name, fn):
         def run(*a, **kw):
@@ -323,31 +344,32 @@ def sync_checked_forwards(counter):
             return out
         return run
 
-    tf.chunk_forward = checked("chunk", saved["chunk"])
-    tf.decode_forward = checked("decode", saved["decode"])
+    for name, fn in saved.items():
+        setattr(tf, f"{name}_forward", checked(name, fn))
     try:
         yield counter
     finally:
-        tf.chunk_forward, tf.decode_forward = saved["chunk"], saved["decode"]
+        for name, fn in saved.items():
+            setattr(tf, f"{name}_forward", fn)
 
 
 def check_ffn_at_main_shapes(kept):
-    """Phase 5b: the grouped FFN kernels against their plain versions on
-    the inputs the full-width forwards gave their first launch (FP4 kernel:
-    the chunk forward with FP4 firing, and the decode forward; plain kernel:
-    the chunk forward with FP4 off), consuming ``kept``; returns the
+    """Phases 5b and 7a: the grouped FFN kernels against their plain
+    versions on the inputs full-width forwards gave their first launch,
+    consuming ``kept`` (keys ``<forward>_fp4``: the FP4 kernel with FP4
+    firing; ``<forward>_bf16``: the plain kernel with FP4 off); returns the
     kernel's ms at each forward's launch, by key."""
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from test_torch_cuda import check_ffn, check_plain_ffn
 
-    cases = (("chunk_fp4", "grouped_fp4_ffn_cuda", "grouped_fp4_ffn",
-              ffn.grouped_fp4_ffn_plain, check_ffn, True),
-             ("decode_fp4", "grouped_fp4_ffn_cuda", "grouped_fp4_ffn",
-              ffn.grouped_fp4_ffn_plain, check_ffn, True),
-             ("chunk_bf16", "grouped_ffn_cuda", "grouped_ffn",
-              ffn.grouped_ffn_plain, check_plain_ffn, False))
     times = {}
-    for key, wrapper, name, plain, check, fp4 in cases:
+    for key in list(kept):
+        fp4 = key.endswith("_fp4")
+        wrapper, name, plain, check = (
+            ("grouped_fp4_ffn_cuda", "grouped_fp4_ffn",
+             ffn.grouped_fp4_ffn_plain, check_ffn) if fp4 else
+            ("grouped_ffn_cuda", "grouped_ffn", ffn.grouped_ffn_plain,
+             check_plain_ffn))
         args = kept.pop(key)
         launch = getattr(ffn, wrapper)
         err = check(launch(*args), plain(*args))
@@ -380,7 +402,8 @@ class ServeLaunches:
 
     FFN = ("grouped_fp4_ffn", "grouped_ffn")
 
-    def __init__(self):
+    def __init__(self, keep_inputs: bool = True):
+        self.keep_inputs = keep_inputs           # False: count only
         self.preds = {"quantize_fp4": [], "global_scale_fp4": []}
         self.ffn = {n: [] for n in self.FFN}     # (counts, n_w, M) a launch
         self.step = {n: [] for n in self.FFN}    # this step's kept inputs
@@ -408,7 +431,7 @@ class ServeLaunches:
             def run(*args):
                 m, n_w = args[0].shape[0], args[2].shape[0]
                 self.ffn[name].append((args[1], n_w, m))
-                if m not in self.first[name]:
+                if self.keep_inputs and m not in self.first[name]:
                     self.step[name].append((m, args[1], n_w, inputs(args)))
                 return launch(*args)
             return run
@@ -829,11 +852,37 @@ def host_and_device_ms(fn):
             [(name[:70], us / 1e3) for name, us in top], top_host)
 
 
+def serve_wall_clock(eng, requests, clock, note=None):
+    """Submit each request at its arrival time on ``clock`` and step the
+    engine until all have finished; returns the host seconds of each
+    ``eng.step()`` by phase (a step ends in the engine's host reads of
+    tokens and stats, so it is synchronous)."""
+    pending = sorted(requests, key=lambda r: r.arrival_time)
+    n_req = len(requests) + len(eng.scheduler.finished)
+    step_s = {"prefill": [], "decode": []}
+    while len(eng.scheduler.finished) < n_req:
+        now = clock()
+        while pending and pending[0].arrival_time <= now:
+            eng.submit(pending.pop(0))
+        if eng.scheduler.idle and pending:
+            time.sleep(max(pending[0].arrival_time - now, 0.0))
+            continue
+        n_before, t0 = len(eng.stats), time.perf_counter()
+        eng.step()
+        phases = {s.phase for s in eng.stats[n_before:]}
+        step_s["prefill" if "prefill" in phases else "decode"].append(
+            time.perf_counter() - t0)
+        if note is not None:
+            note.end_step()
+    return step_s
+
+
 def serve(dev):
     """Phase 5: the main path, full width: the sync-free forwards, the FFN
     kernels on the inputs they gave them, then the serve run and the FFN
-    kernels on its inputs; returns the FFN kernels' records and the serve
-    run's launch counts and working launches."""
+    kernels on its inputs; returns the FFN kernels' records, the serve
+    run's launch counts and working launches, and the weights and config
+    (phase 7 serves them again)."""
     import numpy as np
     import torch
     from repro_torch.configs import ReaLBConfig, get_config
@@ -872,23 +921,10 @@ def serve(dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     checked, note = {}, ServeLaunches()
-    pending = sorted(specs, key=lambda s: s.arrival)
-    step_s = {"prefill": [], "decode": []}   # host seconds per eng.step()
     t_run = time.perf_counter()
     with sync_checked_forwards(checked), note.noting():
-        while len(eng.scheduler.finished) < n_req:
-            now = clock()
-            while pending and pending[0].arrival <= now:
-                eng.submit(pending.pop(0).to_request())
-            if eng.scheduler.idle and pending:
-                time.sleep(max(pending[0].arrival - now, 0.0))
-                continue
-            n_before, t0 = len(eng.stats), time.perf_counter()
-            eng.step()   # ends in host reads of tokens and stats: synchronous
-            phases = {s.phase for s in eng.stats[n_before:]}
-            step_s["prefill" if "prefill" in phases else "decode"].append(
-                time.perf_counter() - t0)
-            note.end_step()
+        step_s = serve_wall_clock(eng, [s.to_request() for s in specs],
+                                  clock, note)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     counts = ops.launch_counts()
@@ -928,11 +964,9 @@ def serve(dev):
         raise AssertionError("not every request finished")
     if fp4_iters == 0:
         raise AssertionError("FP4 never fired in prefill")
-    serve_kernels = ("quantize_fp4", "global_scale_fp4", "grouped_fp4_ffn",
-                     "grouped_ffn")
-    if min(counts[k] for k in serve_kernels) == 0:
+    if min(counts[k] for k in SERVE_KERNELS) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    if min(working[k] for k in serve_kernels) == 0:
+    if min(working[k] for k in SERVE_KERNELS) == 0:
         raise AssertionError(f"a kernel of the path never did work: "
                              f"{working}")
     ffn_recs = check_ffn_at_serve_launches(note, working_by_m)
@@ -955,9 +989,356 @@ def serve(dev):
             or not bool(torch.isfinite(res.logits).all()):
         raise AssertionError("full-width logits not finite / wrong shape")
     log(f"full-width chunk logits {tuple(res.logits.shape)} finite")
-    del params, eng, res
+    del eng, res
     torch.cuda.empty_cache()
-    return ffn_recs, counts, working
+    return ffn_recs, counts, working, params, cfg
+
+
+def path_counts(note):
+    """``(launches, working launches)`` of the serving kernels noted by
+    ``note`` since the launch counters were zeroed."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    working = {k: v if isinstance(v, int) else sum(v.values())
+               for k, v in note.working().items()}
+    return counts, working
+
+
+def oneshot_prefill(dev, params, cfg):
+    """Phase 7a: one full-width ``prefill_forward`` of B = 1, S = 6144
+    (70 % vision) into an 8192-row cache, FP4 forced on and off, each under
+    ``set_sync_debug_mode("error")`` with the counters zeroed just before
+    and read just after; the FFN kernels against their plain versions on
+    their first launch's inputs; the FP4 forward again under ReaLB-seq
+    (the same logits) and the cost of its token; each forward timed warm.
+    Returns the counts, working launches and the FFN kernels' ms at these
+    launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    fp4 = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                      adaptive=False)
+    bf16 = ReaLBConfig(gate_gamma=10 ** 9)
+    s, cache_len = 6144, 8192
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "modality": torch.rand((1, s), generator=gen, device=dev) < 0.7}
+    m0 = torch.zeros((1, 4), device=dev)
+    kept, fired, logits = {}, {}, {}
+    note = ServeLaunches(keep_inputs=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with note.noting():
+        for key, rcfg, wrapper in (("oneshot_fp4", fp4, "grouped_fp4_ffn_cuda"),
+                                   ("oneshot_bf16", bf16, "grouped_ffn_cuda")):
+            t0 = time.perf_counter()
+            with keeping_first_inputs(kept, key, wrapper):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    res = tf.prefill_forward(params, cfg, rcfg, batch, m0,
+                                             cache_len=cache_len)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            fired[key] = float(res.aux["fp4_ranks"])
+            logits[key] = res.logits
+            kv = res.cache["blocks"]["layer0"]["k"]
+            if res.logits.shape != (1, cfg.vocab_size) or not bool(
+                    torch.isfinite(res.logits).all()) or tuple(kv.shape[2:4]) \
+                    != (cache_len, cfg.n_kv_heads) or bool(kv[:, :, s:].any()):
+                raise AssertionError(f"{key}: bad logits or cache")
+            log(f"{key}: full-width prefill_forward B=1 S={s} (cache_len "
+                f"{cache_len}) under set_sync_debug_mode('error'): no sync; "
+                f"FP4 virtual ranks summed over the MoE layers "
+                f"{fired[key]:.0f}; logits finite, cache zero past row {s}; "
+                f"{secs * 1e3:.1f} ms")
+            del res, kv
+    counts, working = path_counts(note)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"7a one-shot path: kernel launches {counts}; working launches "
+        f"{working}; max memory allocated {peak / 2 ** 30:.2f} GiB")
+    if not (fired["oneshot_fp4"] > 0 and fired["oneshot_bf16"] == 0):
+        raise AssertionError(f"FP4 did not fire as forced: {fired}")
+    if min(working[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"a kernel did no work in one-shot prefill: "
+                             f"{working}")
+    ms = check_ffn_at_main_shapes(kept)
+
+    # ReaLB-seq: the quantizer after the dispatch, with the token added to
+    # every weight view; on finite weights the same logits bit for bit
+    seq = dataclasses.replace(fp4, overlap=False)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tf.prefill_forward(params, cfg, seq, batch, m0,
+                                 cache_len=cache_len)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = torch.equal(res.logits, logits["oneshot_fp4"])
+    del res
+    moe = {n: params["blocks"]["layer0"]["moe"][n][0]
+           for n in ("w_gate", "w_up", "w_down")}
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    token = torch.zeros((), device=dev)
+    q_ms = time_ms(lambda: ep_moe._quantize_experts(moe, fp4, one), iters=10)
+    q_seq_ms = time_ms(lambda: ep_moe._quantize_experts(moe, seq, one, token),
+                       iters=10)
+    n_moe = sum(1 for f in cfg.ffn_kinds() if f == "moe")
+    log(f"oneshot_fp4 under ReaLB-seq (overlap=False): sync-free, logits "
+        f"equal to ReaLB's bit for bit: {same}; one MoE layer's weight "
+        f"quantization {q_ms:.4f} ms, with the ReaLB-seq token added to its "
+        f"three views {q_seq_ms:.4f} ms (+{q_seq_ms - q_ms:.4f} ms a layer, "
+        f"{(q_seq_ms - q_ms) * n_moe:.1f} ms over {n_moe} MoE layers)")
+    if not same:
+        raise AssertionError("ReaLB-seq changed the one-shot logits")
+    for key, rcfg in (("oneshot_fp4", fp4), ("oneshot_bf16", bf16)):
+        fwd = lambda r=rcfg: tf.prefill_forward(  # noqa: E731
+            params, cfg, r, batch, m0, cache_len=cache_len)
+        host, wall, device, top, top_host = host_and_device_ms(fwd)
+        busy = "not measured (no device event in the trace)" \
+            if device is None else (f"{device:.1f} ms busy (idle "
+                                    f"{1 - device / wall:.1%} of the wall)")
+        log(f"{key} forward (S={s}), warm: host enqueue {host:.1f} ms, wall "
+            f"{wall:.1f} ms, device {busy}; most device time: " + "; ".join(
+                f"{name} {t:.2f} ms" for name, t in top)
+            + "; most host time (cProfile, own): " + "; ".join(
+                f"{name} x{n} {t:.2f} ms" for name, n, t in top_host))
+    torch.cuda.empty_cache()
+    return counts, working, ms
+
+
+def long_context_serve(dev, params, cfg):
+    """Phase 7b: four seeded MMMU requests of 2600-6000 prompt tokens and
+    8-16 new tokens through ``Engine(max_slots=2, max_len=8192,
+    prefill_budget=1024, temperature=0.7, telemetry=Telemetry())``; two
+    carry vision embeds (one-shot prefill), the others are chunked; decode
+    attends over 8192-row caches through ``_decode_flash``.  Every forward
+    runs under the sync check, the counters zeroed just before and read
+    just after.  Then the telemetry summary against the timestamps, and the
+    long-KV decode step timed with the cache rewrite's share."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import summarize
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.telemetry import Telemetry
+    from repro_torch.workloads.multimodal import make_stream, profile
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    prof = profile("MMMU", prompt_len_mean=4300, prompt_len_std=1100,
+                   prompt_len_min=2600, prompt_len_max=6000, max_new_mean=12,
+                   max_new_min=8, max_new_max=16)
+    specs = make_stream(prof, np.zeros(4), cfg.vocab_size, seed=2,
+                        with_embeds=True)
+    reqs = [sp.to_request(cfg.d_model if sp.uid % 2 else 0) for sp in specs]
+    n_emb = sum(r.vision_embeds is not None for r in reqs)
+    log(f"7b stream: 4 MMMU requests, prompts {[r.prompt_len for r in reqs]}"
+        f" tokens, new tokens {[r.max_new_tokens for r in reqs]}, vision "
+        f"share {np.mean([r.modality.mean() for r in reqs]):.3f}, {n_emb} "
+        "with vision embeds")
+    if n_emb != 2:
+        raise AssertionError("7b: two requests must carry vision embeds")
+    tel = Telemetry()
+    t_start = time.monotonic()
+    clock = lambda: time.monotonic() - t_start  # noqa: E731
+    for r in reqs:
+        r.arrival_time = 0.0
+    eng = Engine(cfg, params, rcfg, max_slots=2, max_len=8192,
+                 prefill_budget=1024, virtual_ep=4, temperature=0.7, seed=0,
+                 telemetry=tel, clock=clock, device=dev)
+    flash = {"calls": 0}
+    decode_flash = attn._decode_flash
+
+    def counted_flash(*a, **kw):
+        flash["calls"] += 1
+        return decode_flash(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    checked, note = {}, ServeLaunches(keep_inputs=False)
+    attn._decode_flash = counted_flash
+    t_run = time.perf_counter()
+    try:
+        with sync_checked_forwards(checked), note.noting():
+            step_s = serve_wall_clock(eng, reqs, clock)
+    finally:
+        attn._decode_flash = decode_flash
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts, working = path_counts(note)
+    peak = torch.cuda.max_memory_allocated()
+    done = eng.scheduler.finished
+    pre = [s for s in eng.stats if s.phase == "prefill"]
+    oneshot = [s for s in pre if s.n_active == 1 and s.batch_tokens == s.tokens]
+    toks = sum(len(r.generated) for r in done)
+    log(f"7b served: {len(done)}/4 requests finished, {toks} tokens "
+        f"generated (temperature 0.7), {len(pre)} prefill iterations "
+        f"({len(oneshot)} one-shot) + "
+        f"{sum(1 for s in eng.stats if s.phase == 'decode')} decode; "
+        f"FP4 fired in {sum(1 for s in pre if s.fp4_ranks > 0)}/{len(pre)} "
+        f"prefill iterations; _decode_flash calls {flash['calls']}; forwards "
+        f"under set_sync_debug_mode('error'): {checked}; wall {wall:.3f} s; "
+        f"max memory allocated {peak / 2 ** 30:.2f} GiB")
+    log("7b engine steps: " + ", ".join(
+        f"{k} {len(v)} x {np.mean(v) * 1e3:.1f} ms (min {min(v) * 1e3:.1f})"
+        for k, v in step_s.items() if v))
+    log(f"7b long-KV path: kernel launches {counts}; working launches "
+        f"{working}")
+    if len(done) != 4 or len(oneshot) < 2 or flash["calls"] == 0:
+        raise AssertionError("7b: not every request finished, or no one-shot"
+                             " prefill or decode flash")
+    if min(counts[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"7b: a kernel of the path never launched: "
+                             f"{counts}")
+    for r in done:
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"request {r.uid}: token out of range")
+    summ = tel.summary()
+    ttft = summarize([r.ttft for r in done])
+    tpot = summarize([r.tpot for r in done if r.tpot is not None])
+    log(f"7b telemetry: TTFT {summ['ttft']}, TPOT {summ['tpot']}; from the "
+        f"Request timestamps: TTFT {ttft}, TPOT {tpot}; n_iters "
+        f"{summ['n_iters']}, fp4_duty_prefill {summ['fp4_duty_prefill']}")
+    if summ["ttft"] != ttft or summ["tpot"] != tpot \
+            or summ["n_requests"] != 4 or summ["n_iters"] != len(eng.stats):
+        raise AssertionError("7b: telemetry disagrees with the timestamps")
+
+    # the long-KV decode step, warm, and the share of its cache rewrite
+    dec = {"tokens": torch.zeros((2, 1), dtype=torch.int32, device=dev),
+           "pos": torch.tensor([6000, 7000], dtype=torch.int32, device=dev),
+           "modality": torch.zeros((2, 1), dtype=torch.bool, device=dev),
+           "valid": torch.ones((2, 1), dtype=torch.bool, device=dev)}
+    host, wall_ms, device, top, _ = host_and_device_ms(
+        lambda: tf.decode_forward(params, cfg, rcfg, dec, eng.cache,
+                                  eng.m_state))
+    k = eng.cache["blocks"]["layer0"]["k"][0]
+    new = torch.randn((2, 1) + tuple(k.shape[2:]), device=dev).to(k.dtype)
+    write_ms = time_ms(lambda: attn._scatter_kv(k, new, dec["pos"]), iters=20)
+    out = attn._scatter_kv(k, new, dec["pos"])
+    copy_ms = time_ms(lambda: k.copy_(out), iters=20)
+    n_tensors = 2 * cfg.n_layers
+    rewrite = n_tensors * (write_ms + copy_ms)
+    share = "not measured" if device is None else f"{rewrite / device:.1%}"
+    log(f"7b long-KV decode step (B=2, L=8192, pos 6000/7000), warm: host "
+        f"enqueue {host:.1f} ms, wall {wall_ms:.1f} ms, device "
+        f"{'not measured' if device is None else f'{device:.1f} ms'}; most "
+        "device time: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top)
+        + f"; cache rewrite: _write_rows {write_ms:.4f} ms + copy back "
+        f"{copy_ms:.4f} ms per [2, 8192, {k.shape[2]}, {k.shape[3]}] tensor, "
+        f"x{n_tensors} = {rewrite:.2f} ms a step ({share} of the device "
+        "time)")
+    del eng, out, new, k
+    torch.cuda.empty_cache()
+    return counts, working
+
+
+def oneshot_stream(dev, params, cfg):
+    """Phase 7c: phase 5's 16-request stream with ``prefill_budget=0``:
+    every request prefilled whole, every forward under the sync check; all
+    must finish."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.serving.engine import Engine
+    from repro_torch.workloads.arrivals import ArrivalConfig, arrival_times
+    from repro_torch.workloads.multimodal import make_stream, profile
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    max_len, n_req = 512, 16
+    prof = profile("MMMU")
+    specs = make_stream(prof, arrival_times(ArrivalConfig(
+        kind="poisson", rate=8.0, n_requests=n_req, seed=0)),
+        cfg.vocab_size, seed=1, max_prompt=max_len - prof.max_new_max - 1)
+    t_start = time.monotonic()
+    clock = lambda: time.monotonic() - t_start  # noqa: E731
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=max_len,
+                 prefill_budget=0, virtual_ep=4, clock=clock, device=dev)
+    checked = {}
+    t_run = time.perf_counter()
+    with sync_checked_forwards(checked):
+        step_s = serve_wall_clock(eng, [s.to_request() for s in specs], clock)
+    wall = time.perf_counter() - t_run
+    done = eng.scheduler.finished
+    pre = [s for s in eng.stats if s.phase == "prefill"]
+    log(f"7c prefill_budget=0: {len(done)}/{n_req} requests finished, "
+        f"{len(pre)} one-shot prefills, FP4 fired in "
+        f"{sum(1 for s in pre if s.fp4_ranks > 0)}; forwards under "
+        f"set_sync_debug_mode('error'): {checked}; wall {wall:.3f} s; TTFT "
+        f"p50 {np.median([r.ttft for r in done]) * 1e3:.1f} ms; steps: "
+        + ", ".join(f"{k} {len(v)} x {np.mean(v) * 1e3:.1f} ms"
+                    for k, v in step_s.items() if v))
+    if len(done) != n_req or len(pre) != n_req or checked.get("chunk"):
+        raise AssertionError("7c: not every request took the one-shot path "
+                             "and finished")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def checkpoint_round_trip(dev):
+    """Phase 7d: reduced moonshot on the card: save, load into an engine
+    built on other weights, and serve one request greedily: the same
+    tokens, and the weights bit for bit."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import ReaLBConfig, get_config, reduced
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    mod = rng.random(40) < 0.6
+    kw = dict(max_slots=2, max_len=64, prefill_budget=16, virtual_ep=4,
+              device=dev)
+    path = ROOT / "build" / "phase7_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    src = Engine(cfg, tf.init_model(cfg, seed=1, device=dev),
+                 ReaLBConfig(gate_gamma=8), **kw)
+    src.save_checkpoint(str(path), 1)
+    dst = Engine(cfg, tf.init_model(cfg, seed=2, device=dev),
+                 ReaLBConfig(gate_gamma=8), **kw)
+    dst.load_checkpoint(str(path))
+    out = []
+    for eng in (src, dst):
+        eng.submit(Request(uid=0, tokens=tokens, modality=mod,
+                           max_new_tokens=8))
+        out.append(eng.run()[0].generated)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        ckpt._leaves(src.params), ckpt._leaves(dst.params)))
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"7d checkpoint round trip (reduced moonshot on the card): weights "
+        f"equal {same}; greedy tokens {out[0]} / {out[1]}")
+    if out[0] != out[1] or not same:
+        raise AssertionError("7d: restored engine differs")
+
+
+def long_context(dev, params, cfg):
+    """Phase 7: one-shot prefill, the long-context serve, the one-shot
+    stream and the checkpoint round trip; returns each kernel's launches
+    and working launches on the one-shot and long-KV paths, and the FFN
+    kernels' ms at the one-shot launches."""
+    counts_a, working_a, oneshot_ms = oneshot_prefill(dev, params, cfg)
+    counts_b, working_b = long_context_serve(dev, params, cfg)
+    oneshot_stream(dev, params, cfg)
+    checkpoint_round_trip(dev)
+    return {"oneshot": (counts_a, working_a), "long_kv": (counts_b,
+                                                          working_b),
+            "oneshot_ms": oneshot_ms}
 
 
 def check_small_against_cpu(dev):
@@ -998,7 +1379,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mm_rec, linear_counts = check_fp4_linear(dev)
     torch.cuda.empty_cache()
-    ffn_recs, counts, working = serve(dev)
+    ffn_recs, counts, working, params, cfg = serve(dev)
+    phase7 = long_context(dev, params, cfg)
+    del params
+    torch.cuda.empty_cache()
     check_small_against_cpu(dev)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
@@ -1036,6 +1420,12 @@ def main() -> int:
         kernels[-1].update((k, r[k]) for k in (
             "k_contiguous_ms", "decode_ms", "forced_ms", "abs_amax_ms",
             "a4_ms", "f32_x_ms", "bf16_library_ms") if k in r)
+        for path in ("oneshot", "long_kv"):
+            c, w = phase7[path]
+            kernels[-1][f"{path}_launches"] = c.get(r["name"], 0)
+            kernels[-1][f"{path}_working_launches"] = w.get(r["name"], 0)
+    kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
+    kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

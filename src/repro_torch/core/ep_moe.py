@@ -9,7 +9,8 @@ Two paths, as in the reference:
 
 * ``dispatch`` (prefill): route, policy, conditional BF16→NVFP4 weight
   quantization (``kernels.ops.quantize_experts_fp4``), capacity-packed
-  dispatch, grouped expert FFN (``kernels.ops.grouped_ffn`` with the BF16
+  dispatch (under ReaLB-seq, ``overlap=False``, the quantization runs after
+  the dispatch, with the reference's data dependency on it), grouped expert FFN (``kernels.ops.grouped_ffn`` with the BF16
   weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
   gate-weighted combine.
 * ``broadcast`` (decode): every expert on every token (dense per-expert
@@ -187,13 +188,24 @@ def _aux_losses(probs: torch.Tensor, counts_global: torch.Tensor,
 # grouped expert compute (bf16 / fp4 branches)
 # --------------------------------------------------------------------------
 def _quantize_experts(w: Dict[str, torch.Tensor], rcfg: ReaLBConfig,
-                      fi: torch.Tensor) -> Dict[str, quant.QTensor]:
+                      fi: torch.Tensor,
+                      overlap_token: Optional[torch.Tensor] = None
+                      ) -> Dict[str, quant.QTensor]:
     """③ on-the-fly BF16→FP4 transformation of the resident expert weights,
     under the device predicate ``fi`` (int32; nothing is computed when it
-    is 0)."""
-    return {name: kops.quantize_experts_fp4(wt.transpose(-1, -2),
-                                            group=rcfg.group_size, pred=fi)
-            for name, wt in w.items()}
+    is 0).  ``overlap_token`` (ReaLB-seq) is the reference's data
+    dependency on the dispatch output, added to every ``[G,N,K]`` view
+    before its global scale and quantizer: +0.0 turns a -0.0 weight into
+    +0.0 (a packed code's sign bit), NaN when the dispatched tokens hold an
+    inf.  The add is one more pass over the weights, made whatever ``fi``."""
+    out = {}
+    for name, wt in w.items():
+        wt_t = wt.transpose(-1, -2)
+        if overlap_token is not None:
+            wt_t = wt_t + overlap_token.to(wt_t.dtype)
+        out[name] = kops.quantize_experts_fp4(wt_t, group=rcfg.group_size,
+                                              pred=fi)
+    return out
 
 
 def _use_fp4(dec_use_fp4: torch.Tensor, ep: int, pol_ep: int
@@ -285,8 +297,9 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     fi = f.to(torch.int32)
     w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
 
-    # ③ conditional on-the-fly quantization
-    wq = _quantize_experts(w, rcfg, fi)
+    # ③ conditional on-the-fly quantization, before dispatch (ReaLB); under
+    # ReaLB-seq (overlap=False) after it, below
+    wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap else None
 
     # dispatch: valid assignments first, capacity-packed; padding and
     # over-capacity assignments get the out-of-range slot `big`
@@ -316,6 +329,9 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     recv, eid_recv = send[:ep * cap], eid_send[:ep * cap]
     slot_flat = torch.empty((t * k,), dtype=torch.long, device=dev)
     slot_flat[order] = slot_s
+    if wq is None:      # ReaLB-seq: serialise ③ after dispatch
+        token = (recv.sum() * 0.0).to(F32)
+        wq = _quantize_experts(w, rcfg, fi, token)
 
     # ④ local expert compute; slot s_loc is the pad slot of unfilled
     # capacity rows (zeros), which has no weights: its rows give 0, as the

@@ -1,10 +1,16 @@
-"""GQA/MQA self-attention with a KV cache: chunked prefill and decode.
+"""GQA/MQA self-attention with a KV cache: one-shot prefill, chunked
+prefill and decode, at any KV length.
 
 Counterpart of the GQA subset of ``repro.models.attention``, written as
-plain tensor ops (the reference has no Pallas attention).  Only the dense
-form is ported: the reference switches to an online-softmax (flash) path
-for caches longer than ``_DENSE_MAX_KV``, which is the same math, and this
-port refuses such caches until that path is ported.
+plain tensor ops (the reference's attention is XLA einsums, not Pallas).
+``scaled_attention`` takes the reference's three branches: dense attention
+up to ``_DENSE_MAX_KV`` keys; above it, decode queries (at most 8) through
+``_decode_flash`` and longer queries through the online-softmax
+``_chunked_attention`` over ``_KV_CHUNK``-key chunks, with the reference's
+q-block truncation of long causal prefills.  Chunked prefill
+(``_chunk_attention``) is dense at any cache length, as in the reference.
+The reference's ``REPRO_ATTN_BASELINE`` variants (a TPU speed A/B of the
+same function) are not ported.
 
 Cache writes: JAX drops out-of-bounds scatter writes (a decode slot that is
 not ready passes ``pos = max_len``; chunk padding passes ``L``), torch
@@ -13,15 +19,19 @@ chunk column that writes it (if any) and leaves every other row untouched.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import P, apply_rope
 
 Params = Dict[str, torch.Tensor]
-_DENSE_MAX_KV = 2048      # the reference's dense-attention limit
+_DENSE_MAX_KV = 2048      # kv length above which the chunked path is used
+_KV_CHUNK = 1024
+_Q_BLOCK = 4096
 F32 = torch.float32
 
 
@@ -63,21 +73,158 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
                         wo.to(o.dtype).reshape(-1, wo.shape[-1]))
 
 
-def _attend(q, k, v, scale, mask):
-    """Softmax attention with bf16-in/f32-accumulate products, as the
-    reference's preferred_element_type=f32 dots.  q [B,S,H,D]; k/v
-    [B,T,K,D] (heads repeated up to H); mask broadcastable to [B,H,S,T]."""
-    h, kh = q.shape[2], k.shape[2]
+def _repeat_kv(k, v, h):
+    """K/V heads repeated up to ``h`` (``jnp.repeat`` along the head axis)."""
+    kh = k.shape[2]
     if h > kh:
         k = k.repeat_interleave(h // kh, dim=2)
         v = v.repeat_interleave(h // kh, dim=2)
+    return k, v
+
+
+def _attend(q, k, v, scale, mask):
+    """Softmax attention with bf16-in/f32-accumulate products, as the
+    reference's preferred_element_type=f32 dots.  q [B,S,H,D]; k/v
+    [B,T,K,D] (heads repeated up to H); mask broadcastable to [B,H,S,T]
+    (None: no mask)."""
+    k, v = _repeat_kv(k, v, q.shape[2])
     qh = q.transpose(1, 2).to(F32)                                # [B,H,S,D]
     scores = torch.matmul(qh, k.permute(0, 2, 3, 1).to(F32)) * scale
-    scores = torch.where(mask, scores, torch.full((), -1e30, dtype=F32,
-                                                  device=q.device))
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full(
+            (), -1e30, dtype=F32, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(v.dtype).to(F32), v.transpose(1, 2).to(F32))
     return out.transpose(1, 2).to(q.dtype)                        # [B,S,H,D]
+
+
+def _dense_attention(q, k, v, scale, *, causal, q_offset, kv_valid):
+    """Short-KV attention: causal from query offset ``q_offset`` and/or keys
+    at or past ``kv_valid`` [B] masked."""
+    s, t = q.shape[1], k.shape[1]
+    ar_t = torch.arange(t, device=q.device)
+    mask = None
+    if causal:
+        q_pos = torch.arange(s, device=q.device)[:, None] + q_offset
+        mask = (ar_t[None, :] <= q_pos)[None, None]               # [1,1,S,T]
+    if kv_valid is not None:
+        vm = (ar_t[None, :] < kv_valid[:, None])[:, None, None, :]
+        mask = vm if mask is None else (mask & vm)
+    return _attend(q, k, v, scale, mask)
+
+
+def _decode_flash(q, k, v, scale, *, kv_valid):
+    """Decode queries (at most 8) against a long cache, in the grouped
+    ``[K, G]`` layout (no repeated K/V)."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.reshape(b, s, kh, g, d).permute(0, 2, 3, 1, 4).to(F32)  # [B,K,G,S,D]
+    scores = torch.matmul(qf, k.permute(0, 2, 3, 1).to(F32)[:, :, None]) \
+        * scale                                                   # [B,K,G,S,T]
+    if kv_valid is not None:
+        vm = torch.arange(t, device=q.device)[None, :] < kv_valid[:, None]
+        scores = torch.where(vm[:, None, None, None, :], scores, torch.full(
+            (), -1e30, dtype=F32, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).to(F32),
+                       v.permute(0, 2, 1, 3).to(F32)[:, :, None])  # [B,K,G,S,D]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, v.shape[-1]) \
+        .to(q.dtype)
+
+
+def _chunked_attention(q, k, v, scale, *, causal, q_offset, kv_valid,
+                       chunk=_KV_CHUNK):
+    """Online-softmax attention over ``chunk``-key chunks.
+
+    Chunks entirely below the causal diagonal (causal, no ``kv_valid``, no
+    padding) take a mask-free step; the rest are masked.  The scale is
+    folded into q once, in f32 and rounded back to q's dtype; masked lanes
+    sit at -1e30, so their exp underflows to 0 once a real key has set the
+    running max; ``p`` is cast to v's dtype before PV."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    odt = q.dtype
+    k, v = _repeat_kv(k, v, h)
+    n_chunks = -(-t // chunk)
+    t_pad = n_chunks * chunk
+    if t_pad != t:
+        k = F.pad(k, (0, 0, 0, 0, 0, t_pad - t))
+        v = F.pad(v, (0, 0, 0, 0, 0, t_pad - t))
+    kc = k.reshape(b, n_chunks, chunk, h, -1).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, n_chunks, chunk, h, -1).permute(1, 0, 3, 2, 4)
+    qh = (q.transpose(1, 2).to(F32) * scale).to(odt).to(F32)     # [B,H,S,D]
+    dev = q.device
+    q_pos = torch.arange(s, device=dev)[:, None] + q_offset       # [S,1]
+    neg = torch.full((), -1e30, dtype=F32, device=dev)
+
+    m = torch.full((b, h, s), -math.inf, dtype=F32, device=dev)
+    l = torch.zeros((b, h, s), dtype=F32, device=dev)  # noqa: E741
+    acc = torch.zeros((b, h, s, v.shape[-1]), dtype=F32, device=dev)
+    n_free = 0
+    if causal and kv_valid is None and t_pad == t:
+        n_free = min(int(q_offset) // chunk, n_chunks)
+    for ci in range(n_chunks):
+        scores = torch.matmul(qh, kc[ci].to(F32).transpose(-1, -2))  # [B,H,S,C]
+        if ci >= n_free:
+            kv_pos = ci * chunk + torch.arange(chunk, device=dev)     # [C]
+            mask = kv_pos[None, :] < t                                # [1,C]
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos)              # [S,C]
+            mask = mask[None, None]
+            if kv_valid is not None:
+                vm = kv_pos[None, :] < kv_valid[:, None]              # [B,C]
+                mask = mask & vm[:, None, None, :]
+            scores = torch.where(mask, scores, neg)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)  # noqa: E741
+        pv = torch.matmul(p.to(vc.dtype).to(F32), vc[ci].to(F32))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(odt)                            # [B,S,H,D]
+
+
+def scaled_attention(q, k, v, scale, *, causal=True, q_offset=0,
+                     kv_valid=None):
+    """The reference's dispatch: decode queries (at most 8) against more
+    than ``_DENSE_MAX_KV`` keys → ``_decode_flash``; short KV → dense; long
+    causal self-attention → q blocks (``_Q_BLOCK``, or half the sequence),
+    each attending only its own KV prefix; otherwise chunked."""
+    if q.shape[1] <= 8 and k.shape[1] > _DENSE_MAX_KV:
+        return _decode_flash(q, k, v, scale, kv_valid=kv_valid)
+    if k.shape[1] <= _DENSE_MAX_KV:
+        return _dense_attention(q, k, v, scale, causal=causal,
+                                q_offset=q_offset, kv_valid=kv_valid)
+    s = q.shape[1]
+    qb = _Q_BLOCK if s % _Q_BLOCK == 0 else (
+        s // 2 if s % 2 == 0 and s > _DENSE_MAX_KV else 0)
+    if causal and s == k.shape[1] and q_offset == 0 and qb and s > qb:
+        outs = []
+        for j in range(s // qb):
+            q_j = q[:, j * qb:(j + 1) * qb]
+            kv_end = (j + 1) * qb
+            branch = _dense_attention if kv_end <= _DENSE_MAX_KV \
+                else _chunked_attention
+            outs.append(branch(q_j, k[:, :kv_end], v[:, :kv_end], scale,
+                               causal=True, q_offset=j * qb,
+                               kv_valid=kv_valid))
+        return torch.cat(outs, dim=1)
+    return _chunked_attention(q, k, v, scale, causal=causal,
+                              q_offset=q_offset, kv_valid=kv_valid)
+
+
+def gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor, causal: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full (prefill) self-attention. Returns (out, kv)."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = scaled_attention(q, k, v, cfg.head_dim ** -0.5, causal=causal)
+    return _out_proj(out, p["wo"]), {"k": k, "v": v}
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
@@ -96,13 +243,6 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     return torch.where(hit.reshape(b, l, *tail), gathered, cache)
 
 
-def _check_dense(t: int) -> None:
-    if t > _DENSE_MAX_KV:
-        raise NotImplementedError(
-            f"KV length {t} > {_DENSE_MAX_KV}: the reference's flash path "
-            "is not ported yet")
-
-
 def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, pos: torch.Tensor
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -112,8 +252,8 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     k_cache = _scatter_kv(cache["k"], k_new, pos)
     v_cache = _scatter_kv(cache["v"], v_new, pos)
-    out = dense_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
-                          kv_valid=pos + 1)
+    out = scaled_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
+                           causal=False, kv_valid=pos + 1)
     return _out_proj(out, p["wo"]), {"k": k_cache, "v": v_cache}
 
 
@@ -127,9 +267,9 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
 
 def _chunk_attention(q, k, v, scale, q_pos):
     """Queries [B,S,H,D] at absolute positions ``q_pos`` [B,S] against the
-    whole cache k/v [B,L,K,D], causal per row (``kv_pos <= q_pos``)."""
+    whole cache k/v [B,L,K,D], causal per row (``kv_pos <= q_pos``); dense
+    at any cache length, as the reference's."""
     t = k.shape[1]
-    _check_dense(t)
     mask = (torch.arange(t, device=q.device)[None, None, None, :]
             <= q_pos[:, None, :, None])
     return _attend(q, k.to(q.dtype), v.to(q.dtype), scale, mask)
@@ -156,14 +296,3 @@ def gqa_chunk(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = _chunk_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
                            positions)
     return _out_proj(out, p["wo"]), {"k": k_cache, "v": v_cache}
-
-
-def dense_attention(q, k, v, scale, *, kv_valid: torch.Tensor):
-    """Non-causal short-KV attention of decode queries against the cache,
-    keys at or past ``kv_valid`` [B] masked (the reference's
-    ``_dense_attention`` with ``causal=False``)."""
-    t = k.shape[1]
-    _check_dense(t)
-    mask = (torch.arange(t, device=q.device)[None, :]
-            < kv_valid[:, None])[:, None, None, :]
-    return _attend(q, k, v, scale, mask)

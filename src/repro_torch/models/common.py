@@ -88,8 +88,13 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """Inverse frequencies, computed in f64 and rounded once to f32: XLA's
+    f32 ``pow`` is correctly rounded in all but at most one entry of a
+    head, torch's f32 ``pow`` is not, and a frequency one ulp off moves the
+    angle at position p by p ulps."""
+    return (1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float64,
+                                          device=device) / head_dim))
+            ).to(torch.float32)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -7,9 +7,11 @@ The reference scans over that dim; the port loops over block indices and
 updates the stacked KV cache in place.  The AIMD ``m_state`` threads
 through the loop (each MoE layer applies one control update).
 
-Entry points: ``init_model``, ``init_cache``, ``chunk_forward`` (chunked
-prefill against the cache) and ``decode_forward`` (one token per row).
-They run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points: ``init_model``, ``init_cache``, ``prefill_forward`` (one-shot
+prefill of whole prompts, returning a cache padded to ``cache_len``),
+``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
+(one token per row).  They run on ``cuda`` unless the caller passes
+``device="cpu"``, and none of them reads the device on the host.
 """
 from __future__ import annotations
 
@@ -130,12 +132,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------------------
 # single layer
 # --------------------------------------------------------------------------
+def _pad_kv(arr: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Pad a prefill KV [B,S,...] out to [B,cache_len,...] with zeros."""
+    s = arr.shape[1]
+    if s == cache_len:
+        return arr
+    pad = [0, 0] * (arr.dim() - 2) + [0, cache_len - s]
+    return torch.nn.functional.pad(arr, pad)
+
+
 def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
-                placement=None):
-    """One attention layer plus its dense or MoE FFN.  Returns (x,
-    cache_out, m_state, aux_scalars, stats, estats, sstats)."""
+                cache_len=0, placement=None):
+    """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
+    (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
+    "decode".  Returns (x, cache_out, m_state, aux_scalars, stats, estats,
+    sstats)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
     n_slot = n_e if placement is None or len(tuple(placement)) < 3 \
         else int(tuple(placement)[2].shape[-1])
@@ -151,8 +164,12 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                                positions=positions, chunk_len=chunk_len)
     elif mode == "decode":
         o, kv = attn.gqa_decode(lp["attn"], h, cache_in, cfg, pos=pos)
+    elif mode == "prefill":
+        o, kv = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+        kv = {k: _pad_kv(v, cache_len) for k, v in kv.items()}
     else:
-        raise ValueError(f"mode {mode!r}: the port runs 'chunk' and 'decode'")
+        raise ValueError(f"mode {mode!r}: the port runs 'prefill', 'chunk' "
+                         "and 'decode'")
     x = x + o
 
     if ffn == "dense" and "ffn" in lp:
@@ -190,11 +207,20 @@ class ForwardResult(NamedTuple):
     aux: Dict[str, torch.Tensor]
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           vision_embeds: Optional[torch.Tensor] = None,
+           mode: str = "decode") -> torch.Tensor:
+    """Token embeddings.  ``vision_embeds`` replace the leading rows only in
+    a VLM (``family="vlm"``, not ported); a MoE backbone such as moonshot
+    ignores them, as the reference does."""
     dt = DTYPES[cfg.param_dtype]
     x = params["embed"][tokens.long()].to(dt)
     if cfg.embed_scale_sqrt_d:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    if cfg.family == "vlm" and vision_embeds is not None \
+            and mode != "decode":
+        raise NotImplementedError("vision embeds of a VLM: no VLM config is "
+                                  "ported")
     return x
 
 
@@ -212,15 +238,18 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
-               m_state, modality, chunk_len=None, valid=None,
+               m_state, modality, chunk_len=None, valid=None, cache_len=0,
                placement=None):
     """Prefix layers, then a loop over the stacked blocks; the cache is
-    updated in place and returned."""
+    updated in place and returned (prefill: a new zero cache of
+    ``cache_len`` rows, filled with each layer's padded KV)."""
     layout, n_blocks, n_prefix = block_structure(cfg)
+    if mode == "prefill":
+        cache = init_cache(cfg, x.shape[0], cache_len, x.device)
     aux_acc = {k: torch.zeros((), dtype=F32, device=x.device)
                for k in AUX_KEYS}
     kw = dict(mode=mode, positions=positions, pos=pos, modality=modality,
-              chunk_len=chunk_len, valid=valid)
+              chunk_len=chunk_len, valid=valid, cache_len=cache_len)
     for i in range(n_prefix):
         c = cache["prefix"][str(i)]
         x, co, m_state, aux, _, _, _ = apply_layer(
@@ -261,6 +290,40 @@ def _index(tree: Tree, b: int) -> Tree:
     return tree[b]
 
 
+def _prepare_inputs(cfg: ModelConfig, batch):
+    """(tokens, modality): modality defaults to all text."""
+    tokens = batch["tokens"]
+    modality = batch.get("modality")
+    if modality is None:
+        modality = torch.zeros(tokens.shape, dtype=torch.bool,
+                               device=tokens.device)
+    return tokens, modality
+
+
+def prefill_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
+                    m_state, cache_len: int = 0,
+                    placement=None) -> ForwardResult:
+    """One-shot prefill of whole prompts.  batch: tokens [B,S], modality
+    [B,S] (optional), vision_embeds [B,S_v,D] (optional; ignored by a MoE
+    backbone).  Every token is real.  Returns the logits at the last
+    position and a cache of ``cache_len`` rows (default S) holding the
+    prompt's KV at rows [0, S) and zeros after."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("one-shot prefill of a VLM: no VLM config "
+                                  "is ported")
+    tokens, modality = _prepare_inputs(cfg, batch)
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "prefill")
+    x, cache, m_state, aux = _run_stack(
+        params, cfg, rcfg, x, mode="prefill", positions=positions, pos=None,
+        cache=None, m_state=m_state, modality=modality,
+        cache_len=cache_len, placement=placement)
+    logits = _unembed(params, cfg, x[:, -1:, :])
+    return ForwardResult(logits[:, 0], cache, m_state, aux)
+
+
 def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                   cache, m_state, placement=None) -> ForwardResult:
     """Chunked-prefill continuation step against a partially-filled cache.
@@ -271,13 +334,10 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     at [start, start+chunk_len) and attends causally to its own prefix.
     Returns logits at every row's last valid chunk position.
     """
-    tokens, start, chunk_len = batch["tokens"], batch["start"], \
-        batch["chunk_len"]
+    tokens, modality = _prepare_inputs(cfg, batch)
+    start, chunk_len = batch["start"], batch["chunk_len"]
     b, s = tokens.shape
     dev = tokens.device
-    modality = batch.get("modality")
-    if modality is None:
-        modality = torch.zeros((b, s), dtype=torch.bool, device=dev)
     ar = torch.arange(s, device=dev)
     positions = start[:, None] + ar[None, :]
     valid = ar[None, :] < chunk_len[:, None]
@@ -296,11 +356,8 @@ def decode_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                    cache, m_state, placement=None) -> ForwardResult:
     """batch: tokens [B,1], pos [B], modality [B,1] (vision flag of the new
     token), valid [B,1] (False = dummy slot excluded from routing stats)."""
-    tokens, pos = batch["tokens"], batch["pos"]
-    modality = batch.get("modality")
-    if modality is None:
-        modality = torch.zeros(tokens.shape, dtype=torch.bool,
-                               device=tokens.device)
+    tokens, modality = _prepare_inputs(cfg, batch)
+    pos = batch["pos"]
     x = _embed(params, cfg, tokens)
     x, cache, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="decode", positions=None, pos=pos,

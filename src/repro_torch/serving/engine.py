@@ -1,16 +1,24 @@
-"""Batched serving engine of the port: chunked token-budgeted prefill +
-batched decode with ReaLB active.
+"""Batched serving engine of the port: chunked token-budgeted prefill,
+one-shot prefill and batched decode with ReaLB active.
 
 Counterpart of ``repro.serving.engine.Engine`` on one device, without the
-placement/replication managers, migration, elastic serving, telemetry,
-tracer, profiler, sentinel and checkpointing (their ``None`` defaults
-bypass them in the reference too).  The engine holds one device-resident
-KV cache of ``max_slots`` sequences.  Each iteration packs up to
-``prefill_budget`` prompt tokens across every slot with pending prefill
-work into one ``[max_slots, bucket]`` chunk forward, then runs one batched
-decode step over the decode-ready slots.  The AIMD ``m_state`` of ReaLB
-persists across iterations, and per-iteration routing stats are kept in
-``self.stats``.  ``virtual_ep`` sizes the policy's virtual EP topology.
+placement/replication managers, migration, elastic serving, tracer,
+profiler and sentinel (their ``None`` defaults bypass them in the
+reference too).  The engine holds one device-resident KV cache of
+``max_slots`` sequences.  Each iteration packs up to ``prefill_budget``
+prompt tokens across every slot with pending prefill work into one
+``[max_slots, bucket]`` chunk forward, then runs one batched decode step
+over the decode-ready slots.  A request that carries ``vision_embeds``, or
+every request when ``prefill_budget=0``, is prefilled whole in a batch-1
+``prefill_forward`` at admission and its cache copied into its slot.  The
+AIMD ``m_state`` of ReaLB persists across iterations; per-iteration routing
+stats are kept in ``self.stats`` and fed, with every finished request, to
+an optional :class:`~repro_torch.serving.telemetry.Telemetry`.
+``virtual_ep`` sizes the policy's virtual EP topology.  ``temperature > 0``
+samples from ``softmax(logits / temperature)`` on the device with a
+``torch.Generator`` seeded by ``seed`` (JAX's PRNG draws are not
+reproduced); 0 is greedy.  ``save_checkpoint``/``load_checkpoint`` write
+and read the reference's format.
 """
 from __future__ import annotations
 
@@ -21,12 +29,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ModelConfig, ReaLBConfig
 from repro_torch.core import ep_moe
 from repro_torch.core.policy import init_m_state
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import DTYPES, resolve_device
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.telemetry import Telemetry
 
 
 @dataclasses.dataclass
@@ -42,8 +52,16 @@ class IterStats:
     batch_tokens: int = 0        # tokens the MoE actually saw (incl. pad)
     vis_frac: float = 0.0        # vision fraction of routed assignments
     drop_frac: float = 0.0       # capacity-dropped fraction of routed tokens
+    migration_bytes: int = 0     # expert weight bytes moved before this
+    #                              iter (0: migration is not ported)
+    migration_s: float = 0.0     # migration seconds that stalled serving
+    migration_hidden_s: float = 0.0  # transfer seconds hidden under the
+    #                              iteration's forward
     split_frac: float = 0.0      # routed fraction served by a non-primary
     #                              replica (0 under a bijective table)
+    n_unroutable: int = 0        # logical experts with no live replica
+    #                              (0: elastic serving is not ported)
+    lost_tokens: float = 0.0     # tokens routed to an unroutable expert
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -58,21 +76,23 @@ def _bucket(n: int, lo: int = 8) -> int:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, rcfg: ReaLBConfig,
                  max_slots: int = 8, max_len: int = 256,
+                 temperature: float = 0.0, seed: int = 0,
                  prefill_budget: int = 256, text_reserve: int = 1,
                  clock: Callable[[], float] = time.monotonic,
+                 telemetry: Optional[Telemetry] = None,
                  cost_model=None, virtual_ep: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
         self.cfg, self.params, self.rcfg = cfg, params, rcfg
         self.max_slots, self.max_len = max_slots, max_len
+        self.temperature = temperature
         self.prefill_budget = prefill_budget
         # chunk continuation needs a plain GQA/MQA decoder stack
-        self.chunked = prefill_budget > 0 and cfg.layer_pattern == "attn"
-        if not self.chunked:
-            raise NotImplementedError(
-                "one-shot prefill (prefill_budget=0) is not ported yet")
+        self.chunked = (prefill_budget > 0 and cfg.layer_pattern == "attn"
+                        and cfg.family != "vlm")
         self.scheduler = Scheduler(max_slots, text_reserve=text_reserve)
         self.clock = clock
+        self.telemetry = telemetry
         # virtual-time mode: an object with .cost(batch_tokens) -> seconds,
         # paired with a clock exposing .advance(dt), advanced right after
         # each forward, before first-token/finish timestamps are stamped
@@ -91,6 +111,8 @@ class Engine:
         # per-MoE-layer means so duty cycles / IB read as true fractions
         self._n_moe = max(sum(1 for f in cfg.ffn_kinds() if f == "moe"), 1)
         self.stats: List[IterStats] = []
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -105,9 +127,10 @@ class Engine:
         self.scheduler.submit(req)
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy argmax (first maximum on ties, as jnp.argmax): the one
-        host pull that serving requires."""
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        """The next token of every row, drawn on the device; pulling it is
+        the one host read that serving requires."""
+        return sample_tokens(logits, self.temperature, self._gen) \
+            .to(torch.int32).cpu().numpy()
 
     def _tick(self, batch_tokens: int):
         """Advance a virtual clock by the modeled cost of one forward."""
@@ -130,9 +153,13 @@ class Engine:
             vis_frac=vis_sum / max(load_sum, 1.0),
             drop_frac=scal[3] / self._n_moe,
             split_frac=scal[4] / self._n_moe))
+        if self.telemetry is not None:
+            self.telemetry.record_iter(self.stats[-1])
 
     def _finish(self, req: Request):
         req.finish_time = self.clock()
+        if self.telemetry is not None:
+            self.telemetry.record_request(req)
 
     def _first_token(self, req: Request, tok: int):
         req.generated.append(tok)
@@ -144,6 +171,33 @@ class Engine:
             self._finish(req)
 
     # -- prefill ---------------------------------------------------------------
+    def _insert_cache(self, slot: int, new_cache):
+        """Copy a batch-1 prefill cache into slot ``slot`` of the engine
+        cache, in place.  Stacked block entries are [n_blocks, B, ...]
+        (batch axis 1); prefix entries are [B, ...] (axis 0)."""
+        for group, axis in (("blocks", 1), ("prefix", 0)):
+            for name, kv in self.cache.get(group, {}).items():
+                for n in ("k", "v"):
+                    kv[n].narrow(axis, slot, 1).copy_(new_cache[group][name][n])
+
+    def _prefill_oneshot(self, req: Request):
+        """The whole prompt in one batch-1 forward, its cache copied into
+        the request's slot (with its vision embeds, if any)."""
+        batch = {"tokens": self._tensor(req.tokens, torch.int32)[None],
+                 "modality": self._tensor(req.modality, torch.bool)[None]}
+        if req.vision_embeds is not None:
+            batch["vision_embeds"] = self._tensor(
+                req.vision_embeds, DTYPES[self.cfg.param_dtype])[None]
+        res = tf.prefill_forward(self.params, self.cfg, self.rcfg, batch,
+                                 self.m_state, cache_len=self.max_len)
+        self.m_state = res.m_state
+        self._tick(req.prompt_len)
+        self._insert_cache(req.slot, res.cache)
+        req.prefill_pos = req.prompt_len
+        self._first_token(req, int(self._sample(res.logits)[0]))
+        self._record(phase="prefill", n_active=1, tokens=req.prompt_len,
+                     batch_tokens=req.prompt_len, aux=res.aux)
+
     def _plan_chunks(self) -> List:
         """Allocate the token budget over slots with pending prefill work,
         oldest admission first; at most one partial chunk per iteration."""
@@ -206,13 +260,16 @@ class Engine:
         if self._prefill_fifo:
             self._prefill_fifo = [s for s in self._prefill_fifo
                                   if s in self.scheduler.active]
-        # 1) admit new requests into the chunked-prefill queue
+        # 1) admit new requests; route each to the chunked or one-shot path
         for req in self.scheduler.admit():
             self.active_mask[req.slot] = True
             self.decode_ready[req.slot] = False
             self.mod_state[req.slot] = req.decode_modality
-            req.prefill_pos = 0
-            self._prefill_fifo.append(req.slot)
+            if self.chunked and req.vision_embeds is None:
+                req.prefill_pos = 0
+                self._prefill_fifo.append(req.slot)
+            else:
+                self._prefill_oneshot(req)
 
         # 2) one batched chunk of prefill work across all pending slots
         if self._prefill_fifo:
@@ -262,3 +319,47 @@ class Engine:
             self.step()
             it += 1
         return self.scheduler.finished
+
+    # -- checkpointing --------------------------------------------------------
+    def save_checkpoint(self, ckpt_dir: str, step: int, keep: int = 3) -> str:
+        """Persist params and the AIMD state (group ``serving``), in the
+        reference's format."""
+        state = {"serving": {"params": self.params, "m_state": self.m_state}}
+        return ckpt.save(ckpt_dir, step, state, keep=keep)
+
+    def load_checkpoint(self, ckpt_dir: str,
+                        step: Optional[int] = None) -> int:
+        """Restore params and the AIMD state onto this engine's device.  A
+        checkpoint written by an engine with a placement or replica manager
+        holds its weights in that manager's physical order: refused, as the
+        reference's manager-free engine refuses it."""
+        step = ckpt.latest_step(ckpt_dir) if step is None else step
+        for name, kind in (("placement", "a placement engine"),
+                           ("replication", "a replication engine")):
+            if step is not None and ckpt.has_group(ckpt_dir, name, step):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir} step {step} was written by "
+                    f"{kind} (weights are in its placed physical order); "
+                    "the port's engine has no placement or replica manager "
+                    "to restore it")
+        templates = {"serving": {"params": self.params,
+                                 "m_state": self.m_state}}
+        step, out = ckpt.restore(ckpt_dir, templates, step)
+        self.params = out["serving"]["params"]
+        self.m_state = out["serving"]["m_state"]
+        return step
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One token per row of ``logits [B, V]``: the first maximum (as
+    ``jnp.argmax``) when ``temperature <= 0``, else a draw from
+    ``softmax(logits / temperature)`` by the Gumbel-max trick, as
+    ``jax.random.categorical`` draws, with noise from ``generator``."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits.to(torch.float32) / temperature + gumbel,
+                        dim=-1)

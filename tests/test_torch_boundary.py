@@ -41,6 +41,18 @@ def test_import_leaves_jax_and_repro_out():
     assert out.stdout.strip() == "ok"
 
 
+def test_scan_covers_the_host_side_copies():
+    """The copies of jax-free reference modules (whose reference packages
+    import jax on import) are in both scans, with the engine using them."""
+    mods = _port_modules()
+    for m in ("repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.serving.telemetry", "repro_torch.workloads.replay",
+              "repro_torch.checkpoint.ckpt", "repro_torch.serving.engine"):
+        assert m in mods, m
+    paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    assert "src/repro_torch/checkpoint/ckpt.py" in paths
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

