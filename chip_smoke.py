@@ -58,10 +58,28 @@
    5's stream with ``prefill_budget=0`` (every request one-shot, all
    finish); (d) a checkpoint round trip on reduced moonshot (same weights,
    same greedy tokens);
+8. on the same weights and phase 5's stream, ``virtual_ep=4``, every
+   forward sync-checked and the counters zeroed just before and read just
+   after each arm: (a) a shared-table ``PlacementManager`` (least loaded,
+   replan every 8 iterations) migrating synchronously, in place; (c)
+   per-layer tables (at most 8 changed layers a replan) drained
+   asynchronously at about one block's moved slabs an iteration; (b) the
+   weights expanded in place to 68 slots, the quantizer and the global
+   scale held bitwise against their plain versions there, and a
+   ``ReplicaManager`` (weighted split, ``capacity_margin=1.25``) whose FFN
+   kernels are held against their plain versions at G = 68 on the serve
+   run's inputs.  Each arm prints replans attempted and committed, bytes
+   moved, each migration's measured seconds and GB/s, the bandwidth EWMA,
+   tok/s, TTFT/TPOT p50 and peak memory (8c: layers landed per draining
+   iteration and iterations per plan; 8b: split duty, replicas per expert,
+   capacity factors, the expansion's peak), and checks the landed and
+   expanded weights on the card bit for bit against host copies of the
+   original slabs gathered by the committed tables;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
-   kernel's launches (on its path, and on the one-shot and long-KV paths
-   of phase 7) and working launches, error, time
+   kernel's launches (on its path, on the one-shot and long-KV paths of
+   phase 7 and on phase 8's three arms) and working launches, error, time
+   (and at G = 68 slots, phase 8b)
    (the FFNs': over the serve run's working launches; the W4A4 FFN's also
    at the decode forward's launch and the forced full-budget chunk), time
    of a launch that exits at once (host-set) and its kernels' device time,
@@ -74,6 +92,7 @@ It exits non-zero at once without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1341,6 +1360,339 @@ def long_context(dev, params, cfg):
             "oneshot_ms": oneshot_ms}
 
 
+MOE_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def mmmu_stream(cfg, n_req: int = 16, max_len: int = 512):
+    """Phase 5's seeded 16-request MMMU stream."""
+    from repro_torch.workloads.arrivals import ArrivalConfig, arrival_times
+    from repro_torch.workloads.multimodal import make_stream, profile
+    prof = profile("MMMU")
+    return make_stream(prof, arrival_times(ArrivalConfig(
+        kind="poisson", rate=8.0, n_requests=n_req, seed=0)),
+        cfg.vocab_size, seed=1, max_prompt=max_len - prof.max_new_max - 1)
+
+
+def host_block(params, b: int):
+    """Block ``b``'s routed-expert slabs, copied to the host."""
+    moe = params["blocks"]["layer0"]["moe"]
+    return {k: moe[k][b].to("cpu", copy=True) for k in MOE_KEYS}
+
+
+def check_block(params, b: int, logical, owner, what: str) -> None:
+    """Block ``b`` on the card holds, in every routable slot ``p``, the
+    original weights of expert ``owner[p]`` bit for bit (``logical``: the
+    block's slabs in logical expert order, on the host)."""
+    import torch
+    moe = params["blocks"]["layer0"]["moe"]
+    own = torch.as_tensor(owner, dtype=torch.long)
+    live = own >= 0
+    for k in MOE_KEYS:
+        got = moe[k][b].cpu()[live]
+        if not torch.equal(got, logical[k][own[live]]):
+            raise AssertionError(f"{what}: block {b} {k} is not the "
+                                 "original slabs gathered by the table")
+    log(f"{what}: block {b}, all three expert weights ({int(live.sum())} "
+        "routable slots), equal bit for bit to the original slabs gathered "
+        "on the host by the committed table")
+
+
+def managed_serve(dev, params, cfg, arm: str, mgr, note, **engine_kw):
+    """Phase 5's stream through ``Engine`` with ``mgr``, on the wall clock,
+    every forward under ``set_sync_debug_mode("error")``, the launch
+    counters zeroed just before and read just after; prints what the
+    manager did.  Returns (engine, counts, tracer)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer
+    from repro_torch.placement import migrate as pmigrate
+    from repro_torch.serving.engine import Engine
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    specs = mmmu_stream(cfg)
+    t_start = time.monotonic()
+    clock = lambda: time.monotonic() - t_start  # noqa: E731
+    tracer = Tracer(clock=clock)
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                 prefill_budget=1024, virtual_ep=4, clock=clock, device=dev,
+                 placement=mgr, tracer=tracer, **engine_kw)
+    factors = [eng.cfg.moe.capacity_factor]
+    resize = eng._maybe_resize_capacity
+
+    def noted_resize():
+        resize()
+        if eng.cfg.moe.capacity_factor != factors[-1]:
+            factors.append(eng.cfg.moe.capacity_factor)
+
+    eng._maybe_resize_capacity = noted_resize
+    # the bytes the in-place gathers really copy (every row whose source
+    # changed, in every weight of every block), set beside the managers'
+    # count (experts that changed rank) at each timed apply
+    gather, observe = pmigrate._gather_rows, mgr.bandwidth.observe
+    copied, timed = [0], []
+
+    def counted_gather(slabs, row):
+        n = int((row != np.arange(row.shape[0])).sum())
+        copied[0] += n * sum(w[0].numel() * w.element_size() for w in slabs)
+        return gather(slabs, row)
+
+    def noted_observe(nbytes, seconds):
+        timed.append((int(nbytes), copied[0], seconds))
+        copied[0] = 0
+        observe(nbytes, seconds)
+
+    mgr.bandwidth.observe = noted_observe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    checked = {}
+    t_run = time.perf_counter()
+    pmigrate._gather_rows = counted_gather
+    try:
+        with sync_checked_forwards(checked), note.noting():
+            serve_wall_clock(eng, [s.to_request() for s in specs], clock,
+                             note)
+        eng.drain_migrations()
+    finally:
+        pmigrate._gather_rows = gather
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    done = eng.scheduler.finished
+    toks = sum(len(r.generated) for r in done)
+    ttft = [r.ttft for r in done]
+    tpot = [r.tpot for r in done if r.tpot is not None]
+    events = tracer._events
+    attempts = [e for e in events if e[1].startswith("replan.")]
+    verdicts = {}
+    for e in attempts:
+        v = (e[5] or {}).get("verdict")
+        verdicts[v] = verdicts.get(v, 0) + 1
+    drains = [e[5] for e in events if e[1] == "migration.drain"]
+    log(f"8{arm}: {len(done)}/16 requests finished, {toks} tokens, "
+        f"{len(eng.stats)} iterations; wall {wall:.3f} s, "
+        f"{toks / wall:.2f} tok/s, TTFT p50 {np.median(ttft) * 1e3:.1f} ms, "
+        f"TPOT p50 {np.median(tpot) * 1e3:.2f} ms; max memory allocated "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB); forwards under "
+        f"set_sync_debug_mode('error'): {checked}")
+    log(f"8{arm}: replans attempted {len(attempts)} (verdicts {verdicts}), "
+        f"plans committed {mgr.n_migrations}; bytes moved "
+        f"{eng.migration_bytes_moved} ({eng.migration_bytes_moved / 1e9:.3f} "
+        f"GB); measured bandwidth EWMA {mgr.bandwidth.bytes_per_s / 1e9:.1f} "
+        f"GB/s over {mgr.bandwidth.n_obs} timed gathers; stall "
+        f"{eng.migration_stall_s:.4f} s; capacity factors {factors}")
+    if len(timed) != len(drains):
+        raise AssertionError(f"8{arm}: {len(timed)} timed applies for "
+                             f"{len(drains)} migration.drain spans")
+    for d, (counted, got, secs) in zip(drains, timed):
+        log(f"8{arm}: migration.drain {d['mode']}: {d['bytes']} bytes "
+            f"counted, {got} copied by the gathers ({got / counted:.3f}x); "
+            f"apply {secs * 1e3:.3f} ms ({counted / secs / 1e9:.1f} GB/s "
+            f"counted, {got / secs / 1e9:.1f} GB/s copied), stall "
+            f"{d['stall_s'] * 1e3:.3f} ms, {d['layers']} layer(s)"
+            + (f", plan landed {d['done']}" if "done" in d else ""))
+    if timed:
+        counted, got, secs = (sum(t[i] for t in timed) for i in range(3))
+        log(f"8{arm}: all timed applies: {counted} bytes counted, {got} "
+            f"copied ({got / counted:.3f}x) in {secs * 1e3:.3f} ms: "
+            f"{counted / secs / 1e9:.1f} GB/s counted, "
+            f"{got / secs / 1e9:.1f} GB/s copied")
+    working = {k: v if isinstance(v, int) else sum(v.values())
+               for k, v in note.working().items()}
+    log(f"8{arm}: kernel launches {counts}; of those, launches that did "
+        f"work {working}")
+    if len(done) != 16:
+        raise AssertionError(f"8{arm}: not every request finished")
+    if min(counts[k] for k in SERVE_KERNELS) == 0 \
+            or min(working[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"8{arm}: a kernel of the path never launched "
+                             f"or never did work: {counts} {working}")
+    if mgr.n_migrations < 1:
+        raise AssertionError(f"8{arm}: no plan committed")
+    if mgr.in_flight is not None or eng.migration_draining:
+        raise AssertionError(f"8{arm}: a plan is still in flight")
+    for r in done:
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"8{arm}: token out of range")
+    return eng, (counts, working), tracer
+
+
+def check_kernels_at_68(dev, params, b: int):
+    """Phase 8b: the quantizer and the global scale against their plain
+    versions (bitwise) on block ``b``'s three expert stacks at G = 68 slots,
+    one of them the zeroed empty spare, timed; returns their records."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import quantize_fp4 as qk
+    moe = params["blocks"]["layer0"]["moe"]
+    recs = {"quantize_fp4": {}, "global_scale_fp4": {}}
+    for k in MOE_KEYS:
+        view = moe[k][b].transpose(-1, -2)
+        gs = quant.global_scale_for(view)
+        gs_k = qk.global_scale_cuda(view)
+        pk, sc = qk.quantize_fp4_cuda(view, gs)
+        pk_p, sc_p = qk.quantize_fp4_plain(view, gs)
+        torch.cuda.synchronize()
+        if not torch.equal(gs_k.view(torch.int32), gs.view(torch.int32)):
+            raise AssertionError(f"8b global_scale_fp4 at G=68 {k}")
+        if not (torch.equal(pk, pk_p) and torch.equal(
+                sc.view(torch.int32), sc_p.view(torch.int32))):
+            raise AssertionError(f"8b quantize_fp4 at G=68 {k}: not bitwise")
+        ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs), iters=10)
+        plain_ms = time_ms(lambda: qk.quantize_fp4_plain(view, gs), iters=2)
+        s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=10)
+        s_plain = time_ms(lambda: quant.global_scale_for(view), iters=10)
+        log(f"8b {k} {tuple(view.shape)} (G={view.shape[0]}, empty spares "
+            "zeroed): "
+            f"quantize_fp4 bitwise, {ms:.4f} ms (plain {plain_ms:.4f}); "
+            f"global_scale_fp4 bitwise, {s_ms:.4f} ms (plain {s_plain:.4f})")
+        if k == "w_gate":
+            recs["quantize_fp4"] = dict(g68_ms=ms, g68_plain_ms=plain_ms,
+                                        g68_max_abs_err=0.0)
+            recs["global_scale_fp4"] = dict(g68_ms=s_ms, g68_plain_ms=s_plain,
+                                            g68_max_abs_err=0.0)
+        del pk, sc, pk_p, sc_p
+    return recs
+
+
+def placement_and_replication(dev, params, cfg):
+    """Phase 8: phase 5's weights and stream, ``virtual_ep=4``, every
+    forward under ``set_sync_debug_mode("error")``: (a) a shared-table
+    ``PlacementManager`` with synchronous migration; (c) per-layer tables
+    with asynchronous, byte-budgeted migration; (b) the weights expanded in
+    place to 68 slots and a ``ReplicaManager`` with weighted split and a
+    capacity margin.  The landed and expanded weights are checked on the
+    card against host copies of the original slabs.  Returns each arm's
+    launch counts and working launches, and the kernels' records at
+    G = 68."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PlacementConfig, ReplicationConfig
+    from repro_torch.placement import PlacementManager, PlacementTable
+    from repro_torch.placement import migrate as pmigrate
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+
+    out = {}
+    b0 = 0
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"8: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated "
+        "at the start")
+    logical = host_block(params, b0)           # the original block, logical
+
+    # 8a: placement, shared table, synchronous
+    mgr = PlacementManager(cfg, PlacementConfig(
+        planner="least_loaded", replan_every=8, warmup_iters=2,
+        min_gain=0.0), ep=4)
+    note = ServeLaunches(keep_inputs=False)
+    eng, out["a"], _ = managed_serve(dev, params, cfg, "a", mgr, note)
+    check_block(params, b0, logical, mgr.table.owner, "8a")
+    ident = PlacementTable.identity(cfg.moe.num_experts, 4)
+    pmigrate.apply_to_params(params, pmigrate.diff(mgr.table, ident))
+    check_block(params, b0, logical, ident.owner, "8a back to identity")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c: placement, per-layer tables, asynchronous
+    mgr = PlacementManager(cfg, PlacementConfig(
+        planner="least_loaded", replan_every=8, warmup_iters=2,
+        min_gain=0.0, per_layer=True, max_changed_layers=8), ep=4)
+    captured = {}
+    replan = mgr.maybe_replan
+
+    def capturing_replan(it):
+        plan = replan(it)
+        if plan is not None and not captured:
+            b = int(plan.changed_layers[0])     # still identity-ordered
+            captured[b] = host_block(params, b)
+        return plan
+
+    mgr.maybe_replan = capturing_replan
+    budget = int(0.75 * cfg.moe.num_experts) * mgr.bytes_per_expert
+    log(f"8c: migrate_bytes_per_iter {budget} ({budget / 1e6:.1f} MB, "
+        f"{int(0.75 * cfg.moe.num_experts)} experts of one block)")
+    note = ServeLaunches(keep_inputs=False)
+    eng, out["c"], tracer = managed_serve(
+        dev, params, cfg, "c", mgr, note, migrate_async=True,
+        migrate_bytes_per_iter=budget)
+    per_iter, lands, n = [], [], 0
+    for e in tracer._events:
+        if e[1] == "migration.drain":
+            per_iter.append(e[5]["layers"])
+            n += 1
+            if e[5]["done"]:
+                lands.append(n)
+                n = 0
+    log(f"8c: layers committed per draining iteration {per_iter}; "
+        f"draining iterations a plan took to land {lands}; stall "
+        f"{eng.migration_stall_s:.4f} s over {len(per_iter)} drains")
+    (bc, host), = captured.items()
+    check_block(params, bc, host, mgr.tables[bc].owner, "8c")
+    back = pmigrate.diff_layers(mgr.tables, [PlacementTable.identity(
+        cfg.moe.num_experts, 4)] * mgr.n_tables)
+    pmigrate.apply_to_params(params, back)
+    check_block(params, bc, host, np.arange(cfg.moe.num_experts),
+                "8c back to identity")
+    check_block(params, b0, logical, np.arange(cfg.moe.num_experts),
+                "8c back to identity")
+    # every reference to the 64-slot tensors goes before they are replaced
+    del eng, captured, host, note, tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"8b: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated "
+        "before the expansion")
+
+    # 8b: replication, 68 slots, weighted split, capacity margin
+    mgr = ReplicaManager(cfg, ReplicationConfig(
+        spare_per_rank=1, max_replicas=2, replan_every=8, warmup_iters=2,
+        min_gain=0.0, weighted_split=True), 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    expand_moe_params(params, mgr.rset)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    from repro_torch.models.common import tree_bytes
+    log(f"8b: expand_moe_params to {mgr.n_slots} slots in place in "
+        f"{time.perf_counter() - t0:.2f} s; weights now "
+        f"{tree_bytes(params) / 1e9:.2f} GB; peak "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    check_block(params, b0, logical, mgr.rset.slot_owner, "8b expanded")
+    empty = np.flatnonzero(mgr.rset.slot_owner < 0)
+    zeros = all(bool((params["blocks"]["layer0"]["moe"][k][:, empty] == 0)
+                     .all()) for k in MOE_KEYS)
+    log(f"8b: empty spare slots {empty.tolist()} all zero in every block: "
+        f"{zeros}")
+    if not zeros:
+        raise AssertionError("8b: an empty spare slot is not zero")
+    g68 = check_kernels_at_68(dev, params, b0)
+    note = ServeLaunches(keep_inputs=True)
+    eng, out["b"], _ = managed_serve(dev, params, cfg, "b", mgr, note,
+                                     capacity_margin=1.25)
+    working_by_m = note.working()
+    split = [s.split_frac for s in eng.stats]
+    log(f"8b: split duty {np.mean([f > 0 for f in split]):.4f} of "
+        f"iterations, mean split_frac {np.mean(split):.4f}; replicas per "
+        f"expert {np.bincount(mgr.rset.n_rep).tolist()} (index = count); "
+        f"capacity factor now {eng.cfg.moe.capacity_factor:.4f}")
+    check_block(params, b0, logical, mgr.rset.slot_owner, "8b")
+    ffn = check_ffn_at_serve_launches(note, working_by_m)
+    for name, r in ffn.items():
+        g68[name] = dict(g68_ms=r["ms"], g68_plain_ms=r["plain_ms"],
+                         g68_max_abs_err=r["max_abs_err"],
+                         g68_bound_ms=r["bound_ms"])
+    del eng, logical, note
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"8: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return out, g68
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -1381,6 +1733,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ffn_recs, counts, working, params, cfg = serve(dev)
     phase7 = long_context(dev, params, cfg)
+    torch.cuda.empty_cache()
+    phase8, g68 = placement_and_replication(dev, params, cfg)
     del params
     torch.cuda.empty_cache()
     check_small_against_cpu(dev)
@@ -1424,6 +1778,12 @@ def main() -> int:
             c, w = phase7[path]
             kernels[-1][f"{path}_launches"] = c.get(r["name"], 0)
             kernels[-1][f"{path}_working_launches"] = w.get(r["name"], 0)
+        for arm, path in (("a", "placement"), ("b", "replicate"),
+                          ("c", "placement_l_async")):
+            c, w = phase8[arm]
+            kernels[-1][f"{path}_launches"] = c.get(r["name"], 0)
+            kernels[-1][f"{path}_working_launches"] = w.get(r["name"], 0)
+        kernels[-1].update(g68.get(r["name"], {}))
     kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
     kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
     log(json.dumps({"kernels": kernels}))

@@ -5,9 +5,12 @@ import importlib
 from typing import Dict, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
+    MIGRATION_BW_DEFAULT,
     ModelConfig,
     MoEConfig,
+    PlacementConfig,
     ReaLBConfig,
+    ReplicationConfig,
     reduced,
 )
 

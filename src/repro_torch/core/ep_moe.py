@@ -72,6 +72,18 @@ class Replication(NamedTuple):
     slot_owner: torch.Tensor
 
 
+class WeightedReplication(NamedTuple):
+    """:class:`Replication` plus a weighted-split schedule:
+    ``split_sched [E, Q]`` sends the ``occ``-th routed token of expert
+    ``e`` to replica ``split_sched[e, occ % Q]`` (host-built deficit
+    round-robin over residual-capacity weights; the plain 3-field
+    ``Replication`` keeps the equal-share ``occ % n_rep`` split)."""
+    rep_pos: torch.Tensor
+    n_rep: torch.Tensor
+    slot_owner: torch.Tensor
+    split_sched: torch.Tensor
+
+
 def identity_placement(num_experts: int, n_ranks: int,
                        device=None) -> Placement:
     """The contiguous mapping (expert ``e`` on rank ``e // e_loc``)."""
@@ -89,12 +101,15 @@ def identity_replication(num_experts: int, n_ranks: int,
 
 def _as_replication(placement, num_experts: int, pol_ep: int,
                     device) -> Replication:
-    """None (identity), a ``Placement``/2-tuple, or a ``Replication``/3-tuple."""
+    """None (identity), a ``Placement``/2-tuple, or a ``Replication``/3- or
+    4-tuple (the 4th entry is the weighted-split schedule)."""
     if placement is None:
         return identity_replication(num_experts, pol_ep, device)
-    if isinstance(placement, Replication):
+    if isinstance(placement, (Replication, WeightedReplication)):
         return placement
     entries = tuple(placement)
+    if len(entries) == 4:
+        return WeightedReplication(*entries)
     if len(entries) == 3:
         return Replication(*entries)
     if len(entries) != 2:
@@ -138,8 +153,9 @@ def _split_assignments(rep: Replication, flat_e: torch.Tensor,
                        valid_flat: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(flat_pos [n], is_secondary [n]): the physical slot of each routed
-    assignment, round-robin over the expert's replicas (valid assignments
-    only; padding pins to the primary)."""
+    assignment, round-robin over the expert's replicas, or by the
+    weighted-split schedule when there is one (valid assignments only;
+    padding pins to the primary)."""
     fe = flat_e.long()
     if rep.rep_pos.shape[1] == 1:      # bijective: skip the counter
         return rep.rep_pos[:, 0][fe], torch.zeros(flat_e.shape,
@@ -148,7 +164,12 @@ def _split_assignments(rep: Replication, flat_e: torch.Tensor,
     e = rep.rep_pos.shape[0]
     occ = _occurrence_index(torch.where(valid_flat, flat_e,
                                         torch.full_like(flat_e, e)), e)
-    ridx = torch.where(valid_flat, occ % rep.n_rep[fe], 0)
+    sched = getattr(rep, "split_sched", None)
+    if sched is not None:
+        q = sched.shape[1]
+        ridx = torch.where(valid_flat, sched[fe, (occ % q).long()], 0)
+    else:
+        ridx = torch.where(valid_flat, occ % rep.n_rep[fe], 0)
     return rep.rep_pos[fe, ridx.long()], ridx > 0
 
 

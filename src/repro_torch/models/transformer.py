@@ -141,6 +141,41 @@ def _pad_kv(arr: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.nn.functional.pad(arr, pad)
 
 
+def n_physical_slots(cfg: ModelConfig, placement=None) -> int:
+    """Physical expert-slot count S of the MoE weight arrays: the logical
+    expert count for bijective tables, the replica-slot count (>= E) when
+    a replication table (3 or 4 entries; ``slot_owner`` is entry 2) is
+    passed.  Per-layer tables share S across blocks, so the trailing axis
+    is authoritative either way."""
+    n_e = cfg.moe.num_experts if cfg.moe is not None else 1
+    if placement is not None and len(tuple(placement)) >= 3:
+        return int(tuple(placement)[2].shape[-1])
+    return n_e
+
+
+def split_placement(placement, n_blocks: int):
+    """(shared, stacked) view of a placement/replication argument.
+
+    A *shared* table — ``(e2r [E], local_slot [E])`` or ``(rep_pos
+    [E, R], n_rep [E], slot_owner [S][, split_sched [E, Q]])`` — serves
+    every block.  A *per-layer* table carries a leading ``[n_blocks]``
+    axis on every entry, and block ``b`` takes its own slice.  Exactly one
+    of the returned values is non-None (both None when ``placement`` is
+    None)."""
+    if placement is None:
+        return None, None
+    entries = tuple(placement)
+    base_ndim = 1 if len(entries) == 2 else 2   # e2r [E] / rep_pos [E, R]
+    if entries[0].dim() == base_ndim:
+        return entries, None
+    assert entries[0].dim() == base_ndim + 1, \
+        f"placement entry ndim {entries[0].dim()}, want {base_ndim} " \
+        f"(shared) or {base_ndim + 1} (per-layer)"
+    for a in entries:
+        assert int(a.shape[0]) == n_blocks, (tuple(a.shape), n_blocks)
+    return None, entries
+
+
 def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
@@ -150,8 +185,7 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     "decode".  Returns (x, cache_out, m_state, aux_scalars, stats, estats,
     sstats)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
-    n_slot = n_e if placement is None or len(tuple(placement)) < 3 \
-        else int(tuple(placement)[2].shape[-1])
+    n_slot = n_physical_slots(cfg, placement)
     dev = x.device
     aux = {k: torch.zeros((), dtype=F32, device=dev) for k in AUX_KEYS}
     stats = torch.zeros((2,) + tuple(m_state.shape), dtype=F32, device=dev)
@@ -242,8 +276,11 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
                placement=None):
     """Prefix layers, then a loop over the stacked blocks; the cache is
     updated in place and returned (prefill: a new zero cache of
-    ``cache_len`` rows, filled with each layer's padded KV)."""
+    ``cache_len`` rows, filled with each layer's padded KV).  A shared
+    placement table serves every block; a per-layer one gives block ``b``
+    its slice ``b`` (views, no copy)."""
     layout, n_blocks, n_prefix = block_structure(cfg)
+    place_shared, place_stacked = split_placement(placement, n_blocks)
     if mode == "prefill":
         cache = init_cache(cfg, x.shape[0], cache_len, x.device)
     aux_acc = {k: torch.zeros((), dtype=F32, device=x.device)
@@ -261,6 +298,8 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
 
     stats_b, estats_b, sstats_b = [], [], []
     for b in range(n_blocks):
+        place_b = place_shared if place_stacked is None \
+            else tuple(a[b] for a in place_stacked)
         st = torch.zeros((2,) + tuple(m_state.shape), dtype=F32,
                          device=x.device)
         es = ss = 0
@@ -269,7 +308,7 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
             c = cache["blocks"][f"layer{i}"]
             x, co, m_state, aux, stats, estats, sstats = apply_layer(
                 lp, x, cfg, rcfg, f, cache_in={n: c[n][b] for n in ("k", "v")},
-                m_state=m_state, placement=placement, **kw)
+                m_state=m_state, placement=place_b, **kw)
             for n in ("k", "v"):
                 c[n][b].copy_(co[n])
             aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}

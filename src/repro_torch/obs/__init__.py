@@ -1,11 +1,13 @@
-"""Observability of the port: the metrics registry and its recorders.
+"""Observability of the port: the metrics registry and its recorders, and
+the span tracer.
 
-Only ``repro.obs.metrics`` is ported so far; the tracer, audit trail,
+``repro.obs.metrics`` and ``repro.obs.trace`` are ported; the audit trail,
 ledger and profiler of ``repro.obs`` are not (ROADMAP Queue A item 6).
 """
 from repro_torch.obs.metrics import (HeatmapRecorder, MetricsRegistry,
                                      PredictionTracker, percentile,
                                      summarize)
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 
 __all__ = ["percentile", "summarize", "MetricsRegistry", "HeatmapRecorder",
-           "PredictionTracker"]
+           "PredictionTracker", "Tracer", "NULL_TRACER"]

@@ -46,8 +46,19 @@ def test_scan_covers_the_host_side_copies():
     import jax on import) are in both scans, with the engine using them."""
     mods = _port_modules()
     for m in ("repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.obs.trace",
               "repro_torch.serving.telemetry", "repro_torch.workloads.replay",
-              "repro_torch.checkpoint.ckpt", "repro_torch.serving.engine"):
+              "repro_torch.checkpoint.ckpt", "repro_torch.serving.engine",
+              "repro_torch.serving.async_migrate",
+              "repro_torch.placement", "repro_torch.placement.table",
+              "repro_torch.placement.predictor",
+              "repro_torch.placement.planner",
+              "repro_torch.placement.migrate",
+              "repro_torch.placement.manager", "repro_torch.replication",
+              "repro_torch.replication.replica_set",
+              "repro_torch.replication.planner",
+              "repro_torch.replication.migrate",
+              "repro_torch.replication.manager"):
         assert m in mods, m
     paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
     assert "src/repro_torch/checkpoint/ckpt.py" in paths

@@ -809,3 +809,184 @@ def test_long_kv_attention_card_matches_cpu(cuda, s, t, dtype):
             diff = (got.float() - ref.float()).abs()
             assert bool((diff <= _bf16_ulp(ref.float())).all()), \
                 float(diff.max())
+
+
+# --------------------------------------------------------------------------
+# placement and replication on the card
+# --------------------------------------------------------------------------
+def _moe_params(device, n_blocks=3, e=16, dtype=torch.bfloat16, seed=0):
+    """Seeded stacked expert weights (made on the host, then moved)."""
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn(n_blocks, e, 24, 40, generator=gen).to(dtype)
+    moe = {"router": torch.zeros(24, e), "w_gate": w.clone(),
+           "w_up": -w.abs(), "w_down": w.transpose(-1, -2).contiguous()}
+    return {"blocks": {"layer0": {"moe": {k: v.to(device)
+                                          for k, v in moe.items()}}}}
+
+
+def _same_bytes(a, b):
+    for k in ("w_gate", "w_up", "w_down"):
+        x = a["blocks"]["layer0"]["moe"][k]
+        y = b["blocks"]["layer0"]["moe"][k].cpu()
+        assert x.shape == y.shape and torch.equal(
+            x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32),
+            y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32)), k
+
+
+def _plans(kind, n_blocks=3, e=16):
+    """A shared and a per-layer plan of ``kind`` from seeded loads, the
+    layout to expand into first (replication), and the undo of each."""
+    from repro_torch.placement import migrate as pm
+    from repro_torch.placement import planner as pp
+    from repro_torch.replication import ReplicaSet
+    from repro_torch.replication import migrate as rm
+    from repro_torch.replication import planner as rp
+    rng = np.random.default_rng(3)
+    loads = [np.exp(rng.normal(0, 1.2, e)) for _ in range(n_blocks)]
+    if kind == "placement":
+        old = pp.plan_identity(e, 4)
+        new = [pp.plan_least_loaded(ld, 4) for ld in loads]
+        return None, [(pm.diff(old, new[0]), pm.diff(new[0], old)),
+                      (pm.diff_layers([old] * n_blocks, new),
+                       pm.diff_layers(new, [old] * n_blocks))]
+    old = ReplicaSet.identity(e, 4, slots_per_rank=e // 4 + 1,
+                              max_replicas=2)
+    new = [rp.plan_replication(ld, 4, e // 4 + 1) for ld in loads]
+    return old, [(rm.diff(old, new[0]), rm.diff(new[0], old)),
+                 (rm.diff_layers([old] * n_blocks, new),
+                  rm.diff_layers(new, [old] * n_blocks))]
+
+
+@pytest.mark.parametrize("kind", ["placement", "replication"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inplace_gather_on_card_equals_cpu(cuda, kind, dtype):
+    """The in-place slab gather, the per-layer one and their undo, and the
+    slot expansion (shared and per-layer), give the CPU path's bytes."""
+    from repro_torch.placement import migrate as pm
+    from repro_torch.replication import expand_moe_params
+    layout, plans = _plans(kind)
+    for expand_by in ([layout] if layout is not None else [None]) + (
+            [[layout] * 3] if layout is not None else []):
+        host = _moe_params("cpu", dtype=dtype)
+        card = _moe_params(cuda, dtype=dtype)
+        if expand_by is not None:
+            expand_moe_params(host, expand_by)
+            expand_moe_params(card, expand_by)
+            torch.cuda.synchronize()
+            _same_bytes(host, card)
+        for plan, undo in plans:
+            landed_h, landed_c = [], []
+            pm.apply_to_params(host, plan, landed_h)
+            pm.apply_to_params(card, plan, landed_c)
+            pm.synchronize(card)
+            assert landed_h == landed_c
+            _same_bytes(host, card)
+            pm.undo_blocks(host, undo, landed_h)
+            pm.undo_blocks(card, undo, landed_c)
+            torch.cuda.synchronize()
+            _same_bytes(host, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_kernels_at_68_slots_with_an_empty_slot(cuda, dtype):
+    """The quantizer and the global scale (bitwise) and both grouped FFNs
+    (their tolerances) at G = 68 expert slots, one of them an all-zero
+    empty spare (zeroed by the mask multiply: -0.0 where the weight was
+    negative), with the pad slot's counts after it."""
+    gen = torch.Generator(device=cuda).manual_seed(68)
+    d, f, g = 256, 192, 68
+    w = {n: (torch.randn(g, *s, generator=gen, device=cuda)
+             * 0.3 * min(1.0, (64 / s[0]) ** 0.5)).to(dtype)
+         for n, s in dict(w_gate=(d, f), w_up=(d, f), w_down=(f, d)).items()}
+    for t in w.values():
+        t[37].mul_(0.0)                        # the empty spare slot
+    assert (w["w_gate"][37].view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32) < 0).any()   # -0.0 kept
+    wq = {}
+    for n, t in w.items():
+        view = t.transpose(-1, -2)
+        gs_k = qk.global_scale_cuda(view)
+        gs_p = quant.global_scale_for(view)
+        assert torch.equal(gs_k.view(torch.int32), gs_p.view(torch.int32)), n
+        pk, sc = qk.quantize_fp4_cuda(view, gs_p)
+        pk_p, sc_p = qk.quantize_fp4_plain(view, gs_p)
+        assert torch.equal(pk, pk_p) and torch.equal(
+            sc.view(torch.int32), sc_p.view(torch.int32)), n
+        wq[n] = ops.quantize_experts_fp4(view)
+    counts = [int(c) for c in torch.randint(0, 9, (g,), generator=gen,
+                                            device=cuda).tolist()]
+    counts[37] = 0
+    counts += [5]                               # the pad slot
+    m = sum(counts)
+    xs = torch.randn(m, d, generator=gen, device=cuda).to(dtype)
+    xs[sum(counts[:g]):] = 0
+    gs_t = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    fp4_args = (xs, gs_t, wq["w_gate"].packed, wq["w_gate"].scales,
+                wq["w_up"].packed, wq["w_up"].scales, wq["w_down"].packed,
+                wq["w_down"].scales,
+                torch.stack([wq[n].global_scale.reshape(()) for n in
+                             ("w_gate", "w_up", "w_down")]).float())
+    check_ffn(ffn.grouped_fp4_ffn_cuda(*fp4_args),
+              ffn.grouped_fp4_ffn_plain(*fp4_args))
+    plain_args = (xs, gs_t, w["w_gate"], w["w_up"], w["w_down"])
+    check_plain_ffn(ffn.grouped_ffn_cuda(*plain_args),
+                    ffn.grouped_ffn_plain(*plain_args))
+
+
+@pytest.mark.parametrize("kind", ["placement", "replication"])
+def test_manager_driven_engine_is_sync_free(cuda, kind, monkeypatch):
+    """A reduced-moonshot engine with a per-layer manager (weighted split
+    for replication) serves on the card with every forward under
+    set_sync_debug_mode("error"), migrating in between, and gives the
+    tokens the same engine gives on the CPU."""
+    from repro_torch.configs import PlacementConfig, ReplicationConfig
+    from repro_torch.placement import PlacementManager
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, 14).astype(np.int32),
+             rng.random(14) < 0.6) for _ in range(5)]
+
+    def run(device, checked):
+        kw = dict(replan_every=3, warmup_iters=1, min_gain=0.0,
+                  per_layer=True)
+        if kind == "placement":
+            mgr = PlacementManager(cfg, PlacementConfig(**kw), 4)
+        else:
+            mgr = ReplicaManager(cfg, ReplicationConfig(
+                weighted_split=True, **kw), 4)
+        params = common.tree_map(lambda t: t.to(device),
+                                 tf.init_model(cfg, seed=0, device="cpu"))
+        if kind == "replication":
+            expand_moe_params(params, mgr.rsets)
+        eng = Engine(cfg, params, ReaLBConfig(gate_gamma=8, md_init=0.0),
+                     max_slots=3, max_len=48, prefill_budget=16,
+                     placement=mgr, migrate_async=True,
+                     migrate_bytes_per_iter=1, device=device)
+        for uid, (tok, mod) in enumerate(reqs):
+            eng.submit(Request(uid=uid, tokens=tok, modality=mod,
+                               max_new_tokens=6))
+        done = {r.uid: r.generated for r in eng.run()}
+        assert mgr.n_migrations > 0 and len(done) == len(reqs)
+        return done
+
+    cpu = run("cpu", {})
+    saved = {n: getattr(tf, f"{n}_forward") for n in ("chunk", "decode")}
+    checked = {}
+
+    def wrap(name, fn):
+        def go(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[name] = checked.get(name, 0) + 1
+        return go
+
+    for name, fn in saved.items():
+        monkeypatch.setattr(tf, f"{name}_forward", wrap(name, fn))
+    assert run(cuda, checked) == cpu
+    assert checked.get("chunk", 0) > 0 and checked.get("decode", 0) > 0
