@@ -75,11 +75,34 @@
    capacity factors, the expansion's peak), and checks the landed and
    expanded weights on the card bit for bit against host copies of the
    original slabs gathered by the committed tables;
+9. elastic serving, profiled and guarded: moonshot at full width and 24
+   layers (its checkpoint must fit the run's 45 GiB of disk writes),
+   expanded in place to 80 slots over 16 virtual ranks
+   (peak printed), the quantizer and the global scale held bitwise at
+   G = 80; each MoE stage of one layer timed by ``time_moe_phases`` (CUDA
+   events) in dispatch and broadcast mode, FP4 on and off, the full prefix
+   held bitwise against ``ep_moe_forward``; the engine's checkpoint saved
+   (bytes, seconds, disk and host memory printed); phase 5's requests
+   served twice, all submitted at once, with a per-layer
+   ``ReplicaManager``, an audit, a ``Telemetry``, a ``Tracer``, a
+   ``Profiler`` on the card's hardware record, a strict ``Sentinel`` and
+   an ``ElasticCoordinator``, a rank killed at the third iteration of each
+   pass and rejoined at the twentieth, the counters zeroed just before and
+   read just after: the dead slots zero on the card, while dead taking
+   exactly the lost experts' tokens; a checkpoint refused mid-recovery;
+   re-materialized block 0 equal to host copies; healthy or warming at the
+   end with every rank alive; degraded iterations, availability below 1
+   and recovery seconds; no sync and no new input signature after the
+   first pass; the FFN kernels held against their plain versions at G = 80
+   on the serve run's inputs; prints lost experts, lost tokens, recovery,
+   availability, tok/s, TTFT/TPOT p50, peak memory, the profiler's
+   summary, the audit's verdicts and the kernels' launches;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
-   phase 7 and on phase 8's three arms) and working launches, error, time
-   (and at G = 68 slots, phase 8b)
+   phase 7, on phase 8's three arms and on phase 9's elastic run) and
+   working launches, error, time (and at G = 68 and G = 80 slots, phases
+   8b and 9)
    (the FFNs': over the serve run's working launches; the W4A4 FFN's also
    at the decode forward's launch and the forced full-budget chunk), time
    of a launch that exits at once (host-set) and its kernels' device time,
@@ -103,9 +126,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))   # the card's checks
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+# the card's rates, set in main() from its record in repro_torch/configs/hw.py
+# (the H100 data sheet, by variant): HBM bytes/s, dense bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = BF16_FLOP_PER_S = F32_FLOP_PER_S = None
 SERVE_KERNELS = ("quantize_fp4", "global_scale_fp4", "grouped_fp4_ffn",
                  "grouped_ffn")
 
@@ -1520,10 +1544,11 @@ def managed_serve(dev, params, cfg, arm: str, mgr, note, **engine_kw):
     return eng, (counts, working), tracer
 
 
-def check_kernels_at_68(dev, params, b: int):
-    """Phase 8b: the quantizer and the global scale against their plain
-    versions (bitwise) on block ``b``'s three expert stacks at G = 68 slots,
-    one of them the zeroed empty spare, timed; returns their records."""
+def check_kernels_at_slots(params, b: int, phase: str):
+    """Phases 8b and 9: the quantizer and the global scale against their
+    plain versions (bitwise) on block ``b``'s three expert stacks at the
+    expanded slot count G (68, 80), the empty spares zeroed, timed; returns
+    their records (keys ``g<G>_...``)."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import quantize_fp4 as qk
@@ -1536,24 +1561,26 @@ def check_kernels_at_68(dev, params, b: int):
         pk, sc = qk.quantize_fp4_cuda(view, gs)
         pk_p, sc_p = qk.quantize_fp4_plain(view, gs)
         torch.cuda.synchronize()
+        g = view.shape[0]
         if not torch.equal(gs_k.view(torch.int32), gs.view(torch.int32)):
-            raise AssertionError(f"8b global_scale_fp4 at G=68 {k}")
+            raise AssertionError(f"{phase} global_scale_fp4 at G={g} {k}")
         if not (torch.equal(pk, pk_p) and torch.equal(
                 sc.view(torch.int32), sc_p.view(torch.int32))):
-            raise AssertionError(f"8b quantize_fp4 at G=68 {k}: not bitwise")
+            raise AssertionError(f"{phase} quantize_fp4 at G={g} {k}: not "
+                                 "bitwise")
         ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs), iters=10)
         plain_ms = time_ms(lambda: qk.quantize_fp4_plain(view, gs), iters=2)
         s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=10)
         s_plain = time_ms(lambda: quant.global_scale_for(view), iters=10)
-        log(f"8b {k} {tuple(view.shape)} (G={view.shape[0]}, empty spares "
-            "zeroed): "
+        log(f"{phase} {k} {tuple(view.shape)} (G={g}, empty spares zeroed): "
             f"quantize_fp4 bitwise, {ms:.4f} ms (plain {plain_ms:.4f}); "
             f"global_scale_fp4 bitwise, {s_ms:.4f} ms (plain {s_plain:.4f})")
         if k == "w_gate":
-            recs["quantize_fp4"] = dict(g68_ms=ms, g68_plain_ms=plain_ms,
-                                        g68_max_abs_err=0.0)
-            recs["global_scale_fp4"] = dict(g68_ms=s_ms, g68_plain_ms=s_plain,
-                                            g68_max_abs_err=0.0)
+            recs["quantize_fp4"] = {f"g{g}_ms": ms, f"g{g}_plain_ms": plain_ms,
+                                    f"g{g}_max_abs_err": 0.0}
+            recs["global_scale_fp4"] = {f"g{g}_ms": s_ms,
+                                        f"g{g}_plain_ms": s_plain,
+                                        f"g{g}_max_abs_err": 0.0}
         del pk, sc, pk_p, sc_p
     return recs
 
@@ -1670,7 +1697,7 @@ def placement_and_replication(dev, params, cfg):
         f"{zeros}")
     if not zeros:
         raise AssertionError("8b: an empty spare slot is not zero")
-    g68 = check_kernels_at_68(dev, params, b0)
+    g68 = check_kernels_at_slots(params, b0, "8b")
     note = ServeLaunches(keep_inputs=True)
     eng, out["b"], _ = managed_serve(dev, params, cfg, "b", mgr, note,
                                      capacity_margin=1.25)
@@ -1693,6 +1720,383 @@ def placement_and_replication(dev, params, cfg):
     return out, g68
 
 
+# Phase 9's depth: full width at 80 slots over 16 virtual ranks (the fewest
+# slots with which 15 live ranks still hold all 64 experts after a kill).
+# The card holds the in-place expansion to 80 slots up to 42 layers (peak
+# ~1.753·(D−1) + 1.342 + 0.071·D GB, 76.21 GB measured at 42), but the
+# engine's checkpoint, the re-materialization source, is ~1.455 GB a layer
+# (61.1 GB at 42) and the whole run keeps its disk writes within 45 GiB:
+# 24 layers (34.9 GB) leave room for the rest of the run's writes.
+PHASE9_LAYERS = 24
+PHASE9_DEPTH_REASON = ("the engine's checkpoint at 80 slots is ~1.455 GB a "
+                       "layer and the run keeps its disk writes within 45 "
+                       "GiB (the card itself holds 42 layers)")
+PHASE9_VEP = 16
+
+
+def meminfo_available() -> int:
+    """Host bytes the kernel reports as available (``MemAvailable``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+def moe_stage_times(dev, params, cfg, place):
+    """Phase 9's per-stage MoE times: ``time_moe_phases`` (CUDA events) at
+    block 0 of the 80-slot weights and tables, in dispatch mode on phase
+    5's sync-phase chunk ([8, 256], 128 real tokens a row, 60 % vision)
+    and in broadcast mode on its decode step ([8, 1]), FP4 forced on and
+    off; each full prefix held bit for bit against ``ep_moe_forward``.
+    Returns ``{(mode, fp4): {stage: ms}}``."""
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.obs import time_moe_phases
+    p = {k: v[0] for k, v in params["blocks"]["layer0"]["moe"].items()
+         if k in ("router", "w_gate", "w_up", "w_down")}
+    rep = ep_moe.Replication(*(t[0] for t in place[:3]))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s = 8, 256
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mod = torch.rand((b, s), generator=gen, device=dev) < 0.6
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    valid[:, :128] = True
+    inputs = {"dispatch": (x, mod, valid),
+              "broadcast": (x[:, :1].contiguous(), mod[:, :1].contiguous(),
+                            valid[:, :1].contiguous())}
+    m0 = torch.zeros((1, PHASE9_VEP), device=dev)
+    out = {}
+    for mode, (xi, mi, vi) in inputs.items():
+        for fp4, rcfg in (
+                (True, ReaLBConfig(gate_gamma=0, capacity_c=0.0,
+                                   md_init=0.0, adaptive=False)),
+                (False, ReaLBConfig(gate_gamma=10 ** 9))):
+            secs, (y, m2, aux) = time_moe_phases(
+                p, xi, cfg, rcfg, m0, mode=mode, modality=mi, valid=vi,
+                placement=rep, repeats=5, warmup=2)
+            y_r, m_r, aux_r = ep_moe.ep_moe_forward(
+                p, xi, cfg, rcfg, m0, mi, mode=mode, valid=vi,
+                placement=rep)
+            if not (torch.equal(y, y_r) and torch.equal(m2, m_r)
+                    and all(torch.equal(aux[k], aux_r[k]) for k in aux)):
+                raise AssertionError(f"9 time_moe_phases {mode} fp4={fp4}: "
+                                     "full prefix is not the layer bitwise")
+            fired = float(aux["fp4_ranks"]) > 0
+            if fired != fp4:
+                raise AssertionError(f"9 {mode}: FP4 fired {fired}, "
+                                     f"forced {fp4}")
+            ms = {k: v * 1e3 for k, v in secs.items()}
+            out[(mode, fp4)] = ms
+            log(f"9 MoE stages, {mode} {tuple(xi.shape[:2])}, FP4 "
+                f"{'on' if fp4 else 'off'} (CUDA events, min of 5; full "
+                f"prefix bitwise the layer): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                + f"; total {sum(ms.values()):.4f} ms")
+    return out
+
+
+def elastic_serving(dev):
+    """Phase 9: elastic serving at full width, profiled and guarded.
+
+    Moonshot at ``PHASE9_LAYERS`` layers (random weights from seed 0),
+    expanded in place to 80 slots over 16 virtual ranks; the quantizer and
+    the global scale held bitwise at G = 80; per-stage MoE times; then
+    ``Engine(max_slots=8, max_len=512, prefill_budget=1024,
+    migrate_async=True)`` with a per-layer ``ReplicaManager``, a
+    ``Telemetry``, a ``Tracer``, a ``Profiler(FlopByteLedger(cfg,
+    ep=16))``, a strict ``Sentinel`` and an ``ElasticCoordinator`` whose
+    checkpoint (the engine's, saved before the kill, under ``build/``) is
+    the re-materialization source.  Two passes of phase 5's 16 requests,
+    all submitted at once (so both passes batch alike): the first with
+    rank 2 killed at iteration 3 (before the first replan: its experts are
+    singletons) and rejoined at 20, the second, after ``mark_warm``, with
+    the last rank killed and rejoined at the same offsets.  Checks: the dead slots zero
+    on the card after each kill; while a rank is dead its slots take
+    exactly the lost experts' tokens; a checkpoint refused mid-recovery;
+    re-materialized block 0 equal to host copies; healthy or warming at
+    the end, every rank alive; degraded iterations, availability < 1,
+    recovery seconds; no sentinel violation and no new input signature
+    after warm-up; the FFN kernels held against their plain versions at
+    G = 80 on the serve run's inputs.  Returns the kernels' launches and
+    working launches, and their records at G = 80."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import (ReaLBConfig, ReplicationConfig,
+                                     get_config)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.obs import FlopByteLedger, Profiler, ReplanAudit, Tracer
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.runtime.fault_tolerance import FaultEvent, FaultInjector
+    from repro_torch.serving.elastic import (STATE_HEALTHY, STATE_WARMING,
+                                             ElasticCoordinator)
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.telemetry import Telemetry
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=PHASE9_LAYERS)
+    log(f"9: depth {PHASE9_LAYERS} of 48 layers at full width: "
+        f"{PHASE9_DEPTH_REASON}; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated at the "
+        "start")
+    params = tf.init_model(cfg, seed=0, device=dev)
+    mgr = ReplicaManager(cfg, ReplicationConfig(
+        per_layer=True, spare_per_rank=1, max_replicas=2, replan_every=4,
+        warmup_iters=2, min_gain=0.0), PHASE9_VEP)
+    mgr.audit = ReplanAudit()
+    b0 = 0
+    logical = host_block(params, b0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    expand_moe_params(params, mgr.rsets)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"9: expand_moe_params to {mgr.n_slots} slots ({PHASE9_VEP} ranks x "
+        f"{mgr.slots_per_rank}) in place in {time.perf_counter() - t0:.2f} "
+        f"s; weights {tree_bytes(params) / 1e9:.2f} GB; peak "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    check_block(params, b0, logical, mgr.rsets[b0].slot_owner, "9 expanded")
+    g80 = check_kernels_at_slots(params, b0, "9")
+    place = tuple(torch.as_tensor(np.asarray(a), device=dev)
+                  for a in mgr.device_tables())
+    stage_ms = moe_stage_times(dev, params, cfg, place)
+    del place
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    specs = mmmu_stream(cfg)
+    t_start = [time.monotonic()]
+    clock = lambda: time.monotonic() - t_start[0]  # noqa: E731
+    tel = Telemetry()
+    tracer = Tracer(clock=clock)
+    prof = Profiler(FlopByteLedger(cfg, ep=PHASE9_VEP),
+                    registry=tel.registry)
+    sent = Sentinel(strict=True)
+    ckdir = ROOT / "build" / "phase9_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    co = ElasticCoordinator(mgr, ckpt_dir=str(ckdir), telemetry=tel)
+    fi = FaultInjector([(3, "fail", 2), (20, "rejoin", 2)])
+    budget = int(0.75 * cfg.moe.num_experts) * mgr.bytes_per_expert
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                 prefill_budget=1024, migrate_async=True,
+                 migrate_bytes_per_iter=budget, placement=mgr,
+                 telemetry=tel, tracer=tracer, profiler=prof, sentinel=sent,
+                 elastic=co, fault_injector=fi, clock=clock, device=dev)
+    log(f"9: migrate_bytes_per_iter {budget} ({budget / 1e6:.1f} MB, "
+        f"{int(0.75 * cfg.moe.num_experts)} experts of one block)")
+
+    # -- checks wired into the run (all between iterations or in the
+    # sanctioned stats read) --------------------------------------------
+    spr = mgr.slots_per_rank
+    seen = {"kills": [], "dead_checked": 0, "refused": 0,
+            "recovered_b0": False, "chunks": 0, "recovered_layers": 0}
+    fail_rank, landed = eng.fail_rank, co.on_layers_landed
+    observe, observe_slots = mgr.observe, mgr.observe_slots
+    last_es = [None]
+
+    def checked_fail(rank):
+        fail_rank(rank)
+        lost = {l: len(v) for l, v in co.lost.items()}
+        moe = params["blocks"]["layer0"]["moe"]
+        nz = sum(int(torch.count_nonzero(
+            moe[k][:, rank * spr:(rank + 1) * spr])) for k in MOE_KEYS)
+        seen["kills"].append((eng._it, rank, lost))
+        log(f"9: rank {rank} killed at iteration {eng._it}: lost experts "
+            f"per layer {sorted(set(lost.values()))} over {len(lost)} "
+            f"layers ({sum(lost.values())} expert-layers); nonzero weights "
+            f"left on its slots {nz}")
+        if nz:
+            raise AssertionError(f"9: rank {rank}'s slots are not zero")
+
+    def checked_landed(plan, layers):
+        was = set(co.lost)
+        landed(plan, layers)
+        rec = [l for l in layers if l in was]
+        if rec:
+            seen["chunks"] += 1
+            seen["recovered_layers"] += len(rec)
+        if b0 in rec and not seen["recovered_b0"]:
+            seen["recovered_b0"] = True
+            check_block(params, b0, logical, mgr.rsets[b0].slot_owner,
+                        "9 re-materialized")
+
+    def noted_observe(es, decode=False):
+        last_es[0] = es
+        return observe(es, decode=decode)
+
+    def checked_slots(ss):
+        for r in np.flatnonzero(~mgr.rank_alive):
+            dead = ss[:, 0, r * spr:(r + 1) * spr].sum(-1)
+            want = np.array([last_es[0][l, 0, co.lost[l]].sum()
+                             if l in co.lost else 0.0
+                             for l in range(ss.shape[0])])
+            if not np.array_equal(dead, want):
+                raise AssertionError(f"9: dead rank {r}'s slots took "
+                                     f"{dead.sum()} tokens, lost experts "
+                                     f"{want.sum()}")
+            seen["dead_checked"] += 1
+        return observe_slots(ss)
+
+    eng.fail_rank, co.on_layers_landed = checked_fail, checked_landed
+    mgr.observe, mgr.observe_slots = noted_observe, checked_slots
+
+    usage = shutil.disk_usage(ckdir.parent)
+    log(f"9: checkpoint directory {ckdir}: disk {usage.free / 1e9:.1f} GB "
+        f"free of {usage.total / 1e9:.1f} GB; host MemAvailable "
+        f"{meminfo_available() / 1e9:.1f} GB")
+    note = ServeLaunches(keep_inputs=True)
+    counts = working = None
+    try:
+        t0 = time.perf_counter()
+        eng.save_checkpoint(str(ckdir), 0)
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in ckdir.rglob("*")
+                       if f.is_file())
+        log(f"9: engine checkpoint saved: {ck_bytes} bytes "
+            f"({ck_bytes / 1e9:.2f} GB) in {save_s:.1f} s "
+            f"({ck_bytes / save_s / 1e9:.2f} GB/s); host MemAvailable "
+            f"after {meminfo_available() / 1e9:.1f} GB")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        passes = []
+        for rnd in range(2):
+            reqs = []
+            for spec in specs:
+                r = spec.to_request()
+                r.uid += 100 * rnd
+                r.arrival_time = 0.0
+                reqs.append(r)
+            if rnd == 1:
+                it0, rank = eng._it, PHASE9_VEP - 1
+                fi.events += [FaultEvent(it0 + 3, "fail", rank),
+                              FaultEvent(it0 + 20, "rejoin", rank)]
+            n_stats = len(eng.stats)
+            t_start[0] = time.monotonic()
+            t_run = time.perf_counter()
+            with note.noting():
+                pending = list(reqs)
+                for r in pending:
+                    eng.submit(r)
+                while any(r.finish_time is None for r in reqs):
+                    eng.step()
+                    note.end_step()
+                    if co.recovering and seen["refused"] <= rnd:
+                        try:
+                            eng.save_checkpoint(str(ckdir), 1)
+                        except RuntimeError as err:
+                            seen["refused"] += 1
+                            log(f"9: save_checkpoint mid-recovery refused "
+                                f"at iteration {eng._it}: {err}")
+                        else:
+                            raise AssertionError("9: a checkpoint was "
+                                                 "saved mid-recovery")
+                eng.drain_migrations()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            toks = sum(len(r.generated) for r in reqs)
+            ttft = [r.ttft for r in reqs]
+            tpot = [r.tpot for r in reqs if r.tpot is not None]
+            st = eng.stats[n_stats:]
+            passes.append(dict(wall=wall, toks=toks, iters=len(st)))
+            log(f"9 pass {rnd + 1}: {len(reqs)} requests submitted at once, "
+                f"{toks} tokens, {len(st)} iterations "
+                f"({sum(s.phase == 'prefill' for s in st)} prefill); wall "
+                f"{wall:.3f} s, {toks / wall:.2f} tok/s, TTFT p50 "
+                f"{np.median(ttft) * 1e3:.1f} ms, TPOT p50 "
+                f"{np.median(tpot) * 1e3:.2f} ms; degraded iterations "
+                f"{sum(s.n_unroutable > 0 for s in st)}, lost tokens "
+                f"{sum(s.lost_tokens for s in st):.0f}; state {co.state}")
+            for r in reqs:
+                if not all(0 <= t < cfg.vocab_size for t in r.generated):
+                    raise AssertionError("9: token out of range")
+            if rnd == 0:
+                warm = sent.mark_warm()
+                log(f"9: warm-up input signatures {warm}")
+        counts = ops.launch_counts()
+        working_by_m = note.working()
+        working = {k: v if isinstance(v, int) else sum(v.values())
+                   for k, v in working_by_m.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        eng.fail_rank, co.on_layers_landed = fail_rank, landed
+        mgr.observe, mgr.observe_slots = observe, observe_slots
+
+    summ = tel.summary()
+    p_sum = prof.summary()
+    log(f"9: recovery chunks {seen['chunks']} landing "
+        f"{seen['recovered_layers']} lost layers; bytes patched from the "
+        f"checkpoint {co.patched_bytes} ({co.patched_bytes / 1e9:.3f} GB); "
+        f"recoveries {tel.recoveries} s; degraded iterations "
+        f"{tel.degraded_iters}, availability {tel.availability:.4f}, lost "
+        f"tokens {tel.lost_tokens_total:.0f}; dead-slot checks "
+        f"{seen['dead_checked']}; events "
+        f"{[(e['kind'], e.get('rank')) for e in co.events]}; max memory "
+        f"allocated {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    log(f"9: profiler ({prof.ledger.hw.name} record): MFU {p_sum['mfu']:.6f}, "
+        f"roofline fraction {p_sum['roofline_fraction']:.6f}, time_scale "
+        f"{p_sum['time_scale']:.4f}, forward s {p_sum['forward_s_total']:.3f} "
+        f"over {p_sum['n_iters']} iterations; phase s measured "
+        + json.dumps({k: round(v, 6) for k, v in
+                      p_sum['phase_seconds'].items()})
+        + " predicted " + json.dumps({k: round(v, 6) for k, v in
+                                      p_sum['phase_seconds_pred'].items()})
+        + " drift " + json.dumps({k: round(v, 3) for k, v in
+                                  p_sum['drift'].items()}))
+    log(f"9: replan audit verdicts {mgr.audit.counts()}; sentinel "
+        f"{json.dumps(sent.report())}")
+    log(f"9: kernel launches {counts}; of those, launches that did work "
+        f"{working}")
+    if min(counts[k] for k in SERVE_KERNELS) == 0 \
+            or min(working[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"9: a kernel of the path never launched or "
+                             f"never did work: {counts} {working}")
+    if len(seen["kills"]) != 2 or not all(k[2] for k in seen["kills"]):
+        raise AssertionError(f"9: the kills opened no degraded window: "
+                             f"{seen['kills']}")
+    if not seen["refused"]:
+        raise AssertionError("9: no mid-recovery checkpoint refusal")
+    if not seen["recovered_b0"] or not seen["dead_checked"]:
+        raise AssertionError(f"9: block 0 never re-materialized or no dead "
+                             f"slot checked: {seen}")
+    if co.state not in (STATE_HEALTHY, STATE_WARMING) \
+            or not mgr.rank_alive.all():
+        raise AssertionError(f"9: ends {co.state}, alive "
+                             f"{mgr.rank_alive.tolist()}")
+    if not (tel.degraded_iters >= 1 and tel.availability < 1.0
+            and summ["recovery_s"] is not None):
+        raise AssertionError(f"9: degraded {tel.degraded_iters}, "
+                             f"availability {tel.availability}, recovery "
+                             f"{summ['recovery_s']}")
+    if sent.violations or sent.post_warm_recompiles():
+        raise AssertionError(f"9: sentinel {sent.report()}")
+    if not (p_sum["n_iters"] > 0 and p_sum["mfu"] > 0):
+        raise AssertionError(f"9: profiler saw nothing: {p_sum}")
+    check_block(params, b0, logical, mgr.rsets[b0].slot_owner, "9 at the end")
+    ffn = check_ffn_at_serve_launches(note, working_by_m)
+    for name, r in ffn.items():
+        g80[name] = dict(g80_ms=r["ms"], g80_plain_ms=r["plain_ms"],
+                         g80_max_abs_err=r["max_abs_err"],
+                         g80_bound_ms=r["bound_ms"])
+    del eng, params, logical, note
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"9: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return (counts, working), g80
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -1707,7 +2111,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.configs import hw
     from repro_torch.kernels import _build
+    global HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S
+    card = hw.current()
+    HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S = (
+        card.hbm_bw, card.peak_bf16, card.peak_f32)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1716,7 +2125,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; rates of the "
+        f"{card.name} record: HBM {card.hbm_bw / 1e12:.2f} TB/s, bf16 "
+        f"{card.peak_bf16 / 1e12:.0f} TFLOP/s, f32 "
+        f"{card.peak_f32 / 1e12:.0f} TFLOP/s")
     _build.load(verbose=True)
     log(f"kernels built and loaded in {_build.build_seconds:.1f} s")
     for name, regs, smem, spill in ptxas_summary(_build.build_log):
@@ -1736,7 +2148,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8, g68 = placement_and_replication(dev, params, cfg)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    phase9, g80 = elastic_serving(dev)
     check_small_against_cpu(dev)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
@@ -1783,7 +2197,11 @@ def main() -> int:
             c, w = phase8[arm]
             kernels[-1][f"{path}_launches"] = c.get(r["name"], 0)
             kernels[-1][f"{path}_working_launches"] = w.get(r["name"], 0)
+        c, w = phase9
+        kernels[-1]["elastic_launches"] = c.get(r["name"], 0)
+        kernels[-1]["elastic_working_launches"] = w.get(r["name"], 0)
         kernels[-1].update(g68.get(r["name"], {}))
+        kernels[-1].update(g80.get(r["name"], {}))
     kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
     kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
     log(json.dumps({"kernels": kernels}))

@@ -12,6 +12,12 @@ a leaf is stored as its raw 16- or 8-bit pattern with a ``<key>::dt``
 entry naming the dtype, as the reference stores them; the port reads and
 writes those patterns through torch (no ``ml_dtypes``).  A checkpoint
 written by either package therefore loads in the other.
+
+A synchronous save streams: each leaf is copied to the host and written
+before the next is read, so the host holds one leaf at a time, not the
+whole state.  :func:`open_arrays` maps named leaves of a saved group
+without reading them, so a caller that needs a few rows of a large stack
+(the elastic coordinator's re-materialization) reads only those.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import json
 import pathlib
 import shutil
 import threading
-from typing import Any, Dict, Optional, Tuple
+import zipfile
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +55,9 @@ def _leaves(tree: Tree, path=()):
         yield path, tree
 
 
-def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
-    flat = {}
+def _flat_items(tree: Tree) -> Iterable[Tuple[str, np.ndarray]]:
+    """``(key, host array)`` of every leaf, each copied to the host only
+    when reached."""
     for path, leaf in _leaves(tree):
         key = _SEP.join(path)
         if torch.is_tensor(leaf):
@@ -57,13 +65,27 @@ def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
             name = _EXT_NAMES.get(t.dtype)
             if name is not None:
                 _, bits, raw = _EXT_DTYPES[name]
-                flat[key] = t.contiguous().view(bits).numpy().view(raw)
-                flat[key + _DT_SUFFIX] = np.array(name)
+                yield key, t.contiguous().view(bits).numpy().view(raw)
+                yield key + _DT_SUFFIX, np.array(name)
                 continue
-            flat[key] = t.numpy()
+            yield key, t.numpy()
         else:
-            flat[key] = np.asarray(leaf)
-    return flat
+            yield key, np.asarray(leaf)
+
+
+def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
+    return dict(_flat_items(tree))
+
+
+def _savez(path: pathlib.Path, items: Iterable[Tuple[str, np.ndarray]]):
+    """``np.savez(path, **dict(items))``, one array at a time: the same
+    uncompressed archive of ``<key>.npy`` members."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in items:
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                np.lib.format.write_array(fid, np.asanyarray(arr),
+                                          allow_pickle=False)
 
 
 def _decode_flat(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -100,15 +122,18 @@ def _unflatten_into(template: Tree, flat: Dict[str, Any], path=()) -> Tree:
     return t.to(device)
 
 
-def _write(root: pathlib.Path, step: int, flats: Dict[str, Dict],
+def _write(root: pathlib.Path, step: int, flats: Dict[str, Any],
            keep: int) -> pathlib.Path:
+    """``flats``: per group, a dict of host arrays or an iterable of
+    ``(key, array)`` pairs."""
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".tmp_step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
     for group, flat in flats.items():
-        np.savez(tmp / f"{group}.npz", **flat)
+        _savez(tmp / f"{group}.npz",
+               flat.items() if isinstance(flat, dict) else flat)
     (tmp / "meta.json").write_text(
         json.dumps({"step": step, "groups": sorted(flats)}))
     final = root / f"step_{step:08d}"
@@ -121,8 +146,9 @@ def _write(root: pathlib.Path, step: int, flats: Dict[str, Dict],
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Tree],
          keep: int = 3) -> str:
-    """Synchronous atomic save. state: {"params": tree, "opt": tree, ...}."""
-    flats = {g: _flatten(t) for g, t in state.items()}
+    """Synchronous atomic save. state: {"params": tree, "opt": tree, ...}.
+    Each leaf goes to the host when it is written."""
+    flats = {g: _flat_items(t) for g, t in state.items()}
     return str(_write(pathlib.Path(ckpt_dir), step, flats, keep))
 
 
@@ -165,6 +191,61 @@ def restore_group(ckpt_dir: str, group: str,
         raise FileNotFoundError(f"checkpoint group missing: {path}")
     with np.load(path) as z:
         return _decode_flat({k: z[k] for k in z.files})
+
+
+def open_arrays(ckpt_dir: str, group: str, keys: Sequence[str],
+                step: Optional[int] = None) -> Dict[str, Any]:
+    """Read-only memory maps of the leaves ``keys`` of one saved group:
+    nothing is read from disk until the map is indexed.  A bfloat16 or
+    float8 leaf maps as its raw unsigned pattern; ``decode_rows`` turns
+    indexed rows back into a tensor.  Returns ``{key: (map, dtype name or
+    None)}``; a missing key is absent from the result."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    path = pathlib.Path(ckpt_dir) / f"step_{step:08d}" / f"{group}.npz"
+    if not path.exists():
+        raise FileNotFoundError(f"checkpoint group missing: {path}")
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as raw:
+        names = set(zf.namelist())
+        for key in keys:
+            if key + ".npy" not in names:
+                continue
+            info = zf.getinfo(key + ".npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: {key} is compressed")
+            with zf.open(info) as f:
+                version = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0
+                        if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read(f)
+                in_member = f.tell()
+            # the member's data follow its local header (30 bytes, the
+            # name and the extra field)
+            raw.seek(info.header_offset + 26)
+            n_name, n_extra = np.frombuffer(raw.read(4), "<u2")
+            start = info.header_offset + 30 + int(n_name) + int(n_extra)
+            mm = np.memmap(path, dtype=dtype, mode="r",
+                           offset=start + in_member, shape=shape,
+                           order="F" if fortran else "C")
+            ext = None
+            if key + _DT_SUFFIX + ".npy" in names:
+                with zf.open(key + _DT_SUFFIX + ".npy") as f:
+                    ext = str(np.lib.format.read_array(f))
+            out[key] = (mm, ext)
+    return out
+
+
+def decode_rows(rows: np.ndarray, ext: Optional[str]) -> torch.Tensor:
+    """Rows indexed from an :func:`open_arrays` map, as a CPU tensor of the
+    saved dtype."""
+    t = torch.from_numpy(np.array(rows, copy=True))
+    if ext is None:
+        return t
+    ext_dtype, bits, _ = _EXT_DTYPES[ext]
+    return t.view(bits).view(ext_dtype)
 
 
 def restore(ckpt_dir: str, templates: Dict[str, Tree],

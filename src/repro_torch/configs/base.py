@@ -81,6 +81,28 @@ class ModelConfig:
         """Layers per block of the stacked decoder parameters."""
         return 1
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared only), the
+        reference's count for an all-attention GQA stack."""
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        for ffn in self.ffn_kinds():
+            n += d * self.n_heads * self.head_dim               # q
+            n += 2 * d * self.n_kv_heads * self.head_dim        # k, v
+            n += self.n_heads * self.head_dim * d               # o
+            if ffn == "moe":
+                e = self.moe
+                n += (e.top_k + e.n_shared_experts) * mult * d * e.d_ff
+                n += d * e.num_experts                          # router
+            else:
+                dff = self.d_ff if self.d_ff else (
+                    self.moe.d_ff if self.moe else 0)
+                if dff:
+                    n += mult * d * dff
+            n += 2 * d                                          # rmsnorms
+        return n
+
     def moe_block_structure(self) -> Tuple[int, int]:
         """(n_blocks, n_moe_layers_per_block) of the stacked decoder: the
         granularity of per-layer placement/replication tables (one table

@@ -301,9 +301,15 @@ def _aux(r, drop_frac, k, e_cfg):
 # --------------------------------------------------------------------------
 # dispatch path (prefill)
 # --------------------------------------------------------------------------
-def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
+def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
+                  stop_stage=None):
     """x_t [t,D] tokens; mod_t [t] vision flags; val_t [t] real-token flags;
-    m_vec [pol_ep] AIMD state; rep maps logical experts onto slots."""
+    m_vec [pol_ep] AIMD state; rep maps logical experts onto slots.
+
+    ``stop_stage`` ends the layer after the named phase and returns that
+    phase's live boundary values, as the reference's prefixes do (the
+    profiler's instrumented mode times each cumulative prefix); ``None``,
+    the default and the last prefix, is the whole layer."""
     e_cfg = cfg.moe
     ep = 1
     n_slots = rep.slot_owner.shape[0]
@@ -315,12 +321,21 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     # ① routing + metadata, ② policy
     r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
     f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    if stop_stage == "route":
+        return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
     w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+    if stop_stage == "weight_gather":
+        return r["gates"], r["flat_p"], r["dec"].m_new, f, w
 
     # ③ conditional on-the-fly quantization, before dispatch (ReaLB); under
     # ReaLB-seq (overlap=False) after it, below
     wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap else None
+    if stop_stage == "quantize_fp4":
+        # under ReaLB-seq the transformation has not run here: its cost
+        # lands in the dispatch prefix
+        return (r["gates"], r["flat_p"], r["dec"].m_new, f,
+                w if wq is None else wq)
 
     # dispatch: valid assignments first, capacity-packed; padding and
     # over-capacity assignments get the out-of-range slot `big`
@@ -353,6 +368,8 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     if wq is None:      # ReaLB-seq: serialise ③ after dispatch
         token = (recv.sum() * 0.0).to(F32)
         wq = _quantize_experts(w, rcfg, fi, token)
+    if stop_stage == "dispatch":
+        return r["gates"], r["dec"].m_new, recv, eid_recv, slot_flat
 
     # ④ local expert compute; slot s_loc is the pad slot of unfilled
     # capacity rows (zeros), which has no weights: its rows give 0, as the
@@ -363,6 +380,8 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     ys = _expert_ffns(xs, gs, w, wq, f, fi, rcfg)
     y_buf = torch.zeros((ep * cap + 8, d), dtype=ys.dtype, device=dev)
     y_buf[order2] = ys
+    if stop_stage == "expert_gemm":
+        return r["gates"], r["dec"].m_new, y_buf[:ep * cap], slot_flat
 
     # combine: `big` reads a spare zero row
     y_flat = y_buf[slot_flat]
@@ -380,8 +399,10 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
 # --------------------------------------------------------------------------
 # broadcast path (decode)
 # --------------------------------------------------------------------------
-def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
-    """Decode-regime MoE: every local expert on every token, then combine."""
+def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
+                   stop_stage=None):
+    """Decode-regime MoE: every local expert on every token, then combine.
+    ``stop_stage``: see :func:`_moe_dispatch` (no ``dispatch`` phase)."""
     e_cfg = cfg.moe
     ep = 1
     n_slots = rep.slot_owner.shape[0]
@@ -392,8 +413,15 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
 
     r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
     f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    if stop_stage == "route":
+        return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
     w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+    if stop_stage == "weight_gather":
+        return r["gates"], r["flat_p"], r["dec"].m_new, f, w
+    wq = _quantize_experts(w, rcfg, fi)
+    if stop_stage == "quantize_fp4":
+        return r["gates"], r["flat_p"], r["dec"].m_new, f, wq
 
     # BF16: dense per-expert products
     g = torch.matmul(x_t, w["w_gate"].to(dt))                 # [E,t,F]
@@ -403,7 +431,6 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
     # FP4: the grouped W4A4 kernel over x_t once per local slot (the
     # reference's decode FP4 recipe is the grouped kernel's), its counts
     # masked by the decision
-    wq = _quantize_experts(w, rcfg, fi)
     xs = x_t.repeat(s_loc, 1)                                 # [E·t,D]
     gs = torch.full((s_loc,), t, dtype=torch.int32, device=x_t.device) * fi
     y_fp4 = kops.grouped_fp4_ffn(xs, gs, wq, group=rcfg.group_size)
@@ -411,6 +438,8 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep):
 
     pidx = r["flat_p"].reshape(t, k)                          # [t,K] placed
     leid = pidx % s_loc
+    if stop_stage == "expert_gemm":
+        return r["gates"], r["dec"].m_new, y_e, leid
     local_gate = r["gates"]                 # one physical rank: all local
     onehot = (leid[..., None] == torch.arange(
         s_loc, device=leid.device)).to(dt)                    # [t,K,s_loc]
@@ -430,12 +459,17 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    modality: Optional[torch.Tensor] = None,
                    mode: str = "dispatch",
                    valid: Optional[torch.Tensor] = None,
-                   placement=None):
+                   placement=None, stop_stage: Optional[str] = None):
     """MoE layer with ReaLB on one physical rank.  x [B,S,D]; m_state
     [1, vep] (the policy's virtual EP topology); valid [B,S] marks real
     tokens (None = all).  ``placement``: None (identity), a
     :class:`Placement`, or a :class:`Replication` with weights ``p`` stored
-    in the matching slot order.  Returns (y, new_m_state, aux_dict)."""
+    in the matching slot order.  Returns (y, new_m_state, aux_dict).
+
+    ``stop_stage`` (instrumented profiling): end after the named phase
+    (``route`` / ``weight_gather`` / ``quantize_fp4`` / ``dispatch`` /
+    ``expert_gemm``) and return that prefix's raw boundary values instead
+    — see :func:`repro_torch.obs.profiler.time_moe_phases`."""
     if modality is None:
         modality = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     if valid is None:
@@ -452,10 +486,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     args = (x.reshape(b * s, d), modality.reshape(b * s),
             valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg, rep,
             pol_ep)
-    if mode == "broadcast":
-        y, m_new, aux = _moe_broadcast(*args)
-    else:
-        y, m_new, aux = _moe_dispatch(*args)
+    fn = _moe_broadcast if mode == "broadcast" else _moe_dispatch
+    out = fn(*args, stop_stage=stop_stage)
+    if stop_stage is not None:         # instrumented prefix: raw boundary
+        return out
+    y, m_new, aux = out
     return y.reshape(b, s, d), m_new.reshape(m_state.shape), aux
 
 

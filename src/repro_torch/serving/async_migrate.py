@@ -83,16 +83,20 @@ class MigrationExecutor:
     ``priority_layers`` (elastic recovery) moves those layers to the
     queue front: recovery chunks re-materializing unroutable experts
     drain before optimization chunks, under the same byte budget.
+    ``patch_fn(params, plan, layers)`` runs after each batch's gather and
+    before its commit (elastic recovery: checkpoint rows for experts whose
+    source slab died with its rank), outside the timed window.
     ``undo`` is the gather taking the plan's layout back to the tables
     routable when the executor was built (the diff of the new tables
-    against them): a batch that fails part-way runs it over the blocks it
-    had landed."""
+    against them): a batch whose gather or patch fails runs it over the
+    blocks it had landed."""
 
     def __init__(self, manager, plan,
                  bytes_per_iter: Optional[int] = None,
-                 priority_layers=None, undo=None):
+                 priority_layers=None, patch_fn=None, undo=None):
         self.manager = manager
         self.plan = plan
+        self.patch_fn = patch_fn
         self.undo = undo
         # explicit budget wins; otherwise measured bandwidth x overlap
         self.bytes_per_iter = None if not bytes_per_iter \
@@ -144,8 +148,8 @@ class MigrationExecutor:
         apply, feed the bandwidth EWMA, commit exactly the landed
         layers.  Returns ``(new_params, DrainReport)``.
 
-        On an apply failure the staged plan is aborted and the error is
-        re-raised: this batch's landed blocks are gathered back by
+        On a gather or patch failure the staged plan is aborted and the
+        error is re-raised: this batch's landed blocks are gathered back by
         ``undo``, so the old tables stay consistent with them, and layers
         committed by earlier batches stay routable (their slabs did
         land)."""
@@ -178,6 +182,17 @@ class MigrationExecutor:
                                "budget_bytes": int(budget),
                                "wall_s": wall,
                                "remaining": len(self.queue)})
+        if self.patch_fn is not None:
+            # checkpoint reads stay out of the timed window: they would
+            # pollute the bandwidth EWMA
+            try:
+                new_params = self.patch_fn(new_params, self.plan, layers)
+                pmigrate.synchronize(new_params)
+            except BaseException as err:
+                self.queue.clear()
+                pmigrate.roll_back(err, params, self.undo, landed,
+                                   self.manager.abort)
+                raise
         self.manager.commit_layers(self.plan, layers)
         self.drained_bytes += nbytes
         self.n_drains += 1

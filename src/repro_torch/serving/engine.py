@@ -2,9 +2,8 @@
 one-shot prefill and batched decode with ReaLB active, with expert
 placement or replication and live migration.
 
-Counterpart of ``repro.serving.engine.Engine`` on one device, without
-elastic serving, the profiler and the sentinel (their ``None`` defaults
-bypass them in the reference too).  The engine holds one device-resident KV
+Counterpart of ``repro.serving.engine.Engine`` on one device.  The
+engine holds one device-resident KV
 cache of ``max_slots`` sequences.  Each iteration packs up to
 ``prefill_budget`` prompt tokens across every slot with pending prefill
 work into one ``[max_slots, bucket]`` chunk forward, then runs one batched
@@ -37,6 +36,25 @@ refresh), so no forward uploads them.  ``capacity_margin`` lets a replica
 manager shrink the dispatch capacity to its post-split predicted peak.
 Migration bytes and seconds are charged to the clock and reported in the
 next :class:`IterStats`; spans go to ``tracer``.
+
+Elastic serving: an :class:`~repro_torch.serving.elastic.
+ElasticCoordinator` over the replica manager (``elastic=``) turns a rank
+loss or rejoin into an event between iterations (``fail_rank`` /
+``rejoin_rank``, or scripted by a :class:`~repro_torch.runtime.
+fault_tolerance.FaultInjector`): the dead rank's slabs are zeroed in place
+and masked out of the tables, lost experts are re-materialized from the
+checkpoint into their new slots before the recovery plan commits, and
+``IterStats.n_unroutable`` / ``lost_tokens`` count the degraded window.
+
+Observation: a :class:`~repro_torch.obs.profiler.Profiler` (``profiler=``)
+is fed every recorded iteration's stats and forward seconds (and its
+drift EWMA calibrates an unwired cost gate); a
+:class:`~repro_torch.analysis.sentinel.Sentinel` (``sentinel=``) guards
+each iteration's hot window against device→host syncs outside the two
+sanctioned reads (the sampled tokens and the stats) and counts the input
+signatures of the three forwards.  With all of these ``None`` the engine
+runs as without them, bit for bit.  On a card every host→device upload of
+the hot loop is asynchronous (from pinned memory), so no upload syncs.
 """
 from __future__ import annotations
 
@@ -52,7 +70,9 @@ from repro_torch.configs.base import ModelConfig, ReaLBConfig
 from repro_torch.core import ep_moe
 from repro_torch.core.policy import init_m_state
 from repro_torch.models import transformer as tf
+from repro_torch.analysis.sentinel import NULL_SENTINEL
 from repro_torch.models.common import DTYPES, resolve_device
+from repro_torch.obs.profiler import NULL_PROFILER
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement import migrate as pmigrate
 from repro_torch.replication import migrate as rmigrate
@@ -85,8 +105,10 @@ class IterStats:
     split_frac: float = 0.0      # routed fraction served by a non-primary
     #                              replica (0 under a bijective table)
     n_unroutable: int = 0        # logical experts with no live replica
-    #                              (0: elastic serving is not ported)
-    lost_tokens: float = 0.0     # tokens routed to an unroutable expert
+    #                              (elastic degraded mode; 0 when healthy)
+    lost_tokens: float = 0.0     # tokens this iteration routed to an
+    #                              unroutable expert (they landed on the
+    #                              dead rank's zeroed slots)
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -111,19 +133,29 @@ class Engine:
                  migrate_async: bool = False,
                  migrate_bytes_per_iter: Optional[int] = None,
                  elastic=None, fault_injector=None, tracer=None,
-                 device=None):
-        if elastic is not None or fault_injector is not None:
-            raise NotImplementedError(
-                "elastic serving (elastic=, fault_injector=) is not ported "
-                "yet: it is the next slice of the port, ROADMAP Queue A "
-                "item 5 (serving/elastic.py, runtime/elastic.py)")
+                 profiler=None, sentinel=None, device=None):
         self.device = resolve_device(device)
         self.cfg, self.params, self.rcfg = cfg, params, rcfg
+        # invariant sentinel; None -> the shared no-op
+        self.sentinel = NULL_SENTINEL if sentinel is None else sentinel
         # span tracer; None -> the shared no-op singleton.  Shared with the
-        # manager so its replan spans land on the same timeline.
+        # manager and the elastic coordinator so their spans land on the
+        # same timeline.
         self.tracer = NULL_TRACER if tracer is None else tracer
-        if tracer is not None and placement is not None:
-            placement.tracer = tracer
+        if tracer is not None:
+            if placement is not None:
+                placement.tracer = tracer
+            if elastic is not None:
+                elastic.tracer = tracer
+        # hot-loop profiler; None -> the shared no-op singleton
+        self.profiler = NULL_PROFILER if profiler is None else profiler
+        if profiler is not None and placement is not None:
+            # the measured/predicted drift EWMA prices the savings side of
+            # a cost gate that was left unwired
+            gate = getattr(placement, "cost_gate", None)
+            if gate is not None \
+                    and getattr(gate, "time_scale", False) is None:
+                gate.time_scale = profiler.time_scale
         self.max_slots, self.max_len = max_slots, max_len
         self.temperature = temperature
         self.prefill_budget = prefill_budget
@@ -179,6 +211,16 @@ class Engine:
         self.migration_bytes_moved = 0
         self.migration_stall_s = 0.0
         self.migration_hidden_s = 0.0
+        # elastic serving: a coordinator over the same manager turns rank
+        # loss/rejoin into between-iteration events; a FaultInjector
+        # scripts them (polled once per step)
+        self._elastic = elastic
+        self._fault = fault_injector
+        if elastic is not None and (
+                placement is None
+                or getattr(elastic, "manager", None) is not placement):
+            raise ValueError("the elastic coordinator must wrap this "
+                             "engine's manager")
         self._place_cache = None                  # device copy of the table
         self._it = 0
         self.cache = tf.init_cache(cfg, max_slots, max_len, self.device)
@@ -196,9 +238,18 @@ class Engine:
         self.stats: List[IterStats] = []
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # the three forwards, looked up at each call; a sentinel counts
+        # their input signatures
+        self._fwd = {name: self.sentinel.register_entry(name, _entry(name))
+                     for name in ("prefill", "chunk", "decode")}
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        """``a`` on the engine's device; on a card from pinned memory,
+        asynchronously (a pageable upload would wait for the stream)."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _place_args(self):
         """The device tables of the routable plan — (e2r, local_slot) for a
@@ -243,9 +294,17 @@ class Engine:
         if plan is None:
             return
         if self.migrate_async:
+            prio = patch = None
+            if self._elastic is not None:
+                # recovery chunks drain ahead of optimization chunks; the
+                # patch writes checkpoint rows into the landed slots
+                # before their commit
+                prio = self._elastic.recovery_layers(plan)
+                patch = self._elastic.patch_params
             self._mig = MigrationExecutor(
                 self._placement, plan,
                 bytes_per_iter=self.migrate_bytes_per_iter,
+                priority_layers=prio, patch_fn=patch,
                 undo=self._undo_plan(plan))
             self._drain_migration()
             return
@@ -267,6 +326,17 @@ class Engine:
         wall = time.perf_counter() - t0
         self._placement.bandwidth.observe(plan.moved_bytes, wall)
         layers = self._placement.plan_layers(plan)
+        if self._elastic is not None:
+            # lost experts' slabs were gathered from the dead (zeroed)
+            # slots: write their checkpoint rows before the new tables
+            # flip routable, outside the timed window
+            try:
+                self._elastic.patch_params(self.params, plan, layers)
+                pmigrate.synchronize(self.params)
+            except BaseException as err:
+                pmigrate.roll_back(err, self.params, undo, landed,
+                                   self._placement.abort)
+                raise
         # staged plans become routable only after the slabs landed
         self._placement.commit(plan)
         self._place_cache = None                  # table changed
@@ -290,12 +360,15 @@ class Engine:
             trc.instant("table.commit", cat="migration",
                         args={"layers": len(layers), "done": True})
         self._notify_plan_committed()
+        if self._elastic is not None:
+            self._elastic.on_layers_landed(plan, layers)
 
     def _drain_migration(self):
         """One budgeted chunk batch of the in-flight plan: land the
         slabs, commit exactly those layers, split the transfer seconds
         into hidden (fits the budget — overlapped with this iteration's
         forward) and stall (the excess, charged to a virtual clock)."""
+        plan = self._mig.plan
         try:
             self.params, rep = self._mig.drain(self.params, self._iter_s)
         except BaseException:
@@ -333,6 +406,11 @@ class Engine:
                                   "done": bool(rep.done)})
         if rep.done:
             self._notify_plan_committed()
+        if self._elastic is not None and rep.layers:
+            # the landed layers' lost experts are re-materialized (the
+            # executor's patch ran before the commit): clear them, stamp
+            # recovery_s / warm-up completion
+            self._elastic.on_layers_landed(plan, rep.layers)
 
     def _charge_migration(self, nbytes: int, stall_s: float,
                           hidden_s: float):
@@ -380,6 +458,26 @@ class Engine:
             self._placement.abort()
         self._place_cache = None
 
+    # -- elastic serving events ----------------------------------------------
+    def fail_rank(self, rank: int) -> None:
+        """Simulate the loss of EP ``rank`` between iterations: the plan in
+        flight (computed for the old rank set) is aborted, the dead rank
+        is masked out of the routable tables (experts with a surviving
+        replica stay routable this same iteration), its weight slabs are
+        zeroed in place, and the coordinator arms a recovery replan."""
+        if self._elastic is None:
+            raise RuntimeError("fail_rank requires an ElasticCoordinator")
+        self._abort_migration()
+        self.params = self._elastic.fail_rank(rank, self.params)
+        self._place_cache = None                  # tables were masked
+
+    def rejoin_rank(self, rank: int) -> None:
+        """The returning rank becomes plannable; it turns routable layer
+        by layer as the warm-up plan's slabs land (staged commit)."""
+        if self._elastic is None:
+            raise RuntimeError("rejoin_rank requires an ElasticCoordinator")
+        self._elastic.rejoin_rank(rank)
+
     def _maybe_resize_capacity(self):
         """Replica-aware capacity: shrink (or restore) the dispatch
         ``capacity_factor`` to the post-split predicted peak rank load,
@@ -399,6 +497,9 @@ class Engine:
         self.cfg = dataclasses.replace(
             self.cfg, moe=dataclasses.replace(self.cfg.moe,
                                               capacity_factor=eff))
+        # a deliberate change of the forwards' static config: declared, so
+        # the sentinel attributes its new signatures to the resize band
+        self.sentinel.note_rebuild(f"capacity_factor {cur:.4f}->{eff:.4f}")
 
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request):
@@ -411,9 +512,11 @@ class Engine:
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """The next token of every row, drawn on the device; pulling it is
-        the one host read that serving requires."""
-        return sample_tokens(logits, self.temperature, self._gen) \
-            .to(torch.int32).cpu().numpy()
+        the one host read that serving requires (a sanctioned sync)."""
+        toks = sample_tokens(logits, self.temperature, self._gen) \
+            .to(torch.int32)
+        with self.sentinel.sanctioned("sample"):
+            return toks.cpu().numpy()
 
     def _tick(self, batch_tokens: int):
         """Advance a virtual clock by the modeled cost of one forward."""
@@ -421,10 +524,18 @@ class Engine:
             self.clock.advance(self.cost_model.cost(batch_tokens))
 
     def _record(self, *, phase: str, n_active: int, tokens: int,
-                batch_tokens: int, aux: Dict[str, Any]):
+                batch_tokens: int, aux: Dict[str, Any], fwd_s: float = 0.0):
         """Pull the iteration's stats to the host (with the sampled tokens,
-        the host reads serving makes, all after the forward), record them
-        and feed the manager."""
+        the host reads serving makes, all after the forward; a sanctioned
+        sync), record them and feed the manager and the profiler."""
+        with self.sentinel.sanctioned("telemetry"):
+            self._record_stats(phase=phase, n_active=n_active,
+                               tokens=tokens, batch_tokens=batch_tokens,
+                               aux=aux, fwd_s=fwd_s)
+
+    def _record_stats(self, *, phase: str, n_active: int, tokens: int,
+                      batch_tokens: int, aux: Dict[str, Any],
+                      fwd_s: float):
         ms = aux["moe_stats"].to(torch.float64).cpu().numpy()
         scal = torch.stack([aux[k].to(torch.float32) for k in
                             ("ib_global", "fp4_ranks", "gate_open",
@@ -443,12 +554,17 @@ class Engine:
             migration_bytes=mig_bytes, migration_s=mig_s,
             migration_hidden_s=mig_hidden,
             split_frac=scal[4] / self._n_moe)
+        es = ss = None
+        if self._placement is not None:
+            es = aux["expert_stats"].to(torch.float64).cpu().numpy()
+            ss = aux["slot_stats"].to(torch.float64).cpu().numpy()
+        if self._elastic is not None and self._elastic.recovering:
+            stat.n_unroutable = int(self._elastic.lost_experts.size)
+            stat.lost_tokens = self._elastic.lost_token_count(es)
         self.stats.append(stat)
         if self._placement is not None:
             # [n_blocks, 2, E] per-block expert loads -> predictor (decode
             # iterations feed the decode window when one is configured)
-            es = aux["expert_stats"].to(torch.float64).cpu().numpy()
-            ss = aux["slot_stats"].to(torch.float64).cpu().numpy()
             self._placement.observe(es, decode=(phase == "decode"))
             if hasattr(self._placement, "observe_slots"):
                 # [n_blocks, 2, S] post-split slot loads -> utilization
@@ -464,6 +580,12 @@ class Engine:
                     self._placement.rank_heatmap(es, ss))
         if self.telemetry is not None:
             self.telemetry.record_iter(stat)
+        if self.profiler.enabled:
+            # the FLOP/byte ledger and the drift EWMA off the stats already
+            # on the host; fwd_s is this forward's engine-clock seconds
+            self.profiler.observe_iter(
+                moe_stats=ms, fp4_layers=stat.fp4_ranks, tokens=tokens,
+                batch_tokens=batch_tokens, fwd_s=fwd_s, phase=phase)
         trc = self.tracer
         if trc.enabled:
             trc.instant("dispatch.policy", cat="policy",
@@ -506,19 +628,22 @@ class Engine:
         if req.vision_embeds is not None:
             batch["vision_embeds"] = self._tensor(
                 req.vision_embeds, DTYPES[self.cfg.param_dtype])[None]
+        t_fwd = self.clock()
         with self.tracer.span("forward.prefill", cat="forward") as sp:
-            res = tf.prefill_forward(self.params, self.cfg, self.rcfg, batch,
-                                     self.m_state, cache_len=self.max_len,
-                                     placement=self._place_args())
+            res = self._fwd["prefill"](self.params, self.cfg, self.rcfg,
+                                       batch, self.m_state,
+                                       cache_len=self.max_len,
+                                       placement=self._place_args())
             self.m_state = res.m_state
             self._tick(req.prompt_len)
             if self.tracer.enabled:
                 sp.set(tokens=req.prompt_len)
+        fwd_s = self.clock() - t_fwd
         self._insert_cache(req.slot, res.cache)
         req.prefill_pos = req.prompt_len
         self._first_token(req, int(self._sample(res.logits)[0]))
         self._record(phase="prefill", n_active=1, tokens=req.prompt_len,
-                     batch_tokens=req.prompt_len, aux=res.aux)
+                     batch_tokens=req.prompt_len, aux=res.aux, fwd_s=fwd_s)
 
     def _plan_chunks(self) -> List:
         """Allocate the token budget over slots with pending prefill work,
@@ -554,14 +679,16 @@ class Engine:
         batch = {"tokens": self._tensor(tokens), "start": self._tensor(start),
                  "chunk_len": self._tensor(chunk_len),
                  "modality": self._tensor(modality)}
+        t_fwd = self.clock()
         with self.tracer.span("forward.chunk", cat="forward") as sp:
-            res = tf.chunk_forward(self.params, self.cfg, self.rcfg, batch,
-                                   self.cache, self.m_state,
-                                   placement=self._place_args())
+            res = self._fwd["chunk"](self.params, self.cfg, self.rcfg, batch,
+                                     self.cache, self.m_state,
+                                     placement=self._place_args())
             self.cache, self.m_state = res.cache, res.m_state
             self._tick(b * s_bucket)
             if self.tracer.enabled:
                 sp.set(slots=len(plan), batch_tokens=b * s_bucket)
+        fwd_s = self.clock() - t_fwd
         completing = [slot for slot, take in plan
                       if self.scheduler.active[slot].prefill_pos + take
                       >= self.scheduler.active[slot].prompt_len]
@@ -575,7 +702,7 @@ class Engine:
                 self._prefill_fifo.remove(slot)
                 self._first_token(req, int(toks[slot]))
         self._record(phase="prefill", n_active=len(plan), tokens=n_tok,
-                     batch_tokens=b * s_bucket, aux=res.aux)
+                     batch_tokens=b * s_bucket, aux=res.aux, fwd_s=fwd_s)
         return n_tok
 
     # -- the iteration --------------------------------------------------------
@@ -586,11 +713,19 @@ class Engine:
             return self._step()
         with trc.span("iter", cat="engine") as sp:
             n = self._step()
-            sp.set(it=self._it, n_active=n)
+            sp.set(it=self._it, n_active=n, **self.profiler.span_args())
         return n
 
     def _step(self) -> int:
         self._it += 1
+        # scripted rank faults fire between iterations, the event boundary
+        # of elastic serving (tables, params and plans are quiescent)
+        if self._fault is not None:
+            for ev in self._fault.due(self._it):
+                if ev.kind == "fail":
+                    self.fail_rank(ev.rank)
+                else:
+                    self.rejoin_rank(ev.rank)
         # weighted token splitting re-derives its per-replica schedule at
         # the manager's cadence — a table refresh, no weights move
         if self._placement is not None and \
@@ -602,6 +737,13 @@ class Engine:
         self._maybe_migrate()
         if self._placement is not None:
             self._maybe_resize_capacity()
+        # everything up to here is the between-iteration window (faults,
+        # migrations, resizes); the rest is the hot loop the sentinel
+        # guards against unsanctioned device->host syncs
+        with self.sentinel.hot("iter"):
+            return self._step_hot()
+
+    def _step_hot(self) -> int:
         # the overlap window of the async budget starts after the
         # migration charges: it sizes against forward compute only
         t_step0 = self.clock()
@@ -650,15 +792,17 @@ class Engine:
                 "modality": self._tensor(
                     np.where(ready, self.mod_state, False)[:, None]),
                 "valid": self._tensor(ready[:, None])}
+            t_fwd = self.clock()
             with self.tracer.span("forward.decode", cat="forward") as sp:
-                res = tf.decode_forward(self.params, self.cfg, self.rcfg,
-                                        batch, self.cache, self.m_state,
-                                        placement=self._place_args())
+                res = self._fwd["decode"](self.params, self.cfg, self.rcfg,
+                                          batch, self.cache, self.m_state,
+                                          placement=self._place_args())
                 self.cache, self.m_state = res.cache, res.m_state
                 self._tick(self.max_slots)
                 if self.tracer.enabled:
                     sp.set(batch_tokens=self.max_slots,
                            ready=int(ready.sum()))
+            fwd_s = self.clock() - t_fwd
             toks = self._sample(res.logits)
             for slot, req in list(self.scheduler.active.items()):
                 if ready[slot] and not req.done:
@@ -669,7 +813,8 @@ class Engine:
                     if req.done:
                         self._finish(req)
             self._record(phase="decode", n_active=n_active, tokens=n_active,
-                         batch_tokens=self.max_slots, aux=res.aux)
+                         batch_tokens=self.max_slots, aux=res.aux,
+                         fwd_s=fwd_s)
         self.scheduler.retire()
         self._observe_iter_s(t_step0)
         return max(n_active, len(self._prefill_fifo))
@@ -714,6 +859,11 @@ class Engine:
                 f"cannot {what} a checkpoint while a migration is "
                 "draining (params hold a partially-landed slab layout); "
                 "call drain_migrations() first")
+        if self._elastic is not None and self._elastic.recovering:
+            raise RuntimeError(
+                f"cannot {what} a checkpoint mid-recovery (params hold "
+                "zeroed slabs for unroutable experts a restore would "
+                "resurrect); let the recovery plan land first")
 
     def load_checkpoint(self, ckpt_dir: str,
                         step: Optional[int] = None) -> int:
@@ -759,6 +909,14 @@ class Engine:
                 self._placement.load_state_dict(state)
             self._place_cache = None
         return step
+
+
+def _entry(name: str):
+    """The model's ``<name>_forward``, looked up when called."""
+    def forward(*args, **kwargs):
+        return getattr(tf, f"{name}_forward")(*args, **kwargs)
+    forward.__name__ = f"{name}_forward"
+    return forward
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float,

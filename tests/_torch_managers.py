@@ -131,7 +131,7 @@ def _state_equal(a, b):
                               np.asarray(getattr(b, g.name))), g.name
 
 
-def _serve(engine, specs, clock, mgr, tables):
+def _serve(engine, specs, clock, mgr, tables, after_step=None):
     pending = sorted(specs, key=lambda s: s.arrival)
     while len(engine.scheduler.finished) < len(specs):
         now = clock()
@@ -142,6 +142,8 @@ def _serve(engine, specs, clock, mgr, tables):
             continue
         engine.step()
         tables.append([np.asarray(a).copy() for a in mgr.device_tables()])
+        if after_step is not None:
+            after_step(engine)
     return {r.uid: r for r in engine.scheduler.finished}
 
 
@@ -182,12 +184,16 @@ class ArmRun:
     n_req: int
 
 
-def run_arm(arm, trace=False, n_req=N_REQ):
+def run_arm(arm, trace=False, n_req=N_REQ, extra=None, before=None,
+            after_step=None):
     """One seeded MMMU stream through the reference's and the port's engine
     with the arm's manager.  The bandwidth EWMA sees each gather's bytes
     but not its wall seconds (they differ from run to run), so both price
     migrations at the configured prior.  ``trace`` gives each engine a
-    span tracer on its virtual clock."""
+    span tracer on its virtual clock.  ``extra(mj, mt, clock_j, clock_t,
+    tel_j, tel_t)`` returns more engine arguments for each engine (a
+    profiler, an elastic coordinator); ``before(eng_j, eng_t)`` runs before
+    serving; ``after_step(engine)`` runs after every step of either."""
     kind, mcfg, ekw = ARMS[arm]
     cfg_j, cfg_t, params, pnum = model()
     mj, mt = managers(cfg_j, cfg_t, kind, replan_every=4, warmup_iters=2,
@@ -213,16 +219,21 @@ def run_arm(arm, trace=False, n_req=N_REQ):
     tel_j, tel_t = JTelemetry(), TTelemetry()
     clock_j, clock_t = VirtualClock(), t_arrivals.VirtualClock()
     tracers = (JTracer(clock_j), TTracer(clock_t)) if trace else (None, None)
+    kw_j, kw_t = extra(mj, mt, clock_j, clock_t, tel_j, tel_t) \
+        if extra is not None else ({}, {})
     eng_j = JEngine(cfg_j, params, JCfg(**POLICY), clock=clock_j,
                     cost_model=IterationCostModel(), placement=mj,
-                    telemetry=tel_j, tracer=tracers[0], **ekw, **ENGINE)
+                    telemetry=tel_j, tracer=tracers[0], **ekw, **ENGINE,
+                    **kw_j)
     eng_t = TEngine(cfg_t, pt, TCfg(**POLICY), clock=clock_t,
                     cost_model=t_arrivals.IterationCostModel(), placement=mt,
                     telemetry=tel_t, tracer=tracers[1], device="cpu", **ekw,
-                    **ENGINE)
+                    **ENGINE, **kw_t)
+    if before is not None:
+        before(eng_j, eng_t)
     tables_j, tables_t = [], []
-    done_j = _serve(eng_j, specs_j, clock_j, mj, tables_j)
-    done_t = _serve(eng_t, specs_t, clock_t, mt, tables_t)
+    done_j = _serve(eng_j, specs_j, clock_j, mj, tables_j, after_step)
+    done_t = _serve(eng_t, specs_t, clock_t, mt, tables_t, after_step)
     return ArmRun(eng_j, eng_t, done_j, done_t, tables_j, tables_t, tel_j,
                   tel_t, observed[0], observed[1], n_req)
 

@@ -58,7 +58,13 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.replication.replica_set",
               "repro_torch.replication.planner",
               "repro_torch.replication.migrate",
-              "repro_torch.replication.manager"):
+              "repro_torch.replication.manager",
+              "repro_torch.configs.hw", "repro_torch.obs.audit",
+              "repro_torch.obs.ledger", "repro_torch.obs.profiler",
+              "repro_torch.analysis", "repro_torch.analysis.sentinel",
+              "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+              "repro_torch.serving.elastic", "repro_torch.launch",
+              "repro_torch.launch.serve"):
         assert m in mods, m
     paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
     assert "src/repro_torch/checkpoint/ckpt.py" in paths

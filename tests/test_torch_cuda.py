@@ -990,3 +990,160 @@ def test_manager_driven_engine_is_sync_free(cuda, kind, monkeypatch):
         monkeypatch.setattr(tf, f"{name}_forward", wrap(name, fn))
     assert run(cuda, checked) == cpu
     assert checked.get("chunk", 0) > 0 and checked.get("decode", 0) > 0
+
+
+def _elastic_case(device, tmp_path):
+    """A shared-table replica manager over 8 experts and 4 ranks (one
+    spare slot each), its stacked [2, 12, 4, 6] weights on ``device`` and a
+    checkpoint of them written from the host."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.configs import ReplicationConfig
+    mgr = ReplicaManager.from_geometry(
+        8, ReplicationConfig(replan_every=1, warmup_iters=0, min_gain=0.0,
+                             spare_per_rank=1, max_replicas=3), 4,
+        bytes_per_expert=64)
+    rng = np.random.default_rng(11)
+    params = {"blocks": {"layer0": {"moe": {
+        k: torch.from_numpy(rng.normal(size=(2, 8, 4, 6)).astype(np.float32))
+        .to(torch.bfloat16) for k in ("w_gate", "w_up", "w_down")}}}}
+    expand_moe_params(params, mgr.rset)
+    if not (tmp_path / "ck").exists():
+        ckpt.save(str(tmp_path / "ck"), 0, {
+            "serving": {"params": params}, "replication": mgr.state_dict()})
+    return mgr, common.tree_map(lambda t: t.to(device), params)
+
+
+def test_elastic_zero_and_patch_on_card_equal_cpu(cuda, tmp_path):
+    """The dead rank's in-place zeroing and the in-place re-materialization
+    of its experts from the checkpoint give the CPU's bytes."""
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    from repro_torch.serving.elastic import ElasticCoordinator
+    out = {}
+    for device in ("cpu", cuda):
+        mgr, params = _elastic_case(device, tmp_path)
+        co = ElasticCoordinator(mgr, ckpt_dir=str(tmp_path / "ck"))
+        co.fail_rank(1, params)
+        zeroed = common.tree_map(lambda t: t.to("cpu", copy=True), params)
+        mgr.observe(np.stack([np.stack([np.arange(8.0) + 1,
+                                        np.zeros(8)])]))
+        plan = mgr.maybe_replan(1)
+        ex = MigrationExecutor(mgr, plan, bytes_per_iter=1 << 30,
+                               priority_layers=co.recovery_layers(plan),
+                               patch_fn=co.patch_params)
+        while ex.draining:
+            params, rep = ex.drain(params)
+            co.on_layers_landed(plan, rep.layers)
+        torch.cuda.synchronize()
+        assert not co.recovering and co.patched_bytes > 0
+        out[str(device)] = (zeroed, common.tree_map(lambda t: t.cpu(),
+                                                    params))
+    for a, b in zip(out["cpu"], out["cuda"]):
+        for k in ("w_gate", "w_up", "w_down"):
+            x, y = (t["blocks"]["layer0"]["moe"][k] for t in (a, b))
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16)), k
+
+
+def test_sentinel_on_card_catches_pulls_and_op_syncs(cuda):
+    """Inside a hot window on the card: ``.item()`` is caught by the method
+    patch, ``nonzero`` by the sync debug mode (warned and recorded, or
+    raised under strict); a sanctioned read passes, and the mode is back to
+    its default after the window."""
+    from repro_torch.analysis import Sentinel
+    x = torch.arange(8, device=cuda)
+    s = Sentinel()
+    with s.hot("iter"):
+        x.sum().item()
+        torch.nonzero(x > 3)
+        with s.sanctioned("telemetry"):
+            x.cpu().tolist()
+    kinds = [v.kind for v in s.violations]
+    assert kinds.count("host_sync") == 1 and kinds.count("cuda_sync") >= 1
+    assert all("test_torch_cuda" in v.where for v in s.violations)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    strict = Sentinel(strict=True)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with strict.hot("iter"):
+            torch.nonzero(x > 3)
+    assert [v.kind for v in strict.violations] == ["cuda_sync"]
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("mode", ["dispatch", "broadcast"])
+def test_phase_timer_on_card_is_the_fused_layer(cuda, mode):
+    """``time_moe_phases`` (CUDA events) returns the layer's own output,
+    bit for bit, with FP4 firing."""
+    from repro_torch.core import ep_moe
+    from repro_torch.obs import MOE_STAGES, time_moe_phases
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    p = {k: v[0] for k, v in params["blocks"]["layer0"]["moe"].items()
+         if k in ("router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s = (2, 24) if mode == "dispatch" else (12, 1)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=cuda) * 0.5
+    mod = torch.rand((b, s), generator=gen, device=cuda) < 0.6
+    rcfg = ReaLBConfig(gate_gamma=8, md_init=0.0, adaptive=False)
+    m = torch.zeros((1, 4), device=cuda)
+    secs, (y, m2, aux) = time_moe_phases(p, x, cfg, rcfg, m, mode=mode,
+                                         modality=mod, repeats=2)
+    assert set(secs) == set(MOE_STAGES[mode])
+    y_r, m_r, aux_r = ep_moe.ep_moe_forward(p, x, cfg, rcfg, m, mod,
+                                            mode=mode)
+    assert torch.equal(y, y_r) and torch.equal(m2, m_r)
+    assert all(torch.equal(aux[k], aux_r[k]) for k in aux)
+    assert float(aux["fp4_ranks"]) > 0
+
+
+def test_elastic_engine_on_card_under_strict_sentinel(cuda, tmp_path):
+    """A reduced-moonshot engine with a per-layer replica manager, a kill
+    before the first replan and a rejoin, a tracer, a profiler and a
+    strict sentinel: no sync in any hot window (uploads included), no new
+    input signature in a second pass, and the CPU's tokens."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReplicationConfig
+    from repro_torch.obs import FlopByteLedger, Profiler, Tracer
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    from repro_torch.serving.elastic import ElasticCoordinator
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+             rng.random(n) < 0.6) for n in (5, 12, 20, 9, 16, 3)]
+
+    def run(device):
+        mgr = ReplicaManager(cfg, ReplicationConfig(
+            replan_every=4, warmup_iters=2, min_gain=0.0, per_layer=True,
+            spare_per_rank=1, max_replicas=2), 4)
+        ck = tmp_path / str(device)
+        co = ElasticCoordinator(mgr, ckpt_dir=str(ck))
+        params = common.tree_map(lambda t: t.to(device),
+                                 tf.init_model(cfg, seed=0, device="cpu"))
+        sent = Sentinel(strict=True)
+        eng = Engine(cfg, expand_moe_params(params, mgr.rsets),
+                     ReaLBConfig(gate_gamma=8, md_init=0.0), max_slots=3,
+                     max_len=48, prefill_budget=16, placement=mgr,
+                     migrate_async=True, migrate_bytes_per_iter=1,
+                     elastic=co, tracer=Tracer(),
+                     profiler=Profiler(FlopByteLedger(cfg, ep=4)),
+                     fault_injector=FaultInjector([(3, "fail", 2),
+                                                   (12, "rejoin", 2)]),
+                     sentinel=sent, device=device)
+        eng.save_checkpoint(str(ck), 0)
+        toks = []
+        for rnd in range(2):
+            for uid, (tok, mod) in enumerate(reqs):
+                eng.submit(Request(uid=10 * rnd + uid, tokens=tok,
+                                   modality=mod, max_new_tokens=6))
+            toks.append({r.uid: r.generated for r in eng.run()})
+            eng.drain_migrations()
+            if rnd == 0:
+                sent.mark_warm()
+        assert any(s.n_unroutable > 0 for s in eng.stats)
+        assert co.last_recovery_s is not None and mgr.rank_alive.all()
+        assert sent.violations == [] and sent.post_warm_recompiles() == {}
+        return toks
+
+    assert run(cuda) == run("cpu")

@@ -412,7 +412,8 @@ def test_engine_refuses_mismatched_topology():
     with pytest.raises(ValueError, match="virtual_ep"):
         tm.TEngine(cfg_t, params_from_numpy(pnum, "cpu"), TCfg(),
                    placement=mt, virtual_ep=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="elastic"):
+    # an elastic coordinator must wrap the engine's own manager
+    with pytest.raises(ValueError, match="engine's manager"):
         tm.TEngine(cfg_t, params_from_numpy(pnum, "cpu"), TCfg(),
                    placement=mt, elastic=object(), device="cpu")
 

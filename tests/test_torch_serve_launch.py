@@ -1,0 +1,36 @@
+"""The port's serving driver, ``python -m repro_torch.launch.serve``: it
+serves the tiny preset on the CPU and prints its summary (the reference
+driver's lines), and refuses a device mesh, which the one-device port does
+not have."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.launch import serve
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_serve_tiny_on_the_cpu_exits_zero():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--preset",
+         "tiny", "--device", "cpu", "--requests", "6", "--max-new", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert re.match(r"served 6 requests, \d+ prompt \+ 24 generated tokens",
+                    lines[0]), lines
+    assert lines[1].startswith("iterations: ") and "gate duty" in lines[1]
+    assert lines[2].startswith("TTFT p50/p99: ")
+    assert "jax" not in out.stderr
+
+
+@pytest.mark.parametrize("mesh", ["host", "single_pod", "multi_pod"])
+def test_serve_refuses_a_mesh(mesh):
+    with pytest.raises(NotImplementedError, match="one device"):
+        serve.main(["--preset", "tiny", "--device", "cpu", "--mesh", mesh])
