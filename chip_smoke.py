@@ -97,6 +97,24 @@
    on the serve run's inputs; prints lost experts, lost tokens, recovery,
    availability, tok/s, TTFT/TPOT p50, peak memory, the profiler's
    summary, the audit's verdicts and the kernels' launches;
+10. multi-rank expert parallelism (``ep_serving``): with two cards or more
+   NCCL, one rank a card, EP = min(4, cards), full depth; on one card four
+   rank processes whose collectives copy to the host around gloo (the
+   ``staged`` backend, printed; correctness only), depth cut to
+   ``PHASE10_LAYERS`` (printed with its reason); the kernels are built
+   before the ranks spawn.  On moonshot at full width: (a) FP4 off, the
+   EP chunk and decode forwards against the one-device forwards on the
+   same weights (stats and ``m_state`` exact, logits and a KV block within
+   phase 5's bf16 criterion); (b) a skewed router with the gate open: the
+   first MoE layer's ``use_fp4`` equals the one-device policy's at
+   ``virtual_ep = ep``, and each rank's quantizer and FP4 FFN work exactly
+   in the layers where its entry is true; (c) phase 5's 16 requests
+   through the EP engine, every rank the same tokens, tok/s, TTFT and TPOT
+   printed with the backend and the card; (d) each rank's collective
+   census of a chunk forward equal to ``predict_graph_census``; (e) every
+   forward and step under a strict ``Sentinel``, the staged copies its
+   only sanctioned pulls; each rank's kernels against their plain versions
+   at G = S/ep (in turn, timed);
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -106,7 +124,8 @@
    (the FFNs': over the serve run's working launches; the W4A4 FFN's also
    at the decode forward's launch and the forced full-budget chunk), time
    of a launch that exits at once (host-set) and its kernels' device time,
-   bound, plain-version time and library yardstick;
+   bound, plain-version time and library yardstick, and phase 10's
+   launches, working launches, time, plain time and error by rank;
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -117,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import queue
 import subprocess
 import sys
 import time
@@ -532,13 +552,15 @@ class ServeLaunches:
         return out
 
 
-def check_ffn_at_serve_launches(note, working):
+def check_ffn_at_serve_launches(note, working, require=True):
     """Phase 5c: each FFN kernel against its plain version on the inputs of
     its first working launch of the serve run at each row count M, timed
     there; and, at each M, the time of a launch with all-zero counts (it
     exits at once), as the serve run's other launches were.  Returns
     records averaged over the serve run's working launches (``ms``,
-    ``plain_ms``, ``bound_ms``) and over its other launches (``idle_ms``)."""
+    ``plain_ms``, ``bound_ms``) and over its other launches (``idle_ms``).
+    ``require=False`` (an EP rank, whose experts may never run FP4) skips a
+    kernel that never worked instead of failing."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from repro_torch.kernels import ops
@@ -556,6 +578,8 @@ def check_ffn_at_serve_launches(note, working):
             ("grouped_ffn", ffn.grouped_ffn_cuda, ffn.grouped_ffn_plain,
              check_plain_ffn, False)):
         if not note.first[name]:
+            if not require:
+                continue
             raise AssertionError(f"{name}: no working launch in the serve run")
         rows = []
         for m, inputs in sorted(note.first[name].items()):
@@ -2097,6 +2121,501 @@ def elastic_serving(dev):
     return (counts, working), g80
 
 
+# Phase 10's depth on one card: four ranks share its 80 GB.  A rank holds
+# 16 of the 64 expert slots: at 48 layers ~13.3 GB of experts and ~4.7 GB
+# of the rest (attention, shared experts, embeddings, replicated), plus a
+# CUDA context and its KV cache, four times over; 24 layers (~6.4 + ~3.1
+# GB a rank) leave the headroom.  With one card a rank (NCCL) the depth is
+# not cut.  The width is never cut.
+PHASE10_LAYERS = 24
+PHASE10_DEPTH_REASON = ("four ranks share the one card: at 48 layers a "
+                        "rank holds ~13.3 GB of experts and ~4.7 GB of the "
+                        "rest plus a context and a cache, four times over, "
+                        "too little headroom on 80 GB; 24 layers hold ~9.5 "
+                        "GB a rank")
+PHASE10_DEADLINE_S = 900
+PHASE10_CHUNK = dict(b=8, s=256, real=128, vis=0.6, seed=4)
+PHASE10_OFF = dict(gate_gamma=10 ** 9)
+PHASE10_HOT = dict(gate_gamma=1, md_init=0.0, adaptive=False)
+
+
+def phase10_inputs(cfg, dev):
+    """Phase 5's sync-phase chunk ([8, 256], 128 real tokens a row, 60 %
+    vision) and decode step, made from a seed on ``dev``."""
+    import torch
+    c = PHASE10_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (c["b"], c["s"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens,
+             "start": torch.zeros(c["b"], dtype=torch.int32, device=dev),
+             "chunk_len": torch.full((c["b"],), c["real"], dtype=torch.int32,
+                                     device=dev),
+             "modality": torch.rand((c["b"], c["s"]), generator=gen,
+                                    device=dev) < c["vis"]}
+    dec = {"tokens": tokens[:, :1],
+           "pos": torch.full((c["b"],), c["real"], dtype=torch.int32,
+                             device=dev),
+           "modality": torch.ones((c["b"], 1), dtype=torch.bool, device=dev)}
+    return batch, dec
+
+
+def skew_router(params, ep: int, sign: float = 1.0):
+    """Bias every MoE layer's router toward rank 0's first two experts (the
+    reference's ``check_realb_fp4_rank_activates``): a hot rank."""
+    r = params["blocks"]["layer0"]["moe"]["router"]
+    r[..., 0] += 3.0 * sign
+    r[..., 1] += 2.5 * sign
+
+
+def phase10_forwards(params, cfg, ep, dev, sentinel=None):
+    """(a) and (b)'s forwards on one device or one rank: chunk then decode
+    with FP4 off, then the chunk with the router skewed and FP4 on; host
+    copies of the logits, the AIMD state, the stats and the last block's
+    K cache rows of the chunk, and the quantizer's predicates of the FP4
+    chunk (three launches a MoE layer, in layer order)."""
+    import contextlib
+
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    hot = sentinel.hot if sentinel is not None else \
+        (lambda name: contextlib.nullcontext())
+    batch, dec = phase10_inputs(cfg, dev)
+    b, s = batch["tokens"].shape
+    out = {}
+    m = torch.zeros((1, ep), device=dev)
+    cache = tf.init_cache(cfg, b, 512, device=dev)
+    with hot("10a chunk"):
+        res = tf.chunk_forward(params, cfg, ReaLBConfig(**PHASE10_OFF), batch,
+                               cache, m)
+    with hot("10a decode"):
+        d = tf.decode_forward(params, cfg, ReaLBConfig(**PHASE10_OFF), dec,
+                              res.cache, res.m_state)
+    torch.cuda.synchronize()
+    k_last = cache["blocks"]["layer0"]["k"][-1, :, :s]
+    out["a"] = {
+        "chunk_logits": res.logits.float().cpu().numpy(),
+        "decode_logits": d.logits.float().cpu().numpy(),
+        "k_last": k_last.float().cpu().numpy(),
+        "m": d.m_state.cpu().numpy(),
+        **{f"chunk_{k}": res.aux[k].cpu().numpy()
+           for k in ("moe_stats", "expert_stats", "slot_stats")},
+        "decode_moe_stats": d.aux["moe_stats"].cpu().numpy()}
+    del res, d, cache
+    router = params["blocks"]["layer0"]["moe"]["router"].clone()
+    skew_router(params, ep)
+    note = ServeLaunches(keep_inputs=False)
+    try:
+        cache = tf.init_cache(cfg, b, 512, device=dev)
+        with note.noting(), hot("10b chunk"):
+            res = tf.chunk_forward(params, cfg, ReaLBConfig(**PHASE10_HOT),
+                                   batch, cache, m)
+        torch.cuda.synchronize()
+    finally:
+        params["blocks"]["layer0"]["moe"]["router"].copy_(router)
+    preds = torch.stack([p.to(torch.int32).reshape(())
+                         for p in note.preds["quantize_fp4"]]).cpu().numpy()
+    working = note.working()
+    out["b"] = {"moe_stats": res.aux["moe_stats"].cpu().numpy(),
+                "fp4_ranks": float(res.aux["fp4_ranks"]),
+                "preds": preds.reshape(-1, 3),
+                "ffn_working": sum(working["grouped_fp4_ffn"].values())}
+    del res, cache
+    return out
+
+
+def close_bf16(y, ref, what: str) -> float:
+    """Phase 5's bf16 criterion (``check_ffn``): rel-L2 < 3e-2 and peak
+    < 0.1 of the largest magnitude; returns max |y - ref|."""
+    import numpy as np
+    d = np.abs(y - ref)
+    rel_l2 = float(np.linalg.norm(y - ref) / max(np.linalg.norm(ref), 1e-9))
+    peak = float(d.max() / max(np.abs(ref).max(), 1e-9))
+    if not (rel_l2 < 3e-2 and peak < 0.1):
+        raise AssertionError(f"{what}: rel-L2 {rel_l2:.3g}, peak {peak:.3g}")
+    return float(d.max())
+
+
+def policy_vectors(moe_stats, ep):
+    """The policy's ``use_fp4`` vector of every MoE layer of the FP4 chunk
+    (AIMD state 0 throughout: adaptive off), from its stats."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core.policy import realb_policy
+    rc = ReaLBConfig(**PHASE10_HOT)
+    ms = np.asarray(moe_stats).reshape(moe_stats.shape[0], 2, -1)[..., -ep:]
+    return np.stack([realb_policy(torch.from_numpy(ms[l, 0]),
+                                  torch.from_numpy(ms[l, 1]),
+                                  torch.zeros(ep), rc).use_fp4.numpy()
+                     for l in range(ms.shape[0])])
+
+
+def phase10_cfg(layers: int):
+    """Full-width moonshot-v1-16b-a3b at ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               n_layers=layers)
+
+
+def ep_rank_main(rank, world, backend, store_path, layers, out,
+                 device_type="cuda"):
+    """One rank of phase 10 (a spawned process)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device(device_type, rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import hw
+        global HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S
+        card = hw.current()
+        HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S = (
+            card.hbm_bw, card.peak_bf16, card.peak_f32)
+        store = dist.FileStore(store_path, world)
+        if backend == "nccl":
+            dist.init_process_group("nccl", store=store, rank=rank,
+                                    world_size=world, device_id=dev)
+        else:
+            dist.init_process_group("gloo", store=store, rank=rank,
+                                    world_size=world)
+        try:
+            from repro_torch.models.common import Mesh, use_mesh
+            mesh = Mesh((1, world), backend, dev)
+            with use_mesh(mesh):
+                res = ep_rank_work(mesh, layers)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def ep_rank_work(mesh, layers):
+    """Phase 10 on one rank: its shard of moonshot at ``layers`` layers
+    (seed 0, full width), (a)/(b)'s forwards under a strict sentinel with
+    the census of (a)'s chunk, then phase 5's stream through the EP engine
+    with the launches noted, then, in turn with the other ranks, its
+    kernels against their plain versions at G = S/ep."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import DTYPES, tree_bytes
+    from repro_torch.obs.ledger import FlopByteLedger
+    from repro_torch.serving.engine import Engine
+
+    dev, ep, my = mesh.device, mesh.size("model"), mesh.index("model")
+    cfg = phase10_cfg(layers)
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": tree_bytes(params) / 1e9,
+           "slots": int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[1])}
+    sent = Sentinel(strict=True)
+    comm = ep_moe._dist_comm(mesh)
+    comm.sentinel = sent
+    comm.census.reset()
+    fw = phase10_forwards(params, cfg, ep, dev, sent)
+    res.update(fw)
+    # (d): the census of (a)'s chunk and decode; the chunk's alone below
+    c = PHASE10_CHUNK
+    n_moe = sum(1 for f in cfg.ffn_kinds() if f == "moe")
+    res["census_pred"] = FlopByteLedger(cfg, ep=ep).predict_graph_census(
+        t_local=c["b"] * c["s"] // ep, layers=n_moe,
+        itemsize=DTYPES[cfg.param_dtype].itemsize)
+    comm.census.reset()
+    batch, _ = phase10_inputs(cfg, dev)
+    with sent.hot("10d chunk"):
+        tf.chunk_forward(params, cfg, ReaLBConfig(**PHASE10_OFF), batch,
+                         tf.init_cache(cfg, c["b"], 512, device=dev),
+                         torch.zeros((1, ep), device=dev))
+    torch.cuda.synchronize()
+    res["census"] = comm.census.snapshot()
+
+    # (c): phase 5's stream, all submitted at once (every rank schedules
+    # alike), through the EP engine under the strict sentinel
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    t_start = time.monotonic()
+    clock = lambda: time.monotonic() - t_start  # noqa: E731
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                 prefill_budget=1024, clock=clock, sentinel=sent)
+    specs = mmmu_stream(cfg)
+    for sp in specs:
+        req = sp.to_request()
+        req.arrival_time = None
+        eng.submit(req)
+    ops.reset_launch_counts()
+    note = ServeLaunches()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    with note.noting():
+        while not eng.scheduler.idle:
+            eng.step()
+            note.end_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    working_by_m = note.working()
+    done = sorted(eng.scheduler.finished, key=lambda r: r.uid)
+    toks = [(r.uid, tuple(r.generated)) for r in done]
+    pre = [s for s in eng.stats if s.phase == "prefill"]
+    res["c"] = {
+        "finished": len(done), "requests": len(specs),
+        "tokens": sum(len(r.generated) for r in done),
+        "digest": hashlib.sha256(repr(toks).encode()).hexdigest()[:16],
+        "wall_s": wall,
+        "ttft_p50_ms": float(np.median([r.ttft for r in done])) * 1e3,
+        "tpot_p50_ms": float(np.median([r.tpot for r in done
+                                        if r.tpot is not None])) * 1e3,
+        "iters": len(eng.stats),
+        "fp4_prefill_iters": sum(1 for s in pre if s.fp4_ranks > 0),
+        "counts": counts,
+        "working": {k: v if isinstance(v, int) else sum(v.values())
+                    for k, v in working_by_m.items()},
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    res["sentinel"] = sent.report()
+    del eng
+
+    # each rank's kernels at G = S/ep, in turn (the others wait on the
+    # host), so no rank times its kernels while another computes
+    for r in range(ep):
+        dist.barrier()
+        if r == my:
+            log(f"10: rank {my}: its kernels at G = {res['slots']}")
+            res["ffn"] = check_ffn_at_serve_launches(note, working_by_m,
+                                                     require=False)
+            res["quant"] = check_kernels_at_slots(params, 0, f"10 rank {my}")
+        dist.barrier()
+    return res
+
+
+def ep_serving(dev, smi: str):
+    """Phase 10: multi-rank expert parallelism on full-width moonshot.
+
+    With two cards or more, NCCL and one rank a card (EP = min(4, cards)),
+    full depth; on one card four rank processes whose collectives go
+    through the ``staged`` backend (copies to the host around gloo
+    collectives; for correctness only, no time of it is compared), depth
+    cut to ``PHASE10_LAYERS``.  The parent runs (a)/(b)'s forwards on one
+    device on the same weights first, then frees them and spawns the
+    ranks.  Checks: (a) FP4 off, the EP chunk and decode equal the
+    one-device forwards (routing stats and ``m_state`` exact, logits and
+    the last block's K cache within the bf16 criterion of ``check_ffn``);
+    (b) skewed router, gate open: the first MoE layer's ``use_fp4`` vector
+    equals the one-device policy's at ``virtual_ep = ep``, and every rank's
+    quantizer predicates equal its entry of every layer's vector, with FP4
+    FFN work exactly there; (c) phase 5's 16 requests through the EP
+    engine, every rank the same tokens; (d) each rank's census of a chunk
+    forward equals ``predict_graph_census``; (e) every forward and engine
+    step under a strict ``Sentinel`` (``set_sync_debug_mode("error")``
+    over each hot window), the staged copies its only sanctioned pulls.
+    Each rank's kernels are held against their plain versions at G = S/ep.
+    Returns the kernels' launches and working launches by rank, and their
+    records at G = S/ep by rank."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        backend, ep, layers = "nccl", min(4, n_cards), 48
+        log(f"10: backend nccl, {ep} ranks, one card each; full depth "
+            f"{layers} layers at full width")
+    else:
+        backend, ep, layers = "staged", 4, PHASE10_LAYERS
+        log(f"10: backend staged (one card: NCCL refuses two ranks of one "
+            f"communicator on a device, gloo has no CUDA all-to-all; each "
+            f"collective copies to the host around gloo; for correctness "
+            f"only, no time of it is compared), {ep} rank processes on the "
+            f"card; depth {layers} of 48 layers at full width: "
+            f"{PHASE10_DEPTH_REASON}")
+    cfg = phase10_cfg(layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tf.init_model(cfg, seed=0, device=dev)
+    one = phase10_forwards(params, cfg, ep, dev)
+    one_vec0 = policy_vectors(one["b"]["moe_stats"], ep)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"10: one-device forwards done; FP4 chunk: first MoE layer's "
+        f"use_fp4 {one_vec0.astype(int).tolist()}; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
+
+    store = ROOT / "build" / f"phase10_store_{time.time_ns()}"
+    store.parent.mkdir(exist_ok=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=ep_rank_main,
+                         args=(r, ep, backend, str(store), layers, q,
+                               dev.type))
+             for r in range(ep)]
+    t_spawn = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    end = time.monotonic() + PHASE10_DEADLINE_S
+    try:
+        while len(results) + len(errors) < ep and time.monotonic() < end:
+            try:
+                rank, ok, res = q.get(timeout=5)
+            except queue.Empty:     # a rank may have died
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    errors.append("a rank exited: codes "
+                                  f"{[p.exitcode for p in procs]}")
+                    break
+                continue
+            (results.__setitem__(rank, res) if ok
+             else errors.append(f"rank {rank}:\n{res}"))
+        for p in procs:
+            p.join(timeout=max(end - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        if store.exists():
+            store.unlink()
+    if errors or len(results) < ep:
+        raise AssertionError("10: " + ("\n".join(errors) or
+                                       f"{len(results)} of {ep} ranks "
+                                       f"finished in {PHASE10_DEADLINE_S} s"))
+    ranks = [results[r] for r in range(ep)]
+    log(f"10: {ep} ranks ran in {time.perf_counter() - t_spawn:.1f} s "
+        f"(spawn to join); each holds {ranks[0]['slots']} of "
+        f"{cfg.moe.num_experts} expert slots, {ranks[0]['weights_gb']:.2f} "
+        f"GB of weights, initialised in "
+        f"{max(r['init_s'] for r in ranks):.1f} s")
+
+    # (a) FP4 off: the EP forwards equal the one-device forwards
+    for i, r in enumerate(ranks):
+        a = r["a"]
+        differ = []
+        for k in ("chunk_moe_stats", "chunk_expert_stats", "chunk_slot_stats",
+                  "decode_moe_stats", "m"):
+            if not np.array_equal(a[k], one["a"][k]):
+                rows = np.flatnonzero((a[k] != one["a"][k]).reshape(
+                    a[k].shape[0], -1).any(-1)) if a[k].ndim > 1 else [0]
+                differ.append(f"{k} (first at layer {int(rows[0])} of "
+                              f"{a[k].shape[0]})")
+        errs = {k: float(np.abs(a[k] - one["a"][k]).max())
+                for k in ("chunk_logits", "decode_logits", "k_last")}
+        log(f"10a rank {i}: max abs err " + ", ".join(
+            f"{k} {v:.4g}" for k, v in errs.items()) + "; stats and m_state "
+            + ("equal to the one-device forwards" if not differ else
+               "differ: " + "; ".join(differ)))
+        if differ:
+            raise AssertionError(f"10a rank {i}: {differ}")
+        for k in errs:
+            close_bf16(a[k], one["a"][k], f"10a rank {i} {k}")
+    log("10a: every rank's logits and last KV block within the bf16 "
+        "criterion (rel-L2 < 3e-2, peak < 0.1)")
+
+    # (b) FP4 on: per-rank decision
+    vecs = policy_vectors(ranks[0]["b"]["moe_stats"], ep)
+    if not np.array_equal(vecs[0], one_vec0):
+        raise AssertionError(f"10b: first layer's use_fp4 {vecs[0]} != the "
+                             f"one-device policy's {one_vec0}")
+    for i, r in enumerate(ranks):
+        b = r["b"]
+        if not np.array_equal(b["moe_stats"], ranks[0]["b"]["moe_stats"]):
+            raise AssertionError(f"10b rank {i}: stats differ across ranks")
+        want = vecs[:, i].astype(np.int32)
+        if not (b["preds"] == want[:, None]).all():
+            raise AssertionError(f"10b rank {i}: quantizer predicates "
+                                 f"{b['preds'][:, 0]} != use_fp4 {want}")
+        if (b["ffn_working"] > 0) != bool(want.any()) \
+                or b["ffn_working"] > int(want.sum()):
+            raise AssertionError(f"10b rank {i}: {b['ffn_working']} working "
+                                 f"FP4 FFN launches, hot in "
+                                 f"{int(want.sum())} layers")
+        log(f"10b rank {i}: hot (FP4) in {int(want.sum())} of {len(want)} "
+            f"MoE layers; quantizer working launches {3 * int(want.sum())} "
+            f"exactly there; FP4 FFN working launches {b['ffn_working']}")
+    if not vecs.any() or vecs.all():
+        raise AssertionError(f"10b: the skew made no rank hot or every rank "
+                             f"hot: {vecs.sum(0)}")
+
+    # (c) the stream
+    c0 = ranks[0]["c"]
+    for i, r in enumerate(ranks):
+        c = r["c"]
+        if c["finished"] != c["requests"]:
+            raise AssertionError(f"10c rank {i}: {c['finished']} of "
+                                 f"{c['requests']} requests finished")
+        if c["digest"] != c0["digest"]:
+            raise AssertionError(f"10c rank {i}: tokens differ from rank 0")
+    log(f"10c: {c0['requests']} MMMU requests on the EP engine "
+        f"(backend {backend}, {ep} ranks, {layers} layers): every rank "
+        f"generated the same {c0['tokens']} tokens (digest {c0['digest']}); "
+        f"{c0['iters']} iterations, FP4 in {c0['fp4_prefill_iters']} prefill "
+        f"iterations; rank 0: wall {c0['wall_s']:.3f} s, "
+        f"{c0['tokens'] / c0['wall_s']:.2f} tok/s, TTFT p50 "
+        f"{c0['ttft_p50_ms']:.1f} ms, TPOT p50 {c0['tpot_p50_ms']:.2f} ms, "
+        f"peak {max(r['c']['peak_gib'] for r in ranks):.2f} GiB a rank; "
+        f"{smi}")
+    for i, r in enumerate(ranks):
+        log(f"10c rank {i}: launches {r['c']['counts']}; working "
+            f"{r['c']['working']}")
+
+    # (d) the census; (e) the sentinel
+    for i, r in enumerate(ranks):
+        if r["census"] != r["census_pred"]:
+            raise AssertionError(f"10d rank {i}: census {r['census']} != "
+                                 f"prediction {r['census_pred']}")
+        rep = r["sentinel"]
+        if rep["violations"]:
+            raise AssertionError(f"10e rank {i}: syncs {rep['violations']}")
+        if backend == "staged" and not rep["sanctioned_pulls"].get(
+                "collective"):
+            raise AssertionError(f"10e rank {i}: no sanctioned collective")
+    log(f"10d: each rank's census of a chunk forward equals "
+        f"predict_graph_census: {ranks[0]['census']}")
+    log(f"10e: 0 syncs outside sanctioned windows on every rank; sanctioned "
+        f"pulls (rank 0): {ranks[0]['sentinel']['sanctioned_pulls']}")
+
+    counts = {k: [r["c"]["counts"][k] for r in ranks] for k in SERVE_KERNELS}
+    working = {k: [r["c"]["working"][k] for r in ranks]
+               for k in SERVE_KERNELS}
+    for k in SERVE_KERNELS:
+        if min(counts[k]) == 0 or max(working[k]) == 0:
+            raise AssertionError(f"10: {k} launches {counts[k]}, working "
+                                 f"{working[k]}")
+    g = ranks[0]["slots"]
+    recs = {}
+    for k in SERVE_KERNELS:
+        per = []
+        for r in ranks:
+            if k in r["quant"]:
+                q_rec = r["quant"][k]
+                per.append({"ms": q_rec[f"g{g}_ms"],
+                            "plain_ms": q_rec[f"g{g}_plain_ms"],
+                            "max_abs_err": q_rec[f"g{g}_max_abs_err"]})
+            else:
+                f_rec = r["ffn"].get(k)
+                per.append({"ms": f_rec["ms"], "plain_ms": f_rec["plain_ms"],
+                            "max_abs_err": f_rec["max_abs_err"],
+                            "bound_ms": f_rec["bound_ms"]}
+                           if f_rec else None)
+        recs[k] = per
+    log(f"10: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, working, recs, g
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -2151,6 +2670,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase9, g80 = elastic_serving(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_counts, ep_working, ep_recs, ep_g = ep_serving(dev, smi)
     check_small_against_cpu(dev)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
@@ -2202,6 +2724,15 @@ def main() -> int:
         kernels[-1]["elastic_working_launches"] = w.get(r["name"], 0)
         kernels[-1].update(g68.get(r["name"], {}))
         kernels[-1].update(g80.get(r["name"], {}))
+        if r["name"] in ep_counts:      # phase 10, by rank
+            per = ep_recs[r["name"]]
+            kernels[-1].update(
+                ep_launches=ep_counts[r["name"]],
+                ep_working_launches=ep_working[r["name"]],
+                ep_g=ep_g,
+                ep_ms=[x and x["ms"] for x in per],
+                ep_plain_ms=[x and x["plain_ms"] for x in per],
+                ep_max_abs_err=[x and x["max_abs_err"] for x in per])
     kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
     kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,16 @@ functional test catches when they regress:
   pull sites (sampling, the statistics read) open :meth:`sanctioned`;
   anything else is recorded as a violation, or raised under ``strict``.
 
+  Collectives under a mesh: an NCCL collective (``all_reduce``,
+  ``all_to_all_single``, an all-gather) is enqueued on NCCL's stream, which
+  waits on the compute stream, and ``work.wait()`` makes the compute
+  stream wait in turn; neither reads the device on the host, so an EP
+  forward under NCCL runs under ``set_sync_debug_mode("error")`` with no
+  sync.  The ``staged`` backend (several ranks on one card) copies each
+  collective's tensors to the host and back: those copies run inside
+  :meth:`sanctioned` windows labelled ``collective`` (the engine hands its
+  sentinel to the mesh's ``Comm``), so they are counted, not violations.
+
   A kernel's plain version (``repro_torch/kernels``) stands in for the
   kernel on the CPU and reads its own CPU inputs there (a predicate, a
   group count); those reads are not violations.  On a card no CPU tensor

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -1,7 +1,8 @@
 """numpy trees → the port's tensors, under the same key paths.
 
 Feeds the port with the reference's parameters and caches: pass it the
-JAX tree after ``jax.tree.map(np.asarray, tree)``.  A JAX bf16 array
+JAX tree after ``jax.tree.map(np.asarray, tree)``; ``rank_shard`` cuts
+the tree a rank of an EP mesh holds.  A JAX bf16 array
 becomes an ``ml_dtypes`` bfloat16 numpy array, which ``torch.from_numpy``
 rejects, so bf16 goes through its 16-bit pattern.  Every leaf is copied:
 JAX's buffers are read-only.  Like every entry point of the port, they
@@ -9,7 +10,7 @@ put the tensors on ``cuda`` unless the caller names a device.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -39,6 +40,60 @@ def params_from_numpy(tree: Tree, device=None) -> Tree:
 
 
 cache_from_numpy = params_from_numpy
+
+MOE_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def slot_owner(placement, num_experts: int) -> np.ndarray:
+    """The logical expert of each physical slot (``-1``: an empty spare),
+    ``[S]`` or, for a per-layer table, ``[n_blocks, S]``.  ``placement``:
+    None (identity), ``(e2r, local_slot)`` or a replication table whose
+    third entry is ``slot_owner``."""
+    if placement is None:
+        return np.arange(num_experts)
+    entries = [np.asarray(a) for a in placement]
+    if len(entries) >= 3:
+        return entries[2].astype(np.int64)
+    e2r, local = entries[0].astype(np.int64), entries[1].astype(np.int64)
+    pos = e2r * (num_experts // (int(e2r.max()) + 1)) + local
+    owner = np.empty(pos.shape, np.int64)
+    np.put_along_axis(owner, pos, np.broadcast_to(
+        np.arange(num_experts), pos.shape), axis=-1)
+    return owner
+
+
+def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
+               device=None, num_experts: Optional[int] = None) -> Tree:
+    """One EP rank's parameters from the reference's numpy tree, whose
+    expert stacks ``[.., E, a, b]`` are in logical order: each MoE stack
+    laid out in the table's physical slot order (empty spares zero) and
+    cut to the rank's ``S/ep`` slots; every other leaf whole.  A per-layer
+    table lays out block ``b`` of the stacked blocks by its row ``b``.
+    Only the rank's slots are copied to the device."""
+    def walk(node, in_moe):
+        if isinstance(node, dict):
+            return {k: (cut(v) if in_moe and k in MOE_KEYS
+                        else walk(v, k == "moe")) for k, v in node.items()}
+        return tensor_from_numpy(node, device)
+
+    def cut(arr):
+        arr = np.asarray(arr)
+        e = num_experts or arr.shape[-3]
+        owner = slot_owner(placement, e)
+        n = owner.shape[-1]
+        if n % ep:
+            raise ValueError(f"{n} slots over {ep} ranks")
+        mine = owner[..., rank * n // ep:(rank + 1) * n // ep]
+        idx = np.maximum(mine, 0)
+        if mine.ndim == 1:
+            out = np.take(arr, idx, axis=-3)
+        else:                       # per-layer rows over the blocks
+            out = np.stack([arr[b][idx[b]] for b in range(arr.shape[0])])
+        out[np.broadcast_to(mine < 0, out.shape[:-2])] = 0
+        return tensor_from_numpy(out, device)
+
+    device = resolve_device(device)
+    return walk(tree, False)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

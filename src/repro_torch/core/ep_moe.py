@@ -1,21 +1,27 @@
-"""Expert-parallel MoE layer with ReaLB load balancing: the local path.
+"""Expert-parallel MoE layer with ReaLB load balancing.
 
-Counterpart of ``repro.core.ep_moe`` on one physical rank.  The ReaLB
-policy statistics run over a *virtual* EP topology (``m_state [1, vep]``):
-per-virtual-rank placed loads drive the policy and its AIMD state, and one
-hot virtual rank quantizes every local expert (``use_fp4 = any(dec.use_fp4)``).
+Counterpart of ``repro.core.ep_moe``.  On one physical rank (no mesh) the
+ReaLB policy statistics run over a *virtual* EP topology (``m_state [1,
+vep]``): per-virtual-rank placed loads drive the policy and its AIMD
+state, and one hot virtual rank quantizes every local expert (``use_fp4 =
+any(dec.use_fp4)``).  Under a :class:`~repro_torch.models.common.Mesh` the
+EP group is the ``model`` axis of real ``torch.distributed`` ranks, each
+holding ``S/ep`` expert slots, and a rank quantizes its experts only when
+its own entry of the decision is set (``dec.use_fp4[my_rank]``); the
+collectives go through :class:`Comm`, which counts them.
 
 Two paths, as in the reference:
 
-* ``dispatch`` (prefill): route, policy, conditional BF16→NVFP4 weight
-  quantization (``kernels.ops.quantize_experts_fp4``), capacity-packed
-  dispatch (under ReaLB-seq, ``overlap=False``, the quantization runs after
-  the dispatch, with the reference's data dependency on it), grouped expert FFN (``kernels.ops.grouped_ffn`` with the BF16
-  weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
-  gate-weighted combine.
-* ``broadcast`` (decode): every expert on every token (dense per-expert
-  products in BF16, the grouped W4A4 kernel in FP4), combine by one-hot
-  gates.
+* ``dispatch`` (prefill): route, policy, capacity-packed dispatch (an
+  all-to-all over the group), conditional BF16→NVFP4 weight quantization
+  (``kernels.ops.quantize_experts_fp4``) while the dispatch is in flight
+  (under ReaLB-seq, ``overlap=False``, after it, with the reference's data
+  dependency on it), grouped expert FFN (``kernels.ops.grouped_ffn`` with
+  the BF16 weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
+  the combine all-to-all back, gate-weighted combine.
+* ``broadcast`` (decode): every local expert on every token (dense
+  per-expert products in BF16, the grouped W4A4 kernel in FP4), combine
+  by one-hot gates, the partial sums added over the group in rank order.
 
 The BF16-or-FP4 decision stays on the device, as the reference's in-graph
 ``lax.cond`` keeps it: ``_use_fp4`` gives a 0-dim tensor ``f``, the
@@ -37,6 +43,7 @@ Differences forced by eager PyTorch:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -48,6 +55,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, ReaLBConfig
 from repro_torch.core import quant
 from repro_torch.core.policy import realb_policy
 from repro_torch.kernels import ops as kops
+from repro_torch.models.common import current_mesh, local_slice
 
 F32 = torch.float32
 AUX_SCALARS = ("lb_loss", "z_loss", "drop_frac", "ib_global", "fp4_ranks",
@@ -174,6 +182,164 @@ def _split_assignments(rep: Replication, flat_e: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# communication (lets the same math run without a mesh)
+# --------------------------------------------------------------------------
+class CollectiveCensus:
+    """Collectives issued, by kind: ``{"count", "bytes"}`` with the bytes of
+    this rank's input (the payload it contributes).  ``psum`` counts the
+    reference's psums, ``all_reduce`` the packed collectives that carry
+    them and ``all_gather`` the one that carries the decode combine's
+    ordered sum; ``layout_all_gather`` is the port's layout (the MoE
+    output gathered over ``model``, and rows over ``data``), classed
+    apart."""
+
+    def __init__(self):
+        self.kinds: Dict[str, Dict[str, int]] = {}
+
+    def add(self, kind: str, nbytes: int, count: int = 1) -> None:
+        k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += count
+        k["bytes"] += int(nbytes)
+
+    def reset(self) -> None:
+        self.kinds = {}
+
+    def snapshot(self) -> Dict[str, Dict[str, int]]:
+        return {k: dict(v) for k, v in sorted(self.kinds.items())}
+
+
+class Comm:
+    """The EP group's collectives (the reference's ``Comm``).  Without a
+    group (``_local_comm``) every collective is the identity over one rank.
+    Over a mesh (``_dist_comm``) they run on the ``model`` group
+    (``data`` for the layout's row gathers): ``psum`` is one ``all_reduce``
+    of its parts packed, ``sum_in_order`` a sum in rank order over an
+    all-gather, ``a2a`` an ``all_to_all_single`` over the leading ``ep``
+    blocks of rows, ``all_gather_model`` an all-gather.  Under the
+    ``staged`` backend each collective copies its CUDA input to the host,
+    runs gloo there and copies the result back, inside a window the
+    ``sentinel`` sanctions (the engine sets it)."""
+
+    def __init__(self, ep: int = 1, my_rank: int = 0, mesh=None):
+        self.ep, self.my_rank = ep, my_rank
+        self.mesh = mesh
+        self.census = CollectiveCensus()
+        self.sentinel = None          # None: no sanctioned windows
+
+    @property
+    def staged(self) -> bool:
+        return self.mesh is not None and self.mesh.backend == "staged"
+
+    def _run(self, op, tensors, outs, async_op=False):
+        """``op(*tensors, async_op=...)``; returns its work (None when
+        done).  Staged: ``tensors`` go to the host, the op runs there and
+        the tensors at indices ``outs`` come back."""
+        if not self.staged:
+            return op(*tensors, async_op=async_op)
+        ctx = (contextlib.nullcontext() if self.sentinel is None
+               else self.sentinel.sanctioned("collective"))
+        with ctx:
+            host = [t.to("cpu", copy=True) for t in tensors]
+            op(*host, async_op=False)
+            for i in outs:
+                tensors[i].copy_(host[i].to(tensors[i].device))
+        return None
+
+    def psum(self, parts):
+        """Each tensor of ``parts`` (one dtype) summed over the EP group, in
+        one ``all_reduce`` of the parts packed."""
+        if self.mesh is None:
+            return list(parts)
+        import torch.distributed as dist
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        self.census.add("psum", flat.nbytes, count=len(parts))
+        self.census.add("all_reduce", flat.nbytes)
+        group = self.mesh.group("model")
+        self._run(lambda t, async_op: dist.all_reduce(
+            t, group=group, async_op=async_op), [flat], [0])
+        out, i = [], 0
+        for t in parts:
+            out.append(flat[i:i + t.numel()].reshape(t.shape))
+            i += t.numel()
+        return out
+
+    def a2a(self, buf: torch.Tensor, n: int, async_op: bool = False):
+        """Exchange the first ``n`` rows of ``buf`` (``ep`` equal blocks, the
+        j-th to rank j) over the EP group: returns ``(out, work)``, ``out``
+        of ``buf``'s shape with the received blocks in its first ``n`` rows
+        and zeros after; ``work`` is waited on before ``out`` is read (None:
+        nothing to wait for).  Without a group ``out`` is ``buf``."""
+        if self.mesh is None:
+            return buf, None
+        import torch.distributed as dist
+        out = torch.zeros_like(buf)
+        self.census.add("all_to_all", buf[:n].nbytes)
+        group = self.mesh.group("model")
+        work = self._run(
+            lambda src, dst, async_op: dist.all_to_all_single(
+                dst, src, group=group, async_op=async_op),
+            [buf[:n], out[:n]], [1], async_op)
+        return out, work
+
+    def sum_in_order(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the EP group in rank order, the same bits on
+        every rank: an all-gather and sequential adds (the reference's
+        psum of the decode combine, whose reduction order an all-reduce
+        would leave to the backend)."""
+        if self.mesh is None:
+            return x
+        self.census.add("psum", x.nbytes)
+        parts = self._gather(x, "model", "all_gather")
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    def all_gather_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``[ep, *x.shape]``: every rank's ``x`` (the layout's gather)."""
+        return self._gather(x, "model")
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``[rows, *x.shape]``: every data row's ``x``."""
+        return self._gather(x, "data")
+
+    def _gather(self, x: torch.Tensor, axis: str,
+                kind: str = "layout_all_gather") -> torch.Tensor:
+        if self.mesh is None or self.mesh.size(axis) == 1:
+            return x[None]
+        import torch.distributed as dist
+        # torch 2.13 renames all_gather_into_tensor (the card has 2.11)
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        n = self.mesh.size(axis)
+        flat = x.reshape(-1).contiguous()
+        out = torch.empty((n * flat.numel(),), dtype=x.dtype,
+                          device=x.device)
+        self.census.add(kind, flat.nbytes)
+        group = self.mesh.group(axis)
+        self._run(lambda src, dst, async_op: gather(
+            dst, src, group=group, async_op=async_op), [flat, out], [1])
+        return out.reshape(n, *x.shape)
+
+
+def _local_comm() -> Comm:
+    return Comm()
+
+
+def _dist_comm(mesh) -> Comm:
+    """The mesh's EP-group ``Comm`` (built once, kept on the mesh)."""
+    if mesh.comm is None:
+        mesh.comm = Comm(mesh.size("model"), mesh.index("model"), mesh)
+    return mesh.comm
+
+
+def _wait(*works) -> None:
+    for w in works:
+        if w is not None:
+            w.wait()
+
+
+# --------------------------------------------------------------------------
 # routing
 # --------------------------------------------------------------------------
 def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,23 +351,28 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def _route(router_w: torch.Tensor, x_t: torch.Tensor, e_cfg: MoEConfig
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """returns (gates [t,K] f32, eidx [t,K] i32, probs [t,E] f32)."""
-    logits = x_t.to(F32) @ router_w.to(F32)
+    return _route_logits(x_t.to(F32) @ router_w.to(F32), e_cfg)
+
+
+def _route_logits(logits: torch.Tensor, e_cfg: MoEConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_route` from the router's logits."""
     probs = torch.softmax(logits, dim=-1)
     gates, eidx = _top_k(probs, e_cfg.top_k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     return gates, eidx.to(torch.int32), probs
 
 
-def _aux_losses(probs: torch.Tensor, counts_global: torch.Tensor,
-                group_tokens: torch.Tensor, e_cfg: MoEConfig
-                ) -> Dict[str, torch.Tensor]:
-    """GShard-style load-balance + router z losses."""
+def _aux_losses(probs_sum: torch.Tensor, z_sum: torch.Tensor,
+                counts_global: torch.Tensor, group_tokens: torch.Tensor,
+                e_cfg: MoEConfig) -> Dict[str, torch.Tensor]:
+    """GShard-style load-balance + router z losses, from the EP group's
+    sums of the router probabilities and of the squared log-sum-exps."""
     e = e_cfg.num_experts
     f = counts_global / torch.clamp(group_tokens * e_cfg.top_k, min=1.0)
-    p_mean = probs.sum(0) / torch.clamp(group_tokens, min=1.0)
+    p_mean = probs_sum / torch.clamp(group_tokens, min=1.0)
     lb = e * torch.sum(f * p_mean)
-    lse = torch.logsumexp(torch.log(torch.clamp(probs, min=1e-20)), dim=-1)
-    z = torch.sum(lse ** 2) / torch.clamp(group_tokens, min=1.0)
+    z = z_sum / torch.clamp(group_tokens, min=1.0)
     return {"lb_loss": lb, "z_loss": z}
 
 
@@ -229,12 +400,16 @@ def _quantize_experts(w: Dict[str, torch.Tensor], rcfg: ReaLBConfig,
     return out
 
 
-def _use_fp4(dec_use_fp4: torch.Tensor, ep: int, pol_ep: int
-             ) -> torch.Tensor:
-    """The FP4 decision as a 0-dim bool tensor on the device: on one
-    physical rank with a virtual policy topology, any FP4 rank switches
-    every local expert."""
-    return dec_use_fp4[0] if ep == pol_ep else dec_use_fp4.any()
+def _use_fp4(dec_use_fp4: torch.Tensor, ep: int, pol_ep: int,
+             my_rank: int = 0) -> torch.Tensor:
+    """The FP4 decision of this rank's experts as a 0-dim bool tensor on
+    the device: its own entry when the policy runs over the physical EP
+    group (the reference's ``dec.use_fp4[comm.my_rank]``); on one physical
+    rank with a virtual policy topology, any FP4 rank switches every local
+    expert."""
+    if ep == pol_ep:
+        return dec_use_fp4[my_rank]
+    return dec_use_fp4.any()
 
 
 def _expert_ffns(xs, gs, w, wq, f, fi, rcfg):
@@ -252,16 +427,22 @@ def _per_assignment(v: torch.Tensor, k: int) -> torch.Tensor:
     return v[:, None].expand(v.shape[0], k).reshape(-1)
 
 
-def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep):
+def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep,
+                 comm: Comm, group_stats: bool, logits=None):
     """Routing, post-split loads and the policy decision (shared by both
-    paths)."""
+    paths).  ``group_stats`` (dispatch): the counts, the router sums and
+    the AIMD vector are summed over the EP group in one packed psum;
+    ``m_vec`` is then this rank's one-hot share of it (the reference's
+    psum-of-onehot).  ``slot_stat`` stays this rank's own (it packs the
+    dispatch)."""
     e_cfg = cfg.moe
     e = e_cfg.num_experts
     n_slots = rep.slot_owner.shape[0]
     s_pol = n_slots // pol_ep
     t = x_t.shape[0]
     k = e_cfg.top_k
-    gates, eidx, probs = _route(p["router"], x_t, e_cfg)
+    gates, eidx, probs = _route(p["router"], x_t, e_cfg) \
+        if logits is None else _route_logits(logits, e_cfg)
     flat_e = eidx.reshape(t * k)
     val_flat = _per_assignment(val_t.to(torch.bool), k)
     flat_p, secondary = _split_assignments(rep, flat_e, val_flat)
@@ -270,16 +451,26 @@ def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep):
         (mod_t.to(torch.bool) & val_t.to(torch.bool)).to(F32), k)
     counts = _bincount(flat_e, w_val, e)
     vis = _bincount(flat_e, w_vis, e)
-    slot_load = _bincount(flat_p, w_val, n_slots)
+    slot_stat = _bincount(flat_p, w_val, n_slots)
     slot_vis = _bincount(flat_p, w_vis, n_slots)
+    split = torch.sum(secondary.to(F32) * w_val)
+    probs_sum = probs.sum(0)
+    lse = torch.logsumexp(torch.log(torch.clamp(probs, min=1e-20)), dim=-1)
+    z_sum = torch.sum(lse ** 2)
+    slot_load = slot_stat
+    if group_stats:
+        (m_vec, counts, vis, slot_load, slot_vis, split, probs_sum,
+         z_sum) = comm.psum([m_vec, counts, vis, slot_stat, slot_vis,
+                             split.reshape(1), probs_sum, z_sum.reshape(1)])
+        split, z_sum = split.reshape(()), z_sum.reshape(())
     load_d = slot_load.reshape(pol_ep, s_pol).sum(-1)
     vis_d = slot_vis.reshape(pol_ep, s_pol).sum(-1)
-    split = torch.sum(secondary.to(F32) * w_val)
     dec = realb_policy(load_d, vis_d, m_vec, rcfg)
-    return dict(gates=gates, probs=probs, flat_p=flat_p, val_flat=val_flat,
-                w_val=w_val, counts=counts, vis=vis, slot_load=slot_load,
-                slot_vis=slot_vis, load_d=load_d, vis_d=vis_d, split=split,
-                dec=dec)
+    return dict(gates=gates, probs_sum=probs_sum, z_sum=z_sum,
+                flat_p=flat_p, val_flat=val_flat, w_val=w_val,
+                counts=counts, vis=vis, slot_stat=slot_stat,
+                slot_load=slot_load, slot_vis=slot_vis, load_d=load_d,
+                vis_d=vis_d, split=split, dec=dec)
 
 
 def _aux(r, drop_frac, k, e_cfg):
@@ -287,7 +478,8 @@ def _aux(r, drop_frac, k, e_cfg):
     total = r["load_d"].sum()
     # the reference's total / k, as XLA compiles it (f32 reciprocal)
     group_tokens = total * float(np.float32(1.0) / np.float32(max(k, 1)))
-    aux = _aux_losses(r["probs"], r["counts"], group_tokens, e_cfg)
+    aux = _aux_losses(r["probs_sum"], r["z_sum"], r["counts"], group_tokens,
+                      e_cfg)
     aux.update(drop_frac=drop_frac, ib_global=dec.ib_global,
                fp4_ranks=dec.use_fp4.to(F32).sum(),
                load_d=r["load_d"], vis_d=r["vis_d"],
@@ -302,16 +494,29 @@ def _aux(r, drop_frac, k, e_cfg):
 # dispatch path (prefill)
 # --------------------------------------------------------------------------
 def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
-                  stop_stage=None):
-    """x_t [t,D] tokens; mod_t [t] vision flags; val_t [t] real-token flags;
-    m_vec [pol_ep] AIMD state; rep maps logical experts onto slots.
+                  comm: Comm, stop_stage=None, logits=None):
+    """x_t [t,D] this rank's tokens; mod_t [t] vision flags; val_t [t]
+    real-token flags; m_vec [pol_ep] the AIMD state (under a mesh this
+    rank's one-hot share of it); rep maps logical experts onto slots
+    strided over ``pol_ep`` policy ranks (the EP group under a mesh; a
+    virtual topology on one rank); ``p`` holds this rank's ``S/ep`` slots.
 
-    ``stop_stage`` ends the layer after the named phase and returns that
-    phase's live boundary values, as the reference's prefixes do (the
-    profiler's instrumented mode times each cumulative prefix); ``None``,
-    the default and the last prefix, is the whole layer."""
+    Under ReaLB (``overlap=True``) the dispatch all-to-alls are issued,
+    asynchronously, before the quantizer is launched and waited on before
+    the expert GEMM: an NCCL stream waits on the compute stream as it
+    stands when the collective is issued, so a quantizer launched first
+    would serialise with the dispatch.  Under ReaLB-seq the quantizer runs
+    after the wait, with the reference's data dependency on it.
+
+    ``stop_stage`` (one rank only) ends the layer after the named phase
+    and returns that phase's live boundary values, as the reference's
+    prefixes do (the profiler's instrumented mode times each cumulative
+    prefix); ``None``, the default and the last prefix, is the whole
+    layer.  The ``quantize_fp4`` prefix includes the dispatch's send
+    buffers, which the quantizer follows.  ``logits``: the router's
+    logits of ``x_t``, when the caller computed them."""
     e_cfg = cfg.moe
-    ep = 1
+    ep = comm.ep
     n_slots = rep.slot_owner.shape[0]
     s_loc = n_slots // ep
     t, d = x_t.shape
@@ -319,8 +524,9 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     dev = x_t.device
 
     # ① routing + metadata, ② policy
-    r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
-    f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep,
+                     comm, group_stats=comm.mesh is not None, logits=logits)
+    f = _use_fp4(r["dec"].use_fp4, comm.ep, pol_ep, comm.my_rank)
     if stop_stage == "route":
         return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
@@ -328,44 +534,50 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     if stop_stage == "weight_gather":
         return r["gates"], r["flat_p"], r["dec"].m_new, f, w
 
-    # ③ conditional on-the-fly quantization, before dispatch (ReaLB); under
-    # ReaLB-seq (overlap=False) after it, below
-    wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap else None
-    if stop_stage == "quantize_fp4":
-        # under ReaLB-seq the transformation has not run here: its cost
-        # lands in the dispatch prefix
-        return (r["gates"], r["flat_p"], r["dec"].m_new, f,
-                w if wq is None else wq)
-
-    # dispatch: valid assignments first, capacity-packed; padding and
-    # over-capacity assignments get the out-of-range slot `big`
+    # dispatch: valid assignments first, capacity-packed by this rank's own
+    # counts; padding and over-capacity assignments get the out-of-range
+    # slot `big`
     flat_p, val_flat = r["flat_p"], r["val_flat"]
     dest = torch.div(flat_p, s_loc, rounding_mode="floor")
     order = torch.sort(torch.where(val_flat, dest, torch.full_like(dest, ep)),
                        stable=True).indices
     dest_s = dest[order]
     valid_s = val_flat[order]
-    send_counts = r["slot_load"].reshape(ep, s_loc).sum(-1).to(torch.int32)
+    send_counts = r["slot_stat"].reshape(ep, s_loc).sum(-1).to(torch.int32)
     offsets = torch.cumsum(send_counts, 0, dtype=torch.int32) - send_counts
     pos_in_rank = torch.arange(t * k, dtype=torch.int32, device=dev) \
         - offsets[dest_s.long()]
     cap = max(8, -(-math.ceil(t * k / ep * e_cfg.capacity_factor) // 8) * 8)
-    big = ep * cap + 7                   # out of range -> dropped
+    n_cap = ep * cap
+    big = n_cap + 7                      # out of range -> dropped
     slot_s = torch.where(valid_s & (pos_in_rank < cap),
                          dest_s * cap + pos_in_rank,
                          torch.full_like(pos_in_rank, big)).long()
     tok_idx_s = torch.div(order, k, rounding_mode="floor")
     leid_s = (flat_p % s_loc)[order].to(torch.int32)
-    # rows past ep*cap are spare: dropped writes land there
-    send = torch.zeros((ep * cap + 8, d), dtype=x_t.dtype, device=dev)
+    # rows past n_cap are spare: dropped writes land there
+    send = torch.zeros((n_cap + 8, d), dtype=x_t.dtype, device=dev)
     send[slot_s] = x_t[tok_idx_s]
-    eid_send = torch.full((ep * cap + 8,), s_loc, dtype=torch.int32,
+    eid_send = torch.full((n_cap + 8,), s_loc, dtype=torch.int32,
                           device=dev)
     eid_send[slot_s] = leid_s
-    recv, eid_recv = send[:ep * cap], eid_send[:ep * cap]
     slot_flat = torch.empty((t * k,), dtype=torch.long, device=dev)
     slot_flat[order] = slot_s
-    if wq is None:      # ReaLB-seq: serialise ③ after dispatch
+    recv, w_x = comm.a2a(send, n_cap, async_op=rcfg.overlap)
+    eid_recv, w_e = comm.a2a(eid_send, n_cap, async_op=rcfg.overlap)
+
+    # ③ conditional on-the-fly quantization while the dispatch is in flight
+    # (ReaLB); under ReaLB-seq (overlap=False) after it, serialised by a
+    # data dependency on what it received
+    wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap else None
+    if stop_stage == "quantize_fp4":
+        # under ReaLB-seq the transformation has not run here: its cost
+        # lands in the dispatch prefix
+        return (r["gates"], r["flat_p"], r["dec"].m_new, f,
+                w if wq is None else wq)
+    _wait(w_x, w_e)
+    recv, eid_recv = recv[:n_cap], eid_recv[:n_cap]
+    if wq is None:
         token = (recv.sum() * 0.0).to(F32)
         wq = _quantize_experts(w, rcfg, fi, token)
     if stop_stage == "dispatch":
@@ -378,20 +590,24 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     xs = recv[order2]
     gs = _bincount(eid_recv, None, s_loc + 1).to(torch.int32)
     ys = _expert_ffns(xs, gs, w, wq, f, fi, rcfg)
-    y_buf = torch.zeros((ep * cap + 8, d), dtype=ys.dtype, device=dev)
+    y_buf = torch.zeros((n_cap + 8, d), dtype=ys.dtype, device=dev)
     y_buf[order2] = ys
     if stop_stage == "expert_gemm":
-        return r["gates"], r["dec"].m_new, y_buf[:ep * cap], slot_flat
+        return r["gates"], r["dec"].m_new, y_buf[:n_cap], slot_flat
 
-    # combine: `big` reads a spare zero row
-    y_flat = y_buf[slot_flat]
+    # combine: the rows go back to their senders; `big` reads a spare
+    # zero row
+    ret, w_y = comm.a2a(y_buf, n_cap)
+    _wait(w_y)
+    y_flat = ret[slot_flat]
     y_flat = torch.where((slot_flat < big)[:, None], y_flat,
                          torch.zeros((), dtype=y_flat.dtype, device=dev))
     out = torch.sum(y_flat.reshape(t, k, d)
                     * r["gates"][..., None].to(y_flat.dtype), dim=1)
 
     total = r["load_d"].sum()
-    dropped = torch.sum((slot_flat >= big).to(F32) * r["w_val"])
+    dropped = comm.psum([torch.sum((slot_flat >= big).to(F32)
+                                   * r["w_val"]).reshape(1)])[0].reshape(())
     aux = _aux(r, dropped / torch.clamp(total, min=1.0), k, e_cfg)
     return out.to(x_t.dtype), r["dec"].m_new, aux
 
@@ -400,19 +616,25 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
 # broadcast path (decode)
 # --------------------------------------------------------------------------
 def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
-                   stop_stage=None):
-    """Decode-regime MoE: every local expert on every token, then combine.
-    ``stop_stage``: see :func:`_moe_dispatch` (no ``dispatch`` phase)."""
+                   comm: Comm, stop_stage=None):
+    """Decode-regime MoE: tokens replicated over the EP group, every local
+    expert on every token, each rank's contributions summed over the group
+    (the combine).  ``stop_stage``: see :func:`_moe_dispatch` (no
+    ``dispatch`` phase)."""
     e_cfg = cfg.moe
-    ep = 1
+    ep = comm.ep
     n_slots = rep.slot_owner.shape[0]
     s_loc = n_slots // ep
     t = x_t.shape[0]
     k = e_cfg.top_k
     dt = x_t.dtype
 
-    r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep)
-    f = _use_fp4(r["dec"].use_fp4, ep, pol_ep)
+    if comm.mesh is not None:            # the reference's psum-of-onehot
+        m_vec = comm.psum([m_vec])[0]
+    # every rank sees every token: the stats need no sum over the group
+    r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep,
+                     comm, group_stats=False)
+    f = _use_fp4(r["dec"].use_fp4, comm.ep, pol_ep, comm.my_rank)
     if stop_stage == "route":
         return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
@@ -423,11 +645,19 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     if stop_stage == "quantize_fp4":
         return r["gates"], r["flat_p"], r["dec"].m_new, f, wq
 
-    # BF16: dense per-expert products
-    g = torch.matmul(x_t, w["w_gate"].to(dt))                 # [E,t,F]
-    u = torch.matmul(x_t, w["w_up"].to(dt))
-    h = F.silu(g.to(F32)).to(dt) * u
-    y_bf16 = torch.matmul(h, w["w_down"].to(dt))             # [E,t,D]
+    # BF16: dense per-expert products, one batch a policy rank's slab of
+    # s_pol slots: the products an EP rank of that topology makes, with the
+    # same batch count (a BLAS may pick its batched GEMM by it)
+    s_pol = n_slots // pol_ep
+    n_part = s_loc // s_pol
+    ys = []
+    for j in range(n_part):
+        sl = slice(j * s_pol, (j + 1) * s_pol)
+        g = torch.matmul(x_t, w["w_gate"][sl].to(dt))        # [s_pol,t,F]
+        u = torch.matmul(x_t, w["w_up"][sl].to(dt))
+        h = F.silu(g.to(F32)).to(dt) * u
+        ys.append(torch.matmul(h, w["w_down"][sl].to(dt)))   # [s_pol,t,D]
+    y_bf16 = ys[0] if n_part == 1 else torch.cat(ys)
     # FP4: the grouped W4A4 kernel over x_t once per local slot (the
     # reference's decode FP4 recipe is the grouped kernel's), its counts
     # masked by the decision
@@ -440,11 +670,22 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     leid = pidx % s_loc
     if stop_stage == "expert_gemm":
         return r["gates"], r["dec"].m_new, y_e, leid
-    local_gate = r["gates"]                 # one physical rank: all local
+    sel = torch.div(pidx, s_loc, rounding_mode="floor") == comm.my_rank
+    local_gate = torch.where(sel, r["gates"], torch.zeros((), dtype=F32,
+                                                          device=x_t.device))
     onehot = (leid[..., None] == torch.arange(
         s_loc, device=leid.device)).to(dt)                    # [t,K,s_loc]
     weight_e = torch.einsum("tk,tke->te", local_gate.to(dt), onehot)
-    out = torch.einsum("te,etd->td", weight_e, y_e)
+    # the f32 partial sum of each slab, the partials added in rank order
+    # and rounded once: the sum an EP group of the policy's size makes, one
+    # slab a rank, whatever order its collective would add in
+    we = weight_e.to(F32).reshape(t, n_part, s_pol)
+    ye = y_e.reshape(n_part, s_pol, t, -1)
+    partial = torch.einsum("te,etd->td", we[:, 0], ye[0].to(F32))
+    for j in range(1, n_part):
+        partial = partial + torch.einsum("te,etd->td", we[:, j],
+                                         ye[j].to(F32))
+    out = comm.sum_in_order(partial)
 
     aux = _aux(r, torch.zeros((), dtype=F32, device=x_t.device), k, e_cfg)
     return out.to(dt), r["dec"].m_new, aux
@@ -460,40 +701,138 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    mode: str = "dispatch",
                    valid: Optional[torch.Tensor] = None,
                    placement=None, stop_stage: Optional[str] = None):
-    """MoE layer with ReaLB on one physical rank.  x [B,S,D]; m_state
-    [1, vep] (the policy's virtual EP topology); valid [B,S] marks real
-    tokens (None = all).  ``placement``: None (identity), a
-    :class:`Placement`, or a :class:`Replication` with weights ``p`` stored
-    in the matching slot order.  Returns (y, new_m_state, aux_dict).
+    """MoE layer with ReaLB.  x [B,S,D]; m_state [groups, ep] (see
+    :func:`moe_state_shape`); valid [B,S] marks real tokens (None = all).
+    ``placement``: None (identity), a :class:`Placement`, or a
+    :class:`Replication` with weights ``p`` stored in the matching slot
+    order.  Returns (y, new_m_state, aux_dict).
 
-    ``stop_stage`` (instrumented profiling): end after the named phase
-    (``route`` / ``weight_gather`` / ``quantize_fp4`` / ``dispatch`` /
-    ``expert_gemm``) and return that prefix's raw boundary values instead
-    — see :func:`repro_torch.obs.profiler.time_moe_phases`."""
+    Without a mesh (or with a ``model`` axis of 1) the policy runs over the
+    trailing dim of ``m_state [1, vep]``, a virtual EP topology.  Under a
+    :class:`~repro_torch.models.common.Mesh` (``use_mesh``) every rank
+    passes the same global ``x``, ``m_state`` and tables and its own
+    ``[S/ep]`` slots of the expert stacks; the layer returns the global
+    ``y``, ``m_state`` and aux on every rank, as the reference's
+    ``shard_map`` with its out-specs does.  Rows go over ``data`` when
+    ``m_state`` has one group a data row (each row its own EP group),
+    else every data row computes the whole batch.  In dispatch a rank
+    takes its ``S/ep`` sequence slice (S must divide), in broadcast every
+    token; the outputs are gathered back over ``model`` (dispatch) and
+    ``data``, collectives the census classes as layout.
+
+    ``stop_stage`` (instrumented profiling, one rank only): end after the
+    named phase (``route`` / ``weight_gather`` / ``quantize_fp4`` /
+    ``dispatch`` / ``expert_gemm``) and return that prefix's raw boundary
+    values instead — see :func:`repro_torch.obs.profiler.time_moe_phases`."""
     if modality is None:
         modality = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     if valid is None:
         valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
-    pol_ep = int(m_state.shape[-1]) if m_state.dim() else 1
-    if cfg.moe.num_experts % pol_ep:
-        raise ValueError(f"{cfg.moe.num_experts} experts over {pol_ep} ranks")
-    rep = _as_replication(placement, cfg.moe.num_experts, pol_ep, x.device)
-    if rep.slot_owner.shape[0] % pol_ep:
-        raise ValueError(f"{rep.slot_owner.shape[0]} slots over {pol_ep} ranks")
-    b, s, d = x.shape
     if cfg.activation != "swiglu":
         raise NotImplementedError("the expert FFN kernels are SwiGLU only")
-    args = (x.reshape(b * s, d), modality.reshape(b * s),
-            valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg, rep,
-            pol_ep)
+    mesh = current_mesh()
     fn = _moe_broadcast if mode == "broadcast" else _moe_dispatch
-    out = fn(*args, stop_stage=stop_stage)
-    if stop_stage is not None:         # instrumented prefix: raw boundary
-        return out
-    y, m_new, aux = out
-    return y.reshape(b, s, d), m_new.reshape(m_state.shape), aux
+    b, s, d = x.shape
+    if mesh is None or mesh.size("model") == 1:
+        pol_ep = int(m_state.shape[-1]) if m_state.dim() else 1
+        if cfg.moe.num_experts % pol_ep:
+            raise ValueError(f"{cfg.moe.num_experts} experts over {pol_ep} "
+                             "ranks")
+        rep = _as_replication(placement, cfg.moe.num_experts, pol_ep,
+                              x.device)
+        if rep.slot_owner.shape[0] % pol_ep:
+            raise ValueError(f"{rep.slot_owner.shape[0]} slots over "
+                             f"{pol_ep} ranks")
+        out = fn(x.reshape(b * s, d), modality.reshape(b * s),
+                 valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg,
+                 rep, pol_ep, _local_comm(), stop_stage=stop_stage)
+        if stop_stage is not None:     # instrumented prefix: raw boundary
+            return out
+        y, m_new, aux = out
+        return y.reshape(b, s, d), m_new.reshape(m_state.shape), aux
+
+    if stop_stage is not None:
+        raise NotImplementedError(
+            "stop_stage instrumentation is one-rank only (time_moe_phases on "
+            "a mesh is ROADMAP Queue A item 7e); under a mesh time "
+            "the forward as a whole")
+    comm = _dist_comm(mesh)
+    ep, rows = comm.ep, mesh.size("data")
+    if m_state.dim() != 2 or m_state.shape[1] != ep \
+            or m_state.shape[0] not in (1, rows):
+        raise ValueError(f"m_state {tuple(m_state.shape)} on a "
+                         f"{rows}x{ep} mesh; see moe_state_shape")
+    rep = _as_replication(placement, cfg.moe.num_experts, ep, x.device)
+    n_slots = rep.slot_owner.shape[0]
+    if n_slots % ep or p["w_gate"].shape[0] != n_slots // ep:
+        raise ValueError(f"{n_slots} slots over {ep} ranks: a rank holds "
+                         f"{n_slots // ep} of them, not "
+                         f"{p['w_gate'].shape[0]} (pass its shard)")
+    g = mesh.index("data") if m_state.shape[0] > 1 else 0
+    my = comm.my_rank
+    # rows over data (one EP group a row), the dispatch's sequence over
+    # model
+    cut_b = local_slice(b, "batch", mesh) if m_state.shape[0] > 1 \
+        else slice(0, b)
+    cut_s = slice(0, s) if mode == "broadcast" \
+        else local_slice(s, "seq", mesh)
+    xl = x[cut_b, cut_s]
+    bl, sl = xl.shape[:2]
+    m_part = (torch.arange(ep, device=x.device) == my).to(F32) \
+        * m_state[g, my].to(F32)
+    kw = {}
+    if mode != "broadcast":
+        # the router's logits of the group's whole sequence, this rank's
+        # slice kept: a BLAS picks its f32 GEMM by the row count, so logits
+        # of a slice could differ in the last bit from the one-device
+        # layer's and flip a near-tie of the top-k
+        kw["logits"] = (x[cut_b].reshape(-1, d).to(F32)
+                        @ p["router"].to(F32)).reshape(bl, s, -1)[
+                            :, cut_s].reshape(bl * sl, -1)
+    y, m_new, aux = fn(xl.reshape(bl * sl, d),
+                       modality[cut_b, cut_s].reshape(bl * sl),
+                       valid[cut_b, cut_s].reshape(bl * sl), p, m_part, cfg,
+                       rcfg, rep, ep, comm, **kw)
+    y = y.reshape(bl, sl, d)
+    if mode != "broadcast":
+        y = comm.all_gather_model(y).permute(1, 0, 2, 3).reshape(bl, s, d)
+    scal = torch.stack([aux[n].to(F32).reshape(()) for n in AUX_SCALARS])
+    stats = torch.stack([aux["load_d"], aux["vis_d"]])          # [2, ep]
+    estats = torch.stack([aux["expert_load"], aux["expert_vis"]])
+    sstats = torch.stack([aux["slot_load"], aux["slot_vis"]])
+    if m_state.shape[0] == 1:
+        m_out = m_new.reshape(1, ep)
+        scal, stats, estats, sstats = (scal[None], stats[None],
+                                       estats[None], sstats[None])
+    else:                                # every row's values, by row
+        y = comm.gather_rows(y).reshape(b, s, d)
+        packed = comm.gather_rows(torch.cat([
+            m_new.reshape(-1), scal, stats.reshape(-1), estats.reshape(-1),
+            sstats.reshape(-1)]))
+        sizes = (ep, scal.numel(), stats.numel(), estats.numel(),
+                 sstats.numel())
+        m_out, scal, stats, estats, sstats = (
+            v.reshape(rows, *shape) for v, shape in zip(
+                torch.split(packed, sizes, dim=1),
+                ((ep,), (scal.numel(),), stats.shape, estats.shape,
+                 sstats.shape)))
+    aux_mean = scal.mean(0)
+    out = {n: aux_mean[i] for i, n in enumerate(AUX_SCALARS)}
+    out.update(load_d=stats[:, 0], vis_d=stats[:, 1],
+               expert_load=estats[:, 0].sum(0), expert_vis=estats[:, 1].sum(0),
+               slot_load=sstats[:, 0].sum(0), slot_vis=sstats[:, 1].sum(0))
+    return y, m_out.reshape(m_state.shape), out
 
 
-def moe_state_shape(virtual_ep: Optional[int] = None) -> Tuple[int, int]:
-    """AIMD M-state shape [1, vep] on one device with a virtual EP topology."""
-    return (1, int(virtual_ep) if virtual_ep else 1)
+def moe_state_shape(mesh=None, global_batch: int = 1,
+                    virtual_ep: Optional[int] = None) -> Tuple[int, int]:
+    """AIMD M-state shape ``[n_groups, ep]`` for a mesh and a batch: one
+    group a data row when the batch divides over them (each row is its own
+    EP group), else one replicated group.  Without a mesh ``[1, vep]``,
+    the policy's virtual EP topology (``virtual_ep``, default 1)."""
+    if mesh is None:
+        return (1, int(virtual_ep) if virtual_ep else 1)
+    rows, ep = mesh.size("data"), mesh.size("model")
+    if global_batch % max(rows, 1):
+        rows = 1
+    return (rows, ep)

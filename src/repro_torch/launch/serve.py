@@ -8,8 +8,19 @@ Counterpart of ``repro.launch.serve``, with the same flags and
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 It synthesizes a request stream from a named workload profile, serves it
 with ReaLB live on random weights from a seed, and reports throughput,
-TTFT/TPOT percentiles and per-iteration balance stats.  ``--mesh`` accepts
-only ``none``: multi-rank expert parallelism is not ported yet.
+TTFT/TPOT percentiles and per-iteration balance stats.
+
+``--mesh host`` serves with expert parallelism over every rank the
+launcher starts, one EP group (``(1, world)``): NCCL with one card a rank,
+or gloo with ``--device cpu``::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh host
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh host \
+        --device cpu
+
+Every rank serves the same stream and emits the same tokens; rank 0
+prints the report and a line saying the ranks agree.  ``single_pod`` and
+``multi_pod`` (TPU pod slices) are refused.
 """
 from __future__ import annotations
 
@@ -19,7 +30,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import ReaLBConfig, get_config, reduced
+from repro_torch.launch.mesh import init_distributed, mesh_for
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import use_mesh
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.telemetry import Telemetry
 from repro_torch.workloads import make_stream, profile
@@ -46,10 +59,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu: the plain versions)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port serves on one device; multi-rank "
-            "expert parallelism is not ported yet (ROADMAP Queue A item 7)")
+        if args.mesh == "host":
+            init_distributed(args.device)
+        mesh = mesh_for(args.mesh, device=None if args.device == "cuda"
+                        else args.device)
 
     cfg = get_config(args.arch)
     if args.preset == "tiny":
@@ -65,19 +80,24 @@ def main(argv=None):
     specs = make_stream(prof, np.zeros(args.requests), cfg.vocab_size,
                         seed=args.seed)
 
-    params = tf.init_model(cfg, seed=0, device=args.device)
-    max_len = args.max_prompt + args.max_new + 8
-    telemetry = Telemetry()
-    eng = Engine(cfg, params, rcfg, max_slots=args.slots, max_len=max_len,
-                 prefill_budget=args.prefill_budget, telemetry=telemetry,
-                 device=args.device)
-    for spec in specs:
-        req = spec.to_request()
-        req.arrival_time = None    # stamp with the wall clock at submit
-        eng.submit(req)
-    t0 = time.perf_counter()
-    done = eng.run()
-    dt = time.perf_counter() - t0
+    device = args.device if mesh is None else mesh.device
+    with use_mesh(mesh):
+        params = tf.init_model(cfg, seed=0, device=device)
+        max_len = args.max_prompt + args.max_new + 8
+        telemetry = Telemetry()
+        eng = Engine(cfg, params, rcfg, max_slots=args.slots,
+                     max_len=max_len, prefill_budget=args.prefill_budget,
+                     telemetry=telemetry, device=device)
+        for spec in specs:
+            req = spec.to_request()
+            req.arrival_time = None    # stamp with the wall clock at submit
+            eng.submit(req)
+        t0 = time.perf_counter()
+        done = eng.run()
+        dt = time.perf_counter() - t0
+    agree = True if mesh is None else _ranks_agree(done, mesh)
+    if mesh is not None and mesh.device_mesh.get_rank() != 0:
+        return 0 if agree else 1
 
     out_toks = sum(len(r.generated) for r in done)
     in_toks = sum(r.prompt_len for r in done)
@@ -99,7 +119,30 @@ def main(argv=None):
             print(f"TTFT p50/p99: {s['ttft']['p50']:.3f}/"
                   f"{s['ttft']['p99']:.3f}s  "
                   f"TPOT p50: {s['tpot'].get('p50', float('nan')):.4f}s")
-    return 0
+    if mesh is not None:
+        print(f"mesh {mesh.size('data')}x{mesh.size('model')} "
+              f"({mesh.backend}): every rank generated the same tokens: "
+              f"{agree}")
+    return 0 if agree else 1
+
+
+def _ranks_agree(done, mesh) -> bool:
+    """Whether every rank generated the same tokens (a digest of them
+    gathered over the default group)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    toks = [(r.uid, tuple(r.generated)) for r in sorted(done,
+                                                      key=lambda r: r.uid)]
+    digest = hashlib.sha256(repr(toks).encode()).digest()[:8]
+    mine = torch.tensor([int.from_bytes(digest, "little", signed=True)],
+                        dtype=torch.int64,
+                        device=mesh.device if mesh.backend == "nccl"
+                        else "cpu")
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return all(bool((e == mine).all()) for e in every)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,23 @@
-"""Shared model machinery of the port: devices, parameter declarations and
-initialisation, norms, activations, RoPE.
+"""Shared model machinery of the port: devices, the device mesh, parameter
+declarations and initialisation, norms, activations, RoPE.
 
-Counterpart of the numerics of ``repro.models.common``.  Parameters are
-declared as :class:`P` leaves (shape + init) and initialised from a seeded
-``torch.Generator`` on the target device: fan-in scaled normals on the
-second-to-last dim, ``embed`` normals with their own std, zero norms.
+Counterpart of the numerics and the mesh context of
+``repro.models.common``.  Parameters are declared as :class:`P` leaves
+(shape + init, and the logical axis of each dim) and initialised from a
+seeded ``torch.Generator`` on the target device: fan-in scaled normals on
+the second-to-last dim, ``embed`` normals with their own std, zero norms.
+
+Under a :class:`Mesh` (``use_mesh``) a rank holds the slice of each
+parameter whose logical axes the rules map onto mesh axes; only the
+expert stacks have such an axis (``expert`` over ``model``).  The rank
+draws each block whole and keeps its slice, so its values equal the
+matching slice of the whole model's and it never holds the whole stack.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -22,32 +30,154 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def resolve_device(device: Union[str, torch.device, None] = None
                    ) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    one.  With no card and no explicit device it raises; it never falls back
-    to the CPU on its own."""
+    one (under a mesh: the rank's device).  With no card and no explicit
+    device it raises; it never falls back to the CPU on its own."""
     if device is not None:
         return torch.device(device)
+    if _CTX.mesh is not None:
+        return _CTX.mesh.device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port's plain versions on the CPU")
     return torch.device("cuda")
 
 
+# --------------------------------------------------------------------------
+# the device mesh
+# --------------------------------------------------------------------------
+AXES = ("data", "model")
+# logical name -> mesh axis, as far as the EP path needs them (the
+# reference's DEFAULT_RULES): rows over data, the dispatch sequence and the
+# expert stacks over model
+RULES: Dict[str, str] = {"batch": "data", "seq": "model", "expert": "model"}
+
+
+class Mesh:
+    """A ``("data", "model")`` grid of the ranks of the initialised default
+    process group, over ``torch.distributed.device_mesh.DeviceMesh``.
+
+    ``backend`` names how the collectives move: ``"nccl"`` (CUDA tensors,
+    one card a rank), ``"gloo"`` (CPU tensors) or ``"staged"`` (CUDA
+    tensors copied to the host around gloo collectives: several ranks on
+    one card, where NCCL refuses two ranks of one communicator on one
+    device and gloo has no CUDA all-to-all; for correctness only).
+    ``device`` is where this rank computes."""
+
+    axis_names = AXES
+
+    def __init__(self, shape: Tuple[int, int], backend: str,
+                 device: Union[str, torch.device]):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        if backend not in ("nccl", "gloo", "staged"):
+            raise ValueError(f"mesh backend {backend!r}")
+        if not dist.is_initialized():
+            raise RuntimeError("a Mesh needs an initialised default process "
+                               "group (torch.distributed.init_process_group)")
+        rows, ep = (int(n) for n in shape)
+        if rows * ep != dist.get_world_size():
+            raise ValueError(f"mesh {rows}x{ep} over "
+                             f"{dist.get_world_size()} ranks")
+        self.shape = {"data": rows, "model": ep}
+        self.backend = backend
+        self.device = torch.device(device)
+        self.device_mesh = DeviceMesh(
+            "cuda" if backend == "nccl" else "cpu",
+            torch.arange(rows * ep).reshape(rows, ep), mesh_dim_names=AXES)
+        self.comm = None          # built by core.ep_moe on first use
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
+
+    def group(self, axis: str):
+        """The process group of the ranks that share every other axis."""
+        return self.device_mesh.get_group(axis)
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape['data']}, model="
+                f"{self.shape['model']}, backend={self.backend!r}, "
+                f"device={self.device})")
+
+
+class _MeshCtx(threading.local):
+    def __init__(self):
+        self.mesh: Optional[Mesh] = None
+
+
+_CTX = _MeshCtx()
+
+
+class use_mesh:
+    """Context manager activating a mesh (``None``: no mesh)."""
+
+    def __init__(self, mesh: Optional[Mesh]):
+        self.mesh = mesh
+        self._saved: Optional[Mesh] = None
+
+    def __enter__(self):
+        self._saved, _CTX.mesh = _CTX.mesh, self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _CTX.mesh = self._saved
+        return False
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _CTX.mesh
+
+
+def ep_size(mesh: Optional[Mesh]) -> int:
+    """The EP group size: the mesh's ``model`` axis, 1 without a mesh."""
+    return 1 if mesh is None else mesh.size("model")
+
+
+def local_slice(n: int, axis: Optional[str],
+                mesh: Optional[Mesh]) -> slice:
+    """The slice of a dim of size ``n`` with logical axis ``axis`` that this
+    rank holds (the whole dim unless the rules map ``axis`` onto a mesh
+    axis of size > 1)."""
+    mesh_axis = RULES.get(axis) if axis is not None else None
+    if mesh is None or mesh_axis is None or mesh.size(mesh_axis) == 1:
+        return slice(0, n)
+    parts = mesh.size(mesh_axis)
+    if n % parts:
+        raise ValueError(f"a {axis} dim of {n} does not divide over the "
+                         f"{parts} ranks of the mesh's {mesh_axis!r} axis")
+    i = mesh.index(mesh_axis)
+    return slice(i * n // parts, (i + 1) * n // parts)
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class P:
-    """Declaration of one parameter."""
+    """Declaration of one parameter; ``axes`` names the logical axis of each
+    dim (None: every dim replicated)."""
 
     shape: Tuple[int, ...]
     init: str = "normal"          # normal | zeros | embed
     scale: float = 1.0            # stddev multiplier
     dtype: Optional[str] = None   # override the model param dtype
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
-              device: torch.device, stack: int = 0) -> torch.Tensor:
+              device: torch.device, stack: int = 0,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One parameter (``stack`` adds a leading block dim).  Stacked normals
     are drawn one block at a time in f32, so the f32 draw never holds more
-    than one block of the parameter."""
-    shape = (stack, *p.shape) if stack else p.shape
+    than one block of the parameter.  Under ``mesh`` the result is this
+    rank's slice, cut from each block's whole draw."""
+    cut = tuple(local_slice(n, a, mesh)
+                for n, a in zip(p.shape, p.axes or (None,) * len(p.shape)))
+    local = tuple(c.stop - c.start for c in cut)
+    shape = (stack, *local) if stack else local
     dt = DTYPES[p.dtype or default_dtype]
     if p.init == "zeros":
         return torch.zeros(shape, dtype=dt, device=device)
@@ -59,16 +189,17 @@ def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
     out = torch.empty(shape, dtype=dt, device=device)
     for block in (out if stack else (out,)):
         block.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                                device=device) * std)
+                                device=device)[cut] * std)
     return out
 
 
 def init_params(tree: Tree, gen: torch.Generator, default_dtype: str,
-                device: torch.device, stack: int = 0) -> Tree:
+                device: torch.device, stack: int = 0,
+                mesh: Optional[Mesh] = None) -> Tree:
     """Initialise a nested dict of :class:`P` (in sorted key order)."""
     if isinstance(tree, P):
-        return init_leaf(tree, gen, default_dtype, device, stack)
-    return {k: init_params(tree[k], gen, default_dtype, device, stack)
+        return init_leaf(tree, gen, default_dtype, device, stack, mesh)
+    return {k: init_params(tree[k], gen, default_dtype, device, stack, mesh)
             for k in sorted(tree)}
 
 

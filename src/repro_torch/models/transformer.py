@@ -12,6 +12,18 @@ prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
 (one token per row).  They run on ``cuda`` unless the caller passes
 ``device="cpu"``, and none of them reads the device on the host.
+
+Under a mesh (``models.common.use_mesh``) the same entry points run on
+every rank of the EP group.  The reference lets GSPMD pick the layout of
+everything outside the MoE layer's ``shard_map``; the port fixes one, and
+the function is the same: the non-expert part (embedding, attention,
+norms, the dense and shared-expert FFNs, unembedding) and the KV cache are
+replicated on every rank; each MoE layer (``ep_moe_forward``) takes the
+rank's rows and, in dispatch, its ``S/ep`` slice of the sequence, runs the
+all-to-all dispatch over the rank's ``S/ep`` expert slots, and all-gathers
+its output back over ``model``.  ``init_model`` builds only the rank's
+expert slots.  A chunk or prompt length must divide by the EP size (the
+engine's power-of-two chunk buckets, 8 and up, do for EP 2, 4 and 8).
 """
 from __future__ import annotations
 
@@ -24,11 +36,12 @@ from repro_torch.configs.base import ModelConfig, ReaLBConfig
 from repro_torch.core import ep_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (DTYPES, P, init_params, resolve_device,
-                                       rms_norm)
+from repro_torch.models.common import (DTYPES, P, current_mesh, init_params,
+                                       resolve_device, rms_norm)
 
 Tree = Any
 AUX_KEYS = ep_moe.AUX_SCALARS
+EXPERT_AXES = ("expert", None, None)
 F32 = torch.float32
 
 
@@ -54,9 +67,9 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
     e, d = cfg.moe, cfg.d_model
     return {
         "router": P((d, e.num_experts), dtype="float32"),
-        "w_gate": P((e.num_experts, d, e.d_ff)),
-        "w_up": P((e.num_experts, d, e.d_ff)),
-        "w_down": P((e.num_experts, e.d_ff, d)),
+        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES),
+        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES),
+        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES),
     }
 
 
@@ -94,18 +107,23 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return spec
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
+def init_model(cfg: ModelConfig, seed: int = 0, device=None,
+               mesh=None) -> Tree:
     """Random parameters from a seeded ``torch.Generator`` on the device,
-    under the reference's key paths and layouts."""
-    device = resolve_device(device)
+    under the reference's key paths and layouts.  Under ``mesh`` (default:
+    the current one) only this rank's ``S/ep`` expert slots, equal to the
+    matching slice of the whole model's."""
+    mesh = current_mesh() if mesh is None else mesh
+    device = resolve_device(mesh.device if device is None and mesh
+                            is not None else device)
     spec = model_spec(cfg)
     _, n_blocks, _ = block_structure(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = {k: init_params(v, gen, cfg.param_dtype, device)
+    params = {k: init_params(v, gen, cfg.param_dtype, device, mesh=mesh)
               for k, v in spec.items() if k != "blocks"}
     params["blocks"] = init_params(spec["blocks"], gen, cfg.param_dtype,
-                                   device, stack=n_blocks)
+                                   device, stack=n_blocks, mesh=mesh)
     return params
 
 

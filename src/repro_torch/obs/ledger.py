@@ -1,7 +1,6 @@
 """FLOP/byte ledger — exact per-iteration accounting of the MoE hot loop.
 
-Counterpart of ``repro.obs.ledger`` (without ``predict_graph_census``,
-which describes a device mesh).  The formulas are the reference's, term
+Counterpart of ``repro.obs.ledger``.  The formulas are the reference's, term
 for term: the ledger turns the *realized* routing statistics of each
 forward (``aux["moe_stats"]``: per-layer per-rank routed assignment
 counts, plus the ``fp4_ranks`` policy scalar) into
@@ -45,6 +44,7 @@ routed_tokens``: padding the hardware computed earns no utilization.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -163,6 +163,60 @@ class FlopByteLedger:
         return (tokens_r * self.d * 6.0) / self.hw.hbm_bw + 3 * FIXED_US * 1e-6
 
     # --------------------------------------------------------------------
+    def predict_graph_census(self, t_local: int, layers: int,
+                             itemsize: int = 2,
+                             n_slots: Optional[int] = None,
+                             rows: int = 1) -> Dict[str, Dict[str, int]]:
+        """Predicted collective census of ``layers`` dispatch-mode MoE
+        layers on an EP mesh: what one rank issues, with the bytes of its
+        input (the reference's terms).  The all-to-alls carry the whole
+        capacity buffer ``[ep, cap, d]`` however many of its rows are
+        real.  Per layer, as in the reference: 3 all-to-alls (x out, the
+        expert ids, the combine back) and 9 psums (the one-hot ``m_vec``,
+        counts and vision counts, slot loads and vision loads, the split
+        and dropped scalars, the router sums of ``p_mean`` and ``z``).
+
+        The port packs the psums: ``all_reduce`` counts what it issues,
+        one all-reduce of the 8 psums the policy and the losses need and
+        one of ``dropped``, with the same bytes.  ``layout_all_gather`` is
+        the port's layout, which the reference's census classes out as
+        partitioner-inserted: the MoE output gathered over ``model`` each
+        layer, and with ``rows`` > 1 groups the outputs, AIMD rows and
+        statistics gathered over ``data``.
+
+        ``t_local``: tokens a rank dispatches (its rows and sequence
+        slice); ``itemsize``: activation bytes (2 = bf16); ``n_slots``:
+        physical slots (default: the expert count)."""
+        ep = self.ep
+        cap_raw = math.ceil(t_local * self.top_k / ep
+                            * float(self.cfg.moe.capacity_factor))
+        cap = max(8, -(-cap_raw // 8) * 8)   # ep_moe's capacity
+        s = int(n_slots) if n_slots is not None else self.n_experts
+        a2a_bytes = (2 * ep * cap * self.d * itemsize   # x out + combine
+                     + ep * cap * 4)                    # expert ids (int32)
+        psum_elems = (ep                    # m_vec one-hot [ep]
+                      + 3 * self.n_experts  # counts, vis, p_mean [E]
+                      + 2 * s               # slot_load, slot_vis [S]
+                      + 3)                  # split, dropped, z scalars
+        gather = t_local * self.d * itemsize
+        n_gather = 1
+        if rows > 1:
+            n_aux = 7                        # ep_moe.AUX_SCALARS
+            gather += (t_local * ep * self.d * itemsize
+                       + 4 * (ep + n_aux + 2 * ep + 2 * self.n_experts
+                              + 2 * s))
+            n_gather = 3
+        return {
+            "all_to_all": {"count": 3 * layers,
+                           "bytes": a2a_bytes * layers},
+            "psum": {"count": 9 * layers,
+                     "bytes": 4 * psum_elems * layers},
+            "all_reduce": {"count": 2 * layers,
+                           "bytes": 4 * psum_elems * layers},
+            "layout_all_gather": {"count": n_gather * layers,
+                                  "bytes": gather * layers},
+        }
+
     def rank_loads(self, moe_stats) -> np.ndarray:
         """``[L, ep]`` realized per-layer per-rank assignment counts from
         ``aux["moe_stats"]`` (``[L, 2, groups, ep]`` or ``[L, 2, ep]``);

@@ -2,8 +2,11 @@
 one-shot prefill and batched decode with ReaLB active, with expert
 placement or replication and live migration.
 
-Counterpart of ``repro.serving.engine.Engine`` on one device.  The
-engine holds one device-resident KV
+Counterpart of ``repro.serving.engine.Engine``, on one device or, under
+a mesh (``models.common.use_mesh``), on every rank of an EP group: each
+rank runs the same scheduler and the same seeded sampling on the same
+logits, so every rank emits the same tokens, while each holds its
+``S/ep`` expert slots.  The engine holds one device-resident KV
 cache of ``max_slots`` sequences.  Each iteration packs up to
 ``prefill_budget`` prompt tokens across every slot with pending prefill
 work into one ``[max_slots, bucket]`` chunk forward, then runs one batched
@@ -20,7 +23,8 @@ seeded by ``seed`` (JAX's PRNG draws are not reproduced); 0 is greedy.
 ``save_checkpoint``/``load_checkpoint`` write and read the reference's
 format.
 
-Placement and replication: a
+Placement and replication (under a mesh the manager's tables serve as
+they stand; a migration across ranks raises): a
 :class:`~repro_torch.placement.PlacementManager` or
 :class:`~repro_torch.replication.ReplicaManager` (``placement=``) is fed
 every iteration's expert stats, and at its cadence stages a plan.  The
@@ -71,7 +75,8 @@ from repro_torch.core import ep_moe
 from repro_torch.core.policy import init_m_state
 from repro_torch.models import transformer as tf
 from repro_torch.analysis.sentinel import NULL_SENTINEL
-from repro_torch.models.common import DTYPES, resolve_device
+from repro_torch.models.common import (DTYPES, current_mesh, ep_size,
+                                       resolve_device)
 from repro_torch.obs.profiler import NULL_PROFILER
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement import migrate as pmigrate
@@ -134,7 +139,9 @@ class Engine:
                  migrate_bytes_per_iter: Optional[int] = None,
                  elastic=None, fault_injector=None, tracer=None,
                  profiler=None, sentinel=None, device=None):
-        self.device = resolve_device(device)
+        mesh = current_mesh()
+        self.device = mesh.device if device is None and mesh is not None \
+            else resolve_device(device)
         self.cfg, self.params, self.rcfg = cfg, params, rcfg
         # invariant sentinel; None -> the shared no-op
         self.sentinel = NULL_SENTINEL if sentinel is None else sentinel
@@ -173,6 +180,23 @@ class Engine:
         # its EP group sizes the policy topology, whose slots the table's
         # positions are strided by
         self._placement = placement
+        mesh_ep = ep_size(mesh)
+        if mesh is not None:
+            # every rank runs this engine: the same scheduler, the same
+            # seeded sampling, the same tokens; the tables are global and
+            # each rank holds its S/ep slots of the weights
+            if virtual_ep is not None and virtual_ep != mesh_ep:
+                raise ValueError(f"virtual_ep={virtual_ep} under a mesh of "
+                                 f"EP {mesh_ep}")
+            if placement is not None and placement.ep != mesh_ep:
+                raise ValueError(f"placement plans {placement.ep} ranks, "
+                                 f"mesh EP={mesh_ep}")
+            if elastic is not None:
+                raise NotImplementedError(
+                    "elastic serving under a mesh (ROADMAP Queue A item 7c)")
+            if sentinel is not None:
+                # the staged backend's host copies are sanctioned pulls
+                ep_moe._dist_comm(mesh).sentinel = sentinel
         if placement is not None and virtual_ep is not None \
                 and placement.ep != virtual_ep:
             raise ValueError(f"placement plans {placement.ep} ranks, "
@@ -183,8 +207,8 @@ class Engine:
             # a replica manager routes over S >= E physical slots: refuse
             # params that were not laid out for it (misrouting otherwise)
             tables = placement.device_tables()
-            want = int(tables[2].shape[-1]) if len(tables) >= 3 \
-                else cfg.moe.num_experts
+            want = (int(tables[2].shape[-1]) if len(tables) >= 3
+                    else cfg.moe.num_experts) // mesh_ep
             paths = pmigrate.moe_param_paths(params)
             if paths:
                 g0, l0 = paths[0]
@@ -224,8 +248,10 @@ class Engine:
         self._place_cache = None                  # device copy of the table
         self._it = 0
         self.cache = tf.init_cache(cfg, max_slots, max_len, self.device)
-        self.m_state = init_m_state(*ep_moe.moe_state_shape(virtual_ep),
-                                    rcfg, device=self.device)
+        self.m_state = init_m_state(
+            *ep_moe.moe_state_shape(mesh, max_slots, virtual_ep=virtual_ep),
+            rcfg, device=self.device)
+        self._mesh = mesh
         self.pos = np.zeros(max_slots, np.int32)      # next write position
         self.last_tok = np.zeros(max_slots, np.int32)
         self.active_mask = np.zeros(max_slots, bool)
@@ -293,6 +319,11 @@ class Engine:
         plan = self._placement.maybe_replan(self._it)
         if plan is None:
             return
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "a migration under a mesh moves slabs between ranks: "
+                "cross-rank migration is ROADMAP Queue A item 7b; under a "
+                "mesh the engine serves a manager's tables as they stand")
         if self.migrate_async:
             prio = patch = None
             if self._elastic is not None:

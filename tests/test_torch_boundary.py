@@ -64,10 +64,13 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.analysis", "repro_torch.analysis.sentinel",
               "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
               "repro_torch.serving.elastic", "repro_torch.launch",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.launch.mesh",
+              "repro_torch.models.common",
+              "repro_torch.configs.olmoe_1b_7b"):
         assert m in mods, m
     paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
     assert "src/repro_torch/checkpoint/ckpt.py" in paths
+    assert "src/repro_torch/launch/mesh.py" in paths
 
 
 def _imports(path):
@@ -121,3 +124,27 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fp4_matmul.fp4_matmul_cuda(
             torch.zeros(4, 32), torch.zeros(8, 16, dtype=torch.uint8),
             torch.zeros(8, 2), torch.ones(()))
+
+
+def test_mesh_modules_import_without_a_process_group():
+    """The mesh helpers import nothing distributed at module level: in a
+    fresh interpreter, importing them leaves ``torch.distributed`` without
+    a process group and builds no mesh."""
+    code = (
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import mesh\n"
+        "from repro_torch.models import common\n"
+        "assert common.current_mesh() is None\n"
+        "assert not dist.is_initialized()\n"
+        "try:\n"
+        "    mesh.mesh_for('host')\n"
+        "except RuntimeError as err:\n"
+        "    assert 'torchrun' in str(err)\n"
+        "else:\n"
+        "    raise SystemExit('a host mesh without ranks')\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

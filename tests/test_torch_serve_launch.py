@@ -1,7 +1,8 @@
 """The port's serving driver, ``python -m repro_torch.launch.serve``: it
 serves the tiny preset on the CPU and prints its summary (the reference
-driver's lines), and refuses a device mesh, which the one-device port does
-not have."""
+driver's lines), and refuses a mesh it cannot build: the host mesh without
+ranks to span (it serves under ``torchrun``, ``tests/test_torch_ep_model.py``)
+and the TPU pod slices."""
 import os
 import pathlib
 import re
@@ -31,6 +32,10 @@ def test_serve_tiny_on_the_cpu_exits_zero():
 
 
 @pytest.mark.parametrize("mesh", ["host", "single_pod", "multi_pod"])
-def test_serve_refuses_a_mesh(mesh):
-    with pytest.raises(NotImplementedError, match="one device"):
+def test_serve_refuses_a_mesh(mesh, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    err, match = (RuntimeError, "torchrun") if mesh == "host" \
+        else (NotImplementedError, "TPU pod slice")
+    with pytest.raises(err, match=match):
         serve.main(["--preset", "tiny", "--device", "cpu", "--mesh", mesh])
