@@ -115,6 +115,26 @@
    forward and step under a strict ``Sentinel``, the staged copies its
    only sanctioned pulls; each rank's kernels against their plain versions
    at G = S/ep (in turn, timed);
+11. migration and elastic serving under EP, on phase 10's ranks after
+   phase 10 (``ep_migration_work``): (a) phase 5's stream with a shared
+   ``PlacementManager`` migrating synchronously across the ranks (each
+   block's rows whose source another rank holds come over the EP group
+   in one all-to-all), then the weights gathered back to the identity;
+   (b) per-layer tables drained asynchronously under the measured budget
+   (the seconds agreed over the ranks); (c) at ``PHASE11_C_LAYERS``
+   layers (printed with its reason), the weights expanded to 88 slots (22
+   a rank: 3 live ranks must hold the 64 experts), a per-layer
+   ``ReplicaManager``, the EP engine's checkpoint (global
+   layout, rank 0 writes), rank 2 killed at iteration 3 and rejoined at
+   20 under a ``FaultInjector``, a ``Profiler`` and the strict sentinel.
+   Checks: every rank the same tokens and the same chunks; block 0's and
+   the last block's slabs on every rank equal the host rows their tables
+   name; the bytes each rank exchanged equal the plans' cross-rank rows it
+   holds, their sum the managers' count; the dead rank's slots zero and
+   the others untouched; a checkpoint refused mid-recovery; 0 unsanctioned
+   syncs; each rank's kernels against their plain versions at G = 22;
+   prints recovery seconds, degraded iterations, lost tokens and patched
+   bytes;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -125,7 +145,8 @@
    at the decode forward's launch and the forced full-budget chunk), time
    of a launch that exits at once (host-set) and its kernels' device time,
    bound, plain-version time and library yardstick, and phase 10's
-   launches, working launches, time, plain time and error by rank;
+   launches, working launches, time, plain time and error by rank, and
+   phase 11's by arm and rank;
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2133,7 +2154,7 @@ PHASE10_DEPTH_REASON = ("four ranks share the one card: at 48 layers a "
                         "rest plus a context and a cache, four times over, "
                         "too little headroom on 80 GB; 24 layers hold ~9.5 "
                         "GB a rank")
-PHASE10_DEADLINE_S = 900
+PHASE10_DEADLINE_S = 850          # spawn to join, phases 10 and 11
 PHASE10_CHUNK = dict(b=8, s=256, real=128, vis=0.6, seed=4)
 PHASE10_OFF = dict(gate_gamma=10 ** 9)
 PHASE10_HOT = dict(gate_gamma=1, md_init=0.0, adaptive=False)
@@ -2398,7 +2419,371 @@ def ep_rank_work(mesh, layers):
                                                      require=False)
             res["quant"] = check_kernels_at_slots(params, 0, f"10 rank {my}")
         dist.barrier()
+    del note, working_by_m, fw
+    holder = [params]
+    del params
+    res["p11"] = ep_migration_work(mesh, holder, cfg, sent)
+    res["sentinel_p11"] = sent.report()
     return res
+
+
+# Phase 11's (c) part: 88 slots over the 4 ranks (22 a rank, 6 spares), the
+# fewest with which 3 live ranks still hold all 64 experts after a kill
+# (68 slots, one spare a rank, leave 51).  It runs at PHASE11_C_LAYERS
+# layers on any number of cards: its EP checkpoint is ~1.59 GB a MoE layer
+# plus ~1.51 GB of embeddings and the dense layer, and one run may write
+# 45 GiB (48.3 GB) to its disk, counted even when deleted; phase 9's
+# checkpoint takes 34.93 GB of that, so (c) keeps ~9.5 GB (6 layers).
+PHASE11_C_LAYERS = 6
+PHASE11_C_SPARES = 6
+PHASE11_C_DEPTH_REASON = ("its EP checkpoint at 88 slots is ~1.59 GB a MoE "
+                          "layer plus ~1.51 GB, and a run may write 45 GiB "
+                          "to its disk, 34.93 GB of it phase 9's checkpoint")
+
+
+def ep_host_blocks(params, blocks, comm):
+    """Each of ``blocks``' routed-expert slabs of every rank of the EP
+    group, in global slot order, on the host (one all-gather a slab)."""
+    moe = params["blocks"]["layer0"]["moe"]
+    return {b: {k: comm.all_gather_model(moe[k][b]).reshape(
+        (-1,) + tuple(moe[k].shape[2:])).cpu() for k in MOE_KEYS}
+        for b in blocks}
+
+
+def ep_check_blocks(params, logical, owners, ep, my, what):
+    """Phase 8's ``check_block`` on a rank's slots: every routable slot of
+    each block holds the original slabs of the expert its table names."""
+    for b, host in logical.items():
+        own = owners(b)
+        n = len(own) // ep
+        check_block(params, b, host, own[my * n:(my + 1) * n],
+                    f"{what} rank {my}")
+
+
+def crossrank_expected(committed, ep, my, n_blocks, row_bytes):
+    """The bytes rank ``my`` sends in the plans' committed chunks, from the
+    plans alone: each changed slot of another rank whose source this rank
+    holds, one slot's slabs (a shared plan: in every block)."""
+    import numpy as np
+    from repro_torch.placement.migrate import crossrank_sends
+    rows = 0
+    for plan, layers in committed:
+        idx = np.asarray(plan.gather_idx)
+        sends = crossrank_sends(idx, ep)
+        if idx.ndim == 1:
+            rows += int(sends[my]) * n_blocks
+        else:
+            rows += sum(int(sends[l, my]) for l in layers)
+    return rows * row_bytes
+
+
+def ep_managed_serve(mesh, params, cfg, arm, mgr, sent, note, run=None,
+                     before=None, **engine_kw):
+    """Phase 5's 16 requests, submitted at once, through the EP engine
+    with ``mgr`` on the wall clock under the strict sentinel, the launch
+    counters zeroed just before and read just after.  Notes every
+    committed chunk, every drained batch's layers and every timed gather;
+    returns the engine and a record of the run.  ``before(eng)`` runs
+    first; ``run(eng)`` drives the engine (default: step until idle)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    from repro_torch.serving.engine import Engine
+
+    comm = ep_moe._dist_comm(mesh)
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    t_start = time.monotonic()
+    clock = lambda: time.monotonic() - t_start  # noqa: E731
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                 prefill_budget=1024, clock=clock, placement=mgr,
+                 sentinel=sent, **engine_kw)
+    if before is not None:
+        before(eng)
+    reqs = []
+    for sp in mmmu_stream(cfg):
+        r = sp.to_request()
+        r.arrival_time = None
+        reqs.append(r)
+        eng.submit(r)
+    committed, chunks, timed = [], [], []
+    commit_layers, observe = mgr.commit_layers, mgr.bandwidth.observe
+    drain = MigrationExecutor.drain
+
+    def noted_commit(plan, layers):
+        committed.append((plan, [int(l) for l in layers]))
+        return commit_layers(plan, layers)
+
+    def noted_observe(nbytes, seconds):
+        timed.append((int(nbytes), float(seconds)))
+        return observe(nbytes, seconds)
+
+    def noted_drain(self, params, iter_s=None):
+        out = drain(self, params, iter_s)
+        chunks.append(list(out[1].layers))
+        return out
+
+    mgr.commit_layers, mgr.bandwidth.observe = noted_commit, noted_observe
+    MigrationExecutor.drain = noted_drain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.census.reset()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    try:
+        with note.noting():
+            if run is not None:
+                run(eng)
+            else:
+                while not eng.scheduler.idle:
+                    eng.step()
+                    note.end_step()
+            eng.drain_migrations()
+        torch.cuda.synchronize()
+    finally:
+        mgr.commit_layers, mgr.bandwidth.observe = commit_layers, observe
+        MigrationExecutor.drain = drain
+    wall = time.perf_counter() - t_run
+    census = comm.census.snapshot()
+    done = sorted(eng.scheduler.finished, key=lambda r: r.uid)
+    toks = [(r.uid, tuple(r.generated)) for r in done]
+    moe = params["blocks"]["layer0"]["moe"]
+    row = sum(moe[k][0, 0].numel() * moe[k].element_size() for k in MOE_KEYS)
+    n_blocks = int(moe["w_gate"].shape[0])
+    ep, my = mesh.size("model"), mesh.index("model")
+    rec = {
+        "finished": len(done), "requests": len(reqs),
+        "tokens": sum(len(r.generated) for r in done),
+        "digest": hashlib.sha256(repr(toks).encode()).hexdigest()[:16],
+        "wall_s": wall, "iters": len(eng.stats),
+        "ttft_p50_ms": float(np.median([r.ttft for r in done])) * 1e3,
+        "tpot_p50_ms": float(np.median([r.tpot for r in done
+                                        if r.tpot is not None])) * 1e3,
+        "counts": ops.launch_counts(),
+        "working": {k: v if isinstance(v, int) else sum(v.values())
+                    for k, v in note.working().items()},
+        "commits": [(type(p).__name__, l) for p, l in committed],
+        "plans": mgr.n_migrations, "chunks": chunks, "timed": timed,
+        "sent": census.get("migrate_all_to_all", {"bytes": 0})["bytes"],
+        "sent_count": census.get("migrate_all_to_all", {"count": 0})["count"],
+        "expected": crossrank_expected(committed, ep, my, n_blocks, row),
+        "counted": int(eng.migration_bytes_moved),
+        "stall_s": eng.migration_stall_s,
+        "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30}
+    if rec["finished"] != rec["requests"]:
+        raise AssertionError(f"11{arm} rank {my}: {rec['finished']} of "
+                             f"{rec['requests']} requests finished")
+    if mgr.in_flight is not None or eng.migration_draining:
+        raise AssertionError(f"11{arm} rank {my}: a plan is in flight")
+    return eng, rec
+
+
+def ep_migration_work(mesh, holder, cfg, sent):
+    """Phase 11 on one rank, after phase 10 on the same ranks: (a) phase
+    5's stream through the EP engine with a shared ``PlacementManager``
+    migrating synchronously across ranks, then the weights gathered back
+    to the identity; (b) per-layer tables drained asynchronously under the
+    measured budget (bandwidth EWMA times iteration seconds, both agreed
+    over the ranks); (c) at ``PHASE11_C_LAYERS`` layers, the weights
+    expanded to 88 slots, a per-layer ``ReplicaManager``, the EP engine's
+    checkpoint, rank 2 killed at iteration 3 and rejoined at 20 under a
+    ``FaultInjector``, the strict sentinel and a ``Profiler``.  Checks on
+    the rank: block 0's and the last block's slabs equal the host rows its
+    tables name after each arm, the dead rank's slots zero and the others
+    untouched after the kill, the checkpoint refused mid-recovery, the
+    kernels against their plain versions at G = 22 (in turn).  Returns
+    each arm's record (the parent checks tokens, chunks, bytes and syncs
+    across the ranks)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import PlacementConfig, ReplicationConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.obs import FlopByteLedger, Profiler
+    from repro_torch.placement import PlacementManager, PlacementTable
+    from repro_torch.placement import migrate as pmigrate
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    from repro_torch.serving.elastic import (STATE_HEALTHY, STATE_WARMING,
+                                             ElasticCoordinator)
+    from repro_torch.serving.telemetry import Telemetry
+
+    t_phase = time.perf_counter()
+    params = holder.pop()
+    comm = ep_moe._dist_comm(mesh)
+    ep, my = mesh.size("model"), mesh.index("model")
+    e = cfg.moe.num_experts
+    n_blocks = int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[0])
+    ends = (0, n_blocks - 1)
+    out = {}
+    logical = ep_host_blocks(params, ends, comm)
+    ident = PlacementTable.identity(e, ep)
+    ep_check_blocks(params, logical, lambda b: ident.owner, ep, my,
+                    "11 before")
+
+    # (a) a shared table, synchronous migration across the ranks
+    mgr = PlacementManager(cfg, PlacementConfig(
+        planner="least_loaded", replan_every=8, warmup_iters=2,
+        min_gain=0.0), ep=ep)
+    note = ServeLaunches(keep_inputs=False)
+    eng, out["a"] = ep_managed_serve(mesh, params, cfg, "a", mgr, sent, note)
+    ep_check_blocks(params, logical, lambda b: mgr.table.owner, ep, my,
+                    "11a")
+    comm.census.reset()
+    t0 = time.perf_counter()
+    pmigrate.apply_to_params(params, pmigrate.diff(mgr.table, ident))
+    pmigrate.synchronize(params)
+    out["a"]["back_s"] = time.perf_counter() - t0
+    out["a"]["back_sent"] = comm.census.snapshot().get(
+        "migrate_all_to_all", {"bytes": 0})["bytes"]
+    ep_check_blocks(params, logical, lambda b: ident.owner, ep, my,
+                    "11a back to identity")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) per-layer tables drained asynchronously under the measured budget
+    mgr = PlacementManager(cfg, PlacementConfig(
+        planner="least_loaded", replan_every=8, warmup_iters=2,
+        min_gain=0.0, per_layer=True, max_changed_layers=8), ep=ep)
+    note = ServeLaunches(keep_inputs=False)
+    eng, out["b"] = ep_managed_serve(mesh, params, cfg, "b", mgr, sent, note,
+                                     migrate_async=True)
+    ep_check_blocks(params, logical, lambda b: mgr.tables[b].owner, ep, my,
+                    "11b")
+    out["b"]["bw_gbps"] = mgr.bandwidth.bytes_per_s / 1e9
+    del eng, params, logical, mgr, note
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) elastic serving under EP at PHASE11_C_LAYERS layers
+    cfg_c = phase10_cfg(PHASE11_C_LAYERS)
+    params = tf.init_model(cfg_c, seed=0)
+    n_blocks = int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[0])
+    ends = (0, n_blocks - 1)
+    logical = ep_host_blocks(params, ends, comm)
+    mgr = ReplicaManager(cfg_c, ReplicationConfig(
+        per_layer=True, spare_per_rank=PHASE11_C_SPARES, max_replicas=2,
+        replan_every=4, warmup_iters=2, min_gain=0.0), ep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    expand_moe_params(params, mgr.rsets)
+    torch.cuda.synchronize()
+    out["c_expand_s"] = time.perf_counter() - t0
+    out["c_slots"] = int(params["blocks"]["layer0"]["moe"]["w_gate"]
+                         .shape[1])
+    out["c_weights_gb"] = tree_bytes(params) / 1e9
+    ep_check_blocks(params, logical,
+                    lambda b: mgr.rsets[b].slot_owner, ep, my, "11c expanded")
+    ckdir = ROOT / "build" / "phase11_ckpt"
+    if dist.get_rank() == 0:
+        for old in ("phase9_ckpt", "phase7_ckpt", "phase11_ckpt"):
+            shutil.rmtree(ROOT / "build" / old, ignore_errors=True)
+    dist.barrier()
+    tel = Telemetry()
+    prof = Profiler(FlopByteLedger(cfg_c, ep=ep), registry=tel.registry)
+    co = ElasticCoordinator(mgr, ckpt_dir=str(ckdir), telemetry=tel)
+    fi = FaultInjector([(3, "fail", 2), (20, "rejoin", 2)])
+    budget = int(0.75 * e) * mgr.bytes_per_expert
+    seen = {"kills": [], "refused": []}
+
+    def run(eng):
+        fail_rank = eng.fail_rank
+        moe = eng.params["blocks"]["layer0"]["moe"]
+
+        def checked_fail(rank):
+            before = [moe[k].clone() for k in MOE_KEYS] if my != rank \
+                else None
+            fail_rank(rank)
+            nz = sum(int(torch.count_nonzero(moe[k])) for k in MOE_KEYS)
+            kept = before is None or all(
+                torch.equal(moe[k], b) for k, b in zip(MOE_KEYS, before))
+            seen["kills"].append((eng._it, rank, sorted(
+                co.lost_experts.tolist())))
+            if (my == rank and nz) or not kept:
+                raise AssertionError(f"11c rank {my}: after the kill of "
+                                     f"rank {rank}: {nz} nonzero weights, "
+                                     f"others kept {kept}")
+            del before
+
+        eng.fail_rank = checked_fail
+        while not eng.scheduler.idle:
+            eng.step()
+            note.end_step()
+            if co.recovering and not seen["refused"]:
+                try:
+                    eng.save_checkpoint(str(ckdir), 1)
+                except RuntimeError as err:
+                    seen["refused"].append((eng._it, str(err)[:60]))
+                else:
+                    raise AssertionError("11c: a checkpoint was saved "
+                                         "mid-recovery")
+
+    def save(eng):
+        # the EP engine's checkpoint (global layout, rank 0 writes): the
+        # re-materialization source
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(str(ckdir), 0)
+        out["c_save_s"] = time.perf_counter() - t0
+        out["c_ckpt_bytes"] = sum(
+            f.stat().st_size for f in ckdir.rglob("*") if f.is_file()) \
+            if dist.get_rank() == 0 else None
+
+    note = ServeLaunches(keep_inputs=True)
+    try:
+        eng, out["c"] = ep_managed_serve(
+            mesh, params, cfg_c, "c", mgr, sent, note, run=run, before=save,
+            migrate_async=True, migrate_bytes_per_iter=budget,
+            telemetry=tel, profiler=prof, elastic=co, fault_injector=fi)
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(ckdir, ignore_errors=True)
+    ep_check_blocks(params, logical, lambda b: mgr.rsets[b].slot_owner, ep,
+                    my, "11c at the end")
+    summ, p_sum = tel.summary(), prof.summary()
+    out["c"].update(
+        kills=seen["kills"], refused=seen["refused"],
+        recovery_s=tel.recoveries, degraded_iters=tel.degraded_iters,
+        availability=tel.availability, lost_tokens=tel.lost_tokens_total,
+        patched_bytes=co.patched_bytes, state=co.state,
+        alive=mgr.rank_alive.tolist(), mfu=p_sum["mfu"],
+        events=[(ev["kind"], ev.get("rank")) for ev in co.events])
+    if not seen["kills"] or not seen["kills"][0][2]:
+        raise AssertionError(f"11c rank {my}: the kill opened no degraded "
+                             f"window: {seen['kills']}")
+    if not seen["refused"]:
+        raise AssertionError(f"11c rank {my}: no mid-recovery refusal")
+    if co.state not in (STATE_HEALTHY, STATE_WARMING) \
+            or not mgr.rank_alive.all() or summ["recovery_s"] is None \
+            or not tel.degraded_iters:
+        raise AssertionError(f"11c rank {my}: ends {co.state}, alive "
+                             f"{mgr.rank_alive.tolist()}, recovery "
+                             f"{summ['recovery_s']}, degraded "
+                             f"{tel.degraded_iters}")
+    working_by_m = note.working()
+    for r in range(ep):
+        dist.barrier()
+        if r == my:
+            log(f"11c: rank {my}: its kernels at G = {out['c_slots']}")
+            out["c_ffn"] = check_ffn_at_serve_launches(note, working_by_m,
+                                                       require=False)
+            out["c_quant"] = check_kernels_at_slots(params, 0,
+                                                    f"11c rank {my}")
+        dist.barrier()
+    del eng, params, logical, note, working_by_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def ep_serving(dev, smi: str):
@@ -2422,8 +2807,10 @@ def ep_serving(dev, smi: str):
     step under a strict ``Sentinel`` (``set_sync_debug_mode("error")``
     over each hot window), the staged copies its only sanctioned pulls.
     Each rank's kernels are held against their plain versions at G = S/ep.
-    Returns the kernels' launches and working launches by rank, and their
-    records at G = S/ep by rank."""
+    Then phase 11 runs on the same ranks (``ep_migration_work``, checked by
+    ``ep_migration_checks``).  Returns the kernels' launches and working
+    launches by rank, their records at G = S/ep by rank, and phase 11's
+    record."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -2595,6 +2982,7 @@ def ep_serving(dev, smi: str):
         if min(counts[k]) == 0 or max(working[k]) == 0:
             raise AssertionError(f"10: {k} launches {counts[k]}, working "
                                  f"{working[k]}")
+    p11 = ep_migration_checks(ranks, backend, layers, smi)
     g = ranks[0]["slots"]
     recs = {}
     for k in SERVE_KERNELS:
@@ -2612,8 +3000,121 @@ def ep_serving(dev, smi: str):
                             "bound_ms": f_rec["bound_ms"]}
                            if f_rec else None)
         recs[k] = per
-    log(f"10: phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return counts, working, recs, g
+    log(f"10: phases 10 and 11 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, working, recs, g, p11
+
+
+def ep_migration_checks(ranks, backend, layers, smi):
+    """Phase 11's checks across the ranks (each rank checked its own slabs
+    against the host rows its tables name): the same tokens on every rank
+    in each arm, the same chunks drained in (b) and (c), the bytes each
+    rank exchanged equal to the plans' cross-rank rows it holds (their sum
+    the managers' count), 0 unsanctioned syncs, every kernel of the path
+    launched and working in each arm; prints the migrations, the recovery
+    and the checkpoint.  Returns each arm's launches and working launches
+    by rank, and the kernels' records at (c)'s G by rank."""
+    p = [r["p11"] for r in ranks]
+    ep = len(ranks)
+    log(f"11: backend {backend}, {ep} ranks; (a) and (b) at {layers} layers "
+        f"(phase 10's weights), (c) at {PHASE11_C_LAYERS} layers: "
+        f"{PHASE11_C_DEPTH_REASON}; phase 11 took "
+        f"{max(x['seconds'] for x in p):.1f} s on the ranks")
+    for arm in ("a", "b", "c"):
+        recs = [x[arm] for x in p]
+        r0 = recs[0]
+        for i, r in enumerate(recs):
+            if r["digest"] != r0["digest"]:
+                raise AssertionError(f"11{arm} rank {i}: tokens differ")
+            if r["commits"] != r0["commits"] or r["chunks"] != r0["chunks"]:
+                raise AssertionError(f"11{arm} rank {i}: committed chunks "
+                                     f"{r['chunks']} != rank 0's "
+                                     f"{r0['chunks']}")
+            if r["sent"] != r["expected"]:
+                raise AssertionError(f"11{arm} rank {i}: exchanged "
+                                     f"{r['sent']} bytes, the plans' "
+                                     f"cross-rank rows {r['expected']}")
+            if min(r["counts"][k] for k in SERVE_KERNELS) == 0:
+                raise AssertionError(f"11{arm} rank {i}: a kernel never "
+                                     f"launched: {r['counts']}")
+        for k in SERVE_KERNELS:
+            if max(r["working"][k] for r in recs) == 0:
+                raise AssertionError(f"11{arm}: {k} never worked")
+        total = sum(r["sent"] for r in recs)
+        if total != r0["counted"] or not r0["plans"]:
+            raise AssertionError(f"11{arm}: {r0['plans']} plans; the ranks "
+                                 f"exchanged {total} bytes, the managers "
+                                 f"counted {r0['counted']}")
+        secs = [t[1] for t in r0["timed"]]
+        log(f"11{arm}: every rank the same {r0['tokens']} tokens (digest "
+            f"{r0['digest']}), {r0['iters']} iterations; {r0['plans']} "
+            f"plans committed in {len(r0['commits'])} commits; exchanged "
+            f"bytes a rank {[r['sent'] for r in recs]} = the plans' "
+            f"cross-rank rows a rank, {total} in all = the managers' count; "
+            f"{r0['sent_count']} all-to-alls a rank; timed gathers "
+            f"{[(b, round(t * 1e3, 3)) for b, t in r0['timed']]} (bytes, "
+            f"ms; rank 0, agreed over the ranks), "
+            f"{sum(b for b, _ in r0['timed']) / max(sum(secs), 1e-9) / 1e9:.3f}"
+            f" GB/s counted; stall {r0['stall_s']:.3f} s; wall "
+            f"{r0['wall_s']:.3f} s, {r0['tokens'] / r0['wall_s']:.2f} tok/s, "
+            f"TTFT p50 {r0['ttft_p50_ms']:.1f} ms, TPOT p50 "
+            f"{r0['tpot_p50_ms']:.2f} ms, peak "
+            f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank; {smi}")
+        if arm != "a":
+            log(f"11{arm}: chunk layers drained per batch (every rank): "
+                f"{r0['chunks']}")
+        for i, r in enumerate(recs):
+            log(f"11{arm} rank {i}: launches {r['counts']}; working "
+                f"{r['working']}")
+    a0 = p[0]["a"]
+    log(f"11a: weights gathered back to the identity tables in "
+        f"{a0['back_s'] * 1e3:.1f} ms, exchanged bytes a rank "
+        f"{[x['a']['back_sent'] for x in p]}; 11b: bandwidth EWMA "
+        f"{p[0]['b']['bw_gbps']:.3f} GB/s")
+    c0 = p[0]["c"]
+    log(f"11c: {p[0]['c_slots']} slots a rank after expand_moe_params in "
+        f"{p[0]['c_expand_s']:.2f} s ({p[0]['c_weights_gb']:.2f} GB a rank); "
+        f"EP checkpoint {p[0]['c_ckpt_bytes']} bytes "
+        f"({p[0]['c_ckpt_bytes'] / 1e9:.2f} GB, rank 0 writes) in "
+        f"{p[0]['c_save_s']:.1f} s; kills {c0['kills']}; refused "
+        f"{c0['refused']}; recovery s {c0['recovery_s']}; degraded "
+        f"iterations {c0['degraded_iters']}, availability "
+        f"{c0['availability']:.4f}, lost tokens {c0['lost_tokens']:.0f}; "
+        f"bytes patched from the checkpoint a rank "
+        f"{[x['c']['patched_bytes'] for x in p]}; state {c0['state']}; "
+        f"events {c0['events']}; MFU {c0['mfu']:.6f}")
+    for i, x in enumerate(p):
+        rep = x["c"]
+        if (rep["kills"], rep["refused"][0][0], rep["events"]) != (
+                c0["kills"], c0["refused"][0][0], c0["events"]):
+            raise AssertionError(f"11c rank {i}: its elastic run differs "
+                                 "from rank 0's")
+    for i, r in enumerate(ranks):
+        rep = r["sentinel_p11"]
+        if rep["violations"]:
+            raise AssertionError(f"11 rank {i}: syncs {rep['violations']}")
+    log(f"11: 0 syncs outside sanctioned windows on every rank; sanctioned "
+        f"pulls (rank 0) {ranks[0]['sentinel_p11']['sanctioned_pulls']}")
+    counts = {arm: {k: [x[arm]["counts"][k] for x in p]
+                    for k in SERVE_KERNELS} for arm in ("a", "b", "c")}
+    working = {arm: {k: [x[arm]["working"][k] for x in p]
+                     for k in SERVE_KERNELS} for arm in ("a", "b", "c")}
+    g17 = {}
+    for k in SERVE_KERNELS:
+        per = []
+        for x in p:
+            if k in x["c_quant"]:
+                q = x["c_quant"][k]
+                g = p[0]["c_slots"]
+                per.append({"ms": q[f"g{g}_ms"], "plain_ms": q[f"g{g}_plain_ms"],
+                            "max_abs_err": q[f"g{g}_max_abs_err"]})
+            else:
+                f = x["c_ffn"].get(k)
+                per.append(f and {"ms": f["ms"], "plain_ms": f["plain_ms"],
+                                  "max_abs_err": f["max_abs_err"],
+                                  "bound_ms": f["bound_ms"]})
+        g17[k] = per
+    return {"counts": counts, "working": working, "g": p[0]["c_slots"],
+            "recs": g17}
 
 
 def check_small_against_cpu(dev):
@@ -2672,7 +3173,7 @@ def main() -> int:
     phase9, g80 = elastic_serving(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    ep_counts, ep_working, ep_recs, ep_g = ep_serving(dev, smi)
+    ep_counts, ep_working, ep_recs, ep_g, p11 = ep_serving(dev, smi)
     check_small_against_cpu(dev)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
@@ -2733,6 +3234,18 @@ def main() -> int:
                 ep_ms=[x and x["ms"] for x in per],
                 ep_plain_ms=[x and x["plain_ms"] for x in per],
                 ep_max_abs_err=[x and x["max_abs_err"] for x in per])
+            # phase 11, by arm and rank; its kernels at (c)'s G by rank
+            per = p11["recs"][r["name"]]
+            kernels[-1].update(
+                ep_migration_launches={a: p11["counts"][a][r["name"]]
+                                       for a in ("a", "b", "c")},
+                ep_migration_working_launches={
+                    a: p11["working"][a][r["name"]] for a in ("a", "b", "c")},
+                ep_migration_g=p11["g"],
+                ep_migration_ms=[x and x["ms"] for x in per],
+                ep_migration_plain_ms=[x and x["plain_ms"] for x in per],
+                ep_migration_max_abs_err=[x and x["max_abs_err"]
+                                          for x in per])
     kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
     kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
     log(json.dumps({"kernels": kernels}))

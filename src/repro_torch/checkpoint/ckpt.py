@@ -18,6 +18,15 @@ before the next is read, so the host holds one leaf at a time, not the
 whole state.  :func:`open_arrays` maps named leaves of a saved group
 without reading them, so a caller that needs a few rows of a large stack
 (the elastic coordinator's re-materialization) reads only those.
+
+Under a :class:`~repro_torch.models.common.Mesh` (``mesh=``) a checkpoint
+holds the *global* layout, as the reference's does (its arrays are
+global): every rank calls :func:`save` with its shard, rank 0 alone
+writes, and each expert stack is gathered to it one block at a time over
+the ``model`` group, so the arrays equal those a one-device engine with
+the same tables writes.  :func:`restore` onto a mesh reads each rank's
+slots of a saved stack through memory maps, for any EP size that divides
+the saved slots.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 
 Tree = Any
 _SEP = "|"
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")    # [.., S, a, b] stacks
 _DT_SUFFIX = "::dt"
 # dtypes numpy's savez cannot represent natively -> stored as raw uint views
 _EXT_DTYPES = {
@@ -61,14 +71,10 @@ def _flat_items(tree: Tree) -> Iterable[Tuple[str, np.ndarray]]:
     for path, leaf in _leaves(tree):
         key = _SEP.join(path)
         if torch.is_tensor(leaf):
-            t = leaf.detach().to("cpu", copy=True)   # a snapshot
-            name = _EXT_NAMES.get(t.dtype)
+            arr, name = _host_array(leaf.detach().to("cpu", copy=True))
+            yield key, arr                           # a snapshot
             if name is not None:
-                _, bits, raw = _EXT_DTYPES[name]
-                yield key, t.contiguous().view(bits).numpy().view(raw)
                 yield key + _DT_SUFFIX, np.array(name)
-                continue
-            yield key, t.numpy()
         else:
             yield key, np.asarray(leaf)
 
@@ -77,15 +83,44 @@ def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
     return dict(_flat_items(tree))
 
 
-def _savez(path: pathlib.Path, items: Iterable[Tuple[str, np.ndarray]]):
+def _host_array(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
+    """A CPU tensor as numpy, a bfloat16/float8 one as its raw pattern
+    with the dtype's name."""
+    name = _EXT_NAMES.get(t.dtype)
+    if name is None:
+        return t.numpy(), None
+    _, bits, raw = _EXT_DTYPES[name]
+    return t.contiguous().view(bits).numpy().view(raw), name
+
+
+class _Streamed:
+    """A leaf written block by block: ``shape`` and ``dtype`` of the whole
+    array, ``blocks`` yields its C-order pieces."""
+
+    def __init__(self, shape, dtype, blocks):
+        self.shape, self.dtype, self.blocks = tuple(shape), dtype, blocks
+
+
+def _savez(path: pathlib.Path, items: Iterable[Tuple[str, Any]]):
     """``np.savez(path, **dict(items))``, one array at a time: the same
-    uncompressed archive of ``<key>.npy`` members."""
+    uncompressed archive of ``<key>.npy`` members.  A :class:`_Streamed`
+    item is written one block at a time."""
     with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, arr in items:
             with zf.open(key + ".npy", "w", force_zip64=True) as fid:
-                np.lib.format.write_array(fid, np.asanyarray(arr),
-                                          allow_pickle=False)
+                if not isinstance(arr, _Streamed):
+                    np.lib.format.write_array(fid, np.asanyarray(arr),
+                                              allow_pickle=False)
+                    continue
+                header = {"descr": np.lib.format.dtype_to_descr(arr.dtype),
+                          "fortran_order": False, "shape": arr.shape}
+                try:
+                    np.lib.format.write_array_header_1_0(fid, header)
+                except ValueError:
+                    np.lib.format.write_array_header_2_0(fid, header)
+                for block in arr.blocks:
+                    fid.write(np.ascontiguousarray(block).tobytes())
 
 
 def _decode_flat(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -145,11 +180,84 @@ def _write(root: pathlib.Path, step: int, flats: Dict[str, Any],
 
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Tree],
-         keep: int = 3) -> str:
+         keep: int = 3, mesh=None) -> str:
     """Synchronous atomic save. state: {"params": tree, "opt": tree, ...}.
-    Each leaf goes to the host when it is written."""
-    flats = {g: _flat_items(t) for g, t in state.items()}
-    return str(_write(pathlib.Path(ckpt_dir), step, flats, keep))
+    Each leaf goes to the host when it is written.  Under ``mesh`` every
+    rank of it calls this with its own shard (see the module docstring);
+    every rank returns once the checkpoint is complete, and if the write
+    fails every rank raises."""
+    if mesh is None or mesh.size("data") * mesh.size("model") == 1:
+        flats = {g: _flat_items(t) for g, t in state.items()}
+        return str(_write(pathlib.Path(ckpt_dir), step, flats, keep))
+    return _save_global(pathlib.Path(ckpt_dir), step, state, keep, mesh)
+
+
+def _is_expert(path) -> bool:
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in _EXPERT_KEYS
+
+
+def _mesh_items(tree: Tree, comm, writer: bool):
+    """The writer's ``(key, array)`` items of one group: an expert stack of
+    ``[.., S/ep, a, b]`` slots a rank as the global ``[.., S, a, b]``,
+    gathered block by block; every other leaf from the writer's copy.  On
+    the other ranks of the first data row it only takes part in the
+    gathers (and yields nothing)."""
+    for path, leaf in _leaves(tree):
+        key = _SEP.join(path)
+        if not (torch.is_tensor(leaf) and leaf.dim() >= 3
+                and _is_expert(path)):
+            if writer:
+                yield from _flat_items({key: leaf})
+            continue
+        blocks = [leaf] if leaf.dim() == 3 else \
+            [leaf[b] for b in range(leaf.shape[0])]
+
+        def gathered(blocks=blocks):
+            for blk in blocks:
+                whole = comm.gather_first(blk)
+                if whole is not None:
+                    yield _host_array(whole.reshape((-1,) + blk.shape[1:]))[0]
+
+        shape = list(leaf.shape)
+        shape[-3] *= comm.ep
+        if not writer:
+            for _ in gathered():
+                pass
+            continue
+        name = _EXT_NAMES.get(leaf.dtype)
+        dtype = np.dtype(_EXT_DTYPES[name][2]) if name else \
+            torch.empty((), dtype=leaf.dtype).numpy().dtype
+        blocks_out = gathered()
+        yield key, _Streamed(shape, dtype, blocks_out)
+        for _ in blocks_out:     # a writer that stopped part-way still
+            pass                 # takes part in this leaf's gathers
+        if name is not None:
+            yield key + _DT_SUFFIX, np.array(name)
+
+
+def _save_global(root: pathlib.Path, step: int, state: Dict[str, Tree],
+                 keep: int, mesh) -> str:
+    import torch.distributed as dist
+    from repro_torch.core.ep_moe import _dist_comm
+    comm = _dist_comm(mesh)
+    writer = dist.get_rank() == int(mesh.ranks[0, 0])
+    err = None
+    if mesh.index("data") == 0:
+        flats = {g: _mesh_items(t, comm, writer) for g, t in state.items()}
+        if writer:
+            try:
+                _write(root, step, flats, keep)
+            except Exception as e:       # noqa: BLE001 - agreed on below
+                err = e
+        # the other ranks (and a writer that failed part-way) take part in
+        # every gather left, so no rank waits on one that stopped
+        for items in flats.values():
+            for _ in items:
+                pass
+    if comm.agree_max([0.0 if err is None else 1.0])[0]:
+        raise err if err is not None else RuntimeError(
+            f"rank 0 failed to write the checkpoint under {root}")
+    return str(root / f"step_{step:08d}")
 
 
 def _gc(root: pathlib.Path, keep: int):
@@ -249,18 +357,31 @@ def decode_rows(rows: np.ndarray, ext: Optional[str]) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, templates: Dict[str, Tree],
-            step: Optional[int] = None) -> Tuple[int, Dict[str, Tree]]:
+            step: Optional[int] = None, mesh=None
+            ) -> Tuple[int, Dict[str, Tree]]:
     """Restore onto ``templates``' structure: each leaf a tensor with the
-    saved dtype, on the device of the template's leaf."""
+    saved dtype, on the device of the template's leaf.  Under ``mesh``
+    (the counterpart of the reference's ``shardings=``) each expert stack
+    ``[.., S, a, b]`` comes back as this rank's ``S/ep`` slots, read
+    through a memory map (``ep`` the mesh's ``model`` size, which need not
+    be the writer's); every other leaf whole."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    ep = 1 if mesh is None else mesh.size("model")
     out = {}
     for group, tmpl in templates.items():
         with np.load(d / f"{group}.npz") as z:
-            flat = _decode_flat({k: z[k] for k in z.files})
-        out[group] = _unflatten_into(tmpl, flat)
+            cut = [k for k in z.files if ep > 1 and _is_expert(k.split(_SEP))]
+            flat = {k: z[k] for k in z.files if k not in cut}
+        for key, (mm, _) in open_arrays(ckpt_dir, group, cut, step).items():
+            n = mm.shape[-3]
+            if n % ep:
+                raise ValueError(f"{key}: {n} saved slots over {ep} ranks")
+            i = mesh.index("model")
+            flat[key] = mm[..., i * n // ep:(i + 1) * n // ep, :, :]
+        out[group] = _unflatten_into(tmpl, _decode_flat(flat))
     return step, out
 
 

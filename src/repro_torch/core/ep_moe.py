@@ -191,7 +191,9 @@ class CollectiveCensus:
     them and ``all_gather`` the one that carries the decode combine's
     ordered sum; ``layout_all_gather`` is the port's layout (the MoE
     output gathered over ``model``, and rows over ``data``), classed
-    apart."""
+    apart.  Between forwards: ``migrate_all_to_all`` (a migration's rows,
+    the bytes sent to other ranks), ``agree_all_reduce`` (the ranks'
+    agreements) and ``checkpoint_gather``."""
 
     def __init__(self):
         self.kinds: Dict[str, Dict[str, int]] = {}
@@ -294,6 +296,61 @@ class Comm:
         for part in parts[1:]:
             out = out + part
         return out
+
+    def exchange_rows(self, send: torch.Tensor, send_counts,
+                      recv_counts) -> torch.Tensor:
+        """Expert rows between the ranks of the EP group: ``send`` holds the
+        rows for rank 0, then those for rank 1, …, ``send_counts[j]`` of them
+        for rank j; returns the rows received, ``recv_counts[j]`` from rank
+        j, in rank order (a mesh's group only).  The counts vary from pair
+        to pair, so one ``all_to_all_single`` with split sizes moves them.
+        Counted as ``migrate_all_to_all``, apart from the forward's
+        collectives, with the bytes this rank sends to the others."""
+        import torch.distributed as dist
+        out = torch.empty((int(sum(recv_counts)),) + tuple(send.shape[1:]),
+                          dtype=send.dtype, device=send.device)
+        row = send[0].nbytes if send.shape[0] else out[:1].nbytes
+        self.census.add("migrate_all_to_all", row * (
+            int(sum(send_counts)) - int(send_counts[self.my_rank])))
+        group = self.mesh.group("model")
+        sc, rc = [int(n) for n in send_counts], [int(n) for n in recv_counts]
+        self._run(lambda src, dst, async_op: dist.all_to_all_single(
+            dst, src, rc, sc, group=group, async_op=async_op),
+            [send, out], [1])
+        return out
+
+    def gather_first(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """``[ep, *x.shape]`` on the host of the EP group's first rank, each
+        rank's ``x`` in rank order (None on the others; a mesh's group
+        only): one ``gather``, counted as ``checkpoint_gather``.  The other
+        ranks send their ``x`` and hold nothing more."""
+        import torch.distributed as dist
+        first = self.my_rank == 0
+        dst = int(self.mesh.ranks[self.mesh.index("data"), 0])
+        self.census.add("checkpoint_gather", x.nbytes)
+        on_dev = self.mesh.backend == "nccl"
+        ctx = (contextlib.nullcontext() if on_dev or self.sentinel is None
+               else self.sentinel.sanctioned("collective"))
+        with ctx:
+            src = x.detach().contiguous() if on_dev \
+                else x.detach().to("cpu", copy=True)
+            outs = [torch.empty_like(src) for _ in range(self.ep)] \
+                if first else None
+            dist.gather(src, gather_list=outs, dst=dst,
+                        group=self.mesh.group("model"))
+            return torch.stack([o.cpu() for o in outs]) if first else None
+
+    def agree_max(self, values) -> list:
+        """Host floats, each the largest over every rank of the mesh: one
+        tiny ``all_reduce``, so that every rank decides alike from figures
+        it measured on its own clock."""
+        import torch.distributed as dist
+        dev = self.mesh.device if self.mesh.backend == "nccl" else "cpu"
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=dev)
+        self.census.add("agree_all_reduce", t.nbytes)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group())
+        return t.cpu().tolist()
 
     def all_gather_model(self, x: torch.Tensor) -> torch.Tensor:
         """``[ep, *x.shape]``: every rank's ``x`` (the layout's gather)."""
@@ -753,9 +810,9 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     if stop_stage is not None:
         raise NotImplementedError(
-            "stop_stage instrumentation is one-rank only (time_moe_phases on "
-            "a mesh is ROADMAP Queue A item 7e); under a mesh time "
-            "the forward as a whole")
+            "stop_stage instrumentation is one-rank only, as the "
+            "reference's (its prefixes are local-path only); under a mesh "
+            "time the forward as a whole")
     comm = _dist_comm(mesh)
     ep, rows = comm.ep, mesh.size("data")
     if m_state.dim() != 2 or m_state.shape[1] != ep \

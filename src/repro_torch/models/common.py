@@ -61,12 +61,19 @@ class Mesh:
     tensors copied to the host around gloo collectives: several ranks on
     one card, where NCCL refuses two ranks of one communicator on one
     device and gloo has no CUDA all-to-all; for correctness only).
-    ``device`` is where this rank computes."""
+    ``device`` is where this rank computes.
+
+    ``ranks`` (a ``rows x ep`` grid of global ranks) builds a mesh over a
+    subset of the world, as :func:`repro_torch.runtime.elastic.shrink_mesh`
+    does; a rank outside it holds the object but is no ``member``.  The
+    construction makes process groups, which is collective over the
+    default group: every rank of the world builds every mesh, in the same
+    order."""
 
     axis_names = AXES
 
     def __init__(self, shape: Tuple[int, int], backend: str,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], ranks=None):
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
         if backend not in ("nccl", "gloo", "staged"):
@@ -75,16 +82,32 @@ class Mesh:
             raise RuntimeError("a Mesh needs an initialised default process "
                                "group (torch.distributed.init_process_group)")
         rows, ep = (int(n) for n in shape)
-        if rows * ep != dist.get_world_size():
-            raise ValueError(f"mesh {rows}x{ep} over "
-                             f"{dist.get_world_size()} ranks")
+        world = dist.get_world_size()
+        if ranks is None:
+            if rows * ep != world:
+                raise ValueError(f"mesh {rows}x{ep} over {world} ranks")
+            ranks = torch.arange(rows * ep).reshape(rows, ep)
+        ranks = torch.as_tensor(ranks, dtype=torch.long).reshape(rows, ep)
+        if len(set(ranks.reshape(-1).tolist())) != rows * ep \
+                or int(ranks.min()) < 0 or int(ranks.max()) >= world:
+            raise ValueError(f"mesh ranks {ranks.tolist()} in a world of "
+                             f"{world}")
         self.shape = {"data": rows, "model": ep}
         self.backend = backend
         self.device = torch.device(device)
+        self.ranks = ranks
         self.device_mesh = DeviceMesh(
-            "cuda" if backend == "nccl" else "cpu",
-            torch.arange(rows * ep).reshape(rows, ep), mesh_dim_names=AXES)
+            "cuda" if backend == "nccl" else "cpu", ranks,
+            mesh_dim_names=AXES)
+        # the group of all the mesh's ranks (None: the default group)
+        self._all = None if rows * ep == world else dist.new_group(
+            sorted(ranks.reshape(-1).tolist()))
         self.comm = None          # built by core.ep_moe on first use
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is one of the mesh's ranks."""
+        return self.device_mesh.get_coordinate() is not None
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -93,8 +116,11 @@ class Mesh:
         """This rank's coordinate along ``axis``."""
         return self.device_mesh.get_local_rank(axis)
 
-    def group(self, axis: str):
-        """The process group of the ranks that share every other axis."""
+    def group(self, axis: Optional[str] = None):
+        """The process group of the ranks that share every other axis
+        (``None``: every rank of the mesh)."""
+        if axis is None:
+            return self._all
         return self.device_mesh.get_group(axis)
 
     def __repr__(self) -> str:

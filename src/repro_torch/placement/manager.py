@@ -12,7 +12,8 @@ routable, and no further replan can fire.  Cumulative migration
 accounting lives here so telemetry and benchmarks can report the
 placement-vs-ReaLB overhead trade-off directly; a measured-bandwidth
 EWMA (``bandwidth``) prices the transfers once the engine has timed
-real applies.
+real applies; under a mesh it observes seconds agreed over the ranks, so
+every rank prices, gates and packs a migration alike.
 
 Per-layer tables (``PlacementConfig.per_layer``): one table per scanned
 MoE block instead of one shared table.  The predictor's per-layer state

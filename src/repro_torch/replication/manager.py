@@ -103,7 +103,8 @@ class ReplicaManager(ReplanDiscipline):
         self.bytes_per_expert = bytes_per_expert
         self.cost_gate = cost_gate
         # measured-bandwidth EWMA pricing this manager's slab copies;
-        # shared with the cost gate so both price the same bytes/s
+        # shared with the cost gate so both price the same bytes/s (under
+        # a mesh it observes seconds agreed over the ranks)
         self.bandwidth = pmigrate.MigrationBandwidth(rpcfg.migration_bw)
         if cost_gate is not None \
                 and getattr(cost_gate, "bandwidth", False) is None:

@@ -16,6 +16,12 @@ transfer, charged ``bytes_per_expert``).  Retiring a replica is free —
 the slot merely stops being routable (its stale weights are unreachable:
 no ``rep_pos`` entry points at it).
 
+Under a :class:`~repro_torch.models.common.Mesh` a rank holds its
+``S/ep`` slots and a changed slot whose source lies on another rank comes
+over the EP group (``placement.migrate.gather_across``): the
+``crossrank_slots`` / ``crossrank_per_layer`` counts, times one slot's
+slab bytes, are then the bytes that really cross ranks.
+
 Consistency rule: a replica is routable only after its slab lands.  The
 plan carries the *pending* set; :class:`~repro_torch.replication.manager.
 ReplicaManager` keeps serving the old set until ``commit(plan)`` — which
@@ -30,7 +36,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.placement.migrate import MOE_WEIGHT_KEYS, moe_param_paths
+from repro_torch.placement.migrate import (MOE_WEIGHT_KEYS, _ep_comm,
+                                           gather_across, moe_param_paths)
 from repro_torch.placement.migrate import apply_layers_to_params as \
     _apply_layers_to_params
 from repro_torch.replication.replica_set import ReplicaSet
@@ -82,6 +89,8 @@ class LayerReplicaMigrationPlan:
 
     @property
     def n_crossrank(self) -> int:
+        """(slot, layer) pairs whose slab comes from another rank: under a
+        mesh, the rows the all-to-all exchange carries."""
         return int(self.crossrank_per_layer.sum())
 
     @property
@@ -177,6 +186,11 @@ def expand_moe_params(params: Dict[str, Any], rset) -> Dict[str, Any]:
     One weight tensor at a time: its ``[.., S, ..]`` successor is
     allocated and filled block by block, then replaces it, so the peak
     holds one tensor twice, never the whole expert stack.
+
+    Under a mesh a rank holds ``E/ep`` logical rows and gets its ``S/ep``
+    slots, each row from the rank that holds it (an empty spare, like the
+    one-device expansion, takes expert 0's row times 0), so its slots
+    equal the one-device expansion's, byte for byte.
     """
     rsets = list(rset) if isinstance(rset, (list, tuple)) else None
     if rsets is not None and len(rsets) == 1:
@@ -189,6 +203,11 @@ def expand_moe_params(params: Dict[str, Any], rset) -> Dict[str, Any]:
         n_e = rset.num_experts
     idx = np.where(owner >= 0, owner, 0).astype(np.int64)
     keep = owner >= 0
+    comm = _ep_comm()
+    ep, my = (1, 0) if comm is None else (comm.ep, comm.my_rank)
+    n_slots = idx.shape[1] // ep
+    mine = slice(my * n_slots, (my + 1) * n_slots)
+    every = np.ones(idx.shape[1], bool)
     for group, lname in moe_param_paths(params):
         moe = params[group][lname]["moe"]
         for key in MOE_WEIGHT_KEYS:
@@ -196,19 +215,23 @@ def expand_moe_params(params: Dict[str, Any], rset) -> Dict[str, Any]:
             stacked = w.dim() == 4
             if rsets is not None:
                 assert stacked and w.shape[0] == len(rsets) \
-                    and w.shape[1] == n_e, (key, w.shape, len(rsets), n_e)
-            assert w.shape[-3] == n_e, (key, w.shape, n_e)
+                    and w.shape[1] == n_e // ep, \
+                    (key, w.shape, len(rsets), n_e)
+            assert w.shape[-3] == n_e // ep, (key, w.shape, n_e, ep)
             blocks = [w[b] for b in range(w.shape[0])] if stacked else [w]
-            out = torch.empty(w.shape[:-3] + (idx.shape[1],) + w.shape[-2:],
+            out = torch.empty(w.shape[:-3] + (n_slots,) + w.shape[-2:],
                               dtype=w.dtype, device=w.device)
             outs = [out[b] for b in range(out.shape[0])] if stacked \
                 else [out]
             for b, (src, dst) in enumerate(zip(blocks, outs)):
                 row = 0 if idx.shape[0] == 1 else b
-                torch.index_select(src, 0, torch.as_tensor(
-                    idx[row], device=w.device), out=dst)
+                if comm is None:
+                    torch.index_select(src, 0, torch.as_tensor(
+                        idx[row], device=w.device), out=dst)
+                else:
+                    gather_across(comm, [src], [dst], idx[row], every)
                 if not keep[row].all():
-                    dst.mul_(torch.as_tensor(keep[row], dtype=w.dtype,
+                    dst.mul_(torch.as_tensor(keep[row][mine], dtype=w.dtype,
                                              device=w.device)[:, None, None])
             moe[key] = out
             del w, blocks, src, dst    # the [.., E, ..] tensor can go

@@ -33,6 +33,15 @@ of when to drain; the executor owns the queue, the subset applies, the
 timing and the per-layer commits.  The slab gathers are in place and run
 on the forward's stream: the global-scale scratch of the quantizer exists
 once per device, so a side stream would race it.
+
+Under a :class:`~repro_torch.models.common.Mesh` every rank drains the
+same plan and must pack the same chunks in the same order (the gathers
+are collectives): the iteration seconds and each batch's measured
+seconds, figures of each rank's own clock, are agreed (the largest over
+the ranks, one tiny all-reduce each) before they size a budget or feed
+the bandwidth EWMA.  Before a batch commits, the ranks agree that every
+one of them landed and patched it; otherwise every rank gathers the
+batch back and raises.
 """
 from __future__ import annotations
 
@@ -154,7 +163,7 @@ class MigrationExecutor:
         committed by earlier batches stay routable (their slabs did
         land)."""
         assert self.queue, "drain of a fully-landed plan"
-        budget = self.budget_bytes(iter_s)
+        budget = self.budget_bytes(pmigrate.agree_seconds(iter_s))
         batch = self._pack(budget)
         layers = [c.layer for c in batch]
         nbytes = sum(c.nbytes for c in batch)
@@ -169,7 +178,7 @@ class MigrationExecutor:
             pmigrate.roll_back(err, params, self.undo, landed,
                                self.manager.abort)
             raise
-        wall = time.perf_counter() - t0
+        wall = pmigrate.agree_seconds(time.perf_counter() - t0)
         self.manager.bandwidth.observe(nbytes, wall)
         trc = getattr(self.manager, "tracer", None)
         if trc is not None and trc.enabled:
@@ -182,17 +191,24 @@ class MigrationExecutor:
                                "budget_bytes": int(budget),
                                "wall_s": wall,
                                "remaining": len(self.queue)})
+        err = None
         if self.patch_fn is not None:
             # checkpoint reads stay out of the timed window: they would
             # pollute the bandwidth EWMA
             try:
                 new_params = self.patch_fn(new_params, self.plan, layers)
                 pmigrate.synchronize(new_params)
-            except BaseException as err:
-                self.queue.clear()
-                pmigrate.roll_back(err, params, self.undo, landed,
-                                   self.manager.abort)
-                raise
+            except BaseException as e:
+                err = e
+        try:          # under a mesh: every rank patched, or none commits
+            pmigrate.agree_ok(err is None, "its patch of a migration batch")
+        except pmigrate.PeerMigrationError as e:
+            err = e
+        if err is not None:
+            self.queue.clear()
+            pmigrate.roll_back(err, params, self.undo, landed,
+                               self.manager.abort)
+            raise err
         self.manager.commit_layers(self.plan, layers)
         self.drained_bytes += nbytes
         self.n_drains += 1

@@ -1,9 +1,8 @@
 """Elastic serving: rank loss and rejoin as first-class serving events.
 
-Counterpart of ``repro.serving.elastic`` (without ``effective_mesh``,
-which shrinks a device mesh the one-card port does not have).  Rank loss
-and rejoin are events the engine handles *between iterations*, with no
-restart, built on three invariants of the replication subsystem:
+Counterpart of ``repro.serving.elastic``.  Rank loss and rejoin are
+events the engine handles *between iterations*, with no restart, built
+on three invariants of the replication subsystem:
 
 - the replication planner's **distinct-rank rule**: an expert with
   ``n_rep >= 2`` has a surviving replica on any single rank loss, so
@@ -41,6 +40,16 @@ width.  The checkpoint is read through memory maps
 (:func:`repro_torch.checkpoint.ckpt.open_arrays`): only the rows a patch
 writes, and the manager's saved ``rep_pos``, leave the disk, and each
 patched source row goes up to the card once.
+
+Under a :class:`~repro_torch.models.common.Mesh` each rank holds its
+``S/ep`` slots: the dead rank's process zeroes its own slots and every
+other rank none, and a patch writes only the slots a rank owns, at their
+local indices, from the global checkpoint an EP engine writes
+(:func:`repro_torch.checkpoint.ckpt.save` under the mesh).  As in the
+reference, whose simulated loss keeps the device in the mesh, the dead
+rank's process stays in every collective and serving goes on over the
+whole mesh; :meth:`ElasticCoordinator.effective_mesh` names the ranks
+that are left.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.models.common import current_mesh
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement.migrate import MOE_WEIGHT_KEYS, moe_param_paths
 
@@ -62,11 +72,26 @@ STATE_SHRUNK = "shrunk"        # dead ranks, every expert routable
 STATE_WARMING = "warming"      # rejoined rank streaming its slabs
 
 
+def _ep_rank():
+    """(ep, this rank's index on ``model``) of the current mesh; (1, 0)
+    without one."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size("model") == 1:
+        return 1, 0
+    return mesh.size("model"), mesh.index("model")
+
+
 def zero_rank_slabs(params: Tree, rank: int, slots_per_rank: int) -> Tree:
     """Zero every MoE weight row on ``rank``'s physical slots, in place —
     the simulated loss of that rank's expert memory.  Returns ``params``
-    (the same tree)."""
+    (the same tree).  Under a mesh ``params`` hold this rank's slots: the
+    dead rank's process zeroes all of them, every other rank none."""
+    ep, my = _ep_rank()
     lo, hi = rank * slots_per_rank, (rank + 1) * slots_per_rank
+    if ep > 1:
+        if rank != my:
+            return params
+        lo, hi = 0, slots_per_rank
     for group, lname in moe_param_paths(params):
         moe = params[group][lname]["moe"]
         for key in MOE_WEIGHT_KEYS:
@@ -143,6 +168,17 @@ class ElasticCoordinator:
         if not self.lost:
             return np.zeros(0, np.int64)
         return np.unique(np.concatenate(list(self.lost.values())))
+
+    def effective_mesh(self, mesh, lost_axis: str = "model"):
+        """The mesh minus the dead ``lost_axis`` slices —
+        :func:`repro_torch.runtime.elastic.shrink_mesh` applied per dead
+        rank (highest index first so earlier indices stay valid).  It
+        builds process groups: every rank of the world calls it, in the
+        same order."""
+        from repro_torch.runtime.elastic import shrink_mesh
+        for r in sorted(np.flatnonzero(~self.rank_alive), reverse=True):
+            mesh = shrink_mesh(mesh, lost_axis, lost_index=int(r))
+        return mesh
 
     def lost_token_count(self, expert_stats) -> float:
         """Tokens one iteration routed to unroutable experts —
@@ -303,15 +339,18 @@ class ElasticCoordinator:
                  for g, n in moe_param_paths(params) for k in MOE_WEIGHT_KEYS}
         maps, saved_pos, saved_nt = self._saved(list(paths))
         new_sets = getattr(plan, "new_sets", None)
+        ep, _ = _ep_rank()
         for path, (group, lname, key) in paths.items():
             w = params[group][lname]["moe"][key]
             if path not in maps:
                 raise KeyError(f"checkpoint missing {path!r}")
             saved, ext = maps[path]
-            if tuple(saved.shape) != tuple(w.shape):
+            want = list(w.shape)
+            want[-3] *= ep                 # the global slots of a shard
+            if tuple(saved.shape) != tuple(want):
                 raise ValueError(
                     f"checkpoint {path!r} shape {tuple(saved.shape)} != "
-                    f"current {tuple(w.shape)} — geometry changed")
+                    f"current {tuple(want)} — geometry changed")
             self._patch_weight(w, saved, ext, saved_pos, saved_nt, plan,
                                new_sets, todo)
         return params
@@ -327,6 +366,8 @@ class ElasticCoordinator:
         stacked = w.dim() == 4
         per_layer_plan = new_sets is not None
         by_layer = stacked and per_layer_plan and self.manager.n_tables > 1
+        n_loc = w.shape[-3]                # this rank's slots (all: ep 1)
+        lo = _ep_rank()[1] * n_loc
         writes: Dict[Any, List] = {}      # layer (or None) -> [(dst, src)]
         for l in layers:
             new_set = new_sets[l] if per_layer_plan else plan.new_set
@@ -336,8 +377,9 @@ class ElasticCoordinator:
                 dests = np.unique(
                     new_set.rep_pos[ex, :new_set.n_rep[ex]]).astype(int)
                 for dst in dests:
-                    writes.setdefault(l if by_layer else None, []).append(
-                        (int(dst), src))
+                    if lo <= dst < lo + n_loc:     # a slot this rank owns
+                        writes.setdefault(l if by_layer else None,
+                                          []).append((int(dst) - lo, src))
         for l, pairs in writes.items():
             srcs = sorted({s for _, s in pairs})
             if l is not None:

@@ -21,10 +21,11 @@ the policy's virtual EP topology.  ``temperature > 0`` samples from
 ``softmax(logits / temperature)`` on the device with a ``torch.Generator``
 seeded by ``seed`` (JAX's PRNG draws are not reproduced); 0 is greedy.
 ``save_checkpoint``/``load_checkpoint`` write and read the reference's
-format.
+format; under a mesh the checkpoint holds the global layout (rank 0
+writes it, the expert stacks gathered to it a block at a time) and a load
+reads each rank's slots, for any EP size.
 
-Placement and replication (under a mesh the manager's tables serve as
-they stand; a migration across ranks raises): a
+Placement and replication: a
 :class:`~repro_torch.placement.PlacementManager` or
 :class:`~repro_torch.replication.ReplicaManager` (``placement=``) is fed
 every iteration's expert stats, and at its cadence stages a plan.  The
@@ -35,6 +36,12 @@ landed blocks back to the old layout and aborts the plan.  With
 ``migrate_async`` a staged plan drains as byte-budgeted per-layer chunks
 through a :class:`~repro_torch.serving.async_migrate.MigrationExecutor`,
 one batch an iteration, each landed layer's table committed on its own.
+Under a mesh the tables are global and a rank gathers into its own
+``S/ep`` slots, the rows held by other ranks coming over the EP group;
+every rank applies the same plan in the same chunks (the seconds that
+size a budget or feed the bandwidth EWMA, and those the profiler and a
+cost gate read, are agreed over the ranks), and a failure on any rank
+takes the landed blocks back on every rank.
 The device tables are uploaded once per committed change (or weighted-split
 refresh), so no forward uploads them.  ``capacity_margin`` lets a replica
 manager shrink the dispatch capacity to its post-split predicted peak.
@@ -49,6 +56,9 @@ fault_tolerance.FaultInjector`): the dead rank's slabs are zeroed in place
 and masked out of the tables, lost experts are re-materialized from the
 checkpoint into their new slots before the recovery plan commits, and
 ``IterStats.n_unroutable`` / ``lost_tokens`` count the degraded window.
+Under a mesh the dead rank's process zeroes its own slots and stays in
+every collective (the reference's simulated loss keeps its device), so
+serving goes on over the whole mesh.
 
 Observation: a :class:`~repro_torch.obs.profiler.Profiler` (``profiler=``)
 is fed every recorded iteration's stats and forward seconds (and its
@@ -191,9 +201,6 @@ class Engine:
             if placement is not None and placement.ep != mesh_ep:
                 raise ValueError(f"placement plans {placement.ep} ranks, "
                                  f"mesh EP={mesh_ep}")
-            if elastic is not None:
-                raise NotImplementedError(
-                    "elastic serving under a mesh (ROADMAP Queue A item 7c)")
             if sentinel is not None:
                 # the staged backend's host copies are sanctioned pulls
                 ep_moe._dist_comm(mesh).sentinel = sentinel
@@ -319,11 +326,6 @@ class Engine:
         plan = self._placement.maybe_replan(self._it)
         if plan is None:
             return
-        if self._mesh is not None:
-            raise NotImplementedError(
-                "a migration under a mesh moves slabs between ranks: "
-                "cross-rank migration is ROADMAP Queue A item 7b; under a "
-                "mesh the engine serves a manager's tables as they stand")
         if self.migrate_async:
             prio = patch = None
             if self._elastic is not None:
@@ -354,9 +356,10 @@ class Engine:
             pmigrate.roll_back(err, self.params, undo, landed,
                                self._placement.abort)
             raise
-        wall = time.perf_counter() - t0
+        wall = pmigrate.agree_seconds(time.perf_counter() - t0)
         self._placement.bandwidth.observe(plan.moved_bytes, wall)
         layers = self._placement.plan_layers(plan)
+        err = None
         if self._elastic is not None:
             # lost experts' slabs were gathered from the dead (zeroed)
             # slots: write their checkpoint rows before the new tables
@@ -364,10 +367,16 @@ class Engine:
             try:
                 self._elastic.patch_params(self.params, plan, layers)
                 pmigrate.synchronize(self.params)
-            except BaseException as err:
-                pmigrate.roll_back(err, self.params, undo, landed,
-                                   self._placement.abort)
-                raise
+            except BaseException as e:
+                err = e
+        try:          # under a mesh: every rank landed it, or none commits
+            pmigrate.agree_ok(err is None, "its patch of a migration")
+        except pmigrate.PeerMigrationError as e:
+            err = e
+        if err is not None:
+            pmigrate.roll_back(err, self.params, undo, landed,
+                               self._placement.abort)
+            raise err
         # staged plans become routable only after the slabs landed
         self._placement.commit(plan)
         self._place_cache = None                  # table changed
@@ -593,6 +602,15 @@ class Engine:
             stat.n_unroutable = int(self._elastic.lost_experts.size)
             stat.lost_tokens = self._elastic.lost_token_count(es)
         self.stats.append(stat)
+        gate = getattr(self._placement, "cost_gate", None)
+        t_gate = stat.t_wall
+        if self._mesh is not None and (self.profiler.enabled or hasattr(
+                gate, "observe_iter")):
+            # the seconds a cost gate prices replans with (its own and the
+            # profiler's drift EWMA) come from each rank's clock: agreed,
+            # so that every rank stages the same plans
+            t_gate, fwd_s = ep_moe._dist_comm(self._mesh).agree_max(
+                [t_gate, fwd_s])
         if self._placement is not None:
             # [n_blocks, 2, E] per-block expert loads -> predictor (decode
             # iterations feed the decode window when one is configured)
@@ -600,9 +618,8 @@ class Engine:
             if hasattr(self._placement, "observe_slots"):
                 # [n_blocks, 2, S] post-split slot loads -> utilization
                 self._placement.observe_slots(ss)
-            gate = getattr(self._placement, "cost_gate", None)
             if gate is not None and hasattr(gate, "observe_iter"):
-                gate.observe_iter(tokens, stat.t_wall)
+                gate.observe_iter(tokens, t_gate)
             if self.telemetry is not None \
                     and hasattr(self._placement, "rank_heatmap"):
                 # realized [n_blocks, ep] rank loads under the routable
@@ -876,12 +893,15 @@ class Engine:
 
         Refused while a plan is in flight: the params then hold a mix of
         landed and not-yet-landed slabs that no saved table describes —
-        call :meth:`drain_migrations` first."""
+        call :meth:`drain_migrations` first.  Under a mesh every rank
+        calls it; the checkpoint holds the global layout, equal to what a
+        one-device engine with the same tables writes, and rank 0 writes
+        it."""
         self._refuse_mid_flight("save")
         state = {"serving": {"params": self.params, "m_state": self.m_state}}
         if self._placement is not None:
             state[self._placement.ckpt_group] = self._placement.state_dict()
-        return ckpt.save(ckpt_dir, step, state, keep=keep)
+        return ckpt.save(ckpt_dir, step, state, keep=keep, mesh=self._mesh)
 
     def _refuse_mid_flight(self, what: str) -> None:
         if self.migration_draining \
@@ -905,7 +925,8 @@ class Engine:
         of another manager kind (or none) is refused, as the reference
         refuses it; a manager reading a manager-free checkpoint resets to
         its identity state (a replica manager re-expands the logical rows
-        into its slots)."""
+        into its slots).  Under a mesh each rank reads its own slots of
+        the global checkpoint."""
         self._refuse_mid_flight("load")
         step = ckpt.latest_step(ckpt_dir) if step is None else step
         if step is None:
@@ -927,7 +948,7 @@ class Engine:
         # ones (a manager-free checkpoint has one row per logical expert)
         templates = {"serving": {"params": self.params,
                                  "m_state": self.m_state}}
-        step, out = ckpt.restore(ckpt_dir, templates, step)
+        step, out = ckpt.restore(ckpt_dir, templates, step, mesh=self._mesh)
         self.params = out["serving"]["params"]
         self.m_state = out["serving"]["m_state"]
         if self._placement is not None:

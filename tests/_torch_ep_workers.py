@@ -126,7 +126,7 @@ def _forwards(mesh, c, params, cfg, rcfg):
     return out
 
 
-def _engine(c, params, cfg, placement=None):
+def _engine(c, params, cfg):
     from repro_torch.configs import ReaLBConfig
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
@@ -134,7 +134,7 @@ def _engine(c, params, cfg, placement=None):
     clock = VirtualClock()
     eng = Engine(cfg, params, ReaLBConfig(**c["engine_rcfg"]), clock=clock,
                  cost_model=IterationCostModel(), device="cpu",
-                 placement=placement, **c["engine"])
+                 **c["engine"])
     for uid, (toks, mod, new) in enumerate(c["requests"]):
         eng.submit(Request(uid=uid, tokens=np.asarray(toks, np.int32),
                            modality=np.asarray(mod, bool),
@@ -148,11 +148,10 @@ def _engine(c, params, cfg, placement=None):
 
 
 def _model_case(mesh, c):
-    from repro_torch.configs import PlacementConfig, ReaLBConfig
+    from repro_torch.configs import ReaLBConfig
     from repro_torch.convert import rank_shard
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import use_mesh
-    from repro_torch.placement import PlacementManager
     cfg = _cfg(c["arch"])
     ep, rank = mesh.size("model"), mesh.index("model")
     params = rank_shard(c["params"], ep, rank, device="cpu")
@@ -184,15 +183,6 @@ def _model_case(mesh, c):
     except ValueError as err:
         out["odd_chunk"] = str(err)
     out["engine"] = _engine(c, params, cfg)
-    # a manager's tables serve as they stand; its first migration raises
-    mgr = PlacementManager(cfg, PlacementConfig(replan_every=2,
-                                                warmup_iters=1,
-                                                min_gain=0.0), ep)
-    try:
-        _engine(c, params, cfg, placement=mgr)
-        out["migration"] = "ran"
-    except NotImplementedError as err:
-        out["migration"] = str(err)
     return out
 
 
@@ -211,3 +201,764 @@ def serve_case(mesh, argv):
     with contextlib.redirect_stdout(buf):
         rc = serve.main(argv)
     return rc, buf.getvalue()
+
+
+# --------------------------------------------------------------------------
+# migration under a mesh (test_torch_ep_migrate.py)
+# --------------------------------------------------------------------------
+MOE = ("w_gate", "w_up", "w_down")
+
+
+def _tensors(tree):
+    from repro_torch.convert import params_from_numpy
+    return params_from_numpy(tree, "cpu")
+
+
+def _shard(tree, mesh, placement=None):
+    """This rank's slots of a numpy tree (identity cut of a physical one)."""
+    from repro_torch.convert import rank_shard
+    return rank_shard(tree, mesh.size("model"), mesh.index("model"),
+                      placement, device="cpu")
+
+
+def _moe_leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _moe_leaves(v, path + (k,))
+        elif k in MOE:
+            yield path + (k,), v
+
+
+def _same_bytes(a, b):
+    """Two tensors hold the same bytes (-0.0 and NaN payloads count)."""
+    a, b = a.detach().contiguous(), b.detach().contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and bytes(
+        a.view(torch.uint8).numpy()) == bytes(b.view(torch.uint8).numpy())
+
+
+def _shard_equal(mine, whole, mesh):
+    """Every expert leaf of ``mine`` holds this rank's slots of ``whole``."""
+    ep, my = mesh.size("model"), mesh.index("model")
+    got = dict(_moe_leaves(mine))
+    for path, w in _moe_leaves(whole):
+        n = w.shape[-3] // ep
+        if not _same_bytes(got[path], w.narrow(w.dim() - 3, my * n, n)):
+            return False
+    return True
+
+
+def _plan(rows):
+    from repro_torch.placement.migrate import _LayerSubsetPlan
+    rows = np.asarray(rows, np.int64)
+    return _LayerSubsetPlan(gather_idx=rows, is_noop=False)
+
+
+def _sent(comm):
+    return comm.census.snapshot().get("migrate_all_to_all",
+                                      {"bytes": 0})["bytes"]
+
+
+def _case_gather(mesh, c):
+    """In-place gathers by global rows on the rank's slots against the
+    one-device gather of the whole tree; the bytes sent; the inverse
+    gather back."""
+    from repro_torch.core import ep_moe
+    from repro_torch.models.common import use_mesh
+    from repro_torch.placement import migrate as pm
+    comm = ep_moe._dist_comm(mesh)
+    out = {}
+    for name, (tree, rows, inv) in c["plans"].items():
+        mine, orig = _shard(tree, mesh), _shard(tree, mesh)
+        whole = _tensors(tree)
+        comm.census.reset()
+        landed = []
+        pm.apply_to_params(mine, _plan(rows), landed)
+        sent = _sent(comm)
+        with use_mesh(None):
+            ref_landed = []
+            pm.apply_to_params(whole, _plan(rows), ref_landed)
+        equal = _shard_equal(mine, whole, mesh)
+        pm.undo_blocks(mine, _plan(inv), landed)
+        out[name] = dict(equal=equal, landed=landed, ref_landed=ref_landed,
+                         sent=sent, back=_shard_equal(mine, _tensors(tree),
+                                                      mesh) and all(
+            _same_bytes(a, b) for (_, a), (_, b) in zip(
+                _moe_leaves(mine), _moe_leaves(orig))))
+    return out
+
+
+def _case_failure(mesh, c):
+    """A read that fails on one rank at the second changed block: every rank
+    stops there (the same blocks landed), every rank rolls them back; a
+    recovery patch that fails on one rank aborts the executor's batch on
+    every rank."""
+    from repro_torch.configs import PlacementConfig
+    from repro_torch.placement import PlacementManager
+    from repro_torch.placement import migrate as pm
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    tree, rows, inv = c["plan"]
+    ep, my = mesh.size("model"), mesh.index("model")
+    failing = mesh.index("model") == c["fail_rank"] \
+        and mesh.index("data") == 0
+    mine, orig = _shard(tree, mesh), _shard(tree, mesh)
+    real = pm._read_rows
+    calls = [0]
+
+    def flaky(srcs, ix):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise OSError("injected read failure")
+        return real(srcs, ix)
+
+    out = {}
+    landed, aborted = [], []
+    pm._read_rows = flaky if failing else real
+    try:
+        pm.apply_to_params(mine, _plan(rows), landed)
+        out["apply"] = "ran"
+    except pm.PeerMigrationError as err:
+        out["apply"], e = "peer", err
+    except OSError as err:
+        out["apply"], e = "own", err
+    finally:
+        pm._read_rows = real
+    out["landed"] = list(landed)
+    if out["apply"] != "ran":
+        pm.roll_back(e, mine, _plan(inv), landed, lambda: aborted.append(1))
+    out["aborted"] = len(aborted)
+    out["rolled_back"] = all(_same_bytes(a, b) for (_, a), (_, b) in zip(
+        _moe_leaves(mine), _moe_leaves(orig)))
+
+    # the executor: the gather lands on every rank, one rank's patch fails
+    e, n_layers = c["experts"], c["layers"]
+    mgr = PlacementManager.from_geometry(
+        e, PlacementConfig(replan_every=1, warmup_iters=1, min_gain=0.0,
+                           per_layer=True), ep, bytes_per_expert=8,
+        n_layers=n_layers)
+    mgr.observe(np.asarray(c["stats"], np.float64))
+    plan = mgr.maybe_replan(1)
+    before = [t.e2r.copy() for t in mgr.tables]
+    params = _shard(c["params"], mesh)
+    orig = _shard(c["params"], mesh)
+
+    def patch(p, plan, layers):
+        if failing:
+            raise OSError("injected patch failure")
+        return p
+
+    ex = MigrationExecutor(mgr, plan, bytes_per_iter=1 << 30,
+                           patch_fn=patch,
+                           undo=pm.diff_layers(plan.new_tables, mgr.tables))
+    try:
+        ex.drain(params)
+        out["drain"] = "ran"
+    except pm.PeerMigrationError:
+        out["drain"] = "peer"
+    except OSError:
+        out["drain"] = "own"
+    out["drain_in_flight"] = mgr.in_flight is not None
+    out["drain_tables_kept"] = all(np.array_equal(a, t.e2r)
+                                   for a, t in zip(before, mgr.tables))
+    out["drain_rolled_back"] = all(
+        _same_bytes(a, b) for (_, a), (_, b) in zip(_moe_leaves(params),
+                                                    _moe_leaves(orig)))
+    return out
+
+
+def _case_agree(mesh, c):
+    """Ranks whose clocks give different iteration seconds drain a plan's
+    chunks alike: the executor agrees on the seconds before packing."""
+    import torch.distributed as dist
+    from repro_torch.configs import PlacementConfig
+    from repro_torch.placement import PlacementManager
+    from repro_torch.placement import migrate as pm
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    ep = mesh.size("model")
+    mgr = PlacementManager.from_geometry(
+        c["experts"], PlacementConfig(replan_every=1, warmup_iters=1,
+                                      min_gain=0.0, per_layer=True,
+                                      migration_bw=c["bw"]), ep,
+        bytes_per_expert=c["bpe"], n_layers=c["layers"])
+    mgr.bandwidth.observe = lambda nbytes, s: None    # keep the prior
+    mgr.observe(np.asarray(c["stats"], np.float64))
+    plan = mgr.maybe_replan(1)
+    iter_s = c["iter_s"] * (dist.get_rank() + 1)     # this rank's clock
+    ex = MigrationExecutor(mgr, plan)
+    params = _shard(c["params"], mesh)
+    out = {"local_budget": ex.budget_bytes(iter_s), "chunks": [],
+           "budgets": [],
+           "wall": pm.agree_seconds(0.01 * (dist.get_rank() + 1))}
+    while ex.draining:
+        params, rep = ex.drain(params, iter_s)
+        out["chunks"].append(list(rep.layers))
+        out["budgets"].append(rep.budget_bytes)
+    return out
+
+
+def _case_expand(mesh, c):
+    """``expand_moe_params`` of a rank's logical rows onto its share of the
+    slots equals its slice of the one-device expansion, byte for byte."""
+    from repro_torch.models.common import use_mesh
+    from repro_torch.replication import ReplicaSet, expand_moe_params
+    ep = mesh.size("model")
+    out = {}
+    for name, sets in c["sets"].items():
+        rs = [ReplicaSet(np.asarray(rp), np.asarray(nr), ep, spr)
+              for rp, nr, spr in sets[ep]]
+        arg = rs if len(rs) > 1 else rs[0]
+        mine = expand_moe_params(_shard(c["logical"], mesh), arg)
+        with use_mesh(None):
+            whole = expand_moe_params(_tensors(c["logical"]), arg)
+        out[name] = _shard_equal(mine, whole, mesh)
+    return out
+
+
+def _case_ckpt(mesh, c):
+    """The parent's save (every rank ``ckpt.save`` of its own shard into
+    one directory), then the global save under the mesh against the
+    one-device save of the whole tree, and the restore onto this mesh and
+    onto one of another EP size."""
+    import pathlib
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.common import Mesh, use_mesh
+    root = pathlib.Path(c["dir"])
+    tree = c["tree"]
+    out = {}
+
+    def bf16(t):          # one bf16 stack: the raw-pattern leaves
+        t["blocks"]["layer0"]["moe"]["w_down"] = \
+            t["blocks"]["layer0"]["moe"]["w_down"].to(torch.bfloat16)
+        return t
+
+    mine = bf16(_shard(tree, mesh))
+    # the parent's Engine.save_checkpoint under a mesh: each rank's save
+    try:
+        ckpt.save(str(root / "per_rank"), 0, {"serving": {"params": mine}})
+        out["per_rank"] = "saved"
+    except Exception as err:             # noqa: BLE001 - the fault shown
+        out["per_rank"] = repr(err)
+    dist.barrier()
+    state = {"serving": {"params": mine,
+                         "m_state": torch.full((1, mesh.size("model")), .5)},
+             "placement": {"e2r": np.arange(4, dtype=np.int32)}}
+    path = ckpt.save(str(root / "global"), 3, state, mesh=mesh)
+    out["path"] = path
+    if dist.get_rank() == 0:
+        with use_mesh(None):
+            whole = dict(state, serving=dict(state["serving"],
+                                             params=bf16(_tensors(tree))))
+            ckpt.save(str(root / "one_device"), 3, whole)
+    dist.barrier()
+    templates = {"serving": {"params": bf16(_shard(tree, mesh)),
+                             "m_state": torch.zeros(1, mesh.size("model"))}}
+    _, got = ckpt.restore(str(root / "global"), templates, mesh=mesh)
+    out["restored"] = _shard_equal(got["serving"]["params"],
+                                   bf16(_tensors(tree)), mesh)
+    # onto another EP size, over the same ranks
+    world = dist.get_world_size()
+    if mesh.size("model") != world:
+        shape = (1, world)
+    else:
+        shape = (world // 2, 2) if world > 2 else (world, 1)
+    other = Mesh(shape, "gloo", "cpu")
+    with use_mesh(other):
+        tmpl = {"serving": {"params": bf16(_shard(tree, other))}}
+        _, got = ckpt.restore(str(root / "global"), tmpl, mesh=other)
+        out["restored_other_ep"] = (other.size("model"), _shard_equal(
+            got["serving"]["params"], bf16(_tensors(tree)), other))
+    return out
+
+
+def _case_layers(mesh, c):
+    """The reference's ``check_perlayer_identity_bitwise_under_ep`` and
+    ``check_perlayer_tables_matches_local_under_ep`` on the rank: stacked
+    identity tables, the shared identity table and none give the same bits
+    (prefill and decode); depth-varying permutation tables over weights
+    permuted by them give the logits the test holds against the
+    reference's table-free local forward."""
+    from repro_torch.configs import ReaLBConfig, get_config, reduced
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    cfg = reduced(get_config("olmoe-1b-7b"), n_layers=2)
+    rcfg = ReaLBConfig(gate_gamma=10 ** 9)
+    ep = mesh.size("model")
+    params = _shard(c["params"], mesh)
+    tokens = torch.from_numpy(c["tokens"])
+    b = tokens.shape[0]
+    _, n_blocks, _ = tf.block_structure(cfg)
+    ident = ep_moe.identity_replication(cfg.moe.num_experts, ep)
+    stacked = tuple(a.expand((n_blocks,) + a.shape).contiguous()
+                    for a in ident)
+    m0 = torch.full(ep_moe.moe_state_shape(mesh, b), 0.9)
+    outs = {}
+    for name, pl in (("none", None), ("shared", ident),
+                     ("stacked", stacked)):
+        res = tf.prefill_forward(params, cfg, rcfg, {"tokens": tokens}, m0,
+                                 cache_len=20, placement=pl)
+        db = {"tokens": tokens[:, :1],
+              "pos": torch.full((b,), 16, dtype=torch.int32)}
+        dec = tf.decode_forward(params, cfg, rcfg, db, res.cache,
+                                res.m_state, placement=pl)
+        outs[name] = (res.logits, res.m_state, dec.logits)
+    out = {"identity_bitwise": all(
+        torch.equal(a, b_) for name in ("none", "shared")
+        for a, b_ in zip(outs[name], outs["stacked"]))}
+    e2r, slot = (np.asarray(a) for a in c["perm_tables"])
+    perm = _shard(c["params"], mesh, placement=(e2r, slot))
+    place = (torch.from_numpy(e2r).to(torch.int32),
+             torch.from_numpy(slot).to(torch.int32))
+    res = tf.prefill_forward(perm, cfg, rcfg, {"tokens": tokens}, m0,
+                             cache_len=20, placement=place)
+    out["perm_logits"] = _np(res.logits)
+    return out
+
+
+def _case_async(mesh, c):
+    """The reference's ``check_async_migrate_chunks_match_sync_under_ep``:
+    a staged per-layer plan drained a chunk at a time on the rank's slots
+    equals the synchronous apply, bit for bit, and the model gives the
+    same logits through either copy under the committed tables."""
+    from repro_torch.configs import (PlacementConfig, ReaLBConfig,
+                                     get_config, reduced)
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.placement import PlacementManager, apply_to_params
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    cfg = reduced(get_config("olmoe-1b-7b"), n_layers=2)
+    rcfg = ReaLBConfig(gate_gamma=10 ** 9)
+    ep = mesh.size("model")
+
+    def mk():
+        mgr = PlacementManager(cfg, PlacementConfig(
+            replan_every=2, warmup_iters=1, min_gain=0.0, per_layer=True),
+            ep)
+        mgr.observe(np.asarray(c["stats"], np.float64))
+        return mgr, mgr.maybe_replan(2)
+
+    m_sync, p_sync = mk()
+    m_async, p_async = mk()
+    ref = apply_to_params(_shard(c["params"], mesh), p_sync)
+    m_sync.commit(p_sync)
+    ex = MigrationExecutor(m_async, p_async, bytes_per_iter=1)
+    got = _shard(c["params"], mesh)
+    while ex.draining:
+        got, _ = ex.drain(got)
+    out = {"layers": len(m_sync.plan_layers(p_sync)),
+           "n_drains": ex.n_drains,
+           "same_gather": bool(np.array_equal(p_sync.gather_idx,
+                                              p_async.gather_idx)),
+           "bitwise": all(_same_bytes(a, b) for (_, a), (_, b) in zip(
+               _moe_leaves(ref), _moe_leaves(got))),
+           "tables": all(np.array_equal(a.e2r, b.e2r) for a, b in
+                         zip(m_sync.tables, m_async.tables)),
+           "calibrated": m_async.bandwidth.calibrated}
+    tokens = torch.from_numpy(c["tokens"])
+    m0 = torch.full(ep_moe.moe_state_shape(mesh, tokens.shape[0]), 0.9)
+    place = tuple(torch.from_numpy(np.asarray(t))
+                  for t in m_async.device_tables())
+    r1 = tf.prefill_forward(ref, cfg, rcfg, {"tokens": tokens}, m0,
+                            cache_len=20, placement=place)
+    r2 = tf.prefill_forward(got, cfg, rcfg, {"tokens": tokens}, m0,
+                            cache_len=20, placement=place)
+    out["logits_equal"] = bool(torch.equal(r1.logits, r2.logits))
+    return out
+
+
+def _case_capacity(mesh, c):
+    """The reference's ``check_replica_capacity_reduced_cap``: at the
+    reduced capacity factor derived from the post-split peak, the
+    replicated layout routes the skewed batch with no drop, the bijective
+    one overflows."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.models.common import use_mesh
+    from repro_torch.replication import ReplicaSet, expand_moe_params
+    cfg = _cfg("olmoe-1b-7b")
+    e = cfg.moe.num_experts
+    ep = mesh.size("model")
+    e_loc = e // ep
+    spr = e_loc + 1
+    rcfg = ReaLBConfig(gate_gamma=10 ** 9)
+    p = {k: torch.from_numpy(np.asarray(v)) for k, v in c["p"].items()}
+    x, mod = torch.from_numpy(c["x"]), torch.from_numpy(c["mod"])
+    rep_pos = np.zeros((e, 2), np.int32)
+    for ex in range(e):
+        rep_pos[ex] = (ex // e_loc) * spr + ex % e_loc
+    rep_pos[0, 1] = (ep - 1) * spr + e_loc   # on the last rank's spare
+    n_rep = np.ones(e, np.int32)
+    n_rep[0] = 2
+    rs = ReplicaSet(rep_pos, n_rep, ep, spr)
+    with use_mesh(None):
+        _, _, aux = ep_moe.ep_moe_forward(p, x, cfg, rcfg,
+                                          torch.full((1, 1), 0.9), mod,
+                                          mode="dispatch")
+    el = aux["expert_load"].numpy().astype(np.float64)
+    f_red = rs.capacity_factor(el, margin=1.2)
+    ident = ReplicaSet.identity(e, ep, slots_per_rank=spr, max_replicas=2)
+    cfg_red = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=f_red))
+    out = {"hot": float(el[0] / el.sum()),
+           "bij_overflows": bool(ident.rank_loads(el).max()
+                                 > el.sum() / ep * f_red)}
+    logical = {"moe": {k: c["p"][k] for k in MOE}}
+    for name, s in (("rep", rs), ("bij", ident)):
+        mine = expand_moe_params(_shard({"blocks": {"l0": logical}}, mesh),
+                                 s)["blocks"]["l0"]["moe"]
+        mine["router"] = p["router"]
+        place = tuple(torch.from_numpy(np.asarray(a)) for a in s.as_arrays())
+        m = torch.full(ep_moe.moe_state_shape(mesh, x.shape[0]), 0.9)
+        _, _, a = ep_moe.ep_moe_forward(mine, x, cfg_red, rcfg, m, mod,
+                                        mode="dispatch", placement=place)
+        out[f"drop_{name}"] = float(a["drop_frac"])
+    return out
+
+
+MIGRATE_CASES = {"gather": _case_gather, "failure": _case_failure,
+                 "agree": _case_agree, "expand": _case_expand,
+                 "ckpt": _case_ckpt, "layers": _case_layers,
+                 "async": _case_async, "capacity": _case_capacity}
+
+
+def migrate_cases(mesh, cases):
+    """``{name: payload}`` → ``{name: results}`` for the cases above (and
+    the engine arms, ``arms``), each a ``{"error": traceback}`` if it
+    raised."""
+    out = {}
+    for name, c in cases.items():
+        fn = MIGRATE_CASES.get(name) or ENGINE_CASES[name]
+        try:
+            out[name] = fn(mesh, c)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def _serve_arm(mesh, c, after_step=None):
+    """One seeded MMMU stream through the EP engine with a placement or
+    replica manager (the port's counterpart of ``_torch_managers.run_arm``
+    on one side): the bandwidth EWMA logs each gather's bytes and keeps
+    its prior, requests arrive on a virtual clock, the routable tables are
+    kept after every step."""
+    from repro_torch.configs import (PlacementConfig, ReaLBConfig,
+                                     ReplicationConfig)
+    from repro_torch.core import ep_moe
+    from repro_torch.placement import PlacementManager
+    from repro_torch.replication import ReplicaManager, expand_moe_params
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    from repro_torch.serving.elastic import ElasticCoordinator
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.telemetry import Telemetry
+    from repro_torch.workloads import arrivals, multimodal
+    cfg = _cfg(c["arch"])
+    ep = mesh.size("model")
+    kind, mcfg, ekw = c["arm"]
+    if kind == "placement":
+        mgr = PlacementManager(cfg, PlacementConfig(**mcfg), ep)
+    else:
+        mgr = ReplicaManager(cfg, ReplicationConfig(**mcfg), ep)
+    observed = []
+    mgr.bandwidth.observe = lambda nbytes, s: observed.append(int(nbytes))
+    params = _shard(c["params"], mesh)
+    if kind == "replication":
+        params = expand_moe_params(
+            params, mgr.rsets if mgr.per_layer else mgr.rset)
+    ekw = dict(ekw)
+    if ekw.get("migrate_async"):
+        ekw["migrate_bytes_per_iter"] = 2 * mgr.bytes_per_expert
+    clock, tel = arrivals.VirtualClock(), Telemetry()
+    extra = {}
+    co = None
+    if c.get("faults"):
+        co = ElasticCoordinator(mgr, ckpt_dir=c["ckpt_dir"], clock=clock,
+                                telemetry=tel)
+        extra = {"elastic": co,
+                 "fault_injector": FaultInjector(
+                     [tuple(f) for f in c["faults"]])}
+    eng = Engine(cfg, params, ReaLBConfig(**c["policy"]), clock=clock,
+                 cost_model=arrivals.IterationCostModel(), placement=mgr,
+                 telemetry=tel, device="cpu", **ekw, **c["engine"], **extra)
+    if co is not None:
+        eng.save_checkpoint(c["ckpt_dir"], 0)
+    acfg = dict(kind="poisson", rate=40.0, n_requests=c["n_req"], seed=0)
+    specs = multimodal.make_stream(
+        multimodal.profile("MMMU"),
+        arrivals.arrival_times(arrivals.ArrivalConfig(**acfg)),
+        cfg.vocab_size, seed=1, max_prompt=c["max_prompt"])
+    comm = ep_moe._dist_comm(mesh)
+    comm.census.reset()
+    pending = sorted(specs, key=lambda s: s.arrival)
+    tables, refused = [], None
+    while len(eng.scheduler.finished) < len(specs):
+        now = clock()
+        while pending and pending[0].arrival <= now:
+            eng.submit(pending.pop(0).to_request())
+        if eng.scheduler.idle and pending:
+            clock.advance(pending[0].arrival - now)
+            continue
+        eng.step()
+        tables.append([np.asarray(a).copy() for a in mgr.device_tables()])
+        if co is not None and co.recovering and refused is None:
+            try:
+                eng.save_checkpoint(c["ckpt_dir"], 1)
+                refused = "saved"
+            except RuntimeError as err:
+                refused = (eng._it, str(err))
+    done = {r.uid: r for r in eng.scheduler.finished}
+    out = {"tokens": {u: list(r.generated) for u, r in done.items()},
+           "finish": {u: r.finish_time for u, r in done.items()},
+           "stats": [dataclasses.asdict(st) for st in eng.stats],
+           "tables": tables, "m": _np(eng.m_state),
+           "moved": eng.migration_bytes_moved, "observed": observed,
+           "cap": eng.cfg.moe.capacity_factor,
+           "commits": tel.n_plans_committed,
+           "sent": _sent(comm), "census": comm.census.snapshot()}
+    if co is not None:
+        out["events"] = [dict(e) for e in co.events]
+        out["refused"] = refused
+        out["summary"] = {k: v for k, v in tel.summary().items()
+                          if k in ("availability", "degraded_iters",
+                                   "n_recoveries", "recovery_s",
+                                   "lost_tokens_total")}
+    if c.get("save_to"):
+        eng.drain_migrations()
+        out["saved"] = eng.save_checkpoint(c["save_to"], 5)
+    return out
+
+
+def _case_arms(mesh, arms):
+    return {name: _serve_arm(mesh, c) for name, c in arms.items()}
+
+
+ENGINE_CASES = {"arms": _case_arms}
+
+
+# --------------------------------------------------------------------------
+# elastic serving under a mesh (test_torch_ep_elastic.py)
+# --------------------------------------------------------------------------
+def _case_kill(mesh, c):
+    """The reference's ``check_elastic_kill_rejoin_under_ep`` on the rank:
+    EP rank 2 killed (its process zeroes its own slots), the degraded
+    layer, the recovery plan drained through the executor with checkpoint
+    rows patched in (the checkpoint is the global one the mesh saved), the
+    rejoin's warm-up plan, and the effective mesh."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import ReaLBConfig, ReplicationConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.replication import (ReplicaManager, ReplicaSet,
+                                         expand_moe_params)
+    from repro_torch.serving.async_migrate import MigrationExecutor
+    from repro_torch.serving.elastic import ElasticCoordinator
+    cfg = _cfg("olmoe-1b-7b")
+    e, ep, my = cfg.moe.num_experts, mesh.size("model"), mesh.index("model")
+    rcfg = ReaLBConfig(gate_gamma=10 ** 9)
+    router = torch.from_numpy(c["p"]["router"])
+    x, mod = torch.from_numpy(c["x"]), torch.from_numpy(c["mod"])
+    mgr = ReplicaManager.from_geometry(e, ReplicationConfig(
+        enabled=True, spare_per_rank=1, max_replicas=2, replan_every=1,
+        warmup_iters=0, min_gain=0.0), ep, bytes_per_expert=256)
+    spr = mgr.slots_per_rank
+    e_loc = e // ep
+    rep_pos = np.zeros((e, 2), np.int32)
+    for ex in range(e):
+        rep_pos[ex] = (ex // e_loc) * spr + ex % e_loc
+    rep_pos[0, 1] = 2 * spr + 2               # expert 0 on rank 2's spare
+    n_rep = np.ones(e, np.int32)
+    n_rep[0] = 2
+    mgr.rsets[0] = ReplicaSet(rep_pos, n_rep, ep, spr)
+    wrapped = {"blocks": {"l0": {"moe": {k: c["p"][k] for k in MOE}}}}
+
+    def expanded():
+        p = expand_moe_params(_shard(wrapped, mesh), mgr.rset)
+        p["blocks"]["l0"]["moe"]["router"] = router
+        return p
+
+    params = expanded()
+    ckpt.save(c["dir"], 0, {"serving": {"params": params,
+                                        "m_state": np.zeros((1, ep))},
+                            mgr.ckpt_group: mgr.state_dict()}, mesh=mesh)
+    co = ElasticCoordinator(mgr, ckpt_dir=c["dir"])
+
+    def run(params):
+        place = tuple(torch.from_numpy(np.asarray(a))
+                      for a in mgr.device_tables())
+        m = torch.full(ep_moe.moe_state_shape(mesh, x.shape[0]), 0.9)
+        y, _, aux = ep_moe.ep_moe_forward(params["blocks"]["l0"]["moe"], x,
+                                          cfg, rcfg, m, mod, mode="dispatch",
+                                          placement=place)
+        return _np(y), _np(aux)
+
+    out = {}
+    before = [params["blocks"]["l0"]["moe"][k].clone() for k in MOE]
+    params = co.fail_rank(2, params)
+    moe = params["blocks"]["l0"]["moe"]
+    out["zeroed"] = all(bool((moe[k] == 0).all()) for k in MOE)
+    out["kept"] = all(torch.equal(moe[k], b) for k, b in zip(MOE, before))
+    out["lost"] = sorted(co.lost_experts.tolist())
+    out["state_degraded"] = co.state
+    out["live_off_dead"] = all(
+        2 not in (mgr.rset.rep_pos[ex, :mgr.rset.n_rep[ex]] // spr).tolist()
+        for ex in range(e) if ex not in (4, 5))
+    out["replica_masked"] = (int(mgr.rset.n_rep[0]),
+                             int(mgr.rset.rep_pos[0, 0]))
+    out["y_deg"], aux = run(params)
+    el, sl = aux["expert_load"], aux["slot_load"]
+    out["el_deg"], out["sl_deg"] = el, sl
+    out["live_slots"] = {ex: np.unique(mgr.rset.rep_pos[ex, :mgr.rset.n_rep[
+        ex]]).tolist() for ex in range(e)}
+    es = np.stack([el, np.zeros(e)])[None]
+    out["lost_tokens"] = co.lost_token_count(es)
+    eff = co.effective_mesh(mesh, lost_axis="model")
+    out["effective"] = (eff.size("data"), eff.size("model"),
+                        eff.ranks.tolist(), eff.member)
+
+    mgr.observe(es)
+    plan = mgr.maybe_replan(1)
+    comm = ep_moe._dist_comm(mesh)
+    comm.census.reset()
+    ex_mig = MigrationExecutor(mgr, plan, bytes_per_iter=1 << 30,
+                               priority_layers=co.recovery_layers(plan),
+                               patch_fn=co.patch_params)
+    while ex_mig.draining:
+        params, rep = ex_mig.drain(params)
+        co.on_layers_landed(plan, rep.layers)
+    out["recovery_sent"] = _sent(comm)
+    out["recovery_plan_rows"] = int(plan.crossrank_slots.shape[0])
+    out["recovered"] = (co.recovering, co.last_recovery_s is not None,
+                        mgr.rset.hosts_rank(2))
+    out["patched_bytes"] = co.patched_bytes
+    y_rec, aux = run(params)
+    y_h, _ = run(expanded())
+    out["rec_bitwise"] = bool(np.array_equal(y_rec, y_h))
+    out["y_rec"], out["sl_rec"] = y_rec, aux["slot_load"]
+    out["rec_slots"] = {ex: np.unique(mgr.rset.rep_pos[ex, :mgr.rset.n_rep[
+        ex]]).tolist() for ex in range(e)}
+
+    co.rejoin_rank(2)
+    out["state_warming"] = co.state
+    out["hosts_before"] = mgr.hosts_rank(2)
+    mgr.observe(es)
+    plan2 = mgr.maybe_replan(2)
+    out["staged_hosts"] = mgr.hosts_rank(2)
+    ex2 = MigrationExecutor(mgr, plan2, bytes_per_iter=1 << 30,
+                            priority_layers=co.recovery_layers(plan2),
+                            patch_fn=co.patch_params)
+    while ex2.draining:
+        params, rep = ex2.drain(params)
+        co.on_layers_landed(plan2, rep.layers)
+    out["state_final"], out["hosts_after"] = co.state, mgr.hosts_rank(2)
+    out["y_fin"], _ = run(params)
+    return out
+
+
+def _case_reshard(mesh, c):
+    """The reference's ``check_elastic_reshard`` with the model's prefill:
+    the host tree placed on this mesh, on the mesh that lost data row 1
+    (``shrink_mesh``), on the mesh that lost EP rank 0, and on a mesh of
+    another EP size over the same ranks."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Mesh, use_mesh
+    from repro_torch.runtime.elastic import reshard, shrink_mesh
+    cfg = _cfg(c["arch"])
+    rcfg = ReaLBConfig(**c["rcfg"])
+    tokens = torch.from_numpy(c["tokens"])
+
+    def logits(m):
+        with use_mesh(m):
+            p = reshard(c["params"], m)
+            if p is None:
+                return None
+            m0 = torch.full(ep_moe.moe_state_shape(m, tokens.shape[0]), 0.9)
+            return _np(tf.prefill_forward(p, cfg, rcfg, {"tokens": tokens},
+                                          m0, cache_len=20).logits)
+
+    meshes = {"here": mesh, "lost_data_row": shrink_mesh(mesh, "data", 1),
+              "lost_ep_rank": shrink_mesh(mesh, "model", 0),
+              "other_ep": Mesh((1, 4), "gloo", "cpu")}
+    return {name: {"logits": logits(m), "shape": (m.size("data"),
+                                                  m.size("model")),
+                   "ranks": m.ranks.tolist(), "member": m.member}
+            for name, m in meshes.items()}
+
+
+def _case_elastic_arm(mesh, c):
+    return _serve_arm(mesh, c)
+
+
+ELASTIC_CASES = {"kill": _case_kill, "reshard": _case_reshard,
+                 "arm": _case_elastic_arm}
+
+
+def elastic_cases(mesh, cases):
+    out = {}
+    for name, c in cases.items():
+        try:
+            out[name] = ELASTIC_CASES[name](mesh, c)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+# --------------------------------------------------------------------------
+# on the card (test_torch_cuda.py): two ranks on one card, staged backend
+# --------------------------------------------------------------------------
+def _rows_for(src, dst, n, width):
+    """The ``n`` rows rank ``src`` sends rank ``dst`` in the card test."""
+    base = torch.arange(n * width, dtype=torch.float32).reshape(n, width)
+    return (base + 1000 * src + 100 * dst).to(torch.bfloat16)
+
+
+def card_gather(mesh, c):
+    """``Comm.exchange_rows`` and the in-place cross-rank gather of a
+    per-layer plan on the card, through the staged backend: the rows each
+    rank receives, and its slots against its slice of the one-device gather
+    of the whole stack on the same card, bit for bit."""
+    from repro_torch.convert import params_from_numpy, rank_shard
+    from repro_torch.core import ep_moe
+    from repro_torch.models.common import Mesh, use_mesh
+    from repro_torch.placement import migrate as pm
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ep, my = mesh.size("model"), mesh.index("model")
+    staged = Mesh((1, ep), "staged", dev)
+    width = c["width"]
+    count = lambda s, d: 0 if s == d else 3 + s + 2 * d    # noqa: E731
+    out = {}
+    with use_mesh(staged):
+        comm = ep_moe._dist_comm(staged)
+        comm.census.reset()
+        send = torch.cat([_rows_for(my, j, count(my, j), width)
+                          for j in range(ep)]).to(dev)
+        recv = comm.exchange_rows(send, [count(my, j) for j in range(ep)],
+                                  [count(j, my) for j in range(ep)])
+        want = torch.cat([_rows_for(j, my, count(j, my), width)
+                          for j in range(ep)])
+        out["exchange"] = bool(torch.equal(recv.cpu(), want))
+        out["exchange_bytes"] = comm.census.snapshot()[
+            "migrate_all_to_all"]["bytes"] == sum(
+            count(my, j) for j in range(ep)) * width * 2
+
+        def bf16(tree):
+            moe = tree["blocks"]["layer0"]["moe"]
+            for k in MOE:
+                moe[k] = moe[k].to(torch.bfloat16)
+            return tree
+
+        mine = bf16(rank_shard(c["tree"], ep, my, device=dev))
+        whole = bf16(params_from_numpy(c["tree"], dev))
+        comm.census.reset()
+        landed = []
+        pm.apply_to_params(mine, _plan(c["rows"]), landed)
+        with use_mesh(None):
+            pm.apply_to_params(whole, _plan(c["rows"]))
+        torch.cuda.synchronize()
+        out["landed"] = landed
+        out["sent"] = _sent(comm)
+        out["gather"] = all(
+            _same_bytes(m.cpu(), w.narrow(1, my * (w.shape[1] // ep),
+                                          w.shape[1] // ep).cpu())
+            for (_, m), (_, w) in zip(_moe_leaves(mine), _moe_leaves(whole)))
+    return out

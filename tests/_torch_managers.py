@@ -264,3 +264,70 @@ def assert_streams_equal(run: ArmRun):
     assert run.eng_j.migration_bytes_moved == run.eng_t.migration_bytes_moved
     assert run.eng_j.cfg.moe.capacity_factor == \
         run.eng_t.cfg.moe.capacity_factor
+
+
+def ep_ref_arm(arm, mcfg, policy, engine, ep, n_req, max_prompt,
+               save_to=None, faults=None, ckpt_dir=None):
+    """The reference's half of an EP serving arm (the ranks serve the port's
+    EP engine, ``_torch_ep_workers._serve_arm``): its engine with the
+    manager of ``arm = (kind, config, engine args)`` over ``virtual_ep =
+    ep``, the bandwidth EWMA at its prior, requests arriving on a virtual
+    clock; with ``faults`` an elastic coordinator reading ``ckpt_dir``
+    (saved before serving) and a fault injector, and the first checkpoint
+    refused mid-recovery noted.  ``save_to``: a checkpoint after serving."""
+    from repro.runtime.fault_tolerance import FaultInjector as JFI
+    from repro.serving.elastic import ElasticCoordinator as JCo
+    kind, kw, ekw = arm
+    kw = dict(mcfg, **kw)
+    cfg_j, _, params, _ = model()
+    mj = (JPM(cfg_j, JPCfg(**kw), ep) if kind == "placement"
+          else JRM(cfg_j, JRCfg(**kw), ep))
+    observed = []
+    mj.bandwidth.observe = lambda nbytes, s: observed.append(int(nbytes))
+    if kind == "replication":
+        params = jexpand(params, mj.rsets if mj.per_layer else mj.rset)
+    ekw = dict(ekw)
+    if ekw.get("migrate_async"):
+        ekw["migrate_bytes_per_iter"] = 2 * mj.bytes_per_expert
+    clock, tel = VirtualClock(), JTelemetry()
+    extra, co = {}, None
+    if faults:
+        co = JCo(mj, ckpt_dir=ckpt_dir, clock=clock, telemetry=tel)
+        extra = {"elastic": co, "fault_injector": JFI(
+            [tuple(f) for f in faults])}
+    eng = JEngine(cfg_j, params, JCfg(**policy), clock=clock,
+                  cost_model=IterationCostModel(), placement=mj,
+                  telemetry=tel, virtual_ep=ep, **ekw, **engine, **extra)
+    if co is not None:
+        eng.save_checkpoint(ckpt_dir, 0)
+    specs = make_stream(profile("MMMU"), arrival_times(ArrivalConfig(
+        kind="poisson", rate=40.0, n_requests=n_req, seed=0)),
+        cfg_j.vocab_size, seed=1, max_prompt=max_prompt)
+    tables, refused = [], []
+
+    def after_step(e):
+        if co is not None and co.recovering and not refused:
+            try:
+                e.save_checkpoint(ckpt_dir, 1)
+                refused.append("saved")
+            except RuntimeError as err:
+                refused.append((e._it, str(err)))
+
+    done = _serve(eng, specs, clock, mj, tables, after_step)
+    out = {"tokens": {u: list(r.generated) for u, r in done.items()},
+           "finish": {u: r.finish_time for u, r in done.items()},
+           "stats": [dataclasses.asdict(s) for s in eng.stats],
+           "tables": tables, "m": np.asarray(eng.m_state),
+           "moved": eng.migration_bytes_moved, "observed": observed,
+           "cap": eng.cfg.moe.capacity_factor,
+           "commits": tel.n_plans_committed, "engine": eng, "manager": mj}
+    if co is not None:
+        out["events"] = [dict(e) for e in co.events]
+        out["refused"] = refused[0] if refused else None
+        out["summary"] = {k: v for k, v in tel.summary().items()
+                          if k in ("availability", "degraded_iters",
+                                   "n_recoveries", "recovery_s",
+                                   "lost_tokens_total")}
+    if save_to is not None:
+        out["saved"] = eng.save_checkpoint(save_to, 5)
+    return out

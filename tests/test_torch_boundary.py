@@ -63,6 +63,7 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.obs.ledger", "repro_torch.obs.profiler",
               "repro_torch.analysis", "repro_torch.analysis.sentinel",
               "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+              "repro_torch.runtime.elastic",
               "repro_torch.serving.elastic", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.launch.mesh",
               "repro_torch.models.common",

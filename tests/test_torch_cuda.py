@@ -1147,3 +1147,54 @@ def test_elastic_engine_on_card_under_strict_sentinel(cuda, tmp_path):
         return toks
 
     assert run(cuda) == run("cpu")
+
+
+def _card_gather_case():
+    rng = np.random.default_rng(9)
+    n_blocks, slots = 3, 16
+    tree = {"blocks": {"layer0": {"moe": {
+        k: rng.standard_normal((n_blocks, slots) + shape).astype(np.float32)
+        for k, shape in (("w_gate", (64, 96)), ("w_up", (64, 96)),
+                         ("w_down", (96, 64)))}}}}
+    rows = np.stack([rng.permutation(slots), np.arange(slots),
+                     rng.permutation(slots)])
+    return {"tree": tree, "rows": rows, "width": 40}
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Two ranks spawned on the one card, the staged backend (host copies
+    around gloo): their results of ``_torch_ep_workers.card_gather``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from _torch_dist import run_ranks
+    from _torch_ep_workers import card_gather
+    case = _card_gather_case()
+    return case, run_ranks(card_gather, (1, 2), case,
+                           tmp_path_factory.mktemp("card_gather"))
+
+
+def test_staged_row_exchange_on_card(card_ranks):
+    """``Comm.exchange_rows`` between two ranks on the card: rows of
+    uneven counts from pair to pair arrive in rank order, bit for bit, and
+    the census counts the bytes each rank sent."""
+    _, out = card_ranks
+    for r in out:
+        assert r["exchange"] and r["exchange_bytes"]
+
+
+def test_crossrank_inplace_gather_on_card_equals_one_device(card_ranks):
+    """A per-layer plan (two permuted blocks, one identity) gathered in
+    place on each rank's bf16 slots, the rows from the other rank coming
+    through the staged exchange: each rank's slots equal its slice of the
+    one-device gather of the whole stack on the card, bit for bit, and it
+    sent exactly the plan's rows whose source it holds."""
+    from repro_torch.placement.migrate import crossrank_sends
+    case, out = card_ranks
+    row_bytes = 3 * 64 * 96 * 2
+    sends = crossrank_sends(case["rows"], 2)
+    for my, r in enumerate(out):
+        assert r["gather"]
+        assert r["landed"] == [("blocks", "layer0", 0),
+                               ("blocks", "layer0", 2)]
+        assert r["sent"] == int(sends[:, my].sum()) * row_bytes
