@@ -54,7 +54,9 @@
    max_len=8192, temperature=0.7, telemetry=Telemetry())``, every forward
    sync-checked and counted, decode over 8192-row caches through the flash
    path, the telemetry summary held against the request timestamps, and
-   the long-KV decode step timed with its cache rewrite's share; (c) phase
+   the long-KV decode step timed with its in-place cache write's share
+   (the write read five times by profiler traces and five times as a CUDA
+   graph of a step's writes between CUDA events); (c) phase
    5's stream with ``prefill_budget=0`` (every request one-shot, all
    finish); (d) a checkpoint round trip on reduced moonshot (same weights,
    same greedy tokens);
@@ -135,6 +137,27 @@
    syncs; each rank's kernels against their plain versions at G = 22;
    prints recovery seconds, degraded iterations, lost tokens and patched
    bytes;
+12. the compiled step, on phase 5's weights after phase 7 (phases 5, 7,
+   8 and 9 pass ``graphs=False`` and say so: they note the kernel
+   wrappers and the forwards at each call, which a CUDA graph's replay
+   does not make): (a) phase 5a's [8, 256] chunk and [8, 1] decode through
+   one captured graph each (``serving.graphs.StepGraphs``), FP4 on and
+   off by the inputs alone, every step in a strict ``Sentinel``'s hot
+   window, each replay bitwise equal to the eager forward (logits, every
+   statistic, the cache, ``m_state``); the graphs' pool; (b) each
+   forward's host enqueue, device busy and idle, eager and replayed; (c)
+   phase 5's stream through an eager and a graphed engine: in virtual time
+   the same tokens and IterStats and the same working launches counted on
+   the device, then a second graphed pass with no new capture and no sync;
+   on the wall clock, on the same warm engines, tok/s and TTFT/TPOT p50 of
+   each, a ``Profiler`` on each whose forward seconds cover the device
+   time between CUDA events around each forward call (MFU and
+   ``time_scale`` printed), and the graphed run's kernel launches (derived:
+   each capture's launches times its replays, plus eager first calls) and
+   working launches (counted on the device); (d)
+   phase 8a's placement arm eager and graphed in virtual time: the same
+   tokens and IterStats, the same commits, no graph dropped or
+   recaptured;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -146,7 +169,8 @@
    of a launch that exits at once (host-set) and its kernels' device time,
    bound, plain-version time and library yardstick, and phase 10's
    launches, working launches, time, plain time and error by rank, and
-   phase 11's by arm and rank;
+   phase 11's by arm and rank, and phase 12c's graphed launches (derived:
+   captured x replays) and working launches (counted on the device);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1003,8 +1027,13 @@ def serve(dev):
         f"{np.mean([s.modality.mean() for s in specs]):.3f}")
     t_start = time.monotonic()
     clock = lambda: time.monotonic() - t_start  # noqa: E731
+    # graphs=False: the kernel wrappers are noted at each launch, which a
+    # CUDA graph's replay does not call (phase 12 serves this graphed)
     eng = Engine(cfg, params, rcfg, max_slots=8, max_len=max_len,
-                 prefill_budget=1024, virtual_ep=4, clock=clock, device=dev)
+                 prefill_budget=1024, virtual_ep=4, clock=clock, device=dev,
+                 graphs=False)
+    log("5: the serve run with graphs=False (eager): its kernel wrappers "
+        "are noted at every launch")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1210,7 +1239,9 @@ def long_context_serve(dev, params, cfg):
     attends over 8192-row caches through ``_decode_flash``.  Every forward
     runs under the sync check, the counters zeroed just before and read
     just after.  Then the telemetry summary against the timestamps, and the
-    long-KV decode step timed with the cache rewrite's share."""
+    long-KV decode step timed with the in-place cache write's share (the
+    write read five times by profiler traces and five times as a CUDA
+    graph of a step's writes between CUDA events)."""
     import numpy as np
     import torch
     from repro_torch.configs import ReaLBConfig
@@ -1243,7 +1274,9 @@ def long_context_serve(dev, params, cfg):
         r.arrival_time = 0.0
     eng = Engine(cfg, params, rcfg, max_slots=2, max_len=8192,
                  prefill_budget=1024, virtual_ep=4, temperature=0.7, seed=0,
-                 telemetry=tel, clock=clock, device=dev)
+                 telemetry=tel, clock=clock, device=dev, graphs=False)
+    log("7b: graphs=False (eager): the kernel wrappers and the forwards "
+        "are noted")
     flash = {"calls": 0}
     decode_flash = attn._decode_flash
 
@@ -1302,30 +1335,70 @@ def long_context_serve(dev, params, cfg):
             or summ["n_requests"] != 4 or summ["n_iters"] != len(eng.stats):
         raise AssertionError("7b: telemetry disagrees with the timestamps")
 
-    # the long-KV decode step, warm, and the share of its cache rewrite
+    # the long-KV decode step, warm, and the share of its cache write,
+    # each read REPS times: a profiler trace's device time of one call
+    # (the union of its kernels' intervals), and for the write also a CUDA
+    # graph of a step's writes replayed between CUDA events (no host in
+    # the way; the same rows of one tensor written each time)
+    reps = 5
     dec = {"tokens": torch.zeros((2, 1), dtype=torch.int32, device=dev),
            "pos": torch.tensor([6000, 7000], dtype=torch.int32, device=dev),
            "modality": torch.zeros((2, 1), dtype=torch.bool, device=dev),
            "valid": torch.ones((2, 1), dtype=torch.bool, device=dev)}
-    host, wall_ms, device, top, _ = host_and_device_ms(
+    step = [host_and_device_ms(
         lambda: tf.decode_forward(params, cfg, rcfg, dec, eng.cache,
-                                  eng.m_state))
+                                  eng.m_state)) for _ in range(3)]
+    host, wall_ms, _, top, _ = step[-1]
+    device = [x[2] for x in step if x[2] is not None]
     k = eng.cache["blocks"]["layer0"]["k"][0]
     new = torch.randn((2, 1) + tuple(k.shape[2:]), device=dev).to(k.dtype)
-    write_ms = time_ms(lambda: attn._scatter_kv(k, new, dec["pos"]), iters=20)
-    out = attn._scatter_kv(k, new, dec["pos"])
-    copy_ms = time_ms(lambda: k.copy_(out), iters=20)
     n_tensors = 2 * cfg.n_layers
-    rewrite = n_tensors * (write_ms + copy_ms)
-    share = "not measured" if device is None else f"{rewrite / device:.1%}"
+    write = lambda: attn._scatter_kv(k, new, dec["pos"])  # noqa: E731
+    trace_ms = [host_and_device_ms(write)[2] or 0.0 for _ in range(reps)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        write()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_tensors):
+            write()
+    graph_ms = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        graph.replay()
+        ev[0].record()
+        for _ in range(20):
+            graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        graph_ms.append(ev[0].elapsed_time(ev[1]) / 20)
+    del graph
+    rows = (dec["pos"][:, None], dec["valid"])
+    write_ms = host_and_device_ms(
+        lambda: attn._write_rows(k, new, *rows))[2] or 0.0
+    out = attn._write_rows(k, new, *rows)
+    copy_ms = host_and_device_ms(lambda: k.copy_(out))[2] or 0.0
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    spread = lambda xs: (f"{min(xs):.4f} / {med(xs):.4f} / "  # noqa: E731
+                         f"{max(xs):.4f}")
+    share = "not measured" if not device else (
+        f"{n_tensors * med(trace_ms) / med(device):.1%} by the traces, "
+        f"{med(graph_ms) / med(device):.1%} by the graph")
     log(f"7b long-KV decode step (B=2, L=8192, pos 6000/7000), warm: host "
-        f"enqueue {host:.1f} ms, wall {wall_ms:.1f} ms, device "
-        f"{'not measured' if device is None else f'{device:.1f} ms'}; most "
-        "device time: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top)
-        + f"; cache rewrite: _write_rows {write_ms:.4f} ms + copy back "
-        f"{copy_ms:.4f} ms per [2, 8192, {k.shape[2]}, {k.shape[3]}] tensor, "
-        f"x{n_tensors} = {rewrite:.2f} ms a step ({share} of the device "
-        "time)")
+        f"enqueue {host:.1f} ms, wall {wall_ms:.1f} ms, device ms in "
+        f"{len(step)} traces {[round(x, 3) for x in device] or 'not measured'}"
+        "; most device time: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top)
+        + f"; the cache write in place (write_rows_) on one "
+        f"[2, 8192, {k.shape[2]}, {k.shape[3]}] tensor, device ms in {reps} "
+        f"traces (min / median / max) {spread(trace_ms)}, x{n_tensors} = "
+        f"{n_tensors * med(trace_ms):.2f} ms a step; a CUDA graph of the "
+        f"step's {n_tensors} writes, ms a replay in {reps} event timings of "
+        f"20 replays {spread(graph_ms)}; share of the step's device time: "
+        f"{share}; the functional rewrite it replaced: _write_rows "
+        f"{write_ms:.4f} ms + copy back {copy_ms:.4f} ms a tensor, "
+        f"{n_tensors * (write_ms + copy_ms):.2f} ms a step")
     del eng, out, new, k
     torch.cuda.empty_cache()
     return counts, working
@@ -1351,7 +1424,9 @@ def oneshot_stream(dev, params, cfg):
     t_start = time.monotonic()
     clock = lambda: time.monotonic() - t_start  # noqa: E731
     eng = Engine(cfg, params, rcfg, max_slots=8, max_len=max_len,
-                 prefill_budget=0, virtual_ep=4, clock=clock, device=dev)
+                 prefill_budget=0, virtual_ep=4, clock=clock, device=dev,
+                 graphs=False)
+    log("7c: graphs=False (eager): the forwards are noted")
     checked = {}
     t_run = time.perf_counter()
     with sync_checked_forwards(checked):
@@ -1429,6 +1504,438 @@ def long_context(dev, params, cfg):
             "oneshot_ms": oneshot_ms}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the compiled step (CUDA graphs of the chunk and decode steps)
+# --------------------------------------------------------------------------
+def bitwise_equal(a, b) -> bool:
+    """Two trees of tensors (dicts, tuples) hold the same bytes."""
+    import torch
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(bitwise_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bitwise_equal(x, y)
+                                        for x, y in zip(a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def graph_forwards(dev, params, cfg, smi):
+    """Phase 12a-b: phase 5a's [8, 256] chunk and [8, 1] decode through one
+    captured graph each (``serving.graphs.StepGraphs``, the engine's), FP4
+    on and off by the inputs alone (the predicate is read on the device),
+    every step inside a strict ``Sentinel``'s hot window; each replay held
+    bitwise against the eager forward on the same inputs (logits, every
+    statistic, the cache, ``m_state``); then phase 5d's host enqueue,
+    device busy and idle of each forward eager and replayed.  Returns the
+    rows of 12b and the pool's bytes."""
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.graphs import StepGraphs
+
+    # phase 5a's FP4 configuration: every virtual rank hot, the gate open;
+    # FP4 fires wherever a rank holds a vision token, so all-text inputs
+    # run the BF16 branch through the same graph
+    rcfg = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                       adaptive=False)
+    b, s, l = 8, 256, 512
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    vis = torch.rand((b, s), generator=gen, device=dev) < 0.6
+    i32 = dict(dtype=torch.int32, device=dev)
+    inputs = {"chunk": {}, "decode": {}}
+    for fp4, mod in (("on", vis), ("off", torch.zeros_like(vis))):
+        inputs["chunk"][fp4] = {
+            "tokens": tokens, "start": torch.zeros(b, **i32),
+            "chunk_len": torch.full((b,), 128, **i32), "modality": mod}
+        inputs["decode"][fp4] = {
+            "tokens": tokens[:, :1].contiguous(),
+            "pos": torch.full((b,), 128, **i32),
+            "modality": mod[:, :1].clone() | (fp4 == "on"),
+            "valid": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+    fwds = {"chunk": tf.chunk_forward, "decode": tf.decode_forward}
+    clone = lambda tree: common.tree_map(lambda t: t.clone(), tree)  # noqa
+    m0 = torch.zeros((1, 4), device=dev)
+    origin = {"chunk": tf.init_cache(cfg, b, l, device=dev)}
+    origin["decode"] = clone(origin["chunk"])    # rows 0..127 of the chunk
+    fwds["chunk"](params, cfg, rcfg, inputs["chunk"]["on"], origin["decode"],
+                  m0.clone())
+    # one cache and one m_state, as an engine's: both graphs read them
+    state = (clone(origin["chunk"]), m0.clone())
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(dev, sentinel=sent)
+    bufs = {}
+
+    def body_for(kind):
+        def body(params, cache, m):
+            res = fwds[kind](params, cfg, rcfg, bufs[kind], cache, m)
+            m.copy_(res.m_state)
+            return res.logits, res.aux
+        return body
+    bodies = {k: body_for(k) for k in fwds}
+
+    def step(kind, fp4, reset=True):
+        cache, m = state
+        with sent.hot(f"12a {kind}"):
+            if reset:
+                for src, dst in _leaf_pairs(cache, origin[kind]):
+                    dst.copy_(src)
+                m.copy_(m0)
+            bufs[kind] = sg.inputs(kind, inputs[kind][fp4])
+            return sg.run(kind, kind, bodies[kind], (params, cache, m))
+
+    for kind in ("chunk", "decode"):
+        for fp4 in ("on", "off"):
+            first = sg.captures[kind] == 0
+            logits, aux = step(kind, fp4)
+            got = (logits.clone(), {k: v.clone() for k, v in aux.items()},
+                   clone(state[0]), state[1].clone())
+            res = fwds[kind](params, cfg, rcfg, inputs[kind][fp4],
+                             clone(origin[kind]), m0.clone())
+            want = (res.logits, dict(res.aux), res.cache, res.m_state)
+            how = "eager first call (then captured)" if first else "replay"
+            fired = float(got[1]["fp4_ranks"])
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"12a {kind} FP4 {fp4}: the {how} "
+                                     "differs from the eager forward")
+            if (fired > 0) != (fp4 == "on"):
+                raise AssertionError(f"12a {kind} FP4 {fp4}: FP4 virtual "
+                                     f"ranks {fired}")
+            if first:
+                logits, aux = step(kind, fp4)     # the replay, same inputs
+                if not bitwise_equal((logits, aux) + state, want):
+                    raise AssertionError(f"12a {kind} FP4 {fp4}: the "
+                                         "replay differs from the eager "
+                                         "forward")
+                how += " and replay"
+            log(f"12a {kind} [{b}, {s if kind == 'chunk' else 1}] FP4 {fp4} "
+                f"(FP4 virtual ranks summed over the layers {fired:.0f}): "
+                f"{how} bitwise equal to the eager forward (logits, every "
+                "statistic, the cache, m_state)")
+            del res, want, got
+    if sg.captures != {"chunk": 1, "decode": 1} or sg.dropped \
+            or sg.replays != {"chunk": 2, "decode": 2}:
+        raise AssertionError(f"12a: captures {sg.captures}, replays "
+                             f"{sg.replays}")
+    if sent.violations:
+        raise AssertionError(f"12a: syncs {sent.violations}")
+    pool = sg.pool_bytes() or 0
+    log(f"12a: one graph each for chunk and decode, FP4 on and off through "
+        f"each; {sg.summary()}; strict sentinel: 0 syncs, sanctioned "
+        f"{sent.sanctioned_pulls}; graph pool {pool / 2 ** 30:.2f} GiB, max "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        " GiB; " + smi)
+
+    rows = {}
+    cache, m = state
+    for kind in ("chunk", "decode"):
+        for fp4 in ("on", "off"):
+            bufs[kind] = sg.inputs(kind, inputs[kind][fp4])
+            eager = lambda: fwds[kind](params, cfg, rcfg,  # noqa: E731
+                                       inputs[kind][fp4], cache, m)
+            graphed = lambda: sg.run(kind, kind, bodies[kind],  # noqa: E731
+                                     (params, cache, m))
+            row = {}
+            for how, fn in (("eager", eager), ("graphed", graphed)):
+                host, wall, device, top, _ = host_and_device_ms(fn)
+                row[how] = (host, wall, device)
+                busy = "device not measured" if device is None else (
+                    f"device busy {device:.1f} ms (idle "
+                    f"{1 - device / wall:.1%})")
+                log(f"12b {kind} FP4 {fp4} {how}, warm: host enqueue "
+                    f"{host:.2f} ms, wall {wall:.1f} ms, {busy}; most device "
+                    "time: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+            rows[f"{kind}_{fp4}"] = row
+    log(f"12b: {smi}")
+    del sg, state, origin, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, pool
+
+
+def _leaf_pairs(dst, src):
+    """``(src leaf, dst leaf)`` pairs of two trees of one structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            yield from _leaf_pairs(dst[k], src[k])
+    else:
+        yield src, dst
+
+
+def serve_virtual(eng, specs, t0: float = 0.0, at_once: bool = False):
+    """``specs`` arriving at ``t0`` plus their arrival times (``at_once``:
+    all at ``t0``) on the engine's virtual clock, served to the end;
+    returns the finished requests of this pass."""
+    clock = eng.clock
+    arrive = (lambda sp: t0) if at_once else (lambda sp: t0 + sp.arrival)
+    pending = sorted(specs, key=arrive)
+    n0 = len(eng.scheduler.finished)
+    while len(eng.scheduler.finished) < n0 + len(specs):
+        now = clock()
+        while pending and arrive(pending[0]) <= now:
+            sp = pending.pop(0)
+            req = sp.to_request()
+            req.arrival_time = arrive(sp)
+            eng.submit(req)
+        if eng.scheduler.idle and pending:
+            clock.advance(arrive(pending[0]) - now)
+            continue
+        eng.step()
+    return eng.scheduler.finished[n0:]
+
+
+def same_stream(a, b, what: str):
+    """Two engines' passes (finished requests, IterStats lists): the same
+    tokens by request and the same IterStats; returns the token count."""
+    import dataclasses
+    ta = {r.uid: list(r.generated) for r in a[0]}
+    tb = {r.uid: list(r.generated) for r in b[0]}
+    if ta != tb:
+        raise AssertionError(f"{what}: the tokens differ")
+    sa = [dataclasses.asdict(x) for x in a[1]]
+    sb = [dataclasses.asdict(x) for x in b[1]]
+    if sa != sb:
+        i = next(i for i, (x, y) in enumerate(zip(sa, sb)) if x != y) \
+            if len(sa) == len(sb) else min(len(sa), len(sb))
+        raise AssertionError(f"{what}: IterStats differ from iteration {i}")
+    return sum(len(t) for t in ta.values()), len(sa)
+
+
+def graph_streams(dev, params, cfg, smi):
+    """Phase 12c: phase 5's requests through an eager (``graphs=False``)
+    and a graphed engine (the default), in virtual time, all submitted at
+    once (the same tokens and IterStats; the graphed one under a strict
+    sentinel, then a second pass with no new capture), then phase 5's
+    stream on the wall clock on the same, warm engines (tok/s, TTFT and
+    TPOT p50 of each; a ``Profiler`` on each, whose forward seconds must
+    cover the device time between CUDA events around each forward call),
+    the launch counters zeroed just before each wall-clock run and read
+    just after.  A replay adds to the host counters the launches its
+    capture recorded (derived); the working launches are counted on the
+    device (``kernels.working``, tracking from before the first capture),
+    and must agree between the two engines in virtual time.  Returns the
+    graphed run's derived launches and measured working launches, and the
+    runs' numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.kernels import ops, working
+    from repro_torch.obs import FlopByteLedger, Profiler
+    from repro_torch.serving.engine import Engine
+    from repro_torch.workloads.arrivals import (IterationCostModel,
+                                                VirtualClock)
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    specs = mmmu_stream(cfg)
+    sent = Sentinel(strict=True)
+    engines = {}
+    for how, graphs in (("eager", False), ("graphed", True)):
+        engines[how] = Engine(
+            cfg, params, rcfg, max_slots=8, max_len=512, prefill_budget=1024,
+            virtual_ep=4, clock=VirtualClock(),
+            cost_model=IterationCostModel(), device=dev, graphs=graphs,
+            sentinel=sent if graphs else None)
+    e, g = engines["eager"], engines["graphed"]
+    log(f"12c: engines '{e.step_mode}' and '{g.step_mode}'")
+    passes, works = {}, {}
+    for how, eng in engines.items():
+        working.track(dev)           # zeroed in place; the graphs add to it
+        t0 = time.perf_counter()
+        done = serve_virtual(eng, specs, at_once=True)
+        torch.cuda.synchronize()
+        passes[how] = (done, list(eng.stats), time.perf_counter() - t0)
+        works[how] = working.counts()
+    n_tok, n_it = same_stream(passes["eager"][:2], passes["graphed"][:2],
+                              "12c virtual time")
+    if works["eager"] != works["graphed"] or min(
+            works["graphed"][k] for k in ("quantize_fp4", "grouped_ffn",
+                                          "grouped_fp4_ffn")) == 0:
+        raise AssertionError(f"12c: working launches counted on the device "
+                             f"differ or are 0: {works}")
+    log(f"12c virtual time: working launches counted on the device, eager "
+        f"{works['eager']}, graphed {works['graphed']} (equal)")
+    log(f"12c virtual time, {len(specs)} requests at once: eager and graphed "
+        f"engines generated the same "
+        f"{n_tok} tokens with the same IterStats in {n_it} iterations "
+        f"(host s of the pass: eager {passes['eager'][2]:.2f}, graphed "
+        f"{passes['graphed'][2]:.2f}, captures included); graphs "
+        f"{g._graphs.summary()}")
+    warm = sent.mark_warm()
+    n0 = len(g.stats)
+    serve_virtual(g, specs, t0=g.clock(), at_once=True)
+    if sent.violations or sent.post_warm_recompiles():
+        raise AssertionError(f"12c: syncs {sent.violations}, new captures "
+                             f"after warm-up {sent.post_warm_recompiles()}")
+    log(f"12c second pass ({len(g.stats) - n0} iterations): 0 new captures "
+        f"after warm-up (captures by entry at warm-up {warm}, now "
+        f"{sent.compile_counts()}, recaptures {sent.recaptures}), 0 "
+        f"unsanctioned syncs; sentinel step '{sent.step}'; graphs "
+        f"{g._graphs.summary()}")
+
+    runs = {}
+    for how, eng in engines.items():
+        t_start = time.monotonic()
+        clock = lambda: time.monotonic() - t_start  # noqa: E731
+        eng.clock, eng.cost_model = clock, None    # now on the wall clock
+        eng.profiler = prof = Profiler(FlopByteLedger(cfg, ep=4))
+        spans = []
+
+        def timed(name, arrays, forward=eng._forward, spans=spans):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = forward(name, arrays)
+            ev[1].record()
+            spans.append(ev)
+            return res
+        eng._forward = timed
+        n0 = len(eng.scheduler.finished)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        working.track(dev)
+        replays0 = dict(eng._graphs.replays)
+        t_run = time.perf_counter()
+        step_s = serve_wall_clock(eng, [sp.to_request() for sp in specs],
+                                  clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        del eng._forward
+        dev_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        if not prof.fwd_s_total >= dev_s > 0:
+            raise AssertionError(f"12c {how}: the profiler's forward seconds"
+                                 f" {prof.fwd_s_total} do not cover the "
+                                 f"forwards' device spans {dev_s}")
+        done = eng.scheduler.finished[n0:]
+        toks = sum(len(r.generated) for r in done)
+        ttft = float(np.median([r.ttft for r in done]))
+        tpot = float(np.median([r.tpot for r in done
+                                if r.tpot is not None]))
+        runs[how] = {"tok_s": toks / wall, "ttft_ms": ttft * 1e3,
+                     "tpot_ms": tpot * 1e3, "wall_s": wall,
+                     "mfu": prof.mfu(), "time_scale": prof.time_scale(),
+                     "fwd_s": prof.fwd_s_total, "fwd_dev_s": dev_s}
+        counts, work = ops.launch_counts(), working.counts()
+        if how == "graphed":
+            g_counts, g_work = counts, work
+        replays = {k: v - replays0[k]
+                   for k, v in eng._graphs.replays.items()}
+        extra = (f"; profiler: {prof.n_iters} forwards, forward s "
+                 f"{prof.fwd_s_total:.4f} (device span between events "
+                 f"around the calls {dev_s:.4f}), MFU {prof.mfu():.6f}, "
+                 f"time_scale {prof.time_scale():.4f}; kernel launches "
+                 f"{counts}" + (" (derived: captured x replays, and the "
+                                "eager first calls of new keys)"
+                                if how == "graphed" else "")
+                 + f", working launches counted on the device {work}")
+        if how == "graphed":
+            extra += (f"; replays {replays}, graphs "
+                      f"{eng._graphs.summary()}")
+        log(f"12c wall clock, {how} (warm engine): {len(done)}/{len(specs)} "
+            f"requests, "
+            f"{toks} tokens, wall {wall:.3f} s, {toks / wall:.2f} tok/s, "
+            f"TTFT p50 {ttft * 1e3:.1f} ms, TPOT p50 {tpot * 1e3:.2f} ms; "
+            "engine steps: " + ", ".join(
+                f"{k} {len(v)} x {np.mean(v) * 1e3:.1f} ms" for k, v in
+                step_s.items() if v) + extra)
+    working.track(None)
+    if min(g_counts[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"12c: a kernel of the path never launched in "
+                             f"the graphed run: {g_counts}")
+    # which FFN works depends on the batches the arrivals make on the wall
+    # clock (a run whose every chunk fires FP4 on every rank leaves the
+    # BF16 FFN no rows); the virtual-time passes above pin the counts
+    if not all(0 <= g_work[k] <= g_counts[k] for k in g_work) or min(
+            g_work["quantize_fp4"], g_work["grouped_ffn"]
+            + g_work["grouped_fp4_ffn"]) == 0:
+        raise AssertionError(f"12c: working launches counted on the device "
+                             f"in the graphed run {g_work}, launches "
+                             f"{g_counts}")
+    log(f"12c: graph pool {(g._graphs.pool_bytes() or 0) / 2 ** 30:.2f} "
+        f"GiB, max "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB; {smi}")
+    del engines, e, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return g_counts, g_work, runs
+
+
+def graph_placement(dev, params, cfg):
+    """Phase 12d: phase 8a's arm (a shared-table ``PlacementManager``,
+    least loaded, replan every 8 iterations, migrating synchronously, in
+    place) eager and graphed in virtual time, the bandwidth EWMA held at
+    its prior so both charge the same seconds: the same tokens and
+    IterStats, the same commits, and no graph dropped or recaptured
+    across them; the weights gathered back to the identity after each."""
+    import torch
+    from repro_torch.configs import PlacementConfig, ReaLBConfig
+    from repro_torch.placement import PlacementManager, PlacementTable
+    from repro_torch.placement import migrate as pmigrate
+    from repro_torch.serving.engine import Engine
+    from repro_torch.workloads.arrivals import (IterationCostModel,
+                                                VirtualClock)
+
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    specs = mmmu_stream(cfg)
+    logical = host_block(params, 0)
+    ident = PlacementTable.identity(cfg.moe.num_experts, 4)
+    out = {}
+    for how, graphs in (("eager", False), ("graphed", True)):
+        mgr = PlacementManager(cfg, PlacementConfig(
+            planner="least_loaded", replan_every=8, warmup_iters=2,
+            min_gain=0.0), ep=4)
+        mgr.bandwidth.observe = lambda nbytes, secs: None
+        eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                     prefill_budget=1024, virtual_ep=4, clock=VirtualClock(),
+                     cost_model=IterationCostModel(), device=dev,
+                     placement=mgr, graphs=graphs)
+        done = serve_virtual(eng, specs)
+        eng.drain_migrations()
+        torch.cuda.synchronize()
+        out[how] = (done, list(eng.stats), mgr.n_migrations,
+                    eng._graphs.summary())
+        pmigrate.apply_to_params(params, pmigrate.diff(mgr.table, ident))
+        check_block(params, 0, logical, ident.owner, f"12d {how} back to "
+                    "identity")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_tok, n_it = same_stream(out["eager"][:2], out["graphed"][:2],
+                              "12d placement")
+    summ = out["graphed"][3]
+    if out["eager"][2] != out["graphed"][2] or out["graphed"][2] < 1:
+        raise AssertionError(f"12d: plans committed {out['eager'][2]} eager,"
+                             f" {out['graphed'][2]} graphed")
+    if summ["dropped"] or sum(summ["recaptures"].values()):
+        raise AssertionError(f"12d: graphs dropped or recaptured: {summ}")
+    log(f"12d phase 8a's arm (shared PlacementManager, sync migration) in "
+        f"virtual time: eager and graphed engines generated the same "
+        f"{n_tok} tokens with the same IterStats in {n_it} iterations; "
+        f"{out['graphed'][2]} plans committed in each; graphed: {summ} (the "
+        "commits wrote the tables and gathered the weights in place: no "
+        "graph dropped or recaptured)")
+    return summ
+
+
+def compiled_step(dev, params, cfg, smi):
+    """Phase 12 on phase 5's weights (12a-12d above)."""
+    t0 = time.perf_counter()
+    rows, pool = graph_forwards(dev, params, cfg, smi)
+    counts, work, runs = graph_streams(dev, params, cfg, smi)
+    place = graph_placement(dev, params, cfg)
+    log(f"12: phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "pool": pool, "counts": counts, "working": work,
+            "runs": runs, "placement": place}
+
+
 MOE_KEYS = ("w_gate", "w_up", "w_down")
 
 
@@ -1484,9 +1991,12 @@ def managed_serve(dev, params, cfg, arm: str, mgr, note, **engine_kw):
     t_start = time.monotonic()
     clock = lambda: time.monotonic() - t_start  # noqa: E731
     tracer = Tracer(clock=clock)
+    # graphs=False: the kernel wrappers and the forwards are noted
     eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
                  prefill_budget=1024, virtual_ep=4, clock=clock, device=dev,
-                 placement=mgr, tracer=tracer, **engine_kw)
+                 placement=mgr, tracer=tracer, graphs=False, **engine_kw)
+    log(f"8{arm}: graphs=False (eager): the kernel wrappers and the "
+        "forwards are noted")
     factors = [eng.cfg.moe.capacity_factor]
     resize = eng._maybe_resize_capacity
 
@@ -1936,7 +2446,9 @@ def elastic_serving(dev):
                  prefill_budget=1024, migrate_async=True,
                  migrate_bytes_per_iter=budget, placement=mgr,
                  telemetry=tel, tracer=tracer, profiler=prof, sentinel=sent,
-                 elastic=co, fault_injector=fi, clock=clock, device=dev)
+                 elastic=co, fault_injector=fi, clock=clock, device=dev,
+                 graphs=False)
+    log("9: graphs=False (eager): the kernel wrappers are noted")
     log(f"9: migrate_bytes_per_iter {budget} ({budget / 1e6:.1f} MB, "
         f"{int(0.75 * cfg.moe.num_experts)} experts of one block)")
 
@@ -3166,6 +3678,9 @@ def main() -> int:
     ffn_recs, counts, working, params, cfg = serve(dev)
     phase7 = long_context(dev, params, cfg)
     torch.cuda.empty_cache()
+    phase12 = compiled_step(dev, params, cfg, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase8, g68 = placement_and_replication(dev, params, cfg)
     del params
     gc.collect()
@@ -3220,6 +3735,13 @@ def main() -> int:
             c, w = phase8[arm]
             kernels[-1][f"{path}_launches"] = c.get(r["name"], 0)
             kernels[-1][f"{path}_working_launches"] = w.get(r["name"], 0)
+        # phase 12c's graphed serve: launches derived (a replay adds the
+        # launches its capture recorded, an eager first call its own);
+        # working launches counted on the device under replay
+        kernels[-1]["graphed_launches_derived"] = phase12["counts"].get(
+            r["name"], 0)
+        kernels[-1]["graphed_working_launches"] = phase12["working"].get(
+            r["name"], 0)
         c, w = phase9
         kernels[-1]["elastic_launches"] = c.get(r["name"], 0)
         kernels[-1]["elastic_working_launches"] = w.get(r["name"], 0)

@@ -42,6 +42,14 @@ functional test catches when they regress:
   :meth:`register_entry` wraps an entry point so it counts them; after
   :meth:`mark_warm` every new signature is reported.  A deliberate
   rebuild (the capacity-resize band) is declared with :meth:`note_rebuild`.
+  Where the engine captures its chunk and decode forwards as CUDA graphs
+  (``serving/graphs.py``), those entries count captures instead: each
+  distinct key a graph was captured for (:meth:`note_capture`), so "new
+  signatures after warm-up" reads "new captures after warm-up"; a key
+  captured again after a declared rebuild dropped the graphs is a
+  recapture, counted apart.  :meth:`note_step` records how the engine
+  runs its forwards (graphed, or eager and why), and the report
+  says it.
 
 :data:`NULL_SENTINEL` is the tracer's null object: ``enabled`` is False,
 its windows are shared no-ops, and an engine without a sentinel gives the
@@ -199,6 +207,8 @@ class Sentinel:
         self.violations: List[SyncViolation] = []
         self.sanctioned_pulls: Dict[str, int] = {}
         self.rebuilds: List[str] = []
+        self.step: Optional[str] = None
+        self.recaptures: Dict[str, int] = {}
         self._entries: Dict[str, Set[Any]] = {}
         self._warm: Optional[Dict[str, int]] = None
         self._armed = False
@@ -321,6 +331,19 @@ class Sentinel:
         """A deliberate rebuild (e.g. the capacity-resize band)."""
         self.rebuilds.append(reason)
 
+    def note_step(self, mode: str) -> None:
+        """How the engine runs its chunk and decode forwards."""
+        self.step = mode
+
+    def note_capture(self, name: str, key: Any,
+                     recapture: bool = False) -> None:
+        """A CUDA graph of entry ``name`` captured for ``key``: a new key
+        counts as a compile; ``recapture`` (the key's graph was dropped by
+        a declared rebuild) is counted apart."""
+        self._entries.setdefault(name, set()).add(key)
+        if recapture:
+            self.recaptures[name] = self.recaptures.get(name, 0) + 1
+
     def compile_counts(self) -> Dict[str, int]:
         """Distinct input signatures seen per entry."""
         return {n: len(self._entries[n]) for n in sorted(self._entries)}
@@ -352,6 +375,8 @@ class Sentinel:
             "warm_counts": dict(self._warm) if self._warm else None,
             "post_warm_recompiles": self.post_warm_recompiles(),
             "rebuilds": list(self.rebuilds),
+            "step": self.step,
+            "recaptures": dict(sorted(self.recaptures.items())),
         }
 
 
@@ -395,6 +420,13 @@ class _NullSentinel:
     def note_rebuild(self, reason: str) -> None:
         pass
 
+    def note_step(self, mode: str) -> None:
+        pass
+
+    def note_capture(self, name: str, key: Any,
+                     recapture: bool = False) -> None:
+        pass
+
     def mark_warm(self) -> Dict[str, int]:
         return {}
 
@@ -411,7 +443,8 @@ class _NullSentinel:
     def report(self) -> Dict[str, Any]:
         return {"ok": True, "violations": [], "sanctioned_pulls": {},
                 "compile_counts": {}, "warm_counts": None,
-                "post_warm_recompiles": {}, "rebuilds": []}
+                "post_warm_recompiles": {}, "rebuilds": [], "step": None,
+                "recaptures": {}}
 
 
 NULL_SENTINEL = _NullSentinel()

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, working
 from repro_torch.kernels.nvfp4 import fake_quant_a4
 
 MAX_SLOTS = 512     # counts the bf16 kernels' device schedule takes
@@ -155,6 +155,8 @@ def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "grouped_fp4_ffn")
     launches += 1
+    working.note("grouped_fp4_ffn",
+                 lambda: (g32[:n_g] > 0).any())
     return out
 
 
@@ -192,4 +194,6 @@ def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "grouped_ffn")
     plain_launches += 1
+    working.note("grouped_ffn",
+                 lambda: (g32[:n_g] > 0).any())
     return out

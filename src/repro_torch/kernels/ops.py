@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import GROUP, QTensor
+from repro_torch.kernels import _build
 from repro_torch.kernels import fp4_matmul as _mm
 from repro_torch.kernels import grouped_fp4_ffn as _ffn
 from repro_torch.kernels import quantize_fp4 as _quant
@@ -36,6 +37,30 @@ def reset_launch_counts() -> None:
     _quant.launches = _quant.scale_launches = 0
     _ffn.launches = _ffn.plain_launches = 0
     _mm.launches = 0
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (by kernel, as :func:`launch_counts` names them) to
+    the counters: a CUDA graph's replay adds the launches its capture
+    recorded, and a capture, which launches nothing, takes back the counts
+    its wrappers added."""
+    _quant.launches += delta.get("quantize_fp4", 0)
+    _quant.scale_launches += delta.get("global_scale_fp4", 0)
+    _ffn.launches += delta.get("grouped_fp4_ffn", 0)
+    _ffn.plain_launches += delta.get("grouped_ffn", 0)
+    _mm.launches += delta.get("fp4_matmul", 0)
+
+
+def prepare_capture(device: torch.device) -> None:
+    """Make what a kernel makes at its first launch before a CUDA graph
+    captures one: the kernel libraries built and loaded, and the global
+    scale's scratch made and zeroed on ``device`` (a card; nothing on the
+    CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    _build.load()
+    _quant.scale_scratch(device)
 
 
 def _check_group(group: int, what: str) -> None:

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, working
 
 launches = 0        # kernel launches made by quantize_fp4_cuda
 scale_launches = 0  # kernel launches made by global_scale_cuda
@@ -38,6 +38,20 @@ _SCALE_ENTRY = {torch.bfloat16: "global_scale_fp4_bf16",
 # left zeroed by every launch; the launches that share it run in order on
 # the current stream
 _scale_scratch: Dict[torch.device, torch.Tensor] = {}
+
+
+def scale_scratch(device: torch.device) -> torch.Tensor:
+    """The global-scale kernel's scratch on ``device``, made and zeroed at
+    its first use.  A CUDA-graph capture must find it made: inside one the
+    zero fill would be recorded, not run, and the memory would come from
+    the graph's pool."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    buf = _scale_scratch.get(device)
+    if buf is None:
+        buf = torch.zeros((2,), dtype=torch.int32, device=device)
+        _scale_scratch[device] = buf
+    return buf
 
 
 def _off(pred: Optional[torch.Tensor]) -> bool:
@@ -127,6 +141,7 @@ def quantize_fp4_cuda(w: torch.Tensor, gs: torch.Tensor,
              torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "quantize_fp4")
     launches += 1
+    working.note("quantize_fp4", lambda: 1 if p32 is None else p32)
     return packed, scales
 
 
@@ -140,10 +155,7 @@ def global_scale_cuda(w: torch.Tensor,
            w.dim() == 3 and (w.shape[-1] % 16 == 0 or dense(w)),
            "[G, N, K], dense or with K % 16 == 0")
     g, n, k = w.shape
-    amax_bits = _scale_scratch.get(w.device)
-    if amax_bits is None:
-        amax_bits = torch.zeros((2,), dtype=torch.int32, device=w.device)
-        _scale_scratch[w.device] = amax_bits
+    amax_bits = scale_scratch(w.device)
     gscale = torch.empty((1,), dtype=torch.float32, device=w.device)
     p32, p_ptr = _pred_ptr(pred)
     fn = _build.entry("quantize_fp4", _SCALE_ENTRY[w.dtype],
@@ -154,4 +166,5 @@ def global_scale_cuda(w: torch.Tensor,
              torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "global_scale_fp4")
     scale_launches += 1
+    working.note("global_scale_fp4", lambda: 1 if p32 is None else p32)
     return gscale.reshape(())

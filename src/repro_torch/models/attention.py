@@ -14,8 +14,10 @@ same function) are not ported.
 
 Cache writes: JAX drops out-of-bounds scatter writes (a decode slot that is
 not ready passes ``pos = max_len``; chunk padding passes ``L``), torch
-raises.  :func:`_write_rows` therefore selects, for every cache row, the
-chunk column that writes it (if any) and leaves every other row untouched.
+raises.  :func:`write_rows_` writes only the target rows, in place, so
+the cache stays at one address (what a CUDA graph of a forward needs);
+:func:`_write_rows` returns a new cache with the same bytes (the
+reference the tests hold it against).
 """
 from __future__ import annotations
 
@@ -243,10 +245,41 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     return torch.where(hit.reshape(b, l, *tail), gathered, cache)
 
 
+def write_rows_(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """:func:`_write_rows` in place: only the target rows of ``cache``
+    [B,L,...] are written, and ``cache`` is returned with the bytes
+    ``_write_rows`` would give (the valid indices of one batch row are
+    distinct, as positions are).
+
+    ``index_put_`` with repeated indices writes in no defined order, so a
+    dropped write (an invalid column, or an index outside [0, L)) is never
+    clamped onto a row: it goes to the row of its batch row's last landing
+    write, carrying that write's own value, or, in a batch row where no
+    write lands, to row 0 carrying row 0's value.  Every index then
+    repeats only with equal values.  Nothing is read on the host."""
+    b, l = cache.shape[:2]
+    s = idx.shape[1]
+    dev = cache.device
+    land = valid & (idx >= 0) & (idx < l)                          # [B,S]
+    last = torch.where(land, torch.arange(s, device=dev), -1).amax(dim=1)
+    has = last >= 0                                                # [B]
+    last = last.clamp(min=0)
+    ar = torch.arange(b, device=dev)
+    rows = torch.where(land, idx, torch.where(has, idx[ar, last], 0)[:, None])
+    val = new.to(cache.dtype)
+    tail = (1,) * (cache.dim() - 2)
+    anchor = torch.where(has.reshape(b, *tail), val[ar, last], cache[ar, 0])
+    vals = torch.where(land.reshape(b, s, *tail), val, anchor[:, None])
+    cache.index_put_((ar[:, None].expand(b, s), rows.long()), vals)
+    return cache
+
+
 def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, pos: torch.Tensor
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode. x:[B,1,D]; cache k/v:[B,L,K,D]; pos:[B]."""
+    """One-token decode. x:[B,1,D]; cache k/v:[B,L,K,D], the new row
+    written in place (the returned cache is ``cache``'s tensors); pos:[B]."""
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
@@ -259,9 +292,9 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
-    """Write new:[B,1,K,D] into cache:[B,L,K,D] at per-example pos:[B];
-    ``pos >= L`` writes nothing."""
-    return _write_rows(cache, new, pos[:, None],
+    """Write new:[B,1,K,D] into cache:[B,L,K,D] at per-example pos:[B], in
+    place; ``pos >= L`` writes nothing."""
+    return write_rows_(cache, new, pos[:, None],
                        torch.ones_like(pos, dtype=torch.bool)[:, None])
 
 
@@ -284,15 +317,16 @@ def gqa_chunk(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     x: [B,S,D] one prompt chunk per row; cache k/v: [B,L,K,D];
     positions: [B,S] absolute position of every chunk column;
     chunk_len: [B] valid tokens per row (0 = idle row: nothing is written
-    and the row's output is garbage the caller discards).
+    and the row's output is garbage the caller discards).  The chunk's
+    rows are written into ``cache`` in place, as in :func:`gqa_decode`.
     """
     s = x.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     valid = torch.arange(s, device=x.device)[None, :] < chunk_len[:, None]
-    k_cache = _write_rows(cache["k"], k_new, positions, valid)
-    v_cache = _write_rows(cache["v"], v_new, positions, valid)
+    k_cache = write_rows_(cache["k"], k_new, positions, valid)
+    v_cache = write_rows_(cache["v"], v_new, positions, valid)
     out = _chunk_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
                            positions)
     return _out_proj(out, p["wo"]), {"k": k_cache, "v": v_cache}

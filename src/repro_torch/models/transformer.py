@@ -200,8 +200,9 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 cache_len=0, placement=None):
     """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
     (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
-    "decode".  Returns (x, cache_out, m_state, aux_scalars, stats, estats,
-    sstats)."""
+    "decode" (the new rows written into ``cache_in`` in place, whose
+    tensors come back as ``cache_out``).  Returns (x, cache_out, m_state,
+    aux_scalars, stats, estats, sstats)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
     n_slot = n_physical_slots(cfg, placement)
     dev = x.device
@@ -293,8 +294,9 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
                m_state, modality, chunk_len=None, valid=None, cache_len=0,
                placement=None):
     """Prefix layers, then a loop over the stacked blocks; the cache is
-    updated in place and returned (prefill: a new zero cache of
-    ``cache_len`` rows, filled with each layer's padded KV).  A shared
+    updated in place and returned: a chunk or decode writes only its new
+    rows (``attention.write_rows_``), a prefill fills a new zero cache of
+    ``cache_len`` rows with each layer's padded KV.  A shared
     placement table serves every block; a per-layer one gives block ``b``
     its slice ``b`` (views, no copy)."""
     layout, n_blocks, n_prefix = block_structure(cfg)
@@ -310,8 +312,9 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
         x, co, m_state, aux, _, _, _ = apply_layer(
             params["prefix"][str(i)], x, cfg, rcfg, "dense",
             cache_in=c, m_state=m_state, **kw)
-        for n in ("k", "v"):
-            c[n].copy_(co[n])
+        if mode == "prefill":
+            for n in ("k", "v"):
+                c[n].copy_(co[n])
         aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}
 
     stats_b, estats_b, sstats_b = [], [], []
@@ -327,8 +330,9 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
             x, co, m_state, aux, stats, estats, sstats = apply_layer(
                 lp, x, cfg, rcfg, f, cache_in={n: c[n][b] for n in ("k", "v")},
                 m_state=m_state, placement=place_b, **kw)
-            for n in ("k", "v"):
-                c[n][b].copy_(co[n])
+            if mode == "prefill":
+                for n in ("k", "v"):
+                    c[n][b].copy_(co[n])
             aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}
             st, es, ss = st + stats, es + estats, ss + sstats
         stats_b.append(st)

@@ -8,11 +8,11 @@ Counterpart of ``repro.obs.profiler``.  Three jobs, one object:
    or wall seconds).  The :class:`~repro_torch.obs.ledger.FlopByteLedger`
    turns the stats into analytic per-phase seconds, and the measured time
    is attributed to phases in proportion to them, so ``sum(phase seconds)
-   == forward seconds`` by construction.  On the card the wall-clock
-   forward seconds are the host's: the forward returns once its kernels
-   are enqueued, and the device finishes behind it (the sample's host read
-   waits for it).  Unattributed per-phase times come from
-   :func:`time_moe_phases`.
+   == forward seconds`` by construction.  The engine takes a forward's
+   seconds from its start to its statistics on the host, so on the card
+   they hold the device's work, which finishes behind a forward (or a
+   CUDA graph's replay) that returns once enqueued.  Unattributed
+   per-phase times come from :func:`time_moe_phases`.
 2. **MFU / roofline gauges.**  Cumulative ledger flops over cumulative
    measured forward seconds against the hardware record's bf16 peak, and
    the compute share of the roofline bound (compute vs HBM vs link

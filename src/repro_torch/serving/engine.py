@@ -60,19 +60,37 @@ Under a mesh the dead rank's process zeroes its own slots and stays in
 every collective (the reference's simulated loss keeps its device), so
 serving goes on over the whole mesh.
 
+The compiled step (the counterpart of the reference's ``_build``, which
+jits its forwards): every chunk and decode forward runs over the static
+input, cache, state and table buffers of :class:`~repro_torch.serving.
+graphs.StepGraphs`, one key a chunk bucket and one for decode.  A one-
+device engine on a card captures each key as a CUDA graph after its first
+(eager) call and replays it after.  ``graphs=False`` runs the same step
+uncaptured (the counterpart of ``jax.disable_jit()``), as the engine
+always does under a mesh (capturing the EP collectives over NCCL is not
+ported) and on the CPU (where ``graphs=True`` is refused).  The one-shot
+prefill stays eager.  The cache, ``m_state`` and the tables (``copy_`` at
+every commit, refresh or elastic mask) are written in place, so a replay
+reads them with no recapture; an event that replaces a weight tensor
+drops the graphs, and they are captured again.
+
 Observation: a :class:`~repro_torch.obs.profiler.Profiler` (``profiler=``)
-is fed every recorded iteration's stats and forward seconds (and its
-drift EWMA calibrates an unwired cost gate); a
+is fed every recorded iteration's stats and forward seconds, from the
+forward's start to its statistics on the host, so a forward that returns
+once enqueued is timed to the end of its device work (and its drift EWMA
+calibrates an unwired cost gate); a
 :class:`~repro_torch.analysis.sentinel.Sentinel` (``sentinel=``) guards
 each iteration's hot window against device→host syncs outside the two
 sanctioned reads (the sampled tokens and the stats) and counts the input
-signatures of the three forwards.  With all of these ``None`` the engine
+signatures of the forwards that run uncaptured and the captures of those
+that are graphed.  With all of these ``None`` the engine
 runs as without them, bit for bit.  On a card every host→device upload of
 the hot loop is asynchronous (from pinned memory), so no upload syncs.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -92,6 +110,7 @@ from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement import migrate as pmigrate
 from repro_torch.replication import migrate as rmigrate
 from repro_torch.serving.async_migrate import MigrationExecutor
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.serving.telemetry import Telemetry
 
@@ -148,7 +167,7 @@ class Engine:
                  migrate_async: bool = False,
                  migrate_bytes_per_iter: Optional[int] = None,
                  elastic=None, fault_injector=None, tracer=None,
-                 profiler=None, sentinel=None, device=None):
+                 profiler=None, sentinel=None, device=None, graphs=None):
         mesh = current_mesh()
         self.device = mesh.device if device is None and mesh is not None \
             else resolve_device(device)
@@ -252,7 +271,9 @@ class Engine:
                 or getattr(elastic, "manager", None) is not placement):
             raise ValueError("the elastic coordinator must wrap this "
                              "engine's manager")
-        self._place_cache = None                  # device copy of the table
+        # device copies of the tables, written in place at every change
+        self._place_bufs: Optional[tuple] = None
+        self._place_stale = True
         self._it = 0
         self.cache = tf.init_cache(cfg, max_slots, max_len, self.device)
         self.m_state = init_m_state(
@@ -271,10 +292,32 @@ class Engine:
         self.stats: List[IterStats] = []
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        # the three forwards, looked up at each call; a sentinel counts
-        # their input signatures
-        self._fwd = {name: self.sentinel.register_entry(name, _entry(name))
+        # the compiled step: every chunk and decode forward runs over the
+        # static buffers of StepGraphs, captured on a one-device card
+        # engine unless graphs=False, uncaptured under a mesh and on the CPU
+        if graphs is None:
+            graphs = mesh is None and self.device.type == "cuda"
+        if graphs and mesh is not None:
+            raise ValueError("graphs=True under a mesh: the EP engine runs "
+                             "eager (capture over NCCL is not ported)")
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True on the CPU: CUDA graphs need a "
+                             "card")
+        self._graphs = StepGraphs(self.device, self.sentinel,
+                                  capture=bool(graphs))
+        self.step_mode = "graphed" if graphs else "eager (" + (
+            "EP mesh: capture over NCCL not ported" if mesh is not None
+            else "CPU" if self.device.type != "cuda" else "graphs=False") \
+            + ")"
+        logging.getLogger(__name__).info("serving step: %s", self.step_mode)
+        self.sentinel.note_step(self.step_mode)
+        # the three forwards, looked up at each call; a sentinel counts the
+        # input signatures of those that run uncaptured (a captured
+        # forward's captures are counted by its key)
+        self._fwd = {name: _entry(name)
                      for name in ("prefill", "chunk", "decode")}
+        self._counted = {name: self.sentinel.register_entry(name, fn)
+                         for name, fn in self._fwd.items()}
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         """``a`` on the engine's device; on a card from pinned memory,
@@ -287,15 +330,74 @@ class Engine:
     def _place_args(self):
         """The device tables of the routable plan — (e2r, local_slot) for a
         placement manager, (rep_pos, n_rep, slot_owner[, split_sched]) for
-        a replica manager, None without one.  Uploaded once and cached
-        until a commit or a weighted-split refresh changes them, so no
-        forward uploads a table."""
+        a replica manager, None without one.  Written once per commit,
+        weighted-split refresh or elastic mask, into the same buffers
+        (``copy_``) while their shapes hold, so no forward uploads them
+        and a captured step reads the new tables."""
         if self._placement is None:
             return None
-        if self._place_cache is None:
-            self._place_cache = tuple(
-                self._tensor(a) for a in self._placement.device_tables())
-        return self._place_cache
+        if self._place_stale:
+            tables = [np.asarray(a) for a in self._placement.device_tables()]
+            bufs = self._place_bufs
+            if bufs is not None and len(bufs) == len(tables) and all(
+                    tuple(b.shape) == a.shape
+                    and b.dtype == torch.as_tensor(a).dtype
+                    for b, a in zip(bufs, tables)):
+                for b, a in zip(bufs, tables):
+                    b.copy_(self._host(a), non_blocking=True)
+            else:
+                self._place_bufs = tuple(self._tensor(a) for a in tables)
+            self._place_stale = False
+        return self._place_bufs
+
+    def _host(self, a) -> torch.Tensor:
+        """``a`` as a host tensor, pinned on a card (for an asynchronous
+        upload)."""
+        t = torch.as_tensor(np.asarray(a))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _forward(self, name: str, arrays: Dict[str, np.ndarray]):
+        """One ``chunk`` or ``decode`` forward on the host inputs
+        ``arrays``: ``(logits, aux)``.  The inputs are written into the
+        key's static buffers, the cache and ``m_state`` in place by the
+        step, which is replayed once captured (the outputs then are the
+        graph's: read them before the next forward)."""
+        place = self._place_args()
+        sg = self._graphs
+        fwd = self._fwd[name] if sg.capture else self._counted[name]
+        key = (name, tuple((k, v.shape) for k, v in arrays.items()),
+               () if place is None else tuple(tuple(t.shape) for t in place))
+        batch = sg.inputs(key, arrays)
+        cfg, rcfg = self.cfg, self.rcfg
+
+        def body(params, cache, m_state, place):
+            res = fwd(params, cfg, rcfg, batch, cache, m_state,
+                      placement=place)
+            m_state.copy_(res.m_state)
+            return res.logits, res.aux
+
+        return sg.run(
+            name, key, body, (self.params, self.cache, self.m_state, place),
+            rebuild=cfg.moe.capacity_factor if cfg.moe else None)
+
+    def _begin(self, name: str) -> list:
+        """A forward starts: ``[name, engine-clock start, tracer-clock
+        start, span args]`` for :meth:`_done`."""
+        return [name, self.clock(),
+                self.tracer.clock() if self.tracer.enabled else 0.0, None]
+
+    def _done(self, fwd: list) -> float:
+        """The forward ``fwd`` (from :meth:`_begin`) is complete: its
+        outputs have reached the host.  Its seconds on the engine clock,
+        and its ``forward.<name>`` span, run to here, so a forward that
+        returned once enqueued (a graph's replay, or any forward on a
+        card) is timed to the end of its device work."""
+        name, t0, tt0, args = fwd
+        if self.tracer.enabled:
+            self.tracer.complete(f"forward.{name}", tt0,
+                                 self.tracer.clock() - tt0, cat="forward",
+                                 args=args)
+        return self.clock() - t0
 
     # -- live migration ------------------------------------------------------
     def _undo_plan(self, plan):
@@ -379,7 +481,7 @@ class Engine:
             raise err
         # staged plans become routable only after the slabs landed
         self._placement.commit(plan)
-        self._place_cache = None                  # table changed
+        self._place_stale = True                  # table changed
         if hasattr(self.clock, "advance"):
             secs = self._placement.migration_seconds(plan.moved_bytes)
             self.clock.advance(secs)
@@ -415,9 +517,9 @@ class Engine:
             # the executor aborted the staged remainder; layers committed
             # by earlier batches stay routable (their slabs did land)
             self._mig = None
-            self._place_cache = None
+            self._place_stale = True
             raise
-        self._place_cache = None              # landed layers' tables flipped
+        self._place_stale = True              # landed layers' tables flipped
         if hasattr(self.clock, "advance"):
             stall = self._placement.migration_seconds(rep.excess_bytes)
             hidden = self._placement.migration_seconds(
@@ -496,7 +598,7 @@ class Engine:
             self._mig = None
         elif getattr(self._placement, "in_flight", None) is not None:
             self._placement.abort()
-        self._place_cache = None
+        self._place_stale = True
 
     # -- elastic serving events ----------------------------------------------
     def fail_rank(self, rank: int) -> None:
@@ -509,7 +611,7 @@ class Engine:
             raise RuntimeError("fail_rank requires an ElasticCoordinator")
         self._abort_migration()
         self.params = self._elastic.fail_rank(rank, self.params)
-        self._place_cache = None                  # tables were masked
+        self._place_stale = True                  # tables were masked
 
     def rejoin_rank(self, rank: int) -> None:
         """The returning rank becomes plannable; it turns routable layer
@@ -564,19 +666,20 @@ class Engine:
             self.clock.advance(self.cost_model.cost(batch_tokens))
 
     def _record(self, *, phase: str, n_active: int, tokens: int,
-                batch_tokens: int, aux: Dict[str, Any], fwd_s: float = 0.0):
+                batch_tokens: int, aux: Dict[str, Any], fwd: list):
         """Pull the iteration's stats to the host (with the sampled tokens,
         the host reads serving makes, all after the forward; a sanctioned
-        sync), record them and feed the manager and the profiler."""
+        sync), end the forward ``fwd`` (:meth:`_done`) there, record the
+        stats and feed the manager and the profiler."""
         with self.sentinel.sanctioned("telemetry"):
             self._record_stats(phase=phase, n_active=n_active,
                                tokens=tokens, batch_tokens=batch_tokens,
-                               aux=aux, fwd_s=fwd_s)
+                               aux=aux, fwd=fwd)
 
     def _record_stats(self, *, phase: str, n_active: int, tokens: int,
-                      batch_tokens: int, aux: Dict[str, Any],
-                      fwd_s: float):
+                      batch_tokens: int, aux: Dict[str, Any], fwd: list):
         ms = aux["moe_stats"].to(torch.float64).cpu().numpy()
+        fwd_s = self._done(fwd)           # the forward's outputs are here
         scal = torch.stack([aux[k].to(torch.float32) for k in
                             ("ib_global", "fp4_ranks", "gate_open",
                              "drop_frac", "split_frac")]).cpu().tolist()
@@ -630,7 +733,8 @@ class Engine:
             self.telemetry.record_iter(stat)
         if self.profiler.enabled:
             # the FLOP/byte ledger and the drift EWMA off the stats already
-            # on the host; fwd_s is this forward's engine-clock seconds
+            # on the host; fwd_s is this forward's engine-clock seconds,
+            # from its start to its statistics on the host
             self.profiler.observe_iter(
                 moe_stats=ms, fp4_layers=stat.fp4_ranks, tokens=tokens,
                 batch_tokens=batch_tokens, fwd_s=fwd_s, phase=phase)
@@ -676,22 +780,19 @@ class Engine:
         if req.vision_embeds is not None:
             batch["vision_embeds"] = self._tensor(
                 req.vision_embeds, DTYPES[self.cfg.param_dtype])[None]
-        t_fwd = self.clock()
-        with self.tracer.span("forward.prefill", cat="forward") as sp:
-            res = self._fwd["prefill"](self.params, self.cfg, self.rcfg,
+        fwd = self._begin("prefill")
+        res = self._counted["prefill"](self.params, self.cfg, self.rcfg,
                                        batch, self.m_state,
                                        cache_len=self.max_len,
                                        placement=self._place_args())
-            self.m_state = res.m_state
-            self._tick(req.prompt_len)
-            if self.tracer.enabled:
-                sp.set(tokens=req.prompt_len)
-        fwd_s = self.clock() - t_fwd
+        self.m_state.copy_(res.m_state)
+        self._tick(req.prompt_len)
+        fwd[3] = {"tokens": req.prompt_len}
         self._insert_cache(req.slot, res.cache)
         req.prefill_pos = req.prompt_len
         self._first_token(req, int(self._sample(res.logits)[0]))
         self._record(phase="prefill", n_active=1, tokens=req.prompt_len,
-                     batch_tokens=req.prompt_len, aux=res.aux, fwd_s=fwd_s)
+                     batch_tokens=req.prompt_len, aux=res.aux, fwd=fwd)
 
     def _plan_chunks(self) -> List:
         """Allocate the token budget over slots with pending prefill work,
@@ -724,23 +825,16 @@ class Engine:
             modality[slot, :take] = req.modality[p0:p0 + take]
             start[slot] = p0
             chunk_len[slot] = take
-        batch = {"tokens": self._tensor(tokens), "start": self._tensor(start),
-                 "chunk_len": self._tensor(chunk_len),
-                 "modality": self._tensor(modality)}
-        t_fwd = self.clock()
-        with self.tracer.span("forward.chunk", cat="forward") as sp:
-            res = self._fwd["chunk"](self.params, self.cfg, self.rcfg, batch,
-                                     self.cache, self.m_state,
-                                     placement=self._place_args())
-            self.cache, self.m_state = res.cache, res.m_state
-            self._tick(b * s_bucket)
-            if self.tracer.enabled:
-                sp.set(slots=len(plan), batch_tokens=b * s_bucket)
-        fwd_s = self.clock() - t_fwd
+        fwd = self._begin("chunk")
+        logits, aux = self._forward("chunk", {
+            "tokens": tokens, "start": start, "chunk_len": chunk_len,
+            "modality": modality})
+        self._tick(b * s_bucket)
+        fwd[3] = {"slots": len(plan), "batch_tokens": b * s_bucket}
         completing = [slot for slot, take in plan
                       if self.scheduler.active[slot].prefill_pos + take
                       >= self.scheduler.active[slot].prompt_len]
-        toks = self._sample(res.logits) if completing else None
+        toks = self._sample(logits) if completing else None
         n_tok = 0
         for slot, take in plan:
             req = self.scheduler.active[slot]
@@ -750,7 +844,7 @@ class Engine:
                 self._prefill_fifo.remove(slot)
                 self._first_token(req, int(toks[slot]))
         self._record(phase="prefill", n_active=len(plan), tokens=n_tok,
-                     batch_tokens=b * s_bucket, aux=res.aux, fwd_s=fwd_s)
+                     batch_tokens=b * s_bucket, aux=aux, fwd=fwd)
         return n_tok
 
     # -- the iteration --------------------------------------------------------
@@ -779,7 +873,7 @@ class Engine:
         if self._placement is not None and \
                 getattr(self._placement, "wants_table_refresh",
                         lambda it: False)(self._it):
-            self._place_cache = None
+            self._place_stale = True
         # a due replan lands before any forward of this iteration sees the
         # weights; then the replica-aware capacity follows the prediction
         self._maybe_migrate()
@@ -833,25 +927,18 @@ class Engine:
         ready = self.decode_ready & self.active_mask
         n_active = 0
         if ready.any():
-            batch = {
-                "tokens": self._tensor(self.last_tok[:, None], torch.int32),
-                "pos": self._tensor(np.where(ready, self.pos, self.max_len),
-                                    torch.int32),
-                "modality": self._tensor(
-                    np.where(ready, self.mod_state, False)[:, None]),
-                "valid": self._tensor(ready[:, None])}
-            t_fwd = self.clock()
-            with self.tracer.span("forward.decode", cat="forward") as sp:
-                res = self._fwd["decode"](self.params, self.cfg, self.rcfg,
-                                          batch, self.cache, self.m_state,
-                                          placement=self._place_args())
-                self.cache, self.m_state = res.cache, res.m_state
-                self._tick(self.max_slots)
-                if self.tracer.enabled:
-                    sp.set(batch_tokens=self.max_slots,
-                           ready=int(ready.sum()))
-            fwd_s = self.clock() - t_fwd
-            toks = self._sample(res.logits)
+            arrays = {
+                "tokens": self.last_tok[:, None].astype(np.int32),
+                "pos": np.where(ready, self.pos, self.max_len)
+                .astype(np.int32),
+                "modality": np.where(ready, self.mod_state, False)[:, None],
+                "valid": ready[:, None].copy()}
+            fwd = self._begin("decode")
+            logits, aux = self._forward("decode", arrays)
+            self._tick(self.max_slots)
+            fwd[3] = {"batch_tokens": self.max_slots,
+                      "ready": int(ready.sum())}
+            toks = self._sample(logits)
             for slot, req in list(self.scheduler.active.items()):
                 if ready[slot] and not req.done:
                     req.generated.append(int(toks[slot]))
@@ -861,8 +948,7 @@ class Engine:
                     if req.done:
                         self._finish(req)
             self._record(phase="decode", n_active=n_active, tokens=n_active,
-                         batch_tokens=self.max_slots, aux=res.aux,
-                         fwd_s=fwd_s)
+                         batch_tokens=self.max_slots, aux=aux, fwd=fwd)
         self.scheduler.retire()
         self._observe_iter_s(t_step0)
         return max(n_active, len(self._prefill_fifo))
@@ -950,7 +1036,7 @@ class Engine:
                                  "m_state": self.m_state}}
         step, out = ckpt.restore(ckpt_dir, templates, step, mesh=self._mesh)
         self.params = out["serving"]["params"]
-        self.m_state = out["serving"]["m_state"]
+        self.m_state.copy_(out["serving"]["m_state"])
         if self._placement is not None:
             if state is None:
                 self._placement.reset()
@@ -959,7 +1045,7 @@ class Engine:
                         self.params, self._placement.rsets)
             else:
                 self._placement.load_state_dict(state)
-            self._place_cache = None
+            self._place_stale = True
         return step
 
 

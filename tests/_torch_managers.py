@@ -185,7 +185,7 @@ class ArmRun:
 
 
 def run_arm(arm, trace=False, n_req=N_REQ, extra=None, before=None,
-            after_step=None):
+            after_step=None, ref=True):
     """One seeded MMMU stream through the reference's and the port's engine
     with the arm's manager.  The bandwidth EWMA sees each gather's bytes
     but not its wall seconds (they differ from run to run), so both price
@@ -193,7 +193,8 @@ def run_arm(arm, trace=False, n_req=N_REQ, extra=None, before=None,
     span tracer on its virtual clock.  ``extra(mj, mt, clock_j, clock_t,
     tel_j, tel_t)`` returns more engine arguments for each engine (a
     profiler, an elastic coordinator); ``before(eng_j, eng_t)`` runs before
-    serving; ``after_step(engine)`` runs after every step of either."""
+    serving; ``after_step(engine)`` runs after every step of either.
+    ``ref=False`` serves the port's engine only (``done_j`` empty)."""
     kind, mcfg, ekw = ARMS[arm]
     cfg_j, cfg_t, params, pnum = model()
     mj, mt = managers(cfg_j, cfg_t, kind, replan_every=4, warmup_iters=2,
@@ -232,7 +233,8 @@ def run_arm(arm, trace=False, n_req=N_REQ, extra=None, before=None,
     if before is not None:
         before(eng_j, eng_t)
     tables_j, tables_t = [], []
-    done_j = _serve(eng_j, specs_j, clock_j, mj, tables_j, after_step)
+    done_j = _serve(eng_j, specs_j, clock_j, mj, tables_j, after_step) \
+        if ref else {}
     done_t = _serve(eng_t, specs_t, clock_t, mt, tables_t, after_step)
     return ArmRun(eng_j, eng_t, done_j, done_t, tables_j, tables_t, tel_j,
                   tel_t, observed[0], observed[1], n_req)

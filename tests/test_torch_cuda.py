@@ -7,6 +7,7 @@ JAX, so the card's machine runs it as it is:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``.
 """
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -1198,3 +1199,259 @@ def test_crossrank_inplace_gather_on_card_equals_one_device(card_ranks):
         assert r["landed"] == [("blocks", "layer0", 0),
                                ("blocks", "layer0", 2)]
         assert r["sent"] == int(sends[:, my].sum()) * row_bytes
+
+
+# --------------------------------------------------------------------------
+# the compiled step: CUDA graphs of the chunk and decode forwards
+# --------------------------------------------------------------------------
+def _bits_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_bits_equal, a, b))
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def test_graph_replay_equals_eager_forwards(cuda):
+    """One captured graph each for a reduced-moonshot chunk and decode
+    step serves FP4 on and off (vision or all-text inputs; the decision is
+    read on the device): every replay equals the eager forward bit for
+    bit (logits, statistics, cache, m_state), under a strict sentinel (0
+    syncs), and the capture's kernel launches are counted per replay."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.serving.graphs import StepGraphs
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    rcfg = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                       adaptive=False)
+    b, s, l = 4, 16, 48
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    vis = torch.rand((b, s), generator=gen, device=cuda) < 0.6
+    i32 = dict(dtype=torch.int32, device=cuda)
+    inputs = {
+        "chunk": {fp4: {"tokens": tok, "start": torch.tensor([0, 4, 0, 9],
+                                                             **i32),
+                        "chunk_len": torch.tensor([16, 7, 0, 12], **i32),
+                        "modality": vis if fp4 else torch.zeros_like(vis)}
+                  for fp4 in (True, False)},
+        "decode": {fp4: {"tokens": tok[:, :1].contiguous(),
+                         "pos": torch.tensor([16, l, 3, 20], **i32),
+                         "modality": torch.full((b, 1), fp4, device=cuda),
+                         "valid": torch.tensor([[True], [False], [True],
+                                                [True]], device=cuda)}
+                   for fp4 in (True, False)}}
+    fwds = {"chunk": tf.chunk_forward, "decode": tf.decode_forward}
+    origin = tf.init_cache(cfg, b, l, device=cuda)
+    tf.chunk_forward(params, cfg, rcfg, inputs["chunk"][True], origin,
+                     torch.zeros((1, 4), device=cuda))
+    m0 = torch.rand((1, 4), generator=gen, device=cuda)
+    cache = common.tree_map(lambda t: t.clone(), origin)
+    m = m0.clone()
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(cuda, sentinel=sent)
+    bufs = {}
+
+    def body_for(kind):
+        def body(params, cache, m):
+            res = fwds[kind](params, cfg, rcfg, bufs[kind], cache, m)
+            m.copy_(res.m_state)
+            return res.logits, res.aux
+        return body
+
+    def reset():
+        for n in ("blocks", "prefix"):
+            for name, kv in cache.get(n, {}).items():
+                for k in ("k", "v"):
+                    kv[k].copy_(origin[n][name][k])
+        m.copy_(m0)
+
+    ops.reset_launch_counts()
+    per_call = {}
+    for kind in ("chunk", "decode"):
+        for fp4 in (True, False, True):
+            reset()
+            with sent.hot(kind):
+                bufs[kind] = sg.inputs(kind, inputs[kind][fp4])
+                before = ops.launch_counts()
+                logits, aux = sg.run(kind, kind, body_for(kind),
+                                     (params, cache, m))
+                after = ops.launch_counts()
+            per_call.setdefault(kind, []).append(
+                {k: after[k] - before[k] for k in after})
+            want = fwds[kind](params, cfg, rcfg, inputs[kind][fp4],
+                              common.tree_map(lambda t: t.clone(), origin),
+                              m0.clone())
+            assert _bits_equal((logits, aux, cache, m),
+                               (want.logits, want.aux, want.cache,
+                                want.m_state)), (kind, fp4)
+            assert (float(aux["fp4_ranks"]) > 0) == fp4
+    assert sg.captures == {"chunk": 1, "decode": 1} and not sg.dropped
+    assert sg.replays == {"chunk": 2, "decode": 2}
+    assert sent.violations == [] and sent.sanctioned_pulls == {"capture": 2}
+    for kind, calls in per_call.items():
+        # the eager first call, then each replay, launch the same kernels
+        assert calls[0] == calls[1] == calls[2], (kind, calls)
+        assert calls[0]["quantize_fp4"] > 0 \
+            and calls[0]["grouped_fp4_ffn"] > 0
+
+
+def _graph_engine_run(cuda, graphs, kind=None, passes=1, sentinel=None,
+                      load_at=None, tmp_path=None, **engine_kw):
+    """A reduced-moonshot engine on the card (``kind``: a shared placement
+    table migrating synchronously, or none) serving five requests per
+    pass; returns (tokens by pass, engine)."""
+    from repro_torch.configs import PlacementConfig
+    from repro_torch.placement import PlacementManager
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+             rng.random(n) < 0.6) for n in (14, 5, 22, 9, 17)]
+    mgr = None
+    if kind == "placement":
+        mgr = PlacementManager(cfg, PlacementConfig(
+            planner="least_loaded", replan_every=3, warmup_iters=1,
+            min_gain=0.0), 4)
+    eng = Engine(cfg, tf.init_model(cfg, seed=0, device=cuda),
+                 ReaLBConfig(gate_gamma=8, md_init=0.0), max_slots=3,
+                 max_len=48, prefill_budget=16, virtual_ep=4,
+                 placement=mgr, sentinel=sentinel, device=cuda,
+                 graphs=graphs, **engine_kw)
+    out = []
+    for p in range(passes):
+        for uid, (tok, mod) in enumerate(reqs):
+            eng.submit(Request(uid=10 * p + uid, tokens=tok, modality=mod,
+                               max_new_tokens=6))
+        n0 = len(eng.scheduler.finished)
+        while not eng.scheduler.idle:
+            eng.step()
+            if load_at is not None and eng._it == load_at:
+                eng.save_checkpoint(str(tmp_path), 1)
+                eng.load_checkpoint(str(tmp_path))
+        out.append({r.uid: r.generated for r in eng.scheduler.finished[n0:]})
+        if sentinel is not None and p == 0:
+            sentinel.mark_warm()
+    return out, eng
+
+
+def test_graphed_engine_is_sync_free_with_no_new_capture(cuda):
+    """The default engine on the card is graphed: under a strict sentinel
+    it serves two passes with 0 syncs and no new capture in the second,
+    the eager engine's tokens, and the same kernel launches (a replay
+    counts what its capture recorded)."""
+    from repro_torch.analysis import Sentinel
+    sent = Sentinel(strict=True)
+    ops.reset_launch_counts()
+    got, eng = _graph_engine_run(cuda, None, passes=2, sentinel=sent)
+    graphed = ops.launch_counts()
+    assert eng.step_mode == "graphed" and sent.step == "graphed"
+    assert sent.violations == [] and sent.post_warm_recompiles() == {}
+    assert sent.ok and sum(eng._graphs.replays.values()) > 0
+    ops.reset_launch_counts()
+    want, _ = _graph_engine_run(cuda, False, passes=2)
+    assert got == want
+    assert graphed == ops.launch_counts()
+
+
+def test_graphed_engine_commit_seen_without_recapture(cuda):
+    """Synchronous placement commits between replays: the tables are
+    written into the same buffers and the weights gathered in place, so
+    the next replay routes by the new table with no recapture, and the
+    tokens are the eager engine's."""
+    got, eng = _graph_engine_run(cuda, True, kind="placement")
+    want, ref = _graph_engine_run(cuda, False, kind="placement")
+    assert eng._placement.n_migrations > 0
+    assert eng._placement.n_migrations == ref._placement.n_migrations
+    assert eng._graphs.dropped == [] and \
+        sum(eng._graphs.recaptures.values()) == 0
+    assert sum(eng._graphs.replays.values()) > 0
+    assert got == want
+
+
+def test_graphed_engine_recaptures_after_a_checkpoint_load(cuda, tmp_path):
+    """A checkpoint load between two steps replaces every weight tensor:
+    the graphs are dropped (declared) and captured again, and the tokens
+    are the eager engine's."""
+    got, eng = _graph_engine_run(cuda, True, load_at=4,
+                                 tmp_path=tmp_path / "g")
+    want, _ = _graph_engine_run(cuda, False, load_at=4,
+                                tmp_path=tmp_path / "e")
+    assert len(eng._graphs.dropped) == 1
+    assert sum(eng._graphs.recaptures.values()) >= 1
+    assert got == want
+
+
+
+def test_graphed_forward_seconds_cover_device_work(cuda, monkeypatch):
+    """On the wall clock, each forward's seconds (what a ``Profiler``'s
+    MFU, phase seconds and ``time_scale`` are made of) run to its
+    statistics on the host, so they cover the device work between CUDA
+    events recorded around the forward's call, graphed (where the call
+    returns once the replay is enqueued) and eager alike; both engines
+    split each iteration's seconds over the phases in the same shares."""
+    from repro_torch.obs import FlopByteLedger, Profiler
+    from repro_torch.serving.engine import Engine
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    forward, spans = Engine._forward, []
+
+    def timed(self, name, arrays):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res = forward(self, name, arrays)
+        e1.record()
+        spans.append((e0, e1))
+        return res
+    monkeypatch.setattr(Engine, "_forward", timed)
+    out = {}
+    for graphs in (True, False):
+        spans.clear()
+        prof = Profiler(FlopByteLedger(cfg, ep=4))
+        got, eng = _graph_engine_run(cuda, graphs, profiler=prof,
+                                     clock=time.perf_counter)
+        torch.cuda.synchronize()
+        dev_s = sum(e0.elapsed_time(e1) for e0, e1 in spans) / 1e3
+        assert eng.step_mode == ("graphed" if graphs else
+                                 "eager (graphs=False)")
+        assert prof.n_iters == len(spans) > 0
+        assert prof.fwd_s_total >= dev_s > 0, (graphs, prof.fwd_s_total,
+                                               dev_s)
+        assert 0 < prof.mfu() < 1
+        out[graphs] = (got, prof)
+    assert out[True][0] == out[False][0]
+    # the same stats: each iteration's seconds split in the same shares
+    assert out[True][1].phase_seconds_pred() == \
+        out[False][1].phase_seconds_pred()
+    for _, p in out.values():
+        assert sum(p.phase_seconds().values()) == pytest.approx(
+            p.fwd_s_total, rel=1e-9)
+
+
+def test_graphed_working_launches_counted_on_the_device(cuda):
+    """With the device counter tracking before capture, a graphed engine's
+    replays count the launches that did work, and they equal the eager
+    engine's on the same stream (the same FP4 decisions)."""
+    from repro_torch.kernels import working
+    counts = {}
+    working.track(torch.device("cuda"))
+    ptr = working._counter.data_ptr()
+    working.track(torch.device("cuda", torch.cuda.current_device()))
+    assert working._counter.data_ptr() == ptr    # zeroed where it lies
+    try:
+        for graphs in (True, False):
+            working.track(cuda)
+            ops.reset_launch_counts()
+            _, eng = _graph_engine_run(cuda, graphs)
+            counts[graphs] = (working.counts(), ops.launch_counts())
+            assert (sum(eng._graphs.replays.values()) > 0) == graphs
+    finally:
+        working.track(None)
+    assert counts[True] == counts[False]
+    work, launched = counts[True]
+    assert all(0 <= work[k] <= launched[k] for k in work)
+    assert work["grouped_ffn"] + work["grouped_fp4_ffn"] > 0

@@ -180,7 +180,8 @@ def test_report_shape():
     rep = s.report()
     assert set(rep) == {"ok", "violations", "sanctioned_pulls",
                         "compile_counts", "warm_counts",
-                        "post_warm_recompiles", "rebuilds"}
+                        "post_warm_recompiles", "rebuilds", "step",
+                        "recaptures"}
     assert rep["ok"] is False and len(rep["violations"]) == 1
 
 
