@@ -158,6 +158,23 @@
    phase 8a's placement arm eager and graphed in virtual time: the same
    tokens and IterStats, the same commits, no graph dropped or
    recaptured;
+13. training (``training``), after phase 6: (a) the grouped FFN's
+   backward kernel against its plain version over the reference's
+   patterns (f32 and bf16, pad slots, rows past the counts, all-zero
+   counts), and at 13d's full-width shapes (on its first backward launch's
+   inputs) timed beside its bound, its plain version and an all-zero
+   launch; (b) reduced olmoe-1b-7b, 100 AdamW steps of ``lm_batch`` on the
+   card: the loss falls by more than 0.5, step 1's loss, statistics and
+   gradients match the CPU's; (c) ``benchmarks/acc_proxy.py``'s recipe (150
+   steps) through ``launch.train.build`` and ``TrainLoop``, preempted at
+   step 75 and restarted from its checkpoint, byte-exact against an
+   uninterrupted run; (d) moonshot-v1-16b-a3b at full width and depth 4,
+   bf16, ``remat="full"``, ReaLB on, 5 AdamW steps of 4 x 1024 tokens, the
+   counters zeroed just before and read just after (each MoE layer launches
+   the forward kernel twice a step, once more in the recompute, and the
+   backward once): finite losses, ``m_state`` updated, step wall, host
+   enqueue, device busy and idle, tokens/s, peak memory and the top device
+   kernels;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -170,7 +187,9 @@
    bound, plain-version time and library yardstick, and phase 10's
    launches, working launches, time, plain time and error by rank, and
    phase 11's by arm and rank, and phase 12c's graphed launches (derived:
-   captured x replays) and working launches (counted on the device);
+   captured x replays) and working launches (counted on the device), and
+   phase 13d's launches on the training path; the backward kernel's row
+   (launches on 13d's path, error, time, bound, plain time);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -3629,6 +3648,341 @@ def ep_migration_checks(ranks, backend, layers, smi):
             "recs": g17}
 
 
+# --------------------------------------------------------------------------
+# phase 13: training
+# --------------------------------------------------------------------------
+def bwd_bound(args):
+    """Least time of one backward launch on these inputs, ``(ms,
+    bound_by)``.  Operations: eight products of 2·D·F a row (g, u and dh
+    recomputed, dx twice, three weight gradients) over the rows of slots
+    with weights, at the bf16 tensor-core rate.  Bytes: xs and dy read and
+    dxs written once each, the weights of the slots with rows read once,
+    the three weight gradients written once."""
+    xs, gs, wg = args[0], args[1], args[2]
+    m, d = xs.shape
+    n_w, _, f = wg.shape
+    counts = gs[:n_w].long().clamp(min=0)
+    rows = int(counts.sum())
+    n_live = int((counts > 0).sum())
+    el = xs.element_size()
+    nbytes = (3 * m * d * el + gs.numel() * 4
+              + 3 * d * f * el * (n_live + n_w))
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = 16.0 * rows * d * f / BF16_FLOP_PER_S * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def check_grouped_ffn_bwd_cases(dev):
+    """Phase 13a, first part: the backward kernel against its plain
+    version on the card over the reference's patterns (f32 at rtol 1e-5 /
+    atol 1e-4, bf16 within two bf16 ulps; every slot with weights, and the
+    last slot a pad slot without them), rows past the counts and all-zero
+    counts."""
+    import torch
+    from repro_torch.kernels import grouped_fp4_ffn as ffn
+    from test_torch_cuda import (BWD_CASES, _bwd_args, check_ffn_bwd,
+                                 test_grouped_ffn_bwd_cuda_edges)
+
+    for m, d, f, gs, n_w in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = _bwd_args(dev, m, d, f, gs, n_w, dtype, m + d + n_w)
+            err = check_ffn_bwd(ffn.grouped_ffn_bwd_cuda(*a),
+                                ffn.grouped_ffn_bwd_plain(*a))
+            log(f"grouped_ffn_bwd m={m} d={d} f={f} gs={gs} Gw={n_w} "
+                f"{dtype}: max abs err {err:.3g}")
+    for dtype in (torch.float32, torch.bfloat16):
+        test_grouped_ffn_bwd_cuda_edges(dev, dtype)
+    log("grouped_ffn_bwd: rows past sum(gs) give dx 0 and no weight "
+        "gradient; all-zero counts give all-zero outputs")
+
+
+def check_grouped_ffn_bwd(args):
+    """Phase 13a, second part: the backward kernel against its plain
+    version on ``args``, the inputs the full-width train step (13d) gave
+    its first backward launch; times the kernel there beside its bound,
+    its plain version and a launch with all-zero counts.  Returns the
+    kernel's record."""
+    import torch
+    from repro_torch.kernels import grouped_fp4_ffn as ffn
+    from test_torch_cuda import check_ffn_bwd
+
+    launch = ffn.grouped_ffn_bwd_cuda
+    err = check_ffn_bwd(launch(*args), ffn.grouped_ffn_bwd_plain(*args))
+    ms = time_ms(lambda: launch(*args), iters=3)
+    plain_ms = time_ms(lambda: ffn.grouped_ffn_bwd_plain(*args), iters=2)
+    zero = (args[0], torch.zeros_like(args[1]), *args[2:])
+    idle_ms = time_ms(lambda: launch(*zero), iters=5)
+    bound, by = bwd_bound(args)
+    m, d = args[0].shape
+    n_w, _, f = args[2].shape
+    rows = int(args[1][:n_w].sum())
+    log(f"grouped_ffn_bwd at the full-width train step's first backward: "
+        f"M={m} ({rows} rows in slots with weights, G={args[1].numel()}, "
+        f"Gw={n_w}) D={d} F={f} {args[0].dtype}: max abs err {err:.4g}; "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms; all-zero counts "
+        f"{idle_ms:.4f} ms), bound {bound:.4f} ms ({by}), "
+        f"{16.0 * rows * d * f / ms / 1e9:.1f} TFLOP/s")
+    return {"name": "grouped_ffn_bwd", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "idle_ms": idle_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def train_loss_falls(dev):
+    """Phase 13b: the port's counterpart of ``tests/test_system.py::
+    test_training_reduces_loss`` on the card: reduced olmoe-1b-7b (2
+    layers, vocab 128, f32), lr 3e-3, 100 AdamW steps of ``lm_batch`` (8 x
+    32), the counters zeroed just before and read just after; its step-1
+    loss and gradients against the CPU's
+    (``test_torch_cuda.train_step_against_cpu``).  Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import (ReaLBConfig, TrainConfig, get_config,
+                                     reduced)
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from test_torch_cuda import train_step_against_cpu
+
+    cfg = reduced(get_config("olmoe-1b-7b"), n_layers=2, vocab_size=128)
+    rcfg = ReaLBConfig(enabled=False)
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=10, total_steps=100)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
+    m0 = np.full((1, 1), rcfg.md_init, np.float32)
+    cpu_loss, _, worst = train_step_against_cpu(dev, cfg, rcfg,
+                                                next(DataLoader(dc)), m0)
+    log(f"13b step 1, card vs CPU: loss {cpu_loss:.6f} (CPU), statistics "
+        f"and m_state equal, every gradient leaf within its tolerance "
+        f"(largest gap {worst:.3f} of it)")
+    params = common.tree_map(lambda t: t.to(dev),
+                             tf.init_model(cfg, seed=0, device="cpu"))
+    opt = adamw.init_opt_state(params, tcfg)
+    m = torch.from_numpy(m0).to(dev)
+    step = make_train_step(cfg, rcfg, tcfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b, _ in zip(DataLoader(dc), range(100))]
+    losses = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        params, opt, m, met = step(params, opt, m, b)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = [float(v) for v in losses]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"13b: 100 steps in {wall:.2f} s ({wall * 10:.1f} ms a step); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; mean of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f}; launches {counts}")
+    if abs(losses[0] - cpu_loss) > 1e-4 * abs(cpu_loss):
+        raise AssertionError(f"13b step-1 loss {losses[0]} on the card, "
+                             f"{cpu_loss} on the CPU")
+    if not last < first - 0.5:
+        raise AssertionError(f"13b: the loss did not fall ({first} -> "
+                             f"{last})")
+    n_moe = cfg.ffn_kinds().count("moe")
+    if counts["grouped_ffn"] != 100 * n_moe or \
+            counts["grouped_ffn_bwd"] != 100 * n_moe:
+        raise AssertionError(f"13b launches {counts}, want {100 * n_moe} "
+                             "of each FFN kernel")
+    return counts
+
+
+def acc_proxy_recipe(dev):
+    """Phase 13c: ``benchmarks/acc_proxy.py``'s recipe on the card through
+    ``launch.train.build`` and ``TrainLoop``: reduced moonshot (4 layers, d
+    128, vocab 512), ReaLB off, lr 1e-3, warmup 20, 150 steps of 16 x 64
+    ``multimodal_batch``, checkpoints every 25 steps under ``build/``,
+    torch's deterministic algorithms on (as ``launch.train``'s driver sets
+    them); preempted at step 75 and restarted from its checkpoint, then
+    held against an uninterrupted run to step 80 (the losses of steps
+    76-80 equal bit for bit).  Returns the loss curve."""
+    import shutil
+    import signal
+
+    import torch
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+
+    rcfg = ReaLBConfig(enabled=False)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=20, total_steps=150)
+    root = ROOT / "build" / "phase13c_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    # as launch.train's driver does: deterministic index accumulations
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def run(ckpt_dir, until, restore):
+        cfg, state, step_fn = train.build("moonshot-v1-16b-a3b", "tiny", 16,
+                                          64, tcfg, rcfg, device=dev)
+        losses = []
+
+        def logged(state, batch):
+            new, met = step_fn(state, batch)
+            losses.append(met["loss"])
+            return new, met
+
+        loop = TrainLoop(logged, ckpt_dir=str(ckpt_dir), checkpoint_every=25,
+                         log_every=1000, logger=lambda *_: None)
+        start = 0
+        if restore:
+            start, state = loop.restore_or_init(state)
+        data = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                     global_batch=16), multimodal=True,
+                          start_step=start)
+        loop.run(state, data, until, start_step=start)
+        return losses, start
+
+    try:
+        t0 = time.perf_counter()
+        before, _ = run(root / "preempted", 75, False)
+        after, start = run(root / "preempted", 150, True)
+        wall = time.perf_counter() - t0
+        straight, _ = run(root / "straight", 80, False)
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        torch.use_deterministic_algorithms(deterministic[0],
+                                           warn_only=deterministic[1])
+        shutil.rmtree(root, ignore_errors=True)
+    curve = before + after
+    log(f"13c: preempted at step 75, restarted from step {start}; 150 steps "
+        f"in {wall:.1f} s; loss {curve[0]:.4f} (step 1) -> {curve[-1]:.4f} "
+        f"(step 150); steps 76-80 {after[:5]} (uninterrupted "
+        f"{straight[75:80]})")
+    if start != 75 or len(curve) != 150:
+        raise AssertionError(f"13c: restarted at {start}, {len(curve)} steps")
+    if after[:5] != straight[75:80]:
+        raise AssertionError("13c: the restart did not continue byte-exact")
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"13c: loss {curve[0]} -> {curve[-1]}")
+    return curve
+
+
+def full_width_steps(dev):
+    """Phase 13d: moonshot-v1-16b-a3b at its published widths, depth cut to
+    4 (1 dense + 3 MoE layers), bf16, ``remat="full"``, ReaLB on (default
+    ``ReaLBConfig``), 5 AdamW steps of 4 x 1024 ``multimodal_batch``
+    through ``launch.train.build``'s state and ``launch.steps``'s train
+    step, the counters zeroed just before the first step and read after
+    the fifth; the first step cold, then the next four by
+    ``host_and_device_ms`` (a warm step, a timed one, a profiled one, one
+    under cProfile).  Returns (record, counts, the first backward
+    launch's inputs: ``xs``, ``gs`` and ``dy`` as launched, the weights the
+    parameters' own tensors, moved since by four AdamW steps)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, multimodal_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=4,
+                              remat="full")
+    rcfg, tcfg = ReaLBConfig(), TrainConfig()
+    b, s = 4, 1024
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, state, _ = train.build(cfg.name, "full", b, s, tcfg, rcfg,
+                                device=dev, cfg=cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    log(f"13d: {cfg.name} at full width, {cfg.n_layers} layers "
+        f"({cfg.ffn_kinds().count('moe')} MoE), remat {cfg.remat}: "
+        f"{n_params / 1e9:.3f} B parameters, state built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    step = make_train_step(cfg, rcfg, tcfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)
+    batches = iter([{k: torch.from_numpy(v).to(dev) for k, v in
+                     multimodal_batch(dc, i, d_model=cfg.d_model).items()}
+                    for i in range(5)])
+    m0 = state["m"].clone()
+    losses = []
+
+    def one():
+        p, o, m, met = step(state["params"], state["opt"], state["m"],
+                            next(batches))
+        state.update(params=p, opt=o, m=m)
+        losses.append(met)
+
+    kept = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with keeping_first_inputs(kept, "bwd", "grouped_ffn_bwd_cuda"):
+        one()
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    host, wall, busy, top, top_host = host_and_device_ms(one)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [{k: float(v) for k, v in met.items()} for met in losses]
+    n_moe = cfg.ffn_kinds().count("moe")
+    log(f"13d: losses {[round(v['loss'], 4) for v in vals]}; lr "
+        f"{[v['lr'] for v in vals]}; grad norm "
+        f"{[round(v['grad_norm'], 4) for v in vals]}; m_state "
+        f"{m0.flatten().tolist()} -> {state['m'].flatten().tolist()}")
+    idle = None if busy is None else 1.0 - busy / wall
+    log(f"13d step: cold {cold:.1f} ms; warm wall {wall:.1f} ms, host "
+        f"enqueue {host:.1f} ms, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms'}, idle "
+        f"{'not measured' if idle is None else f'{idle:.1%}'}; "
+        f"{b * s / wall * 1e3:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB allocated; launches {counts}")
+    log(f"13d top device kernels of one step (ms): {top}")
+    log(f"13d top host functions of one step: {top_host}")
+    if not all(np.isfinite(v["loss"]) for v in vals) or len(vals) != 5:
+        raise AssertionError(f"13d losses {vals}")
+    if torch.equal(state["m"], m0):
+        raise AssertionError("13d: m_state was not updated")
+    # the forward kernel runs again in the backward's recompute (remat full)
+    want = {"grouped_ffn": 2 * n_moe * 5, "grouped_ffn_bwd": n_moe * 5,
+            "quantize_fp4": 0, "global_scale_fp4": 0, "grouped_fp4_ffn": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"13d launches {counts}, want {want}")
+    rec = {"wall_ms": wall, "host_ms": host, "busy_ms": busy, "idle": idle,
+           "tokens_per_s": b * s / wall * 1e3, "peak_bytes": peak,
+           "cold_ms": cold, "losses": [v["loss"] for v in vals]}
+    args = tuple(a.detach() for a in kept.pop("bwd"))
+    del state, batches
+    return rec, counts, args
+
+
+def training(dev):
+    """Phase 13: the training path (see the module docstring).  Returns
+    (the backward kernel's record, its launches on 13d's main path, 13d's
+    record)."""
+    import gc
+
+    import torch
+    check_grouped_ffn_bwd_cases(dev)
+    train_loss_falls(dev)
+    acc_proxy_recipe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_d, counts, args = full_width_steps(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        bwd = check_grouped_ffn_bwd(args)
+    return bwd, counts, rec_d
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -3690,6 +4044,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ep_counts, ep_working, ep_recs, ep_g, p11 = ep_serving(dev, smi)
     check_small_against_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_rec, train_counts, _ = training(dev)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -3770,6 +4127,19 @@ def main() -> int:
                                           for x in per])
     kernels[2]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_fp4"]
     kernels[3]["oneshot_ms"] = phase7["oneshot_ms"]["oneshot_bf16"]
+    # phase 13d's full-width train steps: the training path's launches
+    for k in kernels:
+        k["train_launches"] = train_counts[k["name"]]
+    kernels.append({
+        "name": bwd_rec["name"], "route": "cuda",
+        "source": "src/repro_torch/csrc/grouped_ffn_bwd.cu",
+        "replaces": "XLA's transpose of jax.lax.ragged_dot in training "
+                    "(no Pallas kernel), src/repro/core/ep_moe.py:325-335",
+        "launches": train_counts[bwd_rec["name"]],
+        "train_launches": train_counts[bwd_rec["name"]],
+        **{k: bwd_rec[k] for k in ("max_abs_err", "ms", "idle_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ joined by ``|``), plus a ``meta.json`` with the step and the groups.  A
 save writes into a temp directory and renames it, so a crash mid-save
 never corrupts the latest checkpoint; ``keep`` old steps are retained.
 
-Trees are nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or scalars.  numpy's ``savez`` has no bfloat16 or float8, so such
+Trees are nested dicts, lists, tuples and NamedTuples (an optimizer's
+``OptState``) whose leaves are tensors, numpy arrays or scalars.  numpy's ``savez`` has no bfloat16 or float8, so such
 a leaf is stored as its raw 16- or 8-bit pattern with a ``<key>::dt``
 entry naming the dtype, as the reference stores them; the port reads and
 writes those patterns through torch (no ``ml_dtypes``).  A checkpoint
@@ -53,11 +53,20 @@ _EXT_DTYPES = {
 _EXT_NAMES = {v[0]: k for k, v in _EXT_DTYPES.items()}
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _leaves(tree: Tree, path=()):
-    """``(path, leaf)`` in the reference's order (dict keys sorted)."""
+    """``(path, leaf)`` in the reference's order (dict keys sorted); a
+    NamedTuple's fields are keyed ``.<name>``, as ``jax.tree_util`` names
+    them (an ``OptState``'s ``.step``, ``.mu``, ``.nu``)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
+    elif _is_namedtuple(tree):
+        for name, v in zip(tree._fields, tree):
+            yield from _leaves(v, path + ("." + name,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (str(i),))
@@ -144,6 +153,10 @@ def _unflatten_into(template: Tree, flat: Dict[str, Any], path=()) -> Tree:
     if isinstance(template, dict):
         return {k: _unflatten_into(v, flat, path + (str(k),))
                 for k, v in template.items()}
+    if _is_namedtuple(template):
+        return type(template)(*(
+            _unflatten_into(v, flat, path + ("." + name,))
+            for name, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
         return type(template)(_unflatten_into(v, flat, path + (str(i),))
                               for i, v in enumerate(template))

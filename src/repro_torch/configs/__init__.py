@@ -11,6 +11,7 @@ from repro_torch.configs.base import (  # noqa: F401
     PlacementConfig,
     ReaLBConfig,
     ReplicationConfig,
+    TrainConfig,
     reduced,
 )
 

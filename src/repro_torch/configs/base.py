@@ -1,7 +1,8 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the fields and derived methods of ``repro.configs.base`` that the
-serving path and its placement/replication managers read (the port imports nothing from ``repro``).  Configs are
+serving path, its placement/replication managers and the training path
+read (the port imports nothing from ``repro``).  Configs are
 frozen dataclasses, so they hash and compare by value.
 """
 from __future__ import annotations
@@ -54,6 +55,7 @@ class ModelConfig:
     embed_scale_sqrt_d: bool = False   # gemma-style sqrt(d) embedding scale
 
     param_dtype: str = "bfloat16"
+    remat: str = "full"         # none | full | attn_out (training only)
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -220,6 +222,26 @@ class ReplicationConfig:
     #                                instead of equal-share round-robin
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """AdamW, its warmup-cosine schedule, clipping and the loop's cadence
+    (the reference's ``TrainConfig``)."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    opt_state_dtype: str = "float32"
+    grad_accum: int = 1
+    grad_compression: bool = False   # int8 all-reduce w/ error feedback
+    checkpoint_every: int = 100
+    seed: int = 0
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests (the reference's recipe)."""
     small = dict(
@@ -231,6 +253,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=512,
         head_dim=32,
         param_dtype="float32",
+        remat="none",
     )
     if cfg.moe is not None:
         small["moe"] = dataclasses.replace(

@@ -1,7 +1,7 @@
 """numpy trees → the port's tensors, under the same key paths.
 
-Feeds the port with the reference's parameters and caches: pass it the
-JAX tree after ``jax.tree.map(np.asarray, tree)``; ``rank_shard`` cuts
+Feeds the port with the reference's parameters, caches and optimizer
+state: pass it the JAX tree after ``jax.tree.map(np.asarray, tree)``; ``rank_shard`` cuts
 the tree a rank of an EP mesh holds.  A JAX bf16 array
 becomes an ``ml_dtypes`` bfloat16 numpy array, which ``torch.from_numpy``
 rejects, so bf16 goes through its 16-bit pattern.  Every leaf is copied:
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import resolve_device
+from repro_torch.optim.adamw import OptState
 
 Tree = Any
 
@@ -40,6 +41,16 @@ def params_from_numpy(tree: Tree, device=None) -> Tree:
 
 
 cache_from_numpy = params_from_numpy
+
+
+def opt_state_from_numpy(state, device=None):
+    """A reference ``OptState`` (``step``, ``mu``, ``nu`` of numpy arrays,
+    e.g. after ``jax.tree.map(np.asarray, opt)``) → the port's
+    ``optim.adamw.OptState``."""
+    step, mu, nu = state
+    return OptState(tensor_from_numpy(step, device),
+                    params_from_numpy(mu, device),
+                    params_from_numpy(nu, device))
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")
 

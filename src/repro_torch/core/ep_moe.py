@@ -18,7 +18,9 @@ Two paths, as in the reference:
   (under ReaLB-seq, ``overlap=False``, after it, with the reference's data
   dependency on it), grouped expert FFN (``kernels.ops.grouped_ffn`` with
   the BF16 weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
-  the combine all-to-all back, gate-weighted combine.
+  the combine all-to-all back, gate-weighted combine.  In training
+  (``train=True``, one rank) FP4 is off and only the BF16 grouped FFN
+  runs, with its gradient kernel.
 * ``broadcast`` (decode): every local expert on every token (dense
   per-expert products in BF16, the grouped W4A4 kernel in FP4), combine
   by one-hot gates, the partial sums added over the group in rank order.
@@ -551,7 +553,7 @@ def _aux(r, drop_frac, k, e_cfg):
 # dispatch path (prefill)
 # --------------------------------------------------------------------------
 def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
-                  comm: Comm, stop_stage=None, logits=None):
+                  comm: Comm, stop_stage=None, logits=None, train=False):
     """x_t [t,D] this rank's tokens; mod_t [t] vision flags; val_t [t]
     real-token flags; m_vec [pol_ep] the AIMD state (under a mesh this
     rank's one-hot share of it); rep maps logical experts onto slots
@@ -571,7 +573,15 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     prefix); ``None``, the default and the last prefix, is the whole
     layer.  The ``quantize_fp4`` prefix includes the dispatch's send
     buffers, which the quantizer follows.  ``logits``: the router's
-    logits of ``x_t``, when the caller computed them."""
+    logits of ``x_t``, when the caller computed them.
+
+    ``train`` (the reference's): the FP4 decision is forced off, the
+    quantizer never runs, and only the BF16 grouped FFN runs, through its
+    autograd function (``kernels.ops.grouped_ffn``); the policy, the AIMD
+    update and every statistic run as in serving.  Gradients flow through
+    the gates, the router sums (``lb_loss``, ``z_loss``), the dispatch
+    scatter (a dropped assignment's row lands in a spare row no one reads:
+    no gradient), the expert FFN and the combine."""
     e_cfg = cfg.moe
     ep = comm.ep
     n_slots = rep.slot_owner.shape[0]
@@ -584,6 +594,8 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     r = _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep,
                      comm, group_stats=comm.mesh is not None, logits=logits)
     f = _use_fp4(r["dec"].use_fp4, comm.ep, pol_ep, comm.my_rank)
+    if train:
+        f = torch.zeros_like(f)
     if stop_stage == "route":
         return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
@@ -626,15 +638,16 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     # ③ conditional on-the-fly quantization while the dispatch is in flight
     # (ReaLB); under ReaLB-seq (overlap=False) after it, serialised by a
     # data dependency on what it received
-    wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap else None
+    wq = _quantize_experts(w, rcfg, fi) if rcfg.overlap and not train \
+        else None
     if stop_stage == "quantize_fp4":
-        # under ReaLB-seq the transformation has not run here: its cost
-        # lands in the dispatch prefix
+        # under ReaLB-seq or train the transformation has not run here: its
+        # cost lands in the dispatch prefix
         return (r["gates"], r["flat_p"], r["dec"].m_new, f,
                 w if wq is None else wq)
     _wait(w_x, w_e)
     recv, eid_recv = recv[:n_cap], eid_recv[:n_cap]
-    if wq is None:
+    if wq is None and not train:
         token = (recv.sum() * 0.0).to(F32)
         wq = _quantize_experts(w, rcfg, fi, token)
     if stop_stage == "dispatch":
@@ -646,7 +659,8 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     order2 = torch.sort(eid_recv, stable=True).indices
     xs = recv[order2]
     gs = _bincount(eid_recv, None, s_loc + 1).to(torch.int32)
-    ys = _expert_ffns(xs, gs, w, wq, f, fi, rcfg)
+    ys = kops.grouped_ffn(xs, gs, w) if train \
+        else _expert_ffns(xs, gs, w, wq, f, fi, rcfg)
     y_buf = torch.zeros((n_cap + 8, d), dtype=ys.dtype, device=dev)
     y_buf[order2] = ys
     if stop_stage == "expert_gemm":
@@ -757,7 +771,8 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    modality: Optional[torch.Tensor] = None,
                    mode: str = "dispatch",
                    valid: Optional[torch.Tensor] = None,
-                   placement=None, stop_stage: Optional[str] = None):
+                   placement=None, stop_stage: Optional[str] = None,
+                   train: bool = False):
     """MoE layer with ReaLB.  x [B,S,D]; m_state [groups, ep] (see
     :func:`moe_state_shape`); valid [B,S] marks real tokens (None = all).
     ``placement``: None (identity), a :class:`Placement`, or a
@@ -780,7 +795,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``stop_stage`` (instrumented profiling, one rank only): end after the
     named phase (``route`` / ``weight_gather`` / ``quantize_fp4`` /
     ``dispatch`` / ``expert_gemm``) and return that prefix's raw boundary
-    values instead — see :func:`repro_torch.obs.profiler.time_moe_phases`."""
+    values instead — see :func:`repro_torch.obs.profiler.time_moe_phases`.
+
+    ``train`` (dispatch mode, one rank): the training layer, see
+    :func:`_moe_dispatch`; ``m_state`` and the statistics carry no
+    gradient."""
     if modality is None:
         modality = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     if valid is None:
@@ -789,6 +808,7 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         raise NotImplementedError("the expert FFN kernels are SwiGLU only")
     mesh = current_mesh()
     fn = _moe_broadcast if mode == "broadcast" else _moe_dispatch
+    train_kw = {"train": True} if train and mode != "broadcast" else {}
     b, s, d = x.shape
     if mesh is None or mesh.size("model") == 1:
         pol_ep = int(m_state.shape[-1]) if m_state.dim() else 1
@@ -802,12 +822,18 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                              f"{pol_ep} ranks")
         out = fn(x.reshape(b * s, d), modality.reshape(b * s),
                  valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg,
-                 rep, pol_ep, _local_comm(), stop_stage=stop_stage)
+                 rep, pol_ep, _local_comm(), stop_stage=stop_stage,
+                 **train_kw)
         if stop_stage is not None:     # instrumented prefix: raw boundary
             return out
         y, m_new, aux = out
         return y.reshape(b, s, d), m_new.reshape(m_state.shape), aux
 
+    if train:
+        raise NotImplementedError(
+            "training under a mesh (the FSDP expert gather and the "
+            "compressed gradient all-reduce) is not ported yet: ROADMAP "
+            "Queue A item 6")
     if stop_stage is not None:
         raise NotImplementedError(
             "stop_stage instrumentation is one-rank only, as the "

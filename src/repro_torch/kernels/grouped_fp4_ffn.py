@@ -19,6 +19,12 @@ Counterpart of ``repro.kernels.grouped_fp4_ffn`` (the Pallas
 of unfilled capacity rows (all zero) is such a slot.  The kernel source is
 ``csrc/grouped_fp4_ffn.cu``; the plain versions are the reference's jnp
 oracles (dequantize, then one product per slot) and run on the CPU only.
+
+The plain FFN's gradient (training) is a kernel too,
+``csrc/grouped_ffn_bwd.cu`` (``grouped_ffn_bwd_cuda``), beside its plain
+version ``grouped_ffn_bwd_plain``: ``dxs`` and the three weight gradients
+from ``dy``, recomputing ``g`` and ``u`` as the forward rounds them, f32
+accumulation throughout and one rounding to each output's type.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ MAX_SLOTS = 512     # counts the bf16 kernels' device schedule takes
 
 launches = 0        # kernel launches made by grouped_fp4_ffn_cuda
 plain_launches = 0  # kernel launches made by grouped_ffn_cuda
+bwd_launches = 0    # kernel launches made by grouped_ffn_bwd_cuda
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int64] + [ctypes.c_void_p] * 11
@@ -42,10 +49,15 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
 _PLAIN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                     ctypes.c_int64] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                  ctypes.c_int64] + [ctypes.c_void_p] * 11
+                 + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 _ENTRY = {torch.bfloat16: "grouped_fp4_ffn_bf16",
           torch.float32: "grouped_fp4_ffn_f32"}
 _PLAIN_ENTRY = {torch.bfloat16: "grouped_ffn_bf16",
                 torch.float32: "grouped_ffn_f32"}
+_BWD_ENTRY = {torch.bfloat16: "grouped_ffn_bwd_bf16",
+              torch.float32: "grouped_ffn_bwd_f32"}
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, gs: torch.Tensor
@@ -64,6 +76,22 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, gs: torch.Tensor
     return out
 
 
+def grouped_outer(a: torch.Tensor, b: torch.Tensor, gs: torch.Tensor,
+                  n_g: int) -> torch.Tensor:
+    """``[n_g, Ka, Nb]``: slot g's rows of ``a [M, Ka]`` transposed times
+    its rows of ``b [M, Nb]`` (a weight gradient of :func:`grouped_matmul`),
+    in ``a``'s dtype; slots without rows give 0.  It reads ``gs`` on the
+    host."""
+    out = torch.zeros((n_g, a.shape[1], b.shape[1]), dtype=a.dtype,
+                      device=a.device)
+    r0 = 0
+    for g, c in enumerate(gs.tolist()):
+        if c and g < n_g:
+            out[g] = torch.matmul(a[r0:r0 + c].t(), b[r0:r0 + c])
+        r0 += c
+    return out
+
+
 def grouped_ffn_plain(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     """The plain kernel's function in plain PyTorch (the reference's
     ``_grouped_ffn``)."""
@@ -72,6 +100,32 @@ def grouped_ffn_plain(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     u = grouped_matmul(xs, w_up.to(dt), gs)
     h = F.silu(g.to(torch.float32)).to(dt) * u
     return grouped_matmul(h, w_down.to(dt), gs)
+
+
+def grouped_ffn_bwd_plain(xs, gs, w_gate, w_up, w_down, dy):
+    """The backward kernel's function in plain PyTorch: ``(dxs, dw_gate,
+    dw_up, dw_down)`` of :func:`grouped_ffn_plain` at ``dy``, in explicit
+    formulas.  ``g`` and ``u`` are recomputed and rounded to ``xs``'s dtype
+    as the forward rounds them; every product and the SwiGLU derivative run
+    in f32, each output rounded once to its input's dtype."""
+    dt, f32 = xs.dtype, torch.float32
+    x = xs.to(f32)
+    wg, wu, wd = (w.to(dt).to(f32) for w in (w_gate, w_up, w_down))
+    n_g = wg.shape[0]
+    g = grouped_matmul(x, wg, gs).to(dt).to(f32)
+    u = grouped_matmul(x, wu, gs).to(dt).to(f32)
+    s = torch.sigmoid(g)
+    a = F.silu(g).to(dt).to(f32)
+    h = (a * u).to(dt).to(f32)
+    dyf = dy.to(f32)
+    dh = grouped_matmul(dyf, wd.transpose(-1, -2), gs)
+    dg = dh * u * (s * (1.0 + g * (1.0 - s)))
+    du = dh * a
+    dx = grouped_matmul(dg, wg.transpose(-1, -2), gs) \
+        + grouped_matmul(du, wu.transpose(-1, -2), gs)
+    return (dx.to(dt), grouped_outer(x, dg, gs, n_g).to(w_gate.dtype),
+            grouped_outer(x, du, gs, n_g).to(w_up.dtype),
+            grouped_outer(h, dyf, gs, n_g).to(w_down.dtype))
 
 
 def grouped_fp4_ffn_plain(xs, gs, gate_packed, gate_scales, up_packed,
@@ -197,3 +251,41 @@ def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     working.note("grouped_ffn",
                  lambda: (g32[:n_g] > 0).any())
     return out
+
+
+def grouped_ffn_bwd_cuda(xs, gs, w_gate, w_up, w_down, dy):
+    """Launch the backward kernel on CUDA tensors: ``xs`` and ``dy [M, D]``
+    bf16 or f32, weights ``[Gw, D, F]``/``[Gw, F, D]`` of that dtype, D and
+    F multiples of 32; returns ``(dxs, dw_gate, dw_up, dw_down)``."""
+    global bwd_launches
+    _require_cuda("grouped_ffn_bwd_cuda", xs)
+    m, d = xs.shape
+    n_g, d1, f = w_gate.shape
+    dt = xs.dtype
+    if d1 != d or w_up.shape != w_gate.shape \
+            or w_down.shape != (n_g, f, d) or dy.shape != xs.shape:
+        raise ValueError(f"grouped_ffn_bwd_cuda: bad shapes xs "
+                         f"{tuple(xs.shape)} dy {tuple(dy.shape)} gate "
+                         f"{tuple(w_gate.shape)} down {tuple(w_down.shape)}")
+    if any(t.dtype != dt for t in (w_gate, w_up, w_down, dy)):
+        raise TypeError("grouped_ffn_bwd_cuda: xs, dy and the weights must "
+                        f"share one dtype, got {xs.dtype}, {dy.dtype}, "
+                        f"{w_gate.dtype}, {w_up.dtype}, {w_down.dtype}")
+    x, g32, wg, wu, wd, dyc = _common_args(
+        "grouped_ffn_bwd_cuda", xs, gs, [w_gate, w_up, w_down, dy], n_g, d,
+        f)
+    dev = xs.device
+    dg, du, h = (torch.empty((m, f), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    dxs = torch.zeros((m, d), dtype=dt, device=dev)
+    dws = [torch.zeros(w.shape, dtype=dt, device=dev)
+           for w in (w_gate, w_up, w_down)]
+    fn = _build.entry("grouped_ffn_bwd", _BWD_ENTRY[dt], _BWD_ARGTYPES)
+    err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, wg.data_ptr(),
+             wu.data_ptr(), wd.data_ptr(), dyc.data_ptr(), dg.data_ptr(),
+             du.data_ptr(), h.data_ptr(), dxs.data_ptr(), dws[0].data_ptr(),
+             dws[1].data_ptr(), dws[2].data_ptr(), m, d, f,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "grouped_ffn_bwd")
+    bwd_launches += 1
+    return (dxs, *dws)

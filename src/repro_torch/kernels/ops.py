@@ -30,12 +30,13 @@ def launch_counts() -> Dict[str, int]:
             "global_scale_fp4": _quant.scale_launches,
             "grouped_fp4_ffn": _ffn.launches,
             "grouped_ffn": _ffn.plain_launches,
+            "grouped_ffn_bwd": _ffn.bwd_launches,
             "fp4_matmul": _mm.launches}
 
 
 def reset_launch_counts() -> None:
     _quant.launches = _quant.scale_launches = 0
-    _ffn.launches = _ffn.plain_launches = 0
+    _ffn.launches = _ffn.plain_launches = _ffn.bwd_launches = 0
     _mm.launches = 0
 
 
@@ -48,6 +49,7 @@ def add_launch_counts(delta: Dict[str, int]) -> None:
     _quant.scale_launches += delta.get("global_scale_fp4", 0)
     _ffn.launches += delta.get("grouped_fp4_ffn", 0)
     _ffn.plain_launches += delta.get("grouped_ffn", 0)
+    _ffn.bwd_launches += delta.get("grouped_ffn_bwd", 0)
     _mm.launches += delta.get("fp4_matmul", 0)
 
 
@@ -107,15 +109,47 @@ def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
     return _ffn.grouped_fp4_ffn_cuda(*args)
 
 
+def _grouped_ffn_fwd(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
+    if xs.device.type == "cpu":
+        return _ffn.grouped_ffn_plain(xs, gs, w_gate, w_up, w_down)
+    return _ffn.grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down)
+
+
+class GroupedFFN(torch.autograd.Function):
+    """:func:`grouped_ffn` with its gradient: the forward kernel (plain
+    version on the CPU), and in backward the backward kernel (plain version
+    on the CPU), which recomputes the pre-activations from the saved
+    inputs.  ``gs`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, xs, gs, w_gate, w_up, w_down):
+        ctx.save_for_backward(xs, gs, w_gate, w_up, w_down)
+        return _grouped_ffn_fwd(xs, gs, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, gs, w_gate, w_up, w_down = ctx.saved_tensors
+        bwd = _ffn.grouped_ffn_bwd_plain if xs.device.type == "cpu" \
+            else _ffn.grouped_ffn_bwd_cuda
+        dxs, dwg, dwu, dwd = bwd(xs, gs, w_gate, w_up, w_down,
+                                 dy.contiguous())
+        return dxs, None, dwg, dwu, dwd
+
+
 def grouped_ffn(xs: torch.Tensor, gs: torch.Tensor,
                 w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Grouped SwiGLU FFN with the plain expert weights ``w_gate``/``w_up
     [Gw, D, F]`` and ``w_down [Gw, F, D]`` (the reference's
-    ``_grouped_ffn``); rows of slots past ``Gw`` give 0."""
-    args = (xs, gs, w["w_gate"], w["w_up"], w["w_down"])
-    if xs.device.type == "cpu":
-        return _ffn.grouped_ffn_plain(*args)
-    return _ffn.grouped_ffn_cuda(*args)
+    ``_grouped_ffn``); rows of slots past ``Gw`` give 0.  When autograd
+    records and ``xs`` or a weight requires a gradient, the call goes
+    through :class:`GroupedFFN` (the weights cast to ``xs``'s dtype
+    first, so their gradients come back in their own dtype); otherwise it
+    is the forward launch alone."""
+    ws = (w["w_gate"], w["w_up"], w["w_down"])
+    if torch.is_grad_enabled() and (xs.requires_grad
+                                    or any(t.requires_grad for t in ws)):
+        return GroupedFFN.apply(xs, gs, *(t.to(xs.dtype) for t in ws))
+    return _grouped_ffn_fwd(xs, gs, *ws)
 
 
 def quantize_fp4(w: torch.Tensor, *, group: int = GROUP

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -267,11 +267,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def tree_map(fn: Callable, tree: Tree) -> Tree:
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` to every tensor leaf of a nested dict (with the
+    matching leaves of ``rest``, dicts of the same keys, as more
+    arguments)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Tree) -> Iterator[torch.Tensor]:
+    """The tensor leaves of a nested dict in sorted key order (the order of
+    ``jax.tree.leaves``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
 
 
 def tree_bytes(tree: Tree) -> int:

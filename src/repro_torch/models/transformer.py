@@ -12,6 +12,9 @@ prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
 (one token per row).  They run on ``cuda`` unless the caller passes
 ``device="cpu"``, and none of them reads the device on the host.
+Training: ``train_forward`` (logits of whole sequences, no cache, with the
+reference's ``remat`` policies), ``cross_entropy`` and ``train_loss``, on
+one device.
 
 Under a mesh (``models.common.use_mesh``) the same entry points run on
 every rank of the EP group.  The reference lets GSPMD pick the layout of
@@ -31,6 +34,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ReaLBConfig
 from repro_torch.core import ep_moe
@@ -194,14 +198,28 @@ def split_placement(placement, n_blocks: int):
     return None, entries
 
 
-def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
-                rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
-                cache_in, m_state, modality, chunk_len=None, valid=None,
-                cache_len=0, placement=None):
-    """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
-    (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
-    "decode" (the new rows written into ``cache_in`` in place, whose
-    tensors come back as ``cache_out``).  Returns (x, cache_out, m_state,
+def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+           positions, pos, cache_in, chunk_len=None, cache_len=0):
+    """The layer's attention output ``o`` and its KV (None in "train")."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if mode == "chunk":
+        return attn.gqa_chunk(lp["attn"], h, cache_in, cfg,
+                              positions=positions, chunk_len=chunk_len)
+    if mode == "decode":
+        return attn.gqa_decode(lp["attn"], h, cache_in, cfg, pos=pos)
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode {mode!r}: the port runs 'prefill', "
+                         "'chunk', 'decode' and 'train'")
+    o, kv = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+    if mode == "train":
+        return o, None
+    return o, {k: _pad_kv(v, cache_len) for k, v in kv.items()}
+
+
+def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
+              rcfg: ReaLBConfig, ffn: str, *, mode: str, m_state, modality,
+              valid=None, placement=None):
+    """The layer's dense or MoE FFN on the residual ``x``: (x, m_state,
     aux_scalars, stats, estats, sstats)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
     n_slot = n_physical_slots(cfg, placement)
@@ -210,21 +228,6 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     stats = torch.zeros((2,) + tuple(m_state.shape), dtype=F32, device=dev)
     estats = torch.zeros((2, n_e), dtype=F32, device=dev)
     sstats = torch.zeros((2, n_slot), dtype=F32, device=dev)
-
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    if mode == "chunk":
-        o, kv = attn.gqa_chunk(lp["attn"], h, cache_in, cfg,
-                               positions=positions, chunk_len=chunk_len)
-    elif mode == "decode":
-        o, kv = attn.gqa_decode(lp["attn"], h, cache_in, cfg, pos=pos)
-    elif mode == "prefill":
-        o, kv = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
-        kv = {k: _pad_kv(v, cache_len) for k, v in kv.items()}
-    else:
-        raise ValueError(f"mode {mode!r}: the port runs 'prefill', 'chunk' "
-                         "and 'decode'")
-    x = x + o
-
     if ffn == "dense" and "ffn" in lp:
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         x = x + ffn_mod.ffn_forward(lp["ffn"], h2, cfg)
@@ -233,7 +236,7 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
         y, m_state, moe_aux = ep_moe.ep_moe_forward(
             lp["moe"], h2, cfg, rcfg, m_state, modality,
             mode="broadcast" if mode == "decode" else "dispatch",
-            valid=valid, placement=placement)
+            valid=valid, placement=placement, train=mode == "train")
         if "shared" in lp:
             y = y + ffn_mod.ffn_forward(lp["shared"], h2, cfg)
         x = x + y
@@ -247,6 +250,25 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                               moe_aux["expert_vis"].reshape(-1, n_e).sum(0)])
         sstats = torch.stack([moe_aux["slot_load"].reshape(-1, n_slot).sum(0),
                               moe_aux["slot_vis"].reshape(-1, n_slot).sum(0)])
+    return x, m_state, aux, stats, estats, sstats
+
+
+def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
+                rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
+                cache_in, m_state, modality, chunk_len=None, valid=None,
+                cache_len=0, placement=None):
+    """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
+    (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
+    "decode" (the new rows written into ``cache_in`` in place, whose
+    tensors come back as ``cache_out``), or "train" (whole sequences, no
+    cache, ``cache_out`` None; the MoE layer in its training form).
+    Returns (x, cache_out, m_state, aux_scalars, stats, estats, sstats)."""
+    o, kv = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
+                   cache_in=cache_in, chunk_len=chunk_len,
+                   cache_len=cache_len)
+    x, m_state, aux, stats, estats, sstats = _ffn_part(
+        lp, x + o, cfg, rcfg, ffn, mode=mode, m_state=m_state,
+        modality=modality, valid=valid, placement=placement)
     return x, kv, m_state, aux, stats, estats, sstats
 
 
@@ -296,9 +318,10 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     """Prefix layers, then a loop over the stacked blocks; the cache is
     updated in place and returned: a chunk or decode writes only its new
     rows (``attention.write_rows_``), a prefill fills a new zero cache of
-    ``cache_len`` rows with each layer's padded KV.  A shared
-    placement table serves every block; a per-layer one gives block ``b``
-    its slice ``b`` (views, no copy)."""
+    ``cache_len`` rows with each layer's padded KV, "train" has none.  A
+    shared placement table serves every block; a per-layer one gives block
+    ``b`` its slice ``b`` (views, no copy).  In "train" ``cfg.remat``
+    picks what the backward recomputes (:func:`_train_block`)."""
     layout, n_blocks, n_prefix = block_structure(cfg)
     place_shared, place_stacked = split_placement(placement, n_blocks)
     if mode == "prefill":
@@ -308,7 +331,7 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     kw = dict(mode=mode, positions=positions, pos=pos, modality=modality,
               chunk_len=chunk_len, valid=valid, cache_len=cache_len)
     for i in range(n_prefix):
-        c = cache["prefix"][str(i)]
+        c = None if cache is None else cache["prefix"][str(i)]
         x, co, m_state, aux, _, _, _ = apply_layer(
             params["prefix"][str(i)], x, cfg, rcfg, "dense",
             cache_in=c, m_state=m_state, **kw)
@@ -321,6 +344,14 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     for b in range(n_blocks):
         place_b = place_shared if place_stacked is None \
             else tuple(a[b] for a in place_stacked)
+        if mode == "train":
+            x, m_state, aux_b, st, es, ss = _train_block(
+                params, cfg, rcfg, layout, b, x, m_state, place_b, **kw)
+            aux_acc = {k: aux_acc[k] + aux_b[k] for k in AUX_KEYS}
+            stats_b.append(st)
+            estats_b.append(es)
+            sstats_b.append(ss)
+            continue
         st = torch.zeros((2,) + tuple(m_state.shape), dtype=F32,
                          device=x.device)
         es = ss = 0
@@ -342,6 +373,52 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     aux_acc["expert_stats"] = torch.stack(estats_b)  # [n_blocks, 2, E]
     aux_acc["slot_stats"] = torch.stack(sstats_b)    # [n_blocks, 2, S]
     return x, cache, m_state, aux_acc
+
+
+def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
+                 **kw):
+    """Block ``b`` in "train": (x, m_state, aux, stats, estats, sstats).
+
+    ``cfg.remat`` (the reference's policies, with
+    ``torch.utils.checkpoint``, non-reentrant): "none" keeps every
+    activation; "full" checkpoints the block, so the backward reruns it
+    from its input; "attn_out" checkpoints each layer's attention and the
+    rest of the layer apart, so each attention output is a saved boundary
+    and the rest is recomputed.  A recompute gives the same values; what
+    the block returns (``m_state``, the statistics) is the first pass's.
+    Kernel launch counters count the recompute too."""
+    def layer(i, f, x, m):
+        lp = _index(params["blocks"][f"layer{i}"], b)
+        if cfg.remat != "attn_out":
+            x, _, m, aux, st, es, ss = apply_layer(
+                lp, x, cfg, rcfg, f, cache_in=None, m_state=m,
+                placement=placement, **kw)
+            return x, m, aux, st, es, ss
+        o = checkpoint(lambda x: _mixer(lp, x, cfg, cache_in=None, **{
+            k: kw[k] for k in ("mode", "positions", "pos")})[0], x,
+            use_reentrant=False)
+        return checkpoint(lambda x, o, m: _ffn_part(
+            lp, x + o, cfg, rcfg, f, m_state=m, placement=placement, **{
+                k: kw[k] for k in ("mode", "modality", "valid")}),
+            x, o, m, use_reentrant=False)
+
+    def block(x, m):
+        aux_b = {k: torch.zeros((), dtype=F32, device=x.device)
+                 for k in AUX_KEYS}
+        st = torch.zeros((2,) + tuple(m.shape), dtype=F32, device=x.device)
+        es = ss = 0
+        for i, (_, f) in enumerate(layout):
+            x, m, aux, stats, estats, sstats = layer(i, f, x, m)
+            aux_b = {k: aux_b[k] + aux[k] for k in AUX_KEYS}
+            st, es, ss = st + stats, es + estats, ss + sstats
+        return x, m, aux_b, st, es, ss
+
+    if cfg.remat == "full":
+        return checkpoint(block, x, m_state, use_reentrant=False)
+    if cfg.remat not in ("none", "attn_out"):
+        raise ValueError(f"remat {cfg.remat!r}: 'none', 'full' or "
+                         "'attn_out'")
+    return block(x, m_state)
 
 
 def _index(tree: Tree, b: int) -> Tree:
@@ -426,3 +503,53 @@ def decode_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
         valid=batch.get("valid"), placement=placement)
     logits = _unembed(params, cfg, x)
     return ForwardResult(logits[:, 0], cache, m_state, aux)
+
+
+def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
+                  m_state, placement=None) -> ForwardResult:
+    """Logits ``[B, S, V]`` (f32) of whole sequences and the MoE statistics,
+    with no cache: batch tokens [B,S], modality [B,S] (optional).  The MoE
+    layers run their training form (FP4 off, the BF16 expert FFN with its
+    gradient kernel; the policy and its AIMD update still run), and
+    ``cfg.remat`` sets what the backward recomputes."""
+    if current_mesh() is not None:
+        raise NotImplementedError("training under a mesh is not ported yet: "
+                                  "ROADMAP Queue A item 6")
+    tokens, modality = _prepare_inputs(cfg, batch)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "train")
+    x, _, m_state, aux = _run_stack(
+        params, cfg, rcfg, x, mode="train", positions=positions, pos=None,
+        cache=None, m_state=m_state, modality=modality,
+        placement=placement)
+    return ForwardResult(_unembed(params, cfg, x), None, m_state, aux)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE. logits [B,S,V] f32, labels [B,S] int (-1 = pad)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
+               m_state) -> Tuple[torch.Tensor, Tuple[torch.Tensor, Dict]]:
+    """(loss, (m_state, metrics)): the CE plus the MoE load-balance and
+    router-z losses at the config's coefficients; metrics ``ce`` and the
+    MoE scalars, detached."""
+    res = train_forward(params, cfg, rcfg, batch, m_state)
+    ce = cross_entropy(res.logits, batch["labels"])
+    loss = ce
+    if cfg.moe is not None:
+        loss = (loss + cfg.moe.aux_loss_coef * res.aux["lb_loss"]
+                + cfg.moe.router_z_coef * res.aux["z_loss"])
+    metrics = {"ce": ce.detach(),
+               **{k: res.aux[k].detach() for k in AUX_KEYS}}
+    return loss, (res.m_state, metrics)

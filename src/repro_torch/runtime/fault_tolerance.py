@@ -1,10 +1,34 @@
-"""Scripted rank faults for elastic serving.
+"""Fault tolerance: the training loop's checkpoints, NaN guard and
+preemption handling, and the scripted rank faults of elastic serving.
 
-Counterpart of ``repro.runtime.fault_tolerance``'s :class:`FaultEvent`
-and :class:`FaultInjector`; the reference's fault-tolerant training loop
-(``TrainLoop``) belongs to the training slice of the port.
+Counterpart of ``repro.runtime.fault_tolerance``.  :class:`TrainLoop`:
+
+* periodic **async** checkpoints (a host snapshot now, the write on a
+  thread),
+* a **NaN/Inf guard**: a non-finite loss drops the step's update, and
+  after ``nan_tolerance`` bad steps in a row the loop rolls back to the
+  newest checkpoint,
+* a **SIGTERM/SIGINT-safe** final save,
+* a byte-exact **restart**: the data pipeline is a pure function of the
+  step, so restoring step ``s`` resumes the same stream; ReaLB's AIMD state
+  is part of the checkpoint.
+
+The port's train step (``launch.steps.make_train_step``) updates its state
+in place and writes nothing when the loss is not finite, so dropping its
+returned state leaves the loop's state as it was before the step, as the
+reference's pure step does.
 """
 from __future__ import annotations
+
+import signal
+import time
+from typing import Any, Callable, Dict
+
+import numpy as np
+
+from repro_torch.checkpoint import ckpt as ckpt_lib
+
+Tree = Any
 
 
 class FaultEvent:
@@ -48,3 +72,78 @@ class FaultInjector:
             out.append(self.events[self._i])
             self._i += 1
         return out
+
+
+class TrainLoop:
+    def __init__(self, step_fn: Callable, *, ckpt_dir: str,
+                 checkpoint_every: int = 100, keep: int = 3,
+                 nan_tolerance: int = 3, log_every: int = 10,
+                 logger: Callable[[str], None] = print):
+        self.step_fn = step_fn
+        self.ckpt_dir = ckpt_dir
+        self.checkpoint_every = checkpoint_every
+        self.nan_tolerance = nan_tolerance
+        self.log_every = log_every
+        self.log = logger
+        self.checkpointer = ckpt_lib.AsyncCheckpointer(ckpt_dir, keep=keep)
+        self._stop = False
+
+    def _install_signals(self):
+        def handler(signum, frame):
+            self.log(f"[ft] signal {signum}: finishing step then saving")
+            self._stop = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                signal.signal(sig, handler)
+            except ValueError:
+                pass  # not the main thread (tests)
+
+    def restore_or_init(self, state: Dict[str, Tree]
+                        ) -> tuple[int, Dict[str, Tree]]:
+        step = ckpt_lib.latest_step(self.ckpt_dir)
+        if step is None:
+            return 0, state
+        step, restored = ckpt_lib.restore(self.ckpt_dir, state)
+        self.log(f"[ft] restored checkpoint at step {step}")
+        return step, restored
+
+    def run(self, state: Dict[str, Tree], data_iter, total_steps: int,
+            start_step: int = 0) -> Dict[str, Tree]:
+        self._install_signals()
+        bad_streak = 0
+        step = start_step
+        t0 = time.perf_counter()
+        while step < total_steps and not self._stop:
+            batch = next(data_iter)
+            new_state, metrics = self.step_fn(state, batch)
+            loss = float(metrics.get("loss", np.nan))
+            if not np.isfinite(loss):
+                bad_streak += 1
+                self.log(f"[ft] step {step}: non-finite loss "
+                         f"({bad_streak}/{self.nan_tolerance}) — "
+                         "update skipped")
+                if bad_streak >= self.nan_tolerance:
+                    self.checkpointer.wait()
+                    last = ckpt_lib.latest_step(self.ckpt_dir)
+                    if last is not None:
+                        _, state = ckpt_lib.restore(self.ckpt_dir, state)
+                        self.log(f"[ft] rolled back to step {last}")
+                        step = last
+                    bad_streak = 0
+                # drop new_state (the poisoned update)
+            else:
+                bad_streak = 0
+                state = new_state
+                step += 1
+                if step % self.log_every == 0:
+                    dt = (time.perf_counter() - t0) / max(self.log_every, 1)
+                    t0 = time.perf_counter()
+                    self.log(f"[ft] step {step}: loss={loss:.4f} "
+                             f"({dt*1e3:.0f} ms/step)")
+                if step % self.checkpoint_every == 0:
+                    self.checkpointer.save(step, state)
+        self.checkpointer.wait()
+        ckpt_lib.save(self.ckpt_dir, step, state)
+        self.log(f"[ft] final checkpoint at step {step}")
+        return state

@@ -67,7 +67,11 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.serving.elastic", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.launch.mesh",
               "repro_torch.models.common",
-              "repro_torch.configs.olmoe_1b_7b"):
+              "repro_torch.configs.olmoe_1b_7b",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.grad_utils", "repro_torch.launch.train",
+              "repro_torch.launch.steps"):
         assert m in mods, m
     paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
     assert "src/repro_torch/checkpoint/ckpt.py" in paths
@@ -103,6 +107,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tf.init_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tf.init_cache(cfg, 2, 16)
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.build("moonshot-v1-16b-a3b", "tiny", 2, 8, TrainConfig(),
+                    ReaLBConfig())
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -121,6 +130,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         grouped_fp4_ffn.grouped_ffn_cuda(
             torch.zeros(4, 32), torch.tensor([4, 0]),
             *([torch.zeros(2, 32, 32)] * 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_fp4_ffn.grouped_ffn_bwd_cuda(
+            torch.zeros(4, 32), torch.tensor([4, 0]),
+            *([torch.zeros(2, 32, 32)] * 3), torch.zeros(4, 32))
     with pytest.raises(ValueError, match="CUDA"):
         fp4_matmul.fp4_matmul_cuda(
             torch.zeros(4, 32), torch.zeros(8, 16, dtype=torch.uint8),

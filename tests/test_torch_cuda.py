@@ -1455,3 +1455,165 @@ def test_graphed_working_launches_counted_on_the_device(cuda):
     work, launched = counts[True]
     assert all(0 <= work[k] <= launched[k] for k in work)
     assert work["grouped_ffn"] + work["grouped_fp4_ffn"] > 0
+
+
+# --------------------------------------------------------------------------
+# the grouped FFN's backward kernel (training)
+# --------------------------------------------------------------------------
+def check_ffn_bwd(got, ref) -> float:
+    """The backward kernel's four outputs against its plain version's.
+    f32: the reference's kernel tolerance, rtol 1e-5 / atol 1e-4.  bf16:
+    within two bf16 ulps (2^-6 relative) of each value and of the output's
+    largest magnitude (both accumulate in f32 from the same bf16 inputs,
+    in another order, and round once; a one-ulp flip of a recomputed g or
+    u moves one term of a sum).  Returns the largest |got - ref|."""
+    err = 0.0
+    for name, y, r in zip(("dxs", "dw_gate", "dw_up", "dw_down"), got, ref):
+        ya, ra = y.float().cpu(), r.float().cpu()
+        assert ya.shape == ra.shape and y.dtype == r.dtype, name
+        if y.dtype == torch.bfloat16:
+            tol = 2.0 ** -6 * float(ra.abs().max())
+            torch.testing.assert_close(ya, ra, rtol=2.0 ** -6, atol=tol,
+                                       msg=name)
+        else:
+            torch.testing.assert_close(ya, ra, rtol=1e-5, atol=1e-4,
+                                       msg=name)
+        err = max(err, float((ya - ra).abs().max()))
+    return err
+
+
+def _bwd_args(cuda, m, d, f, gs, n_w, dtype, seed):
+    """The plain FFN's inputs (:func:`_plain_ffn_args`) and a gradient
+    ``dy`` of the output, zero on rows no slot with weights covers (the
+    layer's gradient there is 0: those outputs are constant 0)."""
+    args = _plain_ffn_args(cuda, m, d, f, gs, n_w, dtype, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(m, d, generator=gen, device=cuda).to(dtype)
+    dy[sum(gs[:n_w]):] = 0
+    return (*args, dy)
+
+
+# the reference's GROUPED_CASES with the weights of every slot, and with
+# the last slot a pad slot without weights (Gw < G)
+BWD_CASES = [(m, d, f, gs, n_w) for m, d, f, gs in GROUPED_CASES
+             for n_w in (len(gs), len(gs) - 1)]
+
+
+@pytest.mark.parametrize("m,d,f,gs,n_w", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_bwd_cuda_matches_plain(cuda, m, d, f, gs, n_w, dtype):
+    args = _bwd_args(cuda, m, d, f, gs, n_w, dtype, m + d + n_w)
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    check_ffn_bwd(got, ffn.grouped_ffn_bwd_plain(*args))
+    assert torch.all(got[0][sum(gs[:n_w]):] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_bwd_cuda_edges(cuda, dtype):
+    """Rows past sum(gs) (nonzero inputs there) give dx 0 and no weight
+    gradient; all-zero counts give all-zero outputs."""
+    gs = [10, 0, 12]
+    args = list(_bwd_args(cuda, 40, 64, 96, gs, 3, dtype, 7))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args[0][22:] = torch.randn(18, 64, generator=gen, device=cuda).to(dtype)
+    args[5][22:] = 1.0
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    assert torch.all(got[0][22:] == 0)
+    check_ffn_bwd(got, ffn.grouped_ffn_bwd_plain(*args))
+    args[1] = torch.zeros(3, dtype=torch.int32, device=cuda)
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    assert all(torch.all(t == 0) for t in got)
+
+
+def test_grouped_ffn_autograd_uses_the_backward_kernel(cuda):
+    """``ops.grouped_ffn`` under autograd launches the forward and the
+    backward kernel once each, and its gradients are the kernel's; without
+    a gradient it is the bare forward launch, bit for bit."""
+    xs, gs, wg, wu, wd, dy = _bwd_args(cuda, 300, 256, 192,
+                                       [70, 0, 1, 64, 65, 0, 0, 40, 60], 8,
+                                       torch.bfloat16, 3)
+    w = {"w_gate": wg.clone().requires_grad_(),
+         "w_up": wu.clone().requires_grad_(),
+         "w_down": wd.clone().requires_grad_()}
+    x = xs.clone().requires_grad_()
+    ops.reset_launch_counts()
+    y = ops.grouped_ffn(x, gs, w)
+    y.backward(dy)
+    counts = ops.launch_counts()
+    assert counts["grouped_ffn"] == 1 and counts["grouped_ffn_bwd"] == 1
+    ref = ffn.grouped_ffn_bwd_cuda(xs, gs, wg, wu, wd, dy)
+    for got, want in zip((x.grad, w["w_gate"].grad, w["w_up"].grad,
+                          w["w_down"].grad), ref):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        assert torch.equal(ops.grouped_ffn(x, gs, w),
+                           ffn.grouped_ffn_cuda(xs, gs, wg, wu, wd))
+    assert torch.equal(y.detach(), ffn.grouped_ffn_cuda(xs, gs, wg, wu, wd))
+
+
+# --------------------------------------------------------------------------
+# one train step on the card against the CPU
+# --------------------------------------------------------------------------
+def train_step_against_cpu(cuda, cfg, rcfg, batch, m):
+    """``train_loss`` and its gradient on the card (the forward and
+    backward FFN kernels) against the CPU's plain versions on the same f32
+    weights (seed 0): the loss and metrics at rtol 1e-4 / atol 3e-5 of
+    their size, ``m_state`` and the statistics bit for bit, every gradient
+    leaf within the larger of 3e-5 of its max and 4 x the CPU gradient's
+    own change when the embedding is scaled by 1 +- 2^-22 (the CPU parity
+    tests' criterion: through the whole model the gradient is
+    ill-conditioned, ``tests/test_torch_train.py``).  Returns (loss, the
+    card's kernel launches, the largest gap over its tolerance)."""
+    from repro_torch.optim.grad_utils import value_and_grad
+    params = tf.init_model(cfg, seed=0, device="cpu")
+
+    def run(p, dev):
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        (loss, (m2, met)), g = value_and_grad(
+            tf.train_loss, common.tree_map(lambda t: t.to(dev), p), cfg,
+            rcfg, b, torch.as_tensor(m).to(dev))
+        return loss.cpu(), m2.cpu(), {k: v.cpu() for k, v in met.items()}, \
+            [t.cpu() for t in common.tree_leaves(g)]
+
+    cpu = run(params, "cpu")
+    spread = [run({**params, "embed": params["embed"] * f}, "cpu")[3]
+              for f in (1 + 2.0 ** -22, 1 - 2.0 ** -22)]
+    ops.reset_launch_counts()
+    gpu = run(params, cuda)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-4,
+                               atol=3e-5 * float(cpu[0].abs()))
+    assert torch.equal(gpu[1], cpu[1])
+    for k in ("ce", "lb_loss", "drop_frac"):
+        torch.testing.assert_close(gpu[2][k], cpu[2][k], rtol=1e-4,
+                                   atol=3e-5 * float(cpu[2][k].abs()))
+    for k in ("ib_global", "fp4_ranks", "gate_open", "split_frac"):
+        assert torch.equal(gpu[2][k], cpu[2][k]), k
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gpu[3], cpu[3])):
+        spr = max(float((s[i] - b).abs().max()) for s in spread)
+        tol = max(3e-5 * float(b.abs().max()), 4 * spr)
+        gap = float((a - b).abs().max())
+        assert gap <= tol, (i, gap, tol)
+        worst = max(worst, gap / tol if tol else 0.0)
+    return float(cpu[0]), counts, worst
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """Reduced moonshot (f32, ReaLB on over a virtual EP group of 4, FP4
+    voted and forced off): the step's loss, statistics and gradients on the
+    card match the CPU, through the grouped FFN's forward and backward
+    kernels and no FP4 kernel."""
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rng = np.random.default_rng(1)
+    labels = rng.integers(0, 512, (4, 16)).astype(np.int32)
+    labels[rng.random((4, 16)) < 0.25] = -1
+    batch = {"tokens": rng.integers(0, 512, (4, 16)).astype(np.int32),
+             "labels": labels, "modality": rng.random((4, 16)) < 0.6}
+    rcfg = ReaLBConfig(gate_gamma=8, md_init=0.0, adaptive=False)
+    _, counts, _ = train_step_against_cpu(cuda, cfg, rcfg, batch,
+                                          np.zeros((1, 4), np.float32))
+    assert counts["grouped_ffn"] == counts["grouped_ffn_bwd"] == 3
+    assert counts["quantize_fp4"] == counts["grouped_fp4_ffn"] == 0
