@@ -163,8 +163,8 @@
    patterns (f32 and bf16, pad slots, rows past the counts, all-zero
    counts), and at 13d's full-width shapes (on its first backward launch's
    inputs) timed beside its bound, its plain version and an all-zero
-   launch; (b) reduced olmoe-1b-7b, 100 AdamW steps of ``lm_batch`` on the
-   card: the loss falls by more than 0.5, step 1's loss, statistics and
+   launch (zeros out), with its three stages' device time; (b) reduced
+   olmoe-1b-7b, 100 AdamW steps of ``lm_batch`` on the card: the loss falls by more than 0.5, step 1's loss, statistics and
    gradients match the CPU's; (c) ``benchmarks/acc_proxy.py``'s recipe (150
    steps) through ``launch.train.build`` and ``TrainLoop``, preempted at
    step 75 and restarted from its checkpoint, byte-exact against an
@@ -189,7 +189,8 @@
    phase 11's by arm and rank, and phase 12c's graphed launches (derived:
    captured x replays) and working launches (counted on the device), and
    phase 13d's launches on the training path; the backward kernel's row
-   (launches on 13d's path, error, time, bound, plain time);
+   (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
+   device time by stage);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -248,6 +249,30 @@ def ptxas_summary(logs):
     return rows
 
 
+def sass_hgmma(stem: str) -> dict:
+    """``{kernel: count}`` of the ``HGMMA`` (wgmma) instructions in the SASS
+    of one kernel library (``cuobjdump -sass``), kernels by their names."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.load()[stem]._name],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            # the kernel's own name in the mangled one, as ptxas_summary
+            short = re.search(r"\d([a-z_]+kernel)", fn.group(1))
+            name = short.group(1) if short else fn.group(1)[:48]
+            counts.setdefault(name, 0)
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean milliseconds per call, CUDA events around ``iters`` calls."""
     import torch
@@ -264,15 +289,19 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_call(fn, calls: int = 20) -> float:
-    """Device time of one call of ``fn``, from a ``torch.profiler`` trace of
-    ``calls`` calls: the summed duration of the port's own kernels (not
-    PyTorch's, such as a wrapper's zero fill of its output) over ``calls``."""
+def device_ms_by_kernel(fn, calls: int = 20) -> dict:
+    """Device time of one call of ``fn`` by kernel, ``{name: ms}``, from a
+    ``torch.profiler`` trace of ``calls`` calls: the port's own kernels
+    only (not PyTorch's, such as a wrapper's zero fill of its output),
+    named without their namespaces and arguments; empty when the trace
+    holds no kernel event.  It records CPU activity too, as
+    :func:`host_and_device_ms` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -281,9 +310,19 @@ def device_ms_per_call(fn, calls: int = 20) -> float:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    us = sum(e["dur"] for e in events if e.get("cat") == "kernel"
-             and "at::" not in e["name"])
-    return us / 1e3 / calls
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "at::" not in e["name"]:
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split(" ")[-1]
+            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / calls
+    return out
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: its kernels' summed duration
+    (:func:`device_ms_by_kernel`)."""
+    return sum(device_ms_by_kernel(fn, calls).values())
 
 
 def check_quantize(dev):
@@ -3675,22 +3714,41 @@ def bwd_bound(args):
 
 def check_grouped_ffn_bwd_cases(dev):
     """Phase 13a, first part: the backward kernel against its plain
-    version on the card over the reference's patterns (f32 at rtol 1e-5 /
-    atol 1e-4, bf16 within two bf16 ulps; every slot with weights, and the
-    last slot a pad slot without them), rows past the counts and all-zero
-    counts."""
+    version on the card over the reference's patterns and slots of 1, 17,
+    63, 64 and 65 rows (f32 at rtol 1e-5 / atol 1e-4, bf16 within two bf16
+    ulps; every slot with weights, and the last slot a pad slot without
+    them), bf16 at moonshot's widths (where the f32 entry's gap to its
+    plain version is reported, not held), rows past the counts and
+    all-zero counts."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
-    from test_torch_cuda import (BWD_CASES, _bwd_args, check_ffn_bwd,
+    from test_torch_cuda import (BWD_CASES, BWD_WIDE_CASES, _bwd_args,
+                                 check_ffn_bwd,
                                  test_grouped_ffn_bwd_cuda_edges)
 
-    for m, d, f, gs, n_w in BWD_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for (m, d, f, gs, n_w), dtypes in (
+            [(c, both) for c in BWD_CASES]
+            + [(c, (torch.bfloat16,)) for c in BWD_WIDE_CASES]):
+        for dtype in dtypes:
             a = _bwd_args(dev, m, d, f, gs, n_w, dtype, m + d + n_w)
             err = check_ffn_bwd(ffn.grouped_ffn_bwd_cuda(*a),
                                 ffn.grouped_ffn_bwd_plain(*a))
             log(f"grouped_ffn_bwd m={m} d={d} f={f} gs={gs} Gw={n_w} "
                 f"{dtype}: max abs err {err:.3g}")
+    # the f32 entry at moonshot's widths, reported and not held: its
+    # tolerance is the reference's for small patterns
+    m, d, f, gs, n_w = BWD_WIDE_CASES[0]
+    a = _bwd_args(dev, m, d, f, gs, n_w, torch.float32, m + d + n_w)
+    for name, y, r in zip(("dxs", "dw_gate", "dw_up", "dw_down"),
+                          ffn.grouped_ffn_bwd_cuda(*a),
+                          ffn.grouped_ffn_bwd_plain(*a)):
+        gap = (y - r).abs()
+        log(f"grouped_ffn_bwd f32 entry m={m} d={d} f={f} {name}: max "
+            f"|gap| {float(gap.max()):.3g} (max |ref| "
+            f"{float(r.abs().max()):.3g}), "
+            f"{int((gap > 1e-4 + 1e-5 * r.abs()).sum())} of {r.numel()} "
+            f"past rtol 1e-5 / atol 1e-4")
     for dtype in (torch.float32, torch.bfloat16):
         test_grouped_ffn_bwd_cuda_edges(dev, dtype)
     log("grouped_ffn_bwd: rows past sum(gs) give dx 0 and no weight "
@@ -3701,31 +3759,39 @@ def check_grouped_ffn_bwd(args):
     """Phase 13a, second part: the backward kernel against its plain
     version on ``args``, the inputs the full-width train step (13d) gave
     its first backward launch; times the kernel there beside its bound,
-    its plain version and a launch with all-zero counts.  Returns the
-    kernel's record."""
+    its plain version and a launch with all-zero counts (whose outputs
+    must be zeros), and gives each of its three stages' device time.
+    Returns the kernel's record."""
     import torch
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from test_torch_cuda import check_ffn_bwd
 
     launch = ffn.grouped_ffn_bwd_cuda
     err = check_ffn_bwd(launch(*args), ffn.grouped_ffn_bwd_plain(*args))
-    ms = time_ms(lambda: launch(*args), iters=3)
+    ms = time_ms(lambda: launch(*args), iters=10)
     plain_ms = time_ms(lambda: ffn.grouped_ffn_bwd_plain(*args), iters=2)
     zero = (args[0], torch.zeros_like(args[1]), *args[2:])
     idle_ms = time_ms(lambda: launch(*zero), iters=5)
+    if not all(bool((t == 0).all()) for t in launch(*zero)):
+        raise AssertionError("grouped_ffn_bwd: all-zero counts gave "
+                             "nonzero outputs")
+    stages = device_ms_by_kernel(lambda: launch(*args), calls=5)
     bound, by = bwd_bound(args)
     m, d = args[0].shape
     n_w, _, f = args[2].shape
     rows = int(args[1][:n_w].sum())
+    tflops = 16.0 * rows * d * f / ms / 1e9
     log(f"grouped_ffn_bwd at the full-width train step's first backward: "
         f"M={m} ({rows} rows in slots with weights, G={args[1].numel()}, "
         f"Gw={n_w}) D={d} F={f} {args[0].dtype}: max abs err {err:.4g}; "
         f"{ms:.4f} ms (plain {plain_ms:.4f} ms; all-zero counts "
-        f"{idle_ms:.4f} ms), bound {bound:.4f} ms ({by}), "
-        f"{16.0 * rows * d * f / ms / 1e9:.1f} TFLOP/s")
+        f"{idle_ms:.4f} ms, zeros), bound {bound:.4f} ms ({by}), "
+        f"{tflops:.1f} TFLOP/s; device ms by stage "
+        f"{stages or 'not measured (no kernel event in the trace)'}")
     return {"name": "grouped_ffn_bwd", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "idle_ms": idle_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None, "tflops": tflops,
+            "stages_ms": stages}
 
 
 def train_loss_falls(dev):
@@ -4023,6 +4089,12 @@ def main() -> int:
     if not _build.build_log:
         log("ptxas: the libraries came from the build cache (no compiler "
             "output)")
+    hgmma = sass_hgmma("grouped_ffn_bwd")
+    log(f"sass grouped_ffn_bwd: HGMMA instructions by kernel {hgmma}")
+    if not all(hgmma.get(k) for k in ("act_kernel", "dx_kernel",
+                                      "dw_kernel")):
+        raise AssertionError("grouped_ffn_bwd: the bf16 stages hold no "
+                             f"HGMMA: {hgmma}")
 
     q_rec, s_rec = check_quantize(dev)
     forced_ms = check_grouped_ffn(dev)
@@ -4132,14 +4204,14 @@ def main() -> int:
         k["train_launches"] = train_counts[k["name"]]
     kernels.append({
         "name": bwd_rec["name"], "route": "cuda",
-        "source": "src/repro_torch/csrc/grouped_ffn_bwd.cu",
+        "source": "src/repro_torch/csrc/grouped_ffn_bwd_sm90.cuh",
         "replaces": "XLA's transpose of jax.lax.ragged_dot in training "
                     "(no Pallas kernel), src/repro/core/ep_moe.py:325-335",
         "launches": train_counts[bwd_rec["name"]],
         "train_launches": train_counts[bwd_rec["name"]],
         **{k: bwd_rec[k] for k in ("max_abs_err", "ms", "idle_ms",
                                    "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}})
+                                   "library_ms", "tflops", "stages_ms")}})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,44 +7,45 @@
 // (src/repro/core/ep_moe.py:325-335, the BF16 branch that train=True
 // takes); the port's forward is the hand-written grouped_ffn kernel, so its
 // gradient is a kernel too.  For the rows of slot g (counts gs[g], rows in
-// slot order), with T the input type:
-//   g = T(x.Wg), u = T(x.Wu)           recomputed as the forward rounds them
-//   a = T(silu(g)), h = T(a * u)
-//   dh = dy.Wd^T                        f32
-//   dg = dh * u * silu'(g), du = dh * a f32
-//   dx = dg.Wg^T + du.Wu^T              one rounding to T
-//   dWg = x^T.dg, dWu = x^T.du, dWd = h^T.dy over the slot's rows,
-//                                       one rounding to T
-// every product accumulated in f32.  Rows past sum(gs) and rows of slots
-// g >= Gw give dx = 0 and add nothing to any weight gradient (slots past Gw
-// have no weights: the MoE layer's pad slot of unfilled capacity rows).
+// slot order), with T the rounding to the input type and every product
+// accumulated in f32, the chain of jax.vjp (each cotangent in its primal's
+// type, the two cotangents of x added in T):
+//   g = T(x.Wg), u = T(x.Wu), a = T(silu(g)), h = T(a * u)   the forward's
+//   dh = T(dy.Wd^T)
+//   da = T(dh * u), du = T(dh * a)
+//   dg = T(da * s * (1 + g * (1 - s))), s = sigmoid(g)       derivative in f32
+//   dx = T(T(dg.Wg^T) + T(du.Wu^T))
+//   dWg = T(x^T.dg), dWu = T(x^T.du), dWd = T(h^T.dy) over the slot's rows.
+// Rows past sum(gs) and rows of slots g >= Gw give dx = 0 and add nothing
+// to any weight gradient (slots past Gw have no weights: the MoE layer's
+// pad slot of unfilled capacity rows).
 //
-// What bounds it on the H100: operations.  A training step at moonshot's
-// widths (D = 2048, F = 1408, 64 experts, ~24.6k routed rows a layer) does
-// eight products of 2.M.D.F each, ~1.1 TFLOP, ~1.15 ms at the bf16 tensor
-// core rate, against ~2.6 GB of operands and gradients (~0.8 ms at 3.35
-// TB/s).  This first design is simple and runs on the f32 FMA units, far
-// from that bound; a wgmma design is later work:
+// Two designs.  The bf16 entry, the training path's, is the Hopper design
+// on the tensor cores in grouped_ffn_bwd_sm90.cuh (its header says what
+// bounds it and how).  The f32 entry is the parity path (f32 training of
+// small models, the card-against-CPU checks), in which every T is the
+// identity: the first design below, on the f32 FMA units.
 //  * three kernels.  (a) one block per (64-row tile of one slot, 64
 //    columns of F) recomputes g and u over D and dh over D in one loop,
-//    applies the SwiGLU derivative and writes dg, du (f32) and h (rounded
-//    to T, stored as f32) to [M, F] scratch; (b) one block per (row tile,
-//    64 columns of D) computes dx over F from dg and du; (c) one block per
-//    (slot, 64 x 64 tile of the weight gradient, which of the three) loops
-//    over the slot's rows 16 at a time.
-//  * a tile schedule built on the device, as in the forward's f32 design:
-//    block x of (a) and (b) walks the counts and takes the x-th 64-row
-//    tile of the slot sequence, so no tile mixes two slots and empty slots
-//    cost nothing; the grid is sized by the bound ceil(M / 64) + G and
-//    surplus blocks exit.  A slot of (c) with no rows exits at once, so
-//    all-zero counts launch three waves that exit.  The caller zeroes dx
-//    and the weight gradients.
+//    applies the SwiGLU derivative and writes dg, du and h to f32 [M, F]
+//    scratch; (b) one block per (row tile, 64 columns of D) computes dx
+//    over F from dg and du; (c) one block per (slot, 64 x 64 tile of the
+//    weight gradient, which of the three) loops over the slot's rows 16 at
+//    a time.
+//  * a tile schedule built on the device: block x of (a) and (b) walks the
+//    counts and takes the x-th 64-row tile of the slot sequence, so no
+//    tile mixes two slots and empty slots cost nothing; the grid is sized
+//    by the bound ceil(M / 64) + G and surplus blocks exit.  A slot of (c)
+//    with no rows exits at once.  The caller zeroes dx and the weight
+//    gradients.
 //  * each block of 256 threads holds a 64 x 64 f32 tile, 4 x 4 a thread,
-//    from 16-deep operand tiles in shared memory, converted to f32 on load.
+//    from 16-deep operand tiles in shared memory.
 // No cuBLAS and no library GEMM: every product is written here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grouped_ffn_bwd_sm90.cuh"
 
 namespace {
 
@@ -58,19 +59,11 @@ template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
 __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -412,10 +405,12 @@ extern "C" {
 
 // xs, dy: [M, D] rows sorted by slot, of type T; gs: int32 [G] rows per
 // slot (sum <= M), slots g >= Gw have no weights; w_gate, w_up [Gw, D, F]
-// and w_down [Gw, F, D] of type T; scratch dg, du, h: f32 [M, F]; outputs
-// dxs [M, D] and dw_gate, dw_up [Gw, D, F], dw_down [Gw, F, D] of type T,
-// zeroed by the caller (rows and slots without work are not written).
-// D and F must be multiples of 16; all arrays contiguous.  Returns
+// and w_down [Gw, F, D] of type T; scratch dg, du, h: [M, F] of type T
+// (bf16) or f32 (f32); outputs dxs [M, D] and dw_gate, dw_up [Gw, D, F],
+// dw_down [Gw, F, D] of type T.  D and F multiples of 32; all arrays
+// contiguous and 16-byte aligned.  bf16: M > 0, Gw > 0, Gw <= G <= 512;
+// every element of the outputs is written.  f32: the caller zeroes the
+// outputs (rows and slots without work are not written).  Returns
 // cudaGetLastError() after the launches.
 int grouped_ffn_bwd_bf16(const void* xs, const void* gs, int64_t G,
                          int64_t Gw, const void* w_gate, const void* w_up,
@@ -423,9 +418,9 @@ int grouped_ffn_bwd_bf16(const void* xs, const void* gs, int64_t G,
                          void* du, void* h, void* dxs, void* dw_gate,
                          void* dw_up, void* dw_down, int64_t M, int64_t D,
                          int64_t F, void* stream) {
-  return launch<__nv_bfloat16>(xs, gs, G, Gw, w_gate, w_up, w_down, dy, dg,
-                               du, h, dxs, dw_gate, dw_up, dw_down, M, D, F,
-                               stream);
+  return sm90::bwd::launch(xs, gs, G, Gw, w_gate, w_up, w_down, dy, dg, du,
+                           h, dxs, dw_gate, dw_up, dw_down, M, D, F,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int grouped_ffn_bwd_f32(const void* xs, const void* gs, int64_t G, int64_t Gw,

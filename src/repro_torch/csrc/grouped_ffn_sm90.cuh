@@ -203,23 +203,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   });
 }
 
-// bf16 weights [Gw, K, NR] (NR contiguous), boxes of 64 rows along NR by 64
-// along K of one slot, 128-byte swizzle.
-bool plain_weight_map(CUtensorMap* map, const void* w, int64_t Gw,
-                      int64_t NR, int64_t K) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(NR),
-                              static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(Gw)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(NR * 2),
-                                 static_cast<cuuint64_t>(K * NR * 2)};
-  const cuuint32_t box[3] = {PART_ROWS, BK, 1}, step[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(w), dims, strides, box, step,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool plain_maps(Maps* maps, const void* w0, const void* w1, const void* act,
                 int64_t Gw, int64_t NR, int64_t K, int64_t M) {
   if (encoder() == nullptr) return false;

@@ -3,7 +3,9 @@
 // grouped_ffn_sm90.cuh; both included by grouped_fp4_ffn.cu) their work
 // items and device-built schedule; they and fp4_matmul.cu the mbarriers,
 // TMA loads, the host encoder of tensor maps, the FP4 code decode, and
-// wgmma on 128-byte-swizzled tiles.
+// wgmma on 128-byte-swizzled tiles.  The bf16 backward of the FFN
+// (grouped_ffn_bwd_sm90.cuh, in grouped_ffn_bwd.cu) takes the schedule,
+// the tensor maps and wgmma with either operand MN-major from here too.
 //
 // Both designs swap A and B (Y^T = W . X^T): weight rows take wgmma's
 // 64-row M side, a slot's tokens its N side, rounded up to 8, 16, 32 or 64.
@@ -92,6 +94,11 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
       "r"(bytes)
       : "memory");
 }
+// Arrive on a barrier (no transfer).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 // Wait until the barrier's phase with this parity has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
@@ -170,10 +177,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (64ull << 32) | (1ull << 62);
 }
 
-// wgmma m64nNk16, bf16 in, f32 accumulate, A and B from shared memory, B
-// K-major; TA = 1: A MN-major (generated: one per width N); scale_d 0
-// overwrites d with the product.
-template <int TA>
+// wgmma m64nNk16, bf16 in, f32 accumulate, A and B from shared memory;
+// TA = 1: A MN-major, TB = 1: B MN-major (K-major when 0; generated: one
+// per width N); scale_d 0 overwrites d with the product.
+template <int TA, int TB = 0>
 __device__ __forceinline__ void wgmma_n8(float* d, uint64_t a, uint64_t b,
                                          int scale_d) {
   asm volatile(
@@ -181,12 +188,12 @@ __device__ __forceinline__ void wgmma_n8(float* d, uint64_t a, uint64_t b,
       "setp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int TA>
+template <int TA, int TB = 0>
 __device__ __forceinline__ void wgmma_n16(float* d, uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -194,13 +201,13 @@ __device__ __forceinline__ void wgmma_n16(float* d, uint64_t a, uint64_t b,
       "setp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int TA>
+template <int TA, int TB = 0>
 __device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -209,15 +216,15 @@ __device__ __forceinline__ void wgmma_n32(float* d, uint64_t a, uint64_t b,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int TA>
+template <int TA, int TB = 0>
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -228,7 +235,7 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -237,10 +244,10 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t a, uint64_t b,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int TA>
+template <int TA, int TB = 0>
 __device__ __forceinline__ void wgmma_n128(float* d, uint64_t a, uint64_t b,
                                            int scale_d) {
   asm volatile(
@@ -255,7 +262,7 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t a, uint64_t b,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -273,15 +280,15 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t a, uint64_t b,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-template <int N, int TA = 0>
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b) {
-  if constexpr (N == 8) wgmma_n8<TA>(d, a, b, 1);
-  else if constexpr (N == 16) wgmma_n16<TA>(d, a, b, 1);
-  else if constexpr (N == 32) wgmma_n32<TA>(d, a, b, 1);
-  else wgmma_n64<TA>(d, a, b, 1);
+  if constexpr (N == 8) wgmma_n8<TA, TB>(d, a, b, 1);
+  else if constexpr (N == 16) wgmma_n16<TA, TB>(d, a, b, 1);
+  else if constexpr (N == 32) wgmma_n32<TA, TB>(d, a, b, 1);
+  else wgmma_n64<TA, TB>(d, a, b, 1);
 }
 
 // Rounds v to bf16 and back (the reference's casts between stages).
@@ -430,6 +437,16 @@ cudaError_t allow_smem() {
   return err;
 }
 
+// Makes the current device's primary context current on the calling host
+// thread.  The tensor-map encoder is a driver call that needs one, and a
+// thread whose first CUDA work is a launch of this library (autograd's
+// worker thread running a backward first) may have none yet.
+inline cudaError_t bind_device() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // cuTensorMapEncodeTiled, looked up once with cudaGetDriverEntryPoint,
 // so that the library needs no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -474,6 +491,23 @@ bool token_maps(Maps* maps, const void* act, int64_t M, int64_t K) {
   for (int i = 0; i < 4; ++i)
     ok = ok && token_map(&maps->tok[i], act, M, K, rows[i]);
   return ok;
+}
+
+// bf16 weights [Gw, K, NR] (NR contiguous), boxes of 64 rows along NR by 64
+// along K of one slot, 128-byte swizzle.
+bool plain_weight_map(CUtensorMap* map, const void* w, int64_t Gw,
+                      int64_t NR, int64_t K) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(NR),
+                              static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(Gw)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(NR * 2),
+                                 static_cast<cuuint64_t>(K * NR * 2)};
+  const cuuint32_t box[3] = {PART_ROWS, BK, 1}, step[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(w), dims, strides, box, step,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -21,10 +21,11 @@ of unfilled capacity rows (all zero) is such a slot.  The kernel source is
 oracles (dequantize, then one product per slot) and run on the CPU only.
 
 The plain FFN's gradient (training) is a kernel too,
-``csrc/grouped_ffn_bwd.cu`` (``grouped_ffn_bwd_cuda``), beside its plain
-version ``grouped_ffn_bwd_plain``: ``dxs`` and the three weight gradients
-from ``dy``, recomputing ``g`` and ``u`` as the forward rounds them, f32
-accumulation throughout and one rounding to each output's type.
+``csrc/grouped_ffn_bwd.cu`` (``grouped_ffn_bwd_cuda``; bf16 on the tensor
+cores, ``csrc/grouped_ffn_bwd_sm90.cuh``), beside its plain version
+``grouped_ffn_bwd_plain``: ``dxs`` and the three weight gradients from
+``dy``, recomputing ``g`` and ``u`` as the forward rounds them, with f32
+accumulation and the roundings of ``jax.vjp`` of the reference.
 """
 from __future__ import annotations
 
@@ -105,24 +106,40 @@ def grouped_ffn_plain(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
 def grouped_ffn_bwd_plain(xs, gs, w_gate, w_up, w_down, dy):
     """The backward kernel's function in plain PyTorch: ``(dxs, dw_gate,
     dw_up, dw_down)`` of :func:`grouped_ffn_plain` at ``dy``, in explicit
-    formulas.  ``g`` and ``u`` are recomputed and rounded to ``xs``'s dtype
-    as the forward rounds them; every product and the SwiGLU derivative run
-    in f32, each output rounded once to its input's dtype."""
+    formulas.  With ``T`` the rounding to ``xs``'s dtype, every product
+    accumulated in f32 and ``s = sigmoid(g)``::
+
+        g = T(x·Wg), u = T(x·Wu), a = T(silu(g)), h = T(a·u)  (the forward's)
+        dh = T(dy·Wdᵀ)
+        da = T(dh·u), du = T(dh·a)
+        dg = T(da · s·(1 + g·(1 − s)))         (the derivative in f32)
+        dx = T(T(dg·Wgᵀ) + T(du·Wuᵀ))
+        dWg = T(xᵀ·dg), dWu = T(xᵀ·du), dWd = T(hᵀ·dy)
+
+    These are the roundings of ``jax.vjp`` of the reference's
+    ``_grouped_ffn``, where every cotangent takes its primal's dtype and
+    the two uses of ``x`` add their cotangents in that dtype.  In f32 each
+    ``T`` is the identity."""
     dt, f32 = xs.dtype, torch.float32
+
+    def rnd(t):
+        return t.to(dt).to(f32)
+
     x = xs.to(f32)
     wg, wu, wd = (w.to(dt).to(f32) for w in (w_gate, w_up, w_down))
     n_g = wg.shape[0]
-    g = grouped_matmul(x, wg, gs).to(dt).to(f32)
-    u = grouped_matmul(x, wu, gs).to(dt).to(f32)
+    g = rnd(grouped_matmul(x, wg, gs))
+    u = rnd(grouped_matmul(x, wu, gs))
     s = torch.sigmoid(g)
-    a = F.silu(g).to(dt).to(f32)
-    h = (a * u).to(dt).to(f32)
+    a = rnd(F.silu(g))
+    h = rnd(a * u)
     dyf = dy.to(f32)
-    dh = grouped_matmul(dyf, wd.transpose(-1, -2), gs)
-    dg = dh * u * (s * (1.0 + g * (1.0 - s)))
-    du = dh * a
-    dx = grouped_matmul(dg, wg.transpose(-1, -2), gs) \
-        + grouped_matmul(du, wu.transpose(-1, -2), gs)
+    dh = rnd(grouped_matmul(dyf, wd.transpose(-1, -2), gs))
+    da = rnd(dh * u)
+    du = rnd(dh * a)
+    dg = rnd(da * (s * (1.0 + g * (1.0 - s))))
+    dx = rnd(grouped_matmul(dg, wg.transpose(-1, -2), gs)) \
+        + rnd(grouped_matmul(du, wu.transpose(-1, -2), gs))
     return (dx.to(dt), grouped_outer(x, dg, gs, n_g).to(w_gate.dtype),
             grouped_outer(x, du, gs, n_g).to(w_up.dtype),
             grouped_outer(h, dyf, gs, n_g).to(w_down.dtype))
@@ -256,7 +273,11 @@ def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
 def grouped_ffn_bwd_cuda(xs, gs, w_gate, w_up, w_down, dy):
     """Launch the backward kernel on CUDA tensors: ``xs`` and ``dy [M, D]``
     bf16 or f32, weights ``[Gw, D, F]``/``[Gw, F, D]`` of that dtype, D and
-    F multiples of 32; returns ``(dxs, dw_gate, dw_up, dw_down)``."""
+    F multiples of 32 (16-byte row strides for TMA), bf16 at most
+    ``MAX_SLOTS`` counts; returns ``(dxs, dw_gate, dw_up, dw_down)``.  bf16
+    is the tensor-core design, which writes every element of its outputs
+    (bf16 ``dg``, ``du``, ``h`` scratch); f32 the FMA design, which takes
+    zeroed outputs and f32 scratch."""
     global bwd_launches
     _require_cuda("grouped_ffn_bwd_cuda", xs)
     m, d = xs.shape
@@ -274,18 +295,26 @@ def grouped_ffn_bwd_cuda(xs, gs, w_gate, w_up, w_down, dy):
     x, g32, wg, wu, wd, dyc = _common_args(
         "grouped_ffn_bwd_cuda", xs, gs, [w_gate, w_up, w_down, dy], n_g, d,
         f)
+    tensor_cores = dt == torch.bfloat16
+    if tensor_cores and g32.shape[0] > MAX_SLOTS:
+        raise ValueError(f"grouped_ffn_bwd_cuda: {g32.shape[0]} counts, the "
+                         f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
-    dg, du, h = (torch.empty((m, f), dtype=torch.float32, device=dev)
+    # the tensor-core design writes every element; with no rows or no
+    # weights it does not launch, and the outputs are zeros
+    alloc = torch.empty if tensor_cores and m and n_g else torch.zeros
+    dg, du, h = (torch.empty((m, f), dtype=dt, device=dev)
                  for _ in range(3))
-    dxs = torch.zeros((m, d), dtype=dt, device=dev)
-    dws = [torch.zeros(w.shape, dtype=dt, device=dev)
+    dxs = alloc((m, d), dtype=dt, device=dev)
+    dws = [alloc(w.shape, dtype=dt, device=dev)
            for w in (w_gate, w_up, w_down)]
-    fn = _build.entry("grouped_ffn_bwd", _BWD_ENTRY[dt], _BWD_ARGTYPES)
-    err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, wg.data_ptr(),
-             wu.data_ptr(), wd.data_ptr(), dyc.data_ptr(), dg.data_ptr(),
-             du.data_ptr(), h.data_ptr(), dxs.data_ptr(), dws[0].data_ptr(),
-             dws[1].data_ptr(), dws[2].data_ptr(), m, d, f,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "grouped_ffn_bwd")
-    bwd_launches += 1
+    if m and n_g:
+        fn = _build.entry("grouped_ffn_bwd", _BWD_ENTRY[dt], _BWD_ARGTYPES)
+        err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g,
+                 wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), dyc.data_ptr(),
+                 dg.data_ptr(), du.data_ptr(), h.data_ptr(), dxs.data_ptr(),
+                 dws[0].data_ptr(), dws[1].data_ptr(), dws[2].data_ptr(), m,
+                 d, f, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "grouped_ffn_bwd")
+        bwd_launches += 1
     return (dxs, *dws)

@@ -7,6 +7,7 @@ JAX, so the card's machine runs it as it is:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``.
 """
 import itertools
+import threading
 import time
 
 import numpy as np
@@ -1493,16 +1494,35 @@ def _bwd_args(cuda, m, d, f, gs, n_w, dtype, seed):
     return (*args, dy)
 
 
-# the reference's GROUPED_CASES with the weights of every slot, and with
-# the last slot a pad slot without weights (Gw < G)
-BWD_CASES = [(m, d, f, gs, n_w) for m, d, f, gs in GROUPED_CASES
-             for n_w in (len(gs), len(gs) - 1)]
+# the reference's GROUPED_CASES and slots of 1, 17, 63, 64 and 65 rows (a
+# weight gradient's last row tile ends inside the next slot's rows), each
+# with the weights of every slot and with the last slot a pad slot without
+# weights (Gw < G)
+BWD_CASES = [(m, d, f, gs, n_w) for m, d, f, gs in GROUPED_CASES + [
+    (224, 64, 96, [1, 17, 63, 64, 65])]
+    for n_w in (len(gs), len(gs) - 1)]
+# moonshot's widths at a few hundred rows, for the bf16 entry (the
+# training path's); the f32 entry's tolerance is the reference's for its
+# small patterns, and over a 2048-deep recompute its f32 sums part from
+# cuBLAS's by more than its atol of 1e-4
+BWD_WIDE_CASES = [(448, 2048, 1408, [100, 0, 37, 200, 65, 30], n_w)
+                  for n_w in (6, 5)]
 
 
 @pytest.mark.parametrize("m,d,f,gs,n_w", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_ffn_bwd_cuda_matches_plain(cuda, m, d, f, gs, n_w, dtype):
     args = _bwd_args(cuda, m, d, f, gs, n_w, dtype, m + d + n_w)
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    check_ffn_bwd(got, ffn.grouped_ffn_bwd_plain(*args))
+    assert torch.all(got[0][sum(gs[:n_w]):] == 0)
+
+
+@pytest.mark.parametrize("m,d,f,gs,n_w", BWD_WIDE_CASES)
+def test_grouped_ffn_bwd_cuda_matches_plain_at_full_width(cuda, m, d, f, gs,
+                                                          n_w):
+    args = _bwd_args(cuda, m, d, f, gs, n_w, torch.bfloat16, m + d + n_w)
     got = ffn.grouped_ffn_bwd_cuda(*args)
     torch.cuda.synchronize()
     check_ffn_bwd(got, ffn.grouped_ffn_bwd_plain(*args))
@@ -1524,6 +1544,30 @@ def test_grouped_ffn_bwd_cuda_edges(cuda, dtype):
     args[1] = torch.zeros(3, dtype=torch.int32, device=cuda)
     got = ffn.grouped_ffn_bwd_cuda(*args)
     assert all(torch.all(t == 0) for t in got)
+
+
+def test_grouped_ffn_bwd_cuda_first_in_a_new_thread(cuda):
+    """The backward as the first CUDA work of a host thread (autograd's
+    worker thread runs a backward so) after the main thread launched it:
+    it launches and gives the main thread's bits (its tensor maps need the
+    device's context bound on the thread)."""
+    args = _bwd_args(cuda, 37, 64, 64, [10, 0, 12, 15], 3, torch.bfloat16, 5)
+    want = ffn.grouped_ffn_bwd_cuda(*args)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = ffn.grouped_ffn_bwd_cuda(*args)
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            got["error"] = exc
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "error" not in got, got.get("error")
+    assert all(torch.equal(a, b) for a, b in zip(got["out"], want))
 
 
 def test_grouped_ffn_autograd_uses_the_backward_kernel(cuda):

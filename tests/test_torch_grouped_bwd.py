@@ -2,7 +2,8 @@
 under autograd (the forward's and the backward kernel's plain versions)
 against autograd of ``grouped_ffn_plain`` and against ``jax.vjp`` of the
 reference's ``_grouped_ffn`` (``src/repro/core/ep_moe.py:330``), at the
-kernels' tolerance, rtol 1e-5 / atol 1e-4, in f32."""
+kernels' tolerance, rtol 1e-5 / atol 1e-4, in f32; and the plain backward
+in bf16 against ``jax.vjp`` in bf16, element for element."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,10 +36,10 @@ def _inputs(m, d, f, gs, n_w, seed):
     return x, np.asarray(gs, np.int32), w, dy
 
 
-def _reference_vjp(x, gs, w, dy):
-    """jax.vjp of the reference's _grouped_ffn; slots past Gw get zero
-    weights (ragged_dot takes one weight slab a group), so their rows
-    give 0, as the port's give."""
+def _reference_vjp(x, gs, w, dy, dtype=jnp.float32):
+    """jax.vjp of the reference's _grouped_ffn, its inputs cast to
+    ``dtype``; slots past Gw get zero weights (ragged_dot takes one weight
+    slab a group), so their rows give 0, as the port's give."""
     pad = len(gs) - w[0].shape[0]
     wj = [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
           for a in w]
@@ -46,8 +47,8 @@ def _reference_vjp(x, gs, w, dy):
     def fn(x, wg, wu, wd):
         return jmoe._grouped_ffn(x, jnp.asarray(gs), wg, wu, wd, jax.nn.silu)
 
-    y, vjp = jax.vjp(fn, jnp.asarray(x), *map(jnp.asarray, wj))
-    grads = vjp(jnp.asarray(dy))
+    y, vjp = jax.vjp(fn, *(jnp.asarray(a, dtype) for a in (x, *wj)))
+    grads = vjp(jnp.asarray(dy, dtype))
     n_w = w[0].shape[0]
     return (np.asarray(y), np.asarray(grads[0]),
             *(np.asarray(g)[:n_w] for g in grads[1:]))
@@ -117,3 +118,39 @@ def test_backward_plain_bf16_rounds_like_the_forward():
     for a, r in zip(got, ref):
         tol = 2.0 ** -5 * float(r.abs().max())
         torch.testing.assert_close(a.float(), r, rtol=2.0 ** -5, atol=tol)
+
+
+# the slot sizes around a 64-row tile's edges; bitwise in bf16
+EDGE_CASE = (224, 64, 64, [1, 17, 63, 64, 65], 5)
+BITWISE_CASES = CASES[:4] + [EDGE_CASE]
+NEAR_CASES = [CASES[4],
+              (600, 512, 384, [140, 0, 2, 128, 130, 0, 0, 80, 120], 8)]
+
+
+@pytest.mark.parametrize("m,d,f,gs,n_w", BITWISE_CASES + NEAR_CASES)
+def test_backward_plain_bf16_matches_reference_vjp(m, d, f, gs, n_w):
+    """In bf16 the plain backward rounds where ``jax.vjp`` of the
+    reference's ``_grouped_ffn`` rounds (every cotangent in its primal's
+    dtype, the two cotangents of ``x`` added in bf16).  Bitwise on the
+    small cases; on the larger ones the sums of 256-512 terms run in
+    another order than XLA's, so a few elements sit one bf16 ulp apart:
+    at least 99.5 % of each output bitwise equal, the rest within 2^-7 of
+    its largest magnitude."""
+    x, gsn, w, dy = _inputs(m, d, f, gs, n_w, m + d + n_w)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, *w, dy)]
+    got = ffn.grouped_ffn_bwd_plain(bf[0], torch.from_numpy(gsn), *bf[1:])
+    f32 = [t.float().numpy() for t in bf]
+    ref = _reference_vjp(f32[0], gsn, f32[1:4], f32[4], jnp.bfloat16)[1:]
+    bitwise = (m, d, f, gs, n_w) in BITWISE_CASES
+    for name, a, r in zip(("dxs", "dw_gate", "dw_up", "dw_down"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        a = a.float().numpy()
+        r = np.asarray(r.astype(np.float32))
+        assert a.shape == r.shape, name
+        if bitwise:
+            np.testing.assert_array_equal(a, r, err_msg=name)
+            continue
+        equal = float(np.mean(a == r))
+        assert equal >= 0.995, f"{name}: {equal:.4%} bitwise equal"
+        gap = float(np.max(np.abs(a - r)))
+        assert gap <= 2.0 ** -7 * float(np.max(np.abs(r))), (name, gap)

@@ -1,31 +1,34 @@
 #!/usr/bin/env python3
-"""Time the quantizer, global-scale, grouped-FFN and ``fp4_matmul`` kernels
-of two or more source trees in one process, on one card, in turns (A, B,
-B, A for two trees).
+"""Time the quantizer, global-scale, grouped-FFN, grouped-FFN backward and
+``fp4_matmul`` kernels of two or more source trees in one process, on one
+card, in turns (A, B, B, A for two trees).
 
     python3 tools/kernel_ab.py PARENT_DIR .
     python3 tools/kernel_ab.py --phases TREE
 
 
 Each tree's ``src/repro_torch/csrc/{quantize_fp4,grouped_fp4_ffn,
-fp4_matmul}.cu`` is
-built with nvcc into ``build/kernel_ab/<n>/`` and loaded with ctypes; the
-trees' C entries take the same arguments, so every library runs on the
-same inputs.  Inputs are the serving path's, from a seed: the quantizer on
-the ``[64, 1408, 2048]`` view of ``w_gate`` (N contiguous), the same stack
-K contiguous, and under a 0 predicate; the global scale on both serving
-views (``[64, 1408, 2048]`` of ``w_gate``, ``[64, 2048, 1408]`` of
-``w_down``) and under a 0 predicate; the bf16 W4A4 FFN at M = 15360 with
-1092 routed rows over 64 slots plus the pad slot, and at the decode shape
-(8 rows in each of 64 slots); the BF16-weight FFN at the serve run's
-working shapes (M = 960, 1920, 7680 with 54, 186, 420 routed rows), at a
-forced full-budget chunk (M = 7680, 6144 routed rows) and with all-zero
-counts at M = 15360; ``fp4_matmul`` at x [4096, 2048] . W [1408,
-2048]^T, f32 out: x bf16 with a4 off and on, and x f32 (the same values).  Counts over the 64 experts fall off as
-rank^-0.8, the pad slot holds the rest of M.  Prints one JSON object: ms
-per launch (CUDA events, mean of 20 back-to-back launches) per tree and
-case, the FFNs' and the global scale's device time per call by kernel
-(torch.profiler), and the card.
+fp4_matmul,grouped_ffn_bwd}.cu`` is built with nvcc into
+``build/kernel_ab/<n>/`` and loaded with ctypes (a tree without the
+backward's source skips its case); the trees' C entries take the same
+arguments, so every library runs on the same inputs.  Inputs are the
+serving path's, from a seed: the quantizer on the ``[64, 1408, 2048]`` view
+of ``w_gate`` (N contiguous), the same stack K contiguous, and under a 0
+predicate; the global scale on both serving views (``[64, 1408, 2048]`` of
+``w_gate``, ``[64, 2048, 1408]`` of ``w_down``) and under a 0 predicate;
+the bf16 W4A4 FFN at M = 15360 with 1092 routed rows over 64 slots plus the
+pad slot, and at the decode shape (8 rows in each of 64 slots); the
+BF16-weight FFN at the serve run's working shapes (M = 960, 1920, 7680 with
+54, 186, 420 routed rows), at a forced full-budget chunk (M = 7680, 6144
+routed rows) and with all-zero counts at M = 15360; ``fp4_matmul`` at x
+[4096, 2048] . W [1408, 2048]^T, f32 out: x bf16 with a4 off and on, and x
+f32 (the same values); the bf16 backward of the BF16-weight FFN at a
+full-width train step's shapes (M = 30720, 24576 routed rows, G = 65, Gw = 64;
+f32-sized scratch and zeroed outputs, which every tree's entry takes).
+Counts over the 64 experts fall off as rank^-0.8, the pad slot holds the
+rest of M.  Prints one JSON object: ms per launch (CUDA events, mean of 20
+back-to-back launches) per tree and case, the FFNs' and the global scale's
+device time per call by kernel (torch.profiler), and the card.
 
 ``--phases TREE`` builds a copy of the tree's ``fp4_matmul.cu`` with
 ``clock64()`` marks (``PHASES``) into ``build/kernel_ab/phases/`` and
@@ -49,7 +52,10 @@ def build(tree: Path, out: Path) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     csrc = tree / "src" / "repro_torch" / "csrc"
     procs = {}
-    for stem in ("quantize_fp4", "grouped_fp4_ffn", "fp4_matmul"):
+    for stem in ("quantize_fp4", "grouped_fp4_ffn", "fp4_matmul",
+                 "grouped_ffn_bwd"):
+        if not (csrc / f"{stem}.cu").exists():
+            continue
         lib = out / f"lib{stem}.so"
         procs[stem] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
@@ -294,6 +300,28 @@ def main() -> int:
                           g1.data_ptr(), my.data_ptr(), 4096, f, d, a4,
                           stream)
 
+    bm, brows = 30720, 24576
+    bx, bdy = (torch.zeros((bm, d), dtype=torch.bfloat16, device=dev)
+               for _ in range(2))
+    for t in (bx, bdy):
+        t[:brows] = torch.randn((brows, d), generator=gen, device=dev).to(
+            t.dtype)
+    bgs = torch.tensor(skewed(brows, bm), dtype=torch.int32, device=dev)
+    bscratch = [torch.empty((bm, f), dtype=torch.float32, device=dev)
+                for _ in range(3)]
+    bout = [torch.zeros((bm, d), dtype=torch.bfloat16, device=dev)] + [
+        torch.zeros(w.shape, dtype=torch.bfloat16, device=dev)
+        for w in (wb["w_gate"], wb["w_up"], wb["w_down"])]
+
+    def bwd(lib):
+        fn = lib["grouped_ffn_bwd"].grouped_ffn_bwd_bf16
+        fn.argtypes = ffn._BWD_ARGTYPES
+        return lambda: fn(bx.data_ptr(), bgs.data_ptr(), bgs.shape[0], e,
+                          wb["w_gate"].data_ptr(), wb["w_up"].data_ptr(),
+                          wb["w_down"].data_ptr(), bdy.data_ptr(),
+                          *(t.data_ptr() for t in bscratch),
+                          *(t.data_ptr() for t in bout), bm, d, f, stream)
+
     serve = fp4_inputs(15360, skewed(1092, 15360))
     decode = fp4_inputs(512, [8] * e)
     plain = {f"bf16_ffn_{n}_rows_m{m}": fp4_inputs(m, skewed(n, m))
@@ -314,6 +342,7 @@ def main() -> int:
         "fp4_matmul": lambda lib: matmul(lib, 0),
         "fp4_matmul_a4": lambda lib: matmul(lib, 1),
         "fp4_matmul_f32x": lambda lib: matmul(lib, 0, mxf),
+        "bf16_ffn_bwd_13d": bwd,
     }
 
     def time_ms(fn, iters=20):
@@ -352,13 +381,17 @@ def main() -> int:
         return out
 
     order = list(range(len(trees))) + list(reversed(range(len(trees))))
+    def has(lib, name):
+        return name != "bf16_ffn_bwd_13d" or "grouped_ffn_bwd" in lib
+
     res = {str(t): {c: [] for c in cases} for t in trees}
     for i in order:
         for name, make in cases.items():
-            res[str(trees[i])][name].append(time_ms(make(libs[i])))
+            if has(libs[i], name):
+                res[str(trees[i])][name].append(time_ms(make(libs[i])))
     kernels = {str(t): {c: breakdown(make(lib)) for c, make in cases.items()
                         if c.startswith(("fp4_ffn", "bf16_ffn",
-                                         "global_scale"))}
+                                         "global_scale")) and has(lib, c)}
                for t, lib in zip(trees, libs)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -47,6 +47,8 @@ def main() -> int:
         if name.startswith("grouped_ffn_bwd"):
             cs.log(f"ptxas {name}: {regs} registers, {smem} B static smem, "
                    f"{spill} B spilled")
+    cs.log(f"sass grouped_ffn_bwd: HGMMA instructions by kernel "
+           f"{cs.sass_hgmma('grouped_ffn_bwd')}")
     t0 = time.time()
     bwd, counts, rec = cs.training(torch.device("cuda"))
     cs.log(json.dumps({**bwd, "launches": counts[bwd["name"]]}))
