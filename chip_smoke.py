@@ -175,6 +175,29 @@
    backward once): finite losses, ``m_state`` updated, step wall, host
    enqueue, device busy and idle, tokens/s, peak memory and the top device
    kernels;
+14. training under a mesh (``mesh_training``), after phase 13: four rank
+   processes on a ``(2, 2)`` mesh through the ``staged`` backend on one
+   card (with four cards or more NCCL, one rank a card, 13d's depth 4
+   and 4 x 1024 tokens), FSDP over ``data``: (a) moonshot-v1-16b-a3b at
+   its published widths, depth ``PHASE14_LAYERS`` = 2 (printed with its
+   reason), bf16, ``remat="full"``, ReaLB on, 4 x 256 tokens a step: the
+   one-card step 1 on the same weights first (its gradients shared with
+   the ranks on the card), the census of one step predicted
+   (``FlopByteLedger.predict_train_census``) and printed before the ranks
+   spawn; each rank's state from ``launch.train.build(mesh=)``, its step
+   1 loss and gradients (the data-parallel reduction included) against
+   the one-card step's within 5e-3 (the reference's criterion), then 3
+   AdamW steps with the counters and the census zeroed just before and
+   read just after (the census over step 1, against the prediction; the
+   forward kernel twice a MoE layer a step, the backward once), step
+   wall, tokens/s (correctness only on ``staged``), peak memory, every
+   rank the same losses, AIMD state and replicated leaves bit for bit;
+   rank 0's forward and backward FFN kernels against their plain
+   versions at the mesh step's first launch (G = 32 slots, the gathered
+   full-D slabs); (b) reduced olmoe-1b-7b on the same ranks: the loss
+   falls over 50 steps, and a ``TrainLoop`` stopped by a signal on one
+   rank after step 5 restarts byte-exact against an uninterrupted run
+   (checkpoints under ``build/phase14_ckpt``, removed after);
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -190,7 +213,8 @@
    captured x replays) and working launches (counted on the device), and
    phase 13d's launches on the training path; the backward kernel's row
    (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
-   device time by stage);
+   device time by stage); every row's launches on phase 14a's mesh steps
+   by rank, and the two FFN kernels' checks there;
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2716,14 +2740,19 @@ def elastic_serving(dev):
 # 16 of the 64 expert slots: at 48 layers ~13.3 GB of experts and ~4.7 GB
 # of the rest (attention, shared experts, embeddings, replicated), plus a
 # CUDA context and its KV cache, four times over; 24 layers (~6.4 + ~3.1
-# GB a rank) leave the headroom.  With one card a rank (NCCL) the depth is
-# not cut.  The width is never cut.
-PHASE10_LAYERS = 24
+# GB a rank) leave the headroom.  The smoke's time cuts it further: every
+# layer's collectives copy through the host, and at 24 layers phases 10
+# and 11 took 373.5 s of the smoke's 998 s (1200 allowed); 12 layers halve
+# their per-layer work.  With one card a rank (NCCL) the depth is not cut.
+# The width is never cut.
+PHASE10_LAYERS = 12
 PHASE10_DEPTH_REASON = ("four ranks share the one card: at 48 layers a "
                         "rank holds ~13.3 GB of experts and ~4.7 GB of the "
                         "rest plus a context and a cache, four times over, "
-                        "too little headroom on 80 GB; 24 layers hold ~9.5 "
-                        "GB a rank")
+                        "too little headroom on 80 GB; and each layer's "
+                        "collectives copy through the host, so phases 10 "
+                        "and 11 at 24 layers took 373.5 s of the smoke's "
+                        "1200 s; 12 layers hold ~5.5 GB a rank")
 PHASE10_DEADLINE_S = 850          # spawn to join, phases 10 and 11
 PHASE10_CHUNK = dict(b=8, s=256, real=128, vis=0.6, seed=4)
 PHASE10_OFF = dict(gate_gamma=10 ** 9)
@@ -3356,6 +3385,55 @@ def ep_migration_work(mesh, holder, cfg, sent):
     return out
 
 
+def run_rank_processes(tag: str, target, world: int, deadline: float,
+                       make_args):
+    """Phase ``tag``'s ``world`` rank processes (spawned): rank ``r`` runs
+    ``target(*make_args(r, store, out))`` and puts ``(rank, ok, result)``
+    on ``out``; they rendezvous through the ``FileStore`` ``store`` under
+    ``build/``.  Every rank is joined within ``deadline`` seconds and
+    killed past it.  Returns the results in rank order and the seconds from
+    spawn to join; raises with every failed rank's traceback."""
+    import torch.multiprocessing as mp
+    store = ROOT / "build" / f"phase{tag}_store_{time.time_ns()}"
+    store.parent.mkdir(exist_ok=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=make_args(r, str(store), q))
+             for r in range(world)]
+    t_spawn = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    end = time.monotonic() + deadline
+    try:
+        while len(results) + len(errors) < world \
+                and time.monotonic() < end:
+            try:
+                rank, ok, res = q.get(timeout=5)
+            except queue.Empty:     # a rank may have died
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    errors.append("a rank exited: codes "
+                                  f"{[p.exitcode for p in procs]}")
+                    break
+                continue
+            (results.__setitem__(rank, res) if ok
+             else errors.append(f"rank {rank}:\n{res}"))
+        for p in procs:
+            p.join(timeout=max(end - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        if store.exists():
+            store.unlink()
+    if errors or len(results) < world:
+        raise AssertionError(f"{tag}: " + ("\n".join(errors) or
+                                           f"{len(results)} of {world} ranks "
+                                           f"finished in {deadline} s"))
+    return [results[r] for r in range(world)], time.perf_counter() - t_spawn
+
+
 def ep_serving(dev, smi: str):
     """Phase 10: multi-rank expert parallelism on full-width moonshot.
 
@@ -3383,7 +3461,6 @@ def ep_serving(dev, smi: str):
     record."""
     import numpy as np
     import torch
-    import torch.multiprocessing as mp
     from repro_torch.models import transformer as tf
 
     t_phase = time.perf_counter()
@@ -3413,46 +3490,10 @@ def ep_serving(dev, smi: str):
         f"use_fp4 {one_vec0.astype(int).tolist()}; "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated")
 
-    store = ROOT / "build" / f"phase10_store_{time.time_ns()}"
-    store.parent.mkdir(exist_ok=True)
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=ep_rank_main,
-                         args=(r, ep, backend, str(store), layers, q,
-                               dev.type))
-             for r in range(ep)]
-    t_spawn = time.perf_counter()
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    end = time.monotonic() + PHASE10_DEADLINE_S
-    try:
-        while len(results) + len(errors) < ep and time.monotonic() < end:
-            try:
-                rank, ok, res = q.get(timeout=5)
-            except queue.Empty:     # a rank may have died
-                if any(p.exitcode not in (None, 0) for p in procs):
-                    errors.append("a rank exited: codes "
-                                  f"{[p.exitcode for p in procs]}")
-                    break
-                continue
-            (results.__setitem__(rank, res) if ok
-             else errors.append(f"rank {rank}:\n{res}"))
-        for p in procs:
-            p.join(timeout=max(end - time.monotonic(), 1))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-        if store.exists():
-            store.unlink()
-    if errors or len(results) < ep:
-        raise AssertionError("10: " + ("\n".join(errors) or
-                                       f"{len(results)} of {ep} ranks "
-                                       f"finished in {PHASE10_DEADLINE_S} s"))
-    ranks = [results[r] for r in range(ep)]
-    log(f"10: {ep} ranks ran in {time.perf_counter() - t_spawn:.1f} s "
+    ranks, took = run_rank_processes(
+        "10", ep_rank_main, ep, PHASE10_DEADLINE_S,
+        lambda r, store, q: (r, ep, backend, store, layers, q, dev.type))
+    log(f"10: {ep} ranks ran in {took:.1f} s "
         f"(spawn to join); each holds {ranks[0]['slots']} of "
         f"{cfg.moe.num_experts} expert slots, {ranks[0]['weights_gb']:.2f} "
         f"GB of weights, initialised in "
@@ -4049,6 +4090,512 @@ def training(dev):
     return bwd, counts, rec_d
 
 
+# --------------------------------------------------------------------------
+# phase 14: training under a mesh
+# --------------------------------------------------------------------------
+# Depth: four rank processes share the one card.  Each holds the ~0.79 B
+# replicated parameters at 12 B each (bf16 weights and gradients, f32 AdamW
+# moments), ~9.5 GB, so four ranks hold ~38 GB, plus ~6.6 GB of sharded
+# experts, activations and four CUDA contexts; 13d's depth 4 would need
+# ~61 GB before activations.  With four cards or more (NCCL, one rank a
+# card) the phase runs 13d's depth and tokens.
+PHASE14_LAYERS = 2
+PHASE14_DEPTH_REASON = ("each rank holds the ~0.79 B replicated parameters "
+                        "at 12 B each (bf16 weights and gradients, f32 "
+                        "moments), ~9.5 GB, four ranks ~38 GB plus ~6.6 GB "
+                        "of sharded experts, activations and contexts; depth "
+                        "4 would need ~61 GB before activations")
+PHASE14_MESH = (2, 2)
+PHASE14_TOKENS = (4, 256)            # a step's batch, rows x sequence
+PHASE14_NCCL = dict(layers=4, tokens=(4, 1024))   # 13d's, on four cards
+PHASE14_STEPS = 3
+PHASE14_TOL = 5e-3                   # the reference's mesh-train loss bound
+# the gradients' bound, ``tests/test_torch_train.py``'s method in bf16: a
+# leaf within the larger of ATOL_REL x its max and SPREAD x the one-card
+# step's own change when its embedding moves by two bf16 ulps (either sign)
+PHASE14_ATOL_REL, PHASE14_SPREAD = 3e-5, 4.0
+PHASE14_PERTURB = (1 + 2.0 ** -6, 1 - 2.0 ** -6)
+PHASE14_DEADLINE_S = 420             # spawn to join
+PHASE14B = dict(steps=50, restart_steps=10, stop=5, batch=8, seq=32)
+
+
+def phase14_cfg(layers: int):
+    """moonshot-v1-16b-a3b at its published widths, ``layers`` deep (one
+    dense layer, the rest MoE), ``remat="full"``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               n_layers=layers, remat="full")
+
+
+def phase14_batch(cfg, tokens, step: int):
+    """Step ``step``'s global batch: ``multimodal_batch`` of ``tokens``
+    (rows x sequence), numpy (every rank draws the same)."""
+    from repro_torch.data.pipeline import DataConfig, multimodal_batch
+    b, s = tokens
+    return multimodal_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                       global_batch=b), step)
+
+
+def _on(batch, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_train_rank_main(rank, world, backend, store_path, shape, layers,
+                         tokens, one, out, device_type="cuda"):
+    """One rank of phase 14 (a spawned process); ``one``: the one-card
+    step 1's gradients (CUDA tensors shared with the parent) and each
+    leaf's bound (``(grads, tol)``)."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        # deterministic index accumulations: the ranks of a data row must
+        # compute the replicated leaves' gradients bit for bit alike
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dev = torch.device(device_type, rank if backend == "nccl" else 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            from repro_torch.configs import hw
+            global HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S
+            card = hw.current()
+            HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S = (
+                card.hbm_bw, card.peak_bf16, card.peak_f32)
+        store = dist.FileStore(store_path, world)
+        if backend == "nccl":
+            dist.init_process_group("nccl", store=store, rank=rank,
+                                    world_size=world, device_id=dev)
+        else:
+            dist.init_process_group("gloo", store=store, rank=rank,
+                                    world_size=world)
+        try:
+            from repro_torch.models.common import Mesh, use_mesh
+            mesh = Mesh(shape, backend, dev)
+            with use_mesh(mesh):
+                res = mesh_train_rank_work(mesh, layers, tokens, one)
+                res["b"] = mesh_train_reduced(mesh)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def _replicated_digests(params):
+    """A digest of each replicated leaf's bytes (copied to the host one
+    leaf at a time)."""
+    import hashlib
+
+    import torch
+    from repro_torch.models.common import is_expert_path, tree_items
+    out = {}
+    for path, t in tree_items(params):
+        if not is_expert_path(path):
+            flat = t.detach().reshape(-1).contiguous().cpu()
+            out["/".join(path)] = hashlib.sha256(
+                flat.view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _max_gap(a, b=None):
+    """max |a - b| (``b`` None: max |a|) in f32, a row chunk at a time, so
+    no f32 copy of a whole large leaf is held."""
+    from repro_torch.models.common import row_chunks
+    n = 1 << 24
+    gap = 0.0
+    for i, x in enumerate(row_chunks(a, n)):
+        d = x.float() if b is None else \
+            x.float() - row_chunks(b, n)[i].to(x.device).float()
+        gap = max(gap, float(d.abs().max()))
+    return gap
+
+
+def _gaps_to_one(grads, one, tol, mesh):
+    """Each gradient leaf of this rank against its part of the one-card
+    step's (the expert shards' slots and D slice), in units of the leaf's
+    bound ``tol``: the largest ratio, its leaf and its gap."""
+    from repro_torch.models.common import FSDP_DIM, is_expert_path, tree_items
+    rows, ep = mesh.size("data"), mesh.size("model")
+    g, my = mesh.index("data"), mesh.index("model")
+    worst, where, gap_at = 0.0, None, 0.0
+    for path, t in tree_items(grads):
+        ref = _leaf(one, path)
+        if is_expert_path(path):
+            n = ref.shape[-3] // ep
+            ref = ref.narrow(ref.dim() - 3, my * n, n)
+            dim = ref.dim() + FSDP_DIM[path[-1]]
+            n_d = ref.shape[dim] // rows
+            ref = ref.narrow(dim, g * n_d, n_d)
+        gap = _max_gap(t, ref)
+        name = "/".join(path)
+        if gap / tol[name] >= worst:
+            worst, where, gap_at = gap / tol[name], name, gap
+    return worst, where, gap_at
+
+
+def mesh_train_rank_work(mesh, layers, tokens, one):
+    """Phase 14a on one rank: its FSDP shard of full-width moonshot from
+    ``launch.train.build``; step 1's loss and gradient (``value_and_grad``
+    and the data-parallel reduction) against the one-card step's; then
+    ``PHASE14_STEPS`` AdamW steps through ``build``'s step function, the
+    counters and the census zeroed just before and read just after (the
+    census over step 1), the first launch's inputs of the forward and
+    backward FFN kernels kept on rank 0; the replicated leaves' digests;
+    rank 0's kernels against their plain versions at the mesh's shapes."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.optim.grad_utils import data_parallel_grads, value_and_grad
+
+    dev = mesh.device
+    rank = mesh.device_mesh.get_rank()
+    cfg = phase14_cfg(layers)
+    rcfg, tcfg = ReaLBConfig(), TrainConfig()
+    t0 = time.perf_counter()
+    cfg, state, step_fn = train.build(cfg.name, "full", tokens[0], tokens[1],
+                                      tcfg, rcfg, mesh=mesh, device=dev,
+                                      cfg=cfg)
+    _sync(dev)
+    res = {"init_s": time.perf_counter() - t0,
+           "state_gb": (tree_bytes(state["params"])
+                        + tree_bytes(state["opt"].mu)
+                        + tree_bytes(state["opt"].nu)) / 1e9,
+           "slots": int(state["params"]["blocks"]["layer0"]["moe"]
+                        ["w_gate"].shape[1])}
+    # step 1 against the one-card step (no update)
+    batch = phase14_batch(cfg, tokens, 0)
+    (loss, _), grads = value_and_grad(tf.train_loss, state["params"], cfg,
+                                      rcfg, _on(batch, dev), state["m"])
+    grads = data_parallel_grads(grads)
+    res["loss1"] = float(loss)
+    res["gap_ratio"], res["gap_leaf"], res["gap"] = _gaps_to_one(
+        grads, one[0], one[1], mesh)
+    del grads
+    comm = ep_moe._dist_comm(mesh)
+    kept = {}
+    walls, losses = [], []
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    for i in range(PHASE14_STEPS):
+        comm.census.reset()
+        keep = contextlib.ExitStack()
+        if i == 0 and rank == 0:
+            keep.enter_context(keeping_first_inputs(kept, "fwd",
+                                                    "grouped_ffn_cuda"))
+            keep.enter_context(keeping_first_inputs(kept, "bwd",
+                                                    "grouped_ffn_bwd_cuda"))
+        t0 = time.perf_counter()
+        with keep:
+            state, met = step_fn(state, batch if i == 0
+                                 else phase14_batch(cfg, tokens, i))
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(met["loss"])
+        if i == 0:
+            res["census"] = comm.census.snapshot()
+    res["counts"] = ops.launch_counts()
+    res.update(walls_ms=walls, losses=losses,
+               tokens_per_s=[tokens[0] * tokens[1] / w * 1e3 for w in walls],
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None),
+               m=state["m"].cpu().tolist(),
+               digests=_replicated_digests(state["params"]))
+    del state
+    # rank 0's kernels at the mesh's shapes, the other ranks waiting
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        res["kernels"] = mesh_train_kernel_checks(kept)
+    kept.clear()
+    dist.barrier()
+    return res
+
+
+def mesh_train_kernel_checks(kept):
+    """The forward and backward FFN kernels against their plain versions
+    on the inputs rank 0's first step gave their first launch (G = S/ep
+    slots, the FSDP-gathered full-D slabs), timed beside their bounds."""
+    import torch
+    from repro_torch.kernels import grouped_fp4_ffn as ffn
+    from test_torch_cuda import check_ffn_bwd, check_plain_ffn
+    out = {}
+    args = kept["fwd"]
+    with torch.no_grad():
+        err = check_plain_ffn(ffn.grouped_ffn_cuda(*args),
+                              ffn.grouped_ffn_plain(*args))
+        ms = time_ms(lambda: ffn.grouped_ffn_cuda(*args), iters=5)
+        plain_ms = time_ms(lambda: ffn.grouped_ffn_plain(*args), iters=2)
+        bound, by = ffn_bound(args, fp4=False)
+        out["grouped_ffn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=by,
+                                  m=int(args[0].shape[0]),
+                                  g=int(args[1].numel()))
+        args = kept["bwd"]
+        err = check_ffn_bwd(ffn.grouped_ffn_bwd_cuda(*args),
+                            ffn.grouped_ffn_bwd_plain(*args))
+        ms = time_ms(lambda: ffn.grouped_ffn_bwd_cuda(*args), iters=5)
+        plain_ms = time_ms(lambda: ffn.grouped_ffn_bwd_plain(*args), iters=2)
+        bound, by = bwd_bound(args)
+        out["grouped_ffn_bwd"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound,
+                                      bound_by=by, m=int(args[0].shape[0]),
+                                      g=int(args[1].numel()))
+    return out
+
+
+def mesh_train_reduced(mesh):
+    """Phase 14b on one rank: reduced olmoe-1b-7b (2 layers, vocab 128,
+    f32) through ``launch.train.build`` on the mesh: ``PHASE14B["steps"]``
+    AdamW steps of ``lm_batch`` (the loss must fall); then ``TrainLoop``
+    with checkpoints under ``build/``, a signal on the last rank after
+    step ``stop`` (every rank stops there), restarted to
+    ``restart_steps``, against an uninterrupted run."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import (ReaLBConfig, TrainConfig, get_config,
+                                     reduced)
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+
+    c = PHASE14B
+    dev = mesh.device
+    cfg = reduced(get_config("olmoe-1b-7b"), n_layers=2, vocab_size=128)
+    rcfg = ReaLBConfig(enabled=False)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq"],
+                    global_batch=c["batch"])
+    world = mesh.size("data") * mesh.size("model")
+    last = mesh.device_mesh.get_rank() == world - 1
+    root = ROOT / "build" / "phase14_ckpt"
+    if mesh.device_mesh.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.barrier()
+
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=5, total_steps=c["steps"])
+    _, state, step_fn = train.build(cfg.name, "tiny", c["batch"], c["seq"],
+                                    tcfg, rcfg, mesh=mesh, device=dev,
+                                    cfg=cfg)
+    t0 = time.perf_counter()
+    curve = []
+    for batch, _ in zip(DataLoader(dc), range(c["steps"])):
+        state, met = step_fn(state, batch)
+        curve.append(met["loss"])
+    wall = time.perf_counter() - t0
+    del state
+
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2,
+                       total_steps=c["restart_steps"])
+
+    def run(ckpt_dir, stop_after=None):
+        _, state, step_fn = train.build(cfg.name, "tiny", c["batch"],
+                                        c["seq"], tcfg, rcfg, mesh=mesh,
+                                        device=dev, cfg=cfg)
+        losses, holder = [], {}
+
+        def logged(state, batch):
+            new, met = step_fn(state, batch)
+            losses.append(met["loss"])
+            if stop_after is not None and last and len(losses) == stop_after:
+                holder["loop"]._stop = True      # a signal on one rank
+            return new, met
+
+        loop = TrainLoop(logged, ckpt_dir=str(ckpt_dir), checkpoint_every=2,
+                         log_every=1000, logger=lambda *_: None, mesh=mesh)
+        holder["loop"] = loop
+        start, state = loop.restore_or_init(state)
+        state = loop.run(state, DataLoader(dc, start_step=start),
+                         c["restart_steps"], start_step=start)
+        flat = torch.cat([t.detach().reshape(-1).float().cpu()
+                          for t in tree_leaves(state["params"])])
+        return losses, start, flat.numpy()
+
+    first, _, _ = run(root / "preempted", c["stop"])
+    after, start, final = run(root / "preempted")
+    straight, _, final_straight = run(root / "straight")
+    dist.barrier()
+    if mesh.device_mesh.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"curve": curve, "wall_s": wall, "first": first, "after": after,
+            "start": start, "straight": straight,
+            "same_final": bool(np.array_equal(final, final_straight))}
+
+
+def mesh_training(dev, smi: str):
+    """Phase 14: training under a ``(data, model)`` mesh (see the module
+    docstring).  Returns the two FFN kernels' launches by rank on 14a's
+    main path and rank 0's checks of them at the mesh's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import is_expert_path, tree_items
+    from repro_torch.obs.ledger import FlopByteLedger
+    from repro_torch.optim.grad_utils import value_and_grad
+
+    t_phase = time.perf_counter()
+    rows, ep = PHASE14_MESH
+    world = rows * ep
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= world:
+        backend, layers, tokens = ("nccl", PHASE14_NCCL["layers"],
+                                   PHASE14_NCCL["tokens"])
+        log(f"14: backend nccl, a {rows}x{ep} mesh of {world} ranks, one "
+            f"card each; depth {layers}, {tokens[0]} x {tokens[1]} tokens "
+            f"a step")
+    else:
+        backend, layers, tokens = ("staged" if dev.type == "cuda"
+                                   else "gloo", PHASE14_LAYERS,
+                                   PHASE14_TOKENS)
+        log(f"14: backend {backend} ({world} rank processes on one card; "
+            f"each collective copies to the host around gloo: correctness "
+            f"only, no time of it is compared), a {rows}x{ep} mesh, FSDP "
+            f"over data; depth {layers} ({PHASE14_DEPTH_REASON}); "
+            f"{tokens[0]} x {tokens[1]} tokens a step")
+    cfg = phase14_cfg(layers)
+    rcfg = ReaLBConfig()
+    n_moe = cfg.ffn_kinds().count("moe")
+    # the one-card step 1 on the same weights (seed 0)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params = tf.init_model(cfg, seed=0, device=dev)
+    shapes = [tuple(t.shape) for p, t in tree_items(params)
+              if not is_expert_path(p)]
+    m0 = torch.full((1, 1), rcfg.md_init, device=dev)
+    batch = _on(phase14_batch(cfg, tokens, 0), dev)
+    (loss1, _), one = value_and_grad(tf.train_loss, params, cfg, rcfg,
+                                     batch, m0)
+    # the one-card step's own spread: its embedding moved by two bf16 ulps
+    embed, spread = params["embed"], {}
+    for f in PHASE14_PERTURB:
+        params["embed"] = (embed.float() * f).to(embed.dtype)
+        _, moved = value_and_grad(tf.train_loss, params, cfg, rcfg, batch,
+                                  m0)
+        for path, t in tree_items(moved):
+            spread[path] = max(spread.get(path, 0.0),
+                               _max_gap(t, _leaf(one, path)))
+        del moved
+    tol = {"/".join(p): max(PHASE14_ATOL_REL * _max_gap(_leaf(one, p)),
+                            PHASE14_SPREAD * s)
+           for p, s in spread.items()}
+    del params, embed, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    loss1 = float(loss1)
+    pred = FlopByteLedger(cfg, ep=ep).predict_train_census(
+        t_local=tokens[0] // rows * tokens[1] // ep, layers=n_moe,
+        rows=rows, itemsize=2, param_itemsize=2, replicated_shapes=shapes,
+        remat=cfg.remat)
+    log(f"14: one-card step 1 loss {loss1:.6f}; predicted census of one "
+        f"step a rank {json.dumps(pred)}")
+
+    try:
+        ranks, took = run_rank_processes(
+            "14", mesh_train_rank_main, world, PHASE14_DEADLINE_S,
+            lambda r, store, q: (r, world, backend, store, PHASE14_MESH,
+                                 layers, tokens, (one, tol), q, dev.type))
+    finally:
+        del one
+    log(f"14: {world} ranks ran in {took:.1f} s "
+        f"(spawn to join); each holds {ranks[0]['slots']} of "
+        f"{cfg.moe.num_experts} slots at D/{rows}, {ranks[0]['state_gb']:.2f}"
+        f" GB of parameters and moments, built in "
+        f"{max(r['init_s'] for r in ranks):.1f} s")
+    want = {"grouped_ffn": 2 * n_moe * PHASE14_STEPS,
+            "grouped_ffn_bwd": n_moe * PHASE14_STEPS, "quantize_fp4": 0,
+            "global_scale_fp4": 0, "grouped_fp4_ffn": 0, "fp4_matmul": 0}
+    for r, res in enumerate(ranks):
+        log(f"14a rank {r}: step 1 loss {res['loss1']:.6f} (one card "
+            f"{loss1:.6f}), gradient gaps to the one-card step at most "
+            f"{res['gap_ratio']:.3f} of their bounds (at {res['gap_leaf']}: "
+            f"{res['gap']:.3g}, bound {tol[res['gap_leaf']]:.3g}); losses "
+            f"{res['losses']}; step wall "
+            f"ms {[round(w, 1) for w in res['walls_ms']]}, tokens/s "
+            f"{[round(t, 1) for t in res['tokens_per_s']]} ({backend}); "
+            f"peak {res['peak_gib'] and round(res['peak_gib'], 2)} GiB "
+            f"allocated; m_state {res['m']}; launches {res['counts']}")
+        log(f"14a rank {r} census of step 1 (kind: count, bytes): "
+            f"{json.dumps(res['census'])}")
+        if abs(res["loss1"] - loss1) >= PHASE14_TOL \
+                or not res["gap_ratio"] <= 1.0:
+            raise AssertionError(f"14a rank {r}: step 1 loss {res['loss1']} "
+                                 f"against {loss1}, gradient gap "
+                                 f"{res['gap']} at {res['gap_leaf']}, "
+                                 f"{res['gap_ratio']} of its bound")
+        if not all(np.isfinite(res["losses"])):
+            raise AssertionError(f"14a rank {r}: losses {res['losses']}")
+        if any(res["counts"][k] != v for k, v in want.items()):
+            raise AssertionError(f"14a rank {r}: launches {res['counts']}, "
+                                 f"want {want}")
+        if res["census"] != pred:
+            raise AssertionError(f"14a rank {r}: census {res['census']}, "
+                                 f"predicted {pred}")
+    if any(r["losses"] != ranks[0]["losses"] or r["m"] != ranks[0]["m"]
+           or r["digests"] != ranks[0]["digests"] for r in ranks):
+        raise AssertionError("14a: the ranks' losses, AIMD states or "
+                             "replicated leaves differ")
+    log(f"14a: every rank the same losses, AIMD state and replicated leaves "
+        f"({len(ranks[0]['digests'])} leaves, bit for bit) after "
+        f"{PHASE14_STEPS} AdamW steps")
+    kernels = ranks[0]["kernels"] if dev.type == "cuda" else {}
+    for name, k in kernels.items():
+        log(f"14a rank 0 {name} at the mesh step's first launch: M={k['m']} "
+            f"G={k['g']}: max abs err {k['max_abs_err']:.4g}; {k['ms']:.4f} "
+            f"ms (plain {k['plain_ms']:.4f} ms), bound {k['bound_ms']:.4f} "
+            f"ms ({k['bound_by']})")
+    for r, res in enumerate(ranks):
+        b = res["b"]
+        first, last = (float(np.mean(b["curve"][:10])),
+                       float(np.mean(b["curve"][-10:])))
+        log(f"14b rank {r}: {PHASE14B['steps']} steps in {b['wall_s']:.1f} s"
+            f"; loss {b['curve'][0]:.4f} -> {b['curve'][-1]:.4f} (mean of "
+            f"the first 10 {first:.4f}, of the last 10 {last:.4f}); "
+            f"preempted after step {PHASE14B['stop']}, restarted at "
+            f"{b['start']}: steps {b['after']} (uninterrupted "
+            f"{b['straight'][PHASE14B['stop']:]})")
+        if not last < first - 0.3:
+            raise AssertionError(f"14b rank {r}: the loss did not fall "
+                                 f"({first} -> {last})")
+        if b["start"] != PHASE14B["stop"] \
+                or b["first"] != b["straight"][:PHASE14B["stop"]] \
+                or b["after"] != b["straight"][PHASE14B["stop"]:] \
+                or not b["same_final"]:
+            raise AssertionError(f"14b rank {r}: the restart did not "
+                                 "continue byte-exact")
+    log(f"14: passed in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return {k: [r["counts"][k] for r in ranks] for k in want}, kernels
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -4119,6 +4666,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bwd_rec, train_counts, _ = training(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_counts, mesh_kernels = mesh_training(dev, smi)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -4212,6 +4762,14 @@ def main() -> int:
         **{k: bwd_rec[k] for k in ("max_abs_err", "ms", "idle_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "tflops", "stages_ms")}})
+    # phase 14a's mesh train steps: launches by rank, and rank 0's kernel
+    # checks at the mesh's shapes
+    for k in kernels:
+        k["mesh_train_launches"] = mesh_counts[k["name"]]
+        rec = mesh_kernels.get(k["name"])
+        if rec is not None:
+            k.update({f"mesh_train_{f}": rec[f] for f in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -26,7 +26,11 @@ writes, and each expert stack is gathered to it one block at a time over
 the ``model`` group, so the arrays equal those a one-device engine with
 the same tables writes.  :func:`restore` onto a mesh reads each rank's
 slots of a saved stack through memory maps, for any EP size that divides
-the saved slots.
+the saved slots.  In the FSDP layout of training (``fsdp=True``) the data
+rows hold different D slices of each slot: a save gathers each block over
+``data`` first (every rank takes part), for the parameters and the AdamW
+moments alike, and a restore cuts the D slice again, for any
+``(data, model)`` shape or onto one device.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import FSDP_DIM
 
 Tree = Any
 _SEP = "|"
@@ -193,28 +199,31 @@ def _write(root: pathlib.Path, step: int, flats: Dict[str, Any],
 
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Tree],
-         keep: int = 3, mesh=None) -> str:
+         keep: int = 3, mesh=None, fsdp: bool = False) -> str:
     """Synchronous atomic save. state: {"params": tree, "opt": tree, ...}.
     Each leaf goes to the host when it is written.  Under ``mesh`` every
-    rank of it calls this with its own shard (see the module docstring);
-    every rank returns once the checkpoint is complete, and if the write
-    fails every rank raises."""
+    rank of it calls this with its own shard (see the module docstring;
+    ``fsdp``: the expert stacks in the FSDP layout); every rank returns
+    once the checkpoint is complete, and if the write fails every rank
+    raises."""
     if mesh is None or mesh.size("data") * mesh.size("model") == 1:
         flats = {g: _flat_items(t) for g, t in state.items()}
         return str(_write(pathlib.Path(ckpt_dir), step, flats, keep))
-    return _save_global(pathlib.Path(ckpt_dir), step, state, keep, mesh)
+    return _save_global(pathlib.Path(ckpt_dir), step, state, keep, mesh,
+                        fsdp and mesh.size("data") > 1)
 
 
 def _is_expert(path) -> bool:
     return len(path) >= 2 and path[-2] == "moe" and path[-1] in _EXPERT_KEYS
 
 
-def _mesh_items(tree: Tree, comm, writer: bool):
+def _mesh_items(tree: Tree, comm, writer: bool, row0: bool, fsdp: bool):
     """The writer's ``(key, array)`` items of one group: an expert stack of
     ``[.., S/ep, a, b]`` slots a rank as the global ``[.., S, a, b]``,
-    gathered block by block; every other leaf from the writer's copy.  On
-    the other ranks of the first data row it only takes part in the
-    gathers (and yields nothing)."""
+    gathered block by block (under ``fsdp`` each block first gathered over
+    ``data`` along its D dim); every other leaf from the writer's copy.
+    On the other ranks it only takes part in the gathers (the first data
+    row's in those over ``model``) and yields nothing."""
     for path, leaf in _leaves(tree):
         key = _SEP.join(path)
         if not (torch.is_tensor(leaf) and leaf.dim() >= 3
@@ -224,15 +233,24 @@ def _mesh_items(tree: Tree, comm, writer: bool):
             continue
         blocks = [leaf] if leaf.dim() == 3 else \
             [leaf[b] for b in range(leaf.shape[0])]
+        dim = FSDP_DIM[path[-1]]
 
-        def gathered(blocks=blocks):
+        def gathered(blocks=blocks, dim=dim):
             for blk in blocks:
+                if fsdp:
+                    blk = torch.cat(list(comm._gather(
+                        blk.detach().contiguous(), "data",
+                        "checkpoint_gather")), dim=dim)
+                if not row0:
+                    continue
                 whole = comm.gather_first(blk)
                 if whole is not None:
                     yield _host_array(whole.reshape((-1,) + blk.shape[1:]))[0]
 
         shape = list(leaf.shape)
         shape[-3] *= comm.ep
+        if fsdp:
+            shape[dim] *= comm.mesh.size("data")
         if not writer:
             for _ in gathered():
                 pass
@@ -249,14 +267,16 @@ def _mesh_items(tree: Tree, comm, writer: bool):
 
 
 def _save_global(root: pathlib.Path, step: int, state: Dict[str, Tree],
-                 keep: int, mesh) -> str:
+                 keep: int, mesh, fsdp: bool) -> str:
     import torch.distributed as dist
     from repro_torch.core.ep_moe import _dist_comm
     comm = _dist_comm(mesh)
     writer = dist.get_rank() == int(mesh.ranks[0, 0])
+    row0 = mesh.index("data") == 0
     err = None
-    if mesh.index("data") == 0:
-        flats = {g: _mesh_items(t, comm, writer) for g, t in state.items()}
+    if row0 or fsdp:
+        flats = {g: _mesh_items(t, comm, writer, row0, fsdp)
+                 for g, t in state.items()}
         if writer:
             try:
                 _write(root, step, flats, keep)
@@ -370,30 +390,41 @@ def decode_rows(rows: np.ndarray, ext: Optional[str]) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, templates: Dict[str, Tree],
-            step: Optional[int] = None, mesh=None
+            step: Optional[int] = None, mesh=None, fsdp: bool = False
             ) -> Tuple[int, Dict[str, Tree]]:
     """Restore onto ``templates``' structure: each leaf a tensor with the
     saved dtype, on the device of the template's leaf.  Under ``mesh``
     (the counterpart of the reference's ``shardings=``) each expert stack
-    ``[.., S, a, b]`` comes back as this rank's ``S/ep`` slots, read
-    through a memory map (``ep`` the mesh's ``model`` size, which need not
-    be the writer's); every other leaf whole."""
+    ``[.., S, a, b]`` comes back as this rank's ``S/ep`` slots (with
+    ``fsdp``, their ``D/data`` slice), read through a memory map (``ep``
+    the mesh's ``model`` size, which need not be the writer's); every
+    other leaf whole."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     ep = 1 if mesh is None else mesh.size("model")
+    rows = mesh.size("data") if mesh is not None and fsdp else 1
     out = {}
     for group, tmpl in templates.items():
         with np.load(d / f"{group}.npz") as z:
-            cut = [k for k in z.files if ep > 1 and _is_expert(k.split(_SEP))]
+            cut = [k for k in z.files if (ep > 1 or rows > 1)
+                   and _is_expert(k.split(_SEP))]
             flat = {k: z[k] for k in z.files if k not in cut}
         for key, (mm, _) in open_arrays(ckpt_dir, group, cut, step).items():
+            idx = [slice(None)] * mm.ndim
             n = mm.shape[-3]
             if n % ep:
                 raise ValueError(f"{key}: {n} saved slots over {ep} ranks")
             i = mesh.index("model")
-            flat[key] = mm[..., i * n // ep:(i + 1) * n // ep, :, :]
+            idx[-3] = slice(i * n // ep, (i + 1) * n // ep)
+            if rows > 1:
+                dim = mm.ndim + FSDP_DIM[key.split(_SEP)[-1]]
+                n_d, j = mm.shape[dim], mesh.index("data")
+                if n_d % rows:
+                    raise ValueError(f"{key}: D {n_d} over {rows} data rows")
+                idx[dim] = slice(j * n_d // rows, (j + 1) * n_d // rows)
+            flat[key] = mm[tuple(idx)]
         out[group] = _unflatten_into(tmpl, _decode_flat(flat))
     return step, out
 

@@ -2,20 +2,22 @@
 
 Feeds the port with the reference's parameters, caches and optimizer
 state: pass it the JAX tree after ``jax.tree.map(np.asarray, tree)``; ``rank_shard`` cuts
-the tree a rank of an EP mesh holds.  A JAX bf16 array
-becomes an ``ml_dtypes`` bfloat16 numpy array, which ``torch.from_numpy``
-rejects, so bf16 goes through its 16-bit pattern.  Every leaf is copied:
+the tree a rank of an EP mesh holds (its expert slots and, in the FSDP
+layout training takes, their ``D/data`` slice), and so do
+``params_from_numpy`` and ``opt_state_from_numpy`` given ``mesh=``.  A
+JAX bf16 array becomes an ``ml_dtypes`` bfloat16 numpy array, which
+``torch.from_numpy`` rejects, so bf16 goes through its 16-bit pattern.  Every leaf is copied:
 JAX's buffers are read-only.  Like every entry point of the port, they
 put the tensors on ``cuda`` unless the caller names a device.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import FSDP_DIM, resolve_device
 from repro_torch.optim.adamw import OptState
 
 Tree = Any
@@ -30,8 +32,16 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_numpy(tree: Tree, device=None) -> Tree:
-    """Nested dicts (and tuples) of numpy arrays → the same of tensors."""
+def params_from_numpy(tree: Tree, device=None, mesh=None,
+                      fsdp: bool = False) -> Tree:
+    """Nested dicts (and tuples) of numpy arrays → the same of tensors.
+    Under ``mesh``, the rank's shard (:func:`rank_shard`; with ``fsdp``,
+    the FSDP layout's) on its device unless ``device`` names one."""
+    if mesh is not None:
+        return rank_shard(tree, mesh.size("model"), mesh.index("model"),
+                          device=mesh.device if device is None else device,
+                          fsdp=(mesh.size("data"), mesh.index("data"))
+                          if fsdp else None)
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
@@ -43,14 +53,17 @@ def params_from_numpy(tree: Tree, device=None) -> Tree:
 cache_from_numpy = params_from_numpy
 
 
-def opt_state_from_numpy(state, device=None):
+def opt_state_from_numpy(state, device=None, mesh=None, fsdp: bool = False):
     """A reference ``OptState`` (``step``, ``mu``, ``nu`` of numpy arrays,
     e.g. after ``jax.tree.map(np.asarray, opt)``) → the port's
-    ``optim.adamw.OptState``."""
+    ``optim.adamw.OptState``; under ``mesh`` the rank's shard of the
+    moments, as :func:`params_from_numpy` cuts the parameters."""
     step, mu, nu = state
+    if mesh is not None and device is None:
+        device = mesh.device
     return OptState(tensor_from_numpy(step, device),
-                    params_from_numpy(mu, device),
-                    params_from_numpy(nu, device))
+                    params_from_numpy(mu, device, mesh, fsdp),
+                    params_from_numpy(nu, device, mesh, fsdp))
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")
 
@@ -74,20 +87,23 @@ def slot_owner(placement, num_experts: int) -> np.ndarray:
 
 
 def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
-               device=None, num_experts: Optional[int] = None) -> Tree:
+               device=None, num_experts: Optional[int] = None,
+               fsdp: Optional[Tuple[int, int]] = None) -> Tree:
     """One EP rank's parameters from the reference's numpy tree, whose
     expert stacks ``[.., E, a, b]`` are in logical order: each MoE stack
     laid out in the table's physical slot order (empty spares zero) and
     cut to the rank's ``S/ep`` slots; every other leaf whole.  A per-layer
     table lays out block ``b`` of the stacked blocks by its row ``b``.
-    Only the rank's slots are copied to the device."""
+    ``fsdp``: ``(rows, row)``, the FSDP layout's cut of each slot's D dim
+    (``FSDP_DIM``) too, data row ``row``'s ``D/rows``.  Only the rank's
+    part is copied to the device."""
     def walk(node, in_moe):
         if isinstance(node, dict):
-            return {k: (cut(v) if in_moe and k in MOE_KEYS
+            return {k: (cut(v, k) if in_moe and k in MOE_KEYS
                         else walk(v, k == "moe")) for k, v in node.items()}
         return tensor_from_numpy(node, device)
 
-    def cut(arr):
+    def cut(arr, key):
         arr = np.asarray(arr)
         e = num_experts or arr.shape[-3]
         owner = slot_owner(placement, e)
@@ -101,6 +117,14 @@ def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
         else:                       # per-layer rows over the blocks
             out = np.stack([arr[b][idx[b]] for b in range(arr.shape[0])])
         out[np.broadcast_to(mine < 0, out.shape[:-2])] = 0
+        if fsdp is not None:
+            rows, row = fsdp
+            dim = out.ndim + FSDP_DIM[key]
+            n_d = out.shape[dim]
+            if n_d % rows:
+                raise ValueError(f"{key}: D {n_d} over {rows} data rows")
+            out = np.take(out, np.arange(row * n_d // rows,
+                                         (row + 1) * n_d // rows), axis=dim)
         return tensor_from_numpy(out, device)
 
     device = resolve_device(device)

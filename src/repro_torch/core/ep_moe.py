@@ -19,8 +19,10 @@ Two paths, as in the reference:
   dependency on it), grouped expert FFN (``kernels.ops.grouped_ffn`` with
   the BF16 weights, or the fused W4A4 ``kernels.ops.grouped_fp4_ffn``),
   the combine all-to-all back, gate-weighted combine.  In training
-  (``train=True``, one rank) FP4 is off and only the BF16 grouped FFN
-  runs, with its gradient kernel.
+  (``train=True``) FP4 is off and only the BF16 grouped FFN runs, with
+  its gradient kernel; under a mesh the expert slabs are FSDP-sharded
+  over ``data`` and gathered before use, and every collective the layer
+  crosses has its transpose (:class:`Comm`).
 * ``broadcast`` (decode): every local expert on every token (dense
   per-expert products in BF16, the grouped W4A4 kernel in FP4), combine
   by one-hot gates, the partial sums added over the group in rank order.
@@ -57,7 +59,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, ReaLBConfig
 from repro_torch.core import quant
 from repro_torch.core.policy import realb_policy
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import current_mesh, local_slice
+from repro_torch.models.common import FSDP_DIM, current_mesh, local_slice
 
 F32 = torch.float32
 AUX_SCALARS = ("lb_loss", "z_loss", "drop_frac", "ib_global", "fp4_ranks",
@@ -195,7 +197,11 @@ class CollectiveCensus:
     output gathered over ``model``, and rows over ``data``), classed
     apart.  Between forwards: ``migrate_all_to_all`` (a migration's rows,
     the bytes sent to other ranks), ``agree_all_reduce`` (the ranks'
-    agreements) and ``checkpoint_gather``."""
+    agreements) and ``checkpoint_gather``.  In training: the transposes
+    ``all_to_all_grad`` and ``layout_all_gather_grad``, the FSDP slabs'
+    ``fsdp_all_gather`` and ``fsdp_reduce_scatter``, the loss's
+    ``psum_data``/``all_reduce_data``, the replicated leaves'
+    ``grad_all_reduce`` and the global norm's ``norm_all_gather``."""
 
     def __init__(self):
         self.kinds: Dict[str, Dict[str, int]] = {}
@@ -212,6 +218,106 @@ class CollectiveCensus:
         return {k: dict(v) for k, v in sorted(self.kinds.items())}
 
 
+class _AllToAll(torch.autograd.Function):
+    """:meth:`Comm.a2a` under autograd (dispatch and combine in training).
+    The all-to-all of equal blocks is a permutation of the blocks over the
+    group, and its transpose is the reverse exchange with the same splits,
+    which is the same all-to-all: each rank's cotangent is its own part
+    (the rows it sent), nothing is summed.  Synchronous both ways."""
+
+    @staticmethod
+    def forward(ctx, buf, comm, n):
+        ctx.comm, ctx.n = comm, n
+        out, work = comm._a2a(buf, n, False, "all_to_all")
+        _wait(work)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dbuf, work = ctx.comm._a2a(dout.contiguous(), ctx.n, False,
+                                   "all_to_all_grad")
+        _wait(work)
+        return dbuf, None, None
+
+
+class _PSum(torch.autograd.Function):
+    """:meth:`Comm.psum` under autograd.  The sum's value is replicated over
+    the axis and so is every use of it (the losses every rank of the group
+    computes alike), so the cotangent each rank holds is already that of
+    the whole sum: the transpose gives each rank's own addend that
+    cotangent unchanged.  Summing it again over the axis would count it
+    once per rank."""
+
+    @staticmethod
+    def forward(ctx, flat, comm, axis):
+        out = flat.clone()
+        comm._all_reduce(out, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return dout, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """:meth:`Comm._gather` under autograd (the MoE output over ``model``,
+    the rows' statistics over ``data``): ``[n, *x.shape]``, every rank's
+    ``x``.  Every use of the result is replicated over the axis, so its
+    cotangent is too, and the transpose is this rank's slice of it, not a
+    sum (which would count it once per rank).  No collective in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.i = comm.mesh.index(axis) if comm.mesh is not None else 0
+        return comm._gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return dout[ctx.i], None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor replicated over
+    ``axis`` (the MoE layer's sequence slice of its input and of the
+    router's logits).  The slice's cotangent is zero outside the slice,
+    so the replicated input's cotangent is the sum of every rank's piece:
+    the pieces do not overlap, and the transpose is an all-gather of them
+    along ``dim`` (the sum of the zero-padded pieces, exactly, with fewer
+    bytes than an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        return comm._part(x, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, dpart):
+        parts = ctx.comm._gather(dpart.contiguous(), ctx.axis,
+                                 "layout_all_gather_grad")
+        return torch.cat(list(parts), dim=ctx.dim), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """The FSDP gather of an expert slab (the reference's ``fsdp_gather``,
+    an all-gather over ``data`` along the ``embed`` dim ``dim``).  Each
+    data row uses the whole slab on its own tokens, so its cotangent holds
+    that row's part of the gradient: the transpose is a reduce-scatter
+    over ``data``, each rank keeping the sum over the rows of its own
+    slice.  It is an all-to-all of the slices and a sum in rank order, in
+    f32 rounded once to the slab's dtype, so every backend gives the same
+    bits."""
+
+    @staticmethod
+    def forward(ctx, w, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._whole(w, dim)
+
+    @staticmethod
+    def backward(ctx, dw):
+        return ctx.comm.reduce_scatter(dw, ctx.dim), None, None
+
+
 class Comm:
     """The EP group's collectives (the reference's ``Comm``).  Without a
     group (``_local_comm``) every collective is the identity over one rank.
@@ -222,7 +328,20 @@ class Comm:
     blocks of rows, ``all_gather_model`` an all-gather.  Under the
     ``staged`` backend each collective copies its CUDA input to the host,
     runs gloo there and copies the result back, inside a window the
-    ``sentinel`` sanctions (the engine sets it)."""
+    ``sentinel`` sanctions (the engine sets it).
+
+    Training crosses ``psum``, ``a2a``, ``all_gather_model``,
+    ``gather_rows``, ``scatter`` (a rank's slice of a replicated input)
+    and ``fsdp_gather``: when autograd records and the input needs a
+    gradient each goes through an autograd function whose backward is its
+    transpose (``_PSum``, ``_AllToAll``, ``_Gather``, ``_Scatter``,
+    ``_FsdpGather``; each docstring says why that transpose).  The
+    convention: every rank computes the same global loss, and each rank's
+    gradient is that loss's derivative with respect to what it holds, so
+    a replicated value's cotangent is replicated and a value a rank holds
+    in part gets the cotangent of its part.  The backward's collectives
+    run on autograd's thread, in the order of the backward graph, which
+    is the same on every rank."""
 
     def __init__(self, ep: int = 1, my_rank: int = 0, mesh=None):
         self.ep, self.my_rank = ep, my_rank
@@ -249,35 +368,75 @@ class Comm:
                 tensors[i].copy_(host[i].to(tensors[i].device))
         return None
 
-    def psum(self, parts):
-        """Each tensor of ``parts`` (one dtype) summed over the EP group, in
-        one ``all_reduce`` of the parts packed."""
-        if self.mesh is None:
+    def psum(self, parts, axis: str = "model"):
+        """Each tensor of ``parts`` (one dtype) summed over the mesh axis
+        ``axis`` (the EP group by default), in one ``all_reduce`` of the
+        parts packed."""
+        if self.mesh is None or self.mesh.size(axis) == 1:
             return list(parts)
-        import torch.distributed as dist
         flat = torch.cat([t.reshape(-1) for t in parts])
-        self.census.add("psum", flat.nbytes, count=len(parts))
-        self.census.add("all_reduce", flat.nbytes)
-        group = self.mesh.group("model")
-        self._run(lambda t, async_op: dist.all_reduce(
-            t, group=group, async_op=async_op), [flat], [0])
+        self.census.add("psum" if axis == "model" else f"psum_{axis}",
+                        flat.nbytes, count=len(parts))
+        if _records(flat):
+            flat = _PSum.apply(flat, self, axis)
+        else:
+            self._all_reduce(flat, axis)
         out, i = [], 0
         for t in parts:
             out.append(flat[i:i + t.numel()].reshape(t.shape))
             i += t.numel()
         return out
 
+    def _all_reduce(self, flat: torch.Tensor, axis: str,
+                    kind: Optional[str] = None) -> None:
+        import torch.distributed as dist
+        self.census.add(kind or ("all_reduce" if axis == "model"
+                                 else f"all_reduce_{axis}"), flat.nbytes)
+        group = self.mesh.group(axis)
+        self._run(lambda t, async_op: dist.all_reduce(
+            t, group=group, async_op=async_op), [flat], [0])
+
+    def sum_over_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every rank of the mesh in rank order (an
+        all-gather over the mesh's group and sequential adds: the same bits
+        on every rank), counted as ``norm_all_gather``."""
+        parts = self._gather(x, None, "norm_all_gather")
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0-dim bool ``flag`` and-ed over every rank of the mesh (one
+        tiny all-reduce, counted as ``agree_all_reduce``), on ``flag``'s
+        device: the ranks decide alike."""
+        import torch.distributed as dist
+        t = flag.to(torch.int32).reshape(1)
+        self.census.add("agree_all_reduce", t.nbytes)
+        group = self.mesh.group()
+        self._run(lambda v, async_op: dist.all_reduce(
+            v, op=dist.ReduceOp.MIN, group=group, async_op=async_op),
+            [t], [0])
+        return t.reshape(()) > 0
+
     def a2a(self, buf: torch.Tensor, n: int, async_op: bool = False):
         """Exchange the first ``n`` rows of ``buf`` (``ep`` equal blocks, the
         j-th to rank j) over the EP group: returns ``(out, work)``, ``out``
         of ``buf``'s shape with the received blocks in its first ``n`` rows
         and zeros after; ``work`` is waited on before ``out`` is read (None:
-        nothing to wait for).  Without a group ``out`` is ``buf``."""
+        nothing to wait for).  Without a group ``out`` is ``buf``.  Under
+        autograd (``buf`` needs a gradient) it is synchronous and has its
+        transpose (``_AllToAll``)."""
         if self.mesh is None:
             return buf, None
+        if _records(buf):
+            return _AllToAll.apply(buf, self, n), None
+        return self._a2a(buf, n, async_op, "all_to_all")
+
+    def _a2a(self, buf, n, async_op, kind):
         import torch.distributed as dist
         out = torch.zeros_like(buf)
-        self.census.add("all_to_all", buf[:n].nbytes)
+        self.census.add(kind, buf[:n].nbytes)
         group = self.mesh.group("model")
         work = self._run(
             lambda src, dst, async_op: dist.all_to_all_single(
@@ -356,21 +515,76 @@ class Comm:
 
     def all_gather_model(self, x: torch.Tensor) -> torch.Tensor:
         """``[ep, *x.shape]``: every rank's ``x`` (the layout's gather)."""
+        if _records(x):
+            return _Gather.apply(x, self, "model")
         return self._gather(x, "model")
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[rows, *x.shape]``: every data row's ``x``."""
+        if _records(x):
+            return _Gather.apply(x, self, "data")
         return self._gather(x, "data")
 
-    def _gather(self, x: torch.Tensor, axis: str,
-                kind: str = "layout_all_gather") -> torch.Tensor:
+    def scatter(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` of ``x``, which every rank of
+        ``axis`` holds alike (``dim`` divides over it); under autograd its
+        transpose gathers the pieces (``_Scatter``)."""
         if self.mesh is None or self.mesh.size(axis) == 1:
+            return x
+        if _records(x):
+            return _Scatter.apply(x, self, axis, dim)
+        return self._part(x, axis, dim)
+
+    def _part(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        part = x.shape[dim] // self.mesh.size(axis)
+        return x.narrow(dim, self.mesh.index(axis) * part, part)
+
+    def fsdp_gather(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole ``embed`` dim of an expert slab whose slice along
+        ``dim`` each data row holds (``_FsdpGather``)."""
+        if self.mesh is None or self.mesh.size("data") == 1:
+            return w
+        if _records(w):
+            return _FsdpGather.apply(w, self, dim)
+        return self._whole(w, dim)
+
+    def _whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.cat(list(self._gather(w, "data", "fsdp_all_gather")),
+                         dim=dim)
+
+    def reduce_scatter(self, dw: torch.Tensor, dim: int) -> torch.Tensor:
+        """``dw`` (a whole slab's part of the gradient, one a data row)
+        summed over ``data``, this rank's slice along ``dim`` kept: an
+        all-to-all of the ``rows`` slices and a sum in rank order in f32,
+        rounded once to ``dw``'s dtype.  Counted as
+        ``fsdp_reduce_scatter`` with the bytes of ``dw``."""
+        import torch.distributed as dist
+        rows = self.mesh.size("data")
+        dim = dim % dw.dim()
+        send = torch.stack(torch.chunk(dw, rows, dim=dim)).contiguous()
+        recv = torch.empty_like(send)
+        self.census.add("fsdp_reduce_scatter", send.nbytes)
+        group = self.mesh.group("data")
+        self._run(lambda src, dst, async_op: dist.all_to_all_single(
+            dst, src, group=group, async_op=async_op), [send, recv], [1])
+        out = recv[0].to(F32)
+        for part in recv[1:]:
+            out = out + part.to(F32)
+        return out.to(dw.dtype)
+
+    def _gather(self, x: torch.Tensor, axis: Optional[str],
+                kind: str = "layout_all_gather") -> torch.Tensor:
+        """``[n, *x.shape]``, every rank's ``x`` over ``axis`` (None: every
+        rank of the mesh), in rank order."""
+        n = 1 if self.mesh is None else (
+            self.mesh.size(axis) if axis is not None
+            else self.mesh.size("data") * self.mesh.size("model"))
+        if n == 1:
             return x[None]
         import torch.distributed as dist
         # torch 2.13 renames all_gather_into_tensor (the card has 2.11)
         gather = getattr(dist, "all_gather_single",
                          dist.all_gather_into_tensor)
-        n = self.mesh.size(axis)
         flat = x.reshape(-1).contiguous()
         out = torch.empty((n * flat.numel(),), dtype=x.dtype,
                           device=x.device)
@@ -379,6 +593,11 @@ class Comm:
         self._run(lambda src, dst, async_op: gather(
             dst, src, group=group, async_op=async_op), [flat, out], [1])
         return out.reshape(n, *x.shape)
+
+
+def _records(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 def _local_comm() -> Comm:
@@ -521,7 +740,10 @@ def _route_stats(p, x_t, mod_t, val_t, m_vec, cfg, rcfg, rep, pol_ep,
         (m_vec, counts, vis, slot_load, slot_vis, split, probs_sum,
          z_sum) = comm.psum([m_vec, counts, vis, slot_stat, slot_vis,
                              split.reshape(1), probs_sum, z_sum.reshape(1)])
-        split, z_sum = split.reshape(()), z_sum.reshape(())
+        # only the router sums carry a gradient (in training)
+        m_vec, counts, vis, slot_load, slot_vis = (
+            t.detach() for t in (m_vec, counts, vis, slot_load, slot_vis))
+        split, z_sum = split.detach().reshape(()), z_sum.reshape(())
     load_d = slot_load.reshape(pol_ep, s_pol).sum(-1)
     vis_d = slot_vis.reshape(pol_ep, s_pol).sum(-1)
     dec = realb_policy(load_d, vis_d, m_vec, rcfg)
@@ -552,8 +774,16 @@ def _aux(r, drop_frac, k, e_cfg):
 # --------------------------------------------------------------------------
 # dispatch path (prefill)
 # --------------------------------------------------------------------------
+def _gather_weights(p, comm: Comm, fsdp: bool) -> Dict[str, torch.Tensor]:
+    """The rank's expert slabs, each with its whole ``embed`` dim: under
+    FSDP gathered over ``data`` (the reference's ``_gather_weights``)."""
+    return {n: comm.fsdp_gather(p[n], FSDP_DIM[n]) if fsdp else p[n]
+            for n in ("w_gate", "w_up", "w_down")}
+
+
 def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
-                  comm: Comm, stop_stage=None, logits=None, train=False):
+                  comm: Comm, stop_stage=None, logits=None, train=False,
+                  fsdp=False):
     """x_t [t,D] this rank's tokens; mod_t [t] vision flags; val_t [t]
     real-token flags; m_vec [pol_ep] the AIMD state (under a mesh this
     rank's one-hot share of it); rep maps logical experts onto slots
@@ -581,7 +811,8 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     update and every statistic run as in serving.  Gradients flow through
     the gates, the router sums (``lb_loss``, ``z_loss``), the dispatch
     scatter (a dropped assignment's row lands in a spare row no one reads:
-    no gradient), the expert FFN and the combine."""
+    no gradient), the expert FFN and the combine.  ``fsdp``: ``p`` holds
+    the rank's ``D/data`` slice of its slabs, gathered before use."""
     e_cfg = cfg.moe
     ep = comm.ep
     n_slots = rep.slot_owner.shape[0]
@@ -599,7 +830,7 @@ def _moe_dispatch(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     if stop_stage == "route":
         return r["gates"], r["flat_p"], r["dec"].m_new, r["load_d"], f
     fi = f.to(torch.int32)
-    w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+    w = _gather_weights(p, comm, fsdp)
     if stop_stage == "weight_gather":
         return r["gates"], r["flat_p"], r["dec"].m_new, f, w
 
@@ -772,7 +1003,7 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    mode: str = "dispatch",
                    valid: Optional[torch.Tensor] = None,
                    placement=None, stop_stage: Optional[str] = None,
-                   train: bool = False):
+                   train: bool = False, fsdp: bool = False):
     """MoE layer with ReaLB.  x [B,S,D]; m_state [groups, ep] (see
     :func:`moe_state_shape`); valid [B,S] marks real tokens (None = all).
     ``placement``: None (identity), a :class:`Placement`, or a
@@ -797,9 +1028,15 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``dispatch`` / ``expert_gemm``) and return that prefix's raw boundary
     values instead — see :func:`repro_torch.obs.profiler.time_moe_phases`.
 
-    ``train`` (dispatch mode, one rank): the training layer, see
+    ``train`` (dispatch mode): the training layer, see
     :func:`_moe_dispatch`; ``m_state`` and the statistics carry no
-    gradient."""
+    gradient.  Under a mesh with ``data`` rows it takes one ``m_state``
+    group a row, and ``x`` holds only this data row's rows (the training
+    step keeps its rows apart for the whole step, see
+    ``models.transformer.train_forward``); ``y`` is those rows.  ``fsdp``
+    (the reference's): ``p``'s expert stacks hold the rank's ``D/data``
+    slice of its slots (``FSDP_DIM``), all-gathered over ``data`` before
+    use, the gradient reduce-scattered back (:class:`Comm`)."""
     if modality is None:
         modality = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     if valid is None:
@@ -808,9 +1045,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         raise NotImplementedError("the expert FFN kernels are SwiGLU only")
     mesh = current_mesh()
     fn = _moe_broadcast if mode == "broadcast" else _moe_dispatch
-    train_kw = {"train": True} if train and mode != "broadcast" else {}
+    train = train and mode != "broadcast"
+    train_kw = {"train": True} if train else {}
     b, s, d = x.shape
-    if mesh is None or mesh.size("model") == 1:
+    if mesh is None or (mesh.size("model") == 1
+                        and not (train and mesh.size("data") > 1)):
         pol_ep = int(m_state.shape[-1]) if m_state.dim() else 1
         if cfg.moe.num_experts % pol_ep:
             raise ValueError(f"{cfg.moe.num_experts} experts over {pol_ep} "
@@ -829,11 +1068,6 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         y, m_new, aux = out
         return y.reshape(b, s, d), m_new.reshape(m_state.shape), aux
 
-    if train:
-        raise NotImplementedError(
-            "training under a mesh (the FSDP expert gather and the "
-            "compressed gradient all-reduce) is not ported yet: ROADMAP "
-            "Queue A item 6")
     if stop_stage is not None:
         raise NotImplementedError(
             "stop_stage instrumentation is one-rank only, as the "
@@ -845,37 +1079,47 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
             or m_state.shape[0] not in (1, rows):
         raise ValueError(f"m_state {tuple(m_state.shape)} on a "
                          f"{rows}x{ep} mesh; see moe_state_shape")
+    if train and rows > 1 and m_state.shape[0] != rows:
+        raise ValueError(f"training on {rows} data rows takes one m_state "
+                         f"group a row, not {tuple(m_state.shape)}: the "
+                         "batch must divide over the rows (moe_state_shape)")
     rep = _as_replication(placement, cfg.moe.num_experts, ep, x.device)
     n_slots = rep.slot_owner.shape[0]
     if n_slots % ep or p["w_gate"].shape[0] != n_slots // ep:
         raise ValueError(f"{n_slots} slots over {ep} ranks: a rank holds "
                          f"{n_slots // ep} of them, not "
                          f"{p['w_gate'].shape[0]} (pass its shard)")
+    d_held = d // rows if fsdp else d
+    if fsdp and d % rows or p["w_gate"].shape[1] != d_held \
+            or p["w_down"].shape[2] != d_held:
+        raise ValueError(f"expert slabs of D {p['w_gate'].shape[1]}, want "
+                         f"{d_held} (fsdp={fsdp} over {rows} data rows)")
     g = mesh.index("data") if m_state.shape[0] > 1 else 0
     my = comm.my_rank
-    # rows over data (one EP group a row), the dispatch's sequence over
-    # model
+    # rows over data (one EP group a row; in training the caller passes
+    # them), the dispatch's sequence over model
     cut_b = local_slice(b, "batch", mesh) if m_state.shape[0] > 1 \
-        else slice(0, b)
+        and not train else slice(0, b)
     cut_s = slice(0, s) if mode == "broadcast" \
         else local_slice(s, "seq", mesh)
-    xl = x[cut_b, cut_s]
+    xb = x[cut_b]
+    xl = xb if mode == "broadcast" else comm.scatter(xb, "model", 1)
     bl, sl = xl.shape[:2]
     m_part = (torch.arange(ep, device=x.device) == my).to(F32) \
         * m_state[g, my].to(F32)
-    kw = {}
+    kw = {"fsdp": fsdp} if train else {}
     if mode != "broadcast":
         # the router's logits of the group's whole sequence, this rank's
         # slice kept: a BLAS picks its f32 GEMM by the row count, so logits
         # of a slice could differ in the last bit from the one-device
         # layer's and flip a near-tie of the top-k
-        kw["logits"] = (x[cut_b].reshape(-1, d).to(F32)
-                        @ p["router"].to(F32)).reshape(bl, s, -1)[
-                            :, cut_s].reshape(bl * sl, -1)
+        kw["logits"] = comm.scatter(
+            (xb.reshape(-1, d).to(F32) @ p["router"].to(F32))
+            .reshape(bl, s, -1), "model", 1).reshape(bl * sl, -1)
     y, m_new, aux = fn(xl.reshape(bl * sl, d),
                        modality[cut_b, cut_s].reshape(bl * sl),
                        valid[cut_b, cut_s].reshape(bl * sl), p, m_part, cfg,
-                       rcfg, rep, ep, comm, **kw)
+                       rcfg, rep, ep, comm, **train_kw, **kw)
     y = y.reshape(bl, sl, d)
     if mode != "broadcast":
         y = comm.all_gather_model(y).permute(1, 0, 2, 3).reshape(bl, s, d)
@@ -888,7 +1132,8 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         scal, stats, estats, sstats = (scal[None], stats[None],
                                        estats[None], sstats[None])
     else:                                # every row's values, by row
-        y = comm.gather_rows(y).reshape(b, s, d)
+        if not train:
+            y = comm.gather_rows(y).reshape(b, s, d)
         packed = comm.gather_rows(torch.cat([
             m_new.reshape(-1), scal, stats.reshape(-1), estats.reshape(-1),
             sstats.reshape(-1)]))
@@ -899,6 +1144,8 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 torch.split(packed, sizes, dim=1),
                 ((ep,), (scal.numel(),), stats.shape, estats.shape,
                  sstats.shape)))
+        m_out, stats, estats, sstats = (
+            t.detach() for t in (m_out, stats, estats, sstats))
     aux_mean = scal.mean(0)
     out = {n: aux_mean[i] for i, n in enumerate(AUX_SCALARS)}
     out.update(load_d=stats[:, 0], vis_d=stats[:, 1],

@@ -536,7 +536,11 @@ int launch_a4(const void* x, const void* packed, const void* scales,
               const void* gscale, void* y, int64_t M, int64_t N, int64_t K,
               cudaStream_t stream) {
   using C = Cfg<TX, A4>;
-  cudaError_t err = allow_smem<&fp4_matmul_kernel<TX, TY, A4>, C::SMEM>();
+  // the tensor map below is encoded on this thread, which may not have the
+  // device's context bound yet
+  cudaError_t err = bind_device();
+  if (err == cudaSuccess)
+    err = allow_smem<&fp4_matmul_kernel<TX, TY, A4>, C::SMEM>();
   if (err != cudaSuccess) return static_cast<int>(err);
   Maps maps;
   if (!maps_for<TX>(&maps, x, M, K))

@@ -507,7 +507,10 @@ int launch(const void* xs, const void* gs, int64_t G, int64_t Gw,
            int64_t D, int64_t F, cudaStream_t s) {
   if (M == 0 || G == 0 || Gw == 0) return 0;
   if (G > MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem<&ffn_kernel<2>>();
+  // the tensor maps below are encoded on this thread, which may not have
+  // the device's context bound yet
+  cudaError_t err = bind_device();
+  if (err == cudaSuccess) err = allow_smem<&ffn_kernel<2>>();
   if (err == cudaSuccess) err = allow_smem<&ffn_kernel<1>>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();

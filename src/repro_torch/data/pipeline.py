@@ -9,6 +9,11 @@ function of ``(seed, step, host)`` so a restarted job resumes byte-exact
 (no data-offset files needed) and hosts never synchronize — at 1000+ nodes
 there is no global-shuffle barrier.
 
+Under a mesh every rank draws the same global batch (``host`` 0, as the
+reference's ``DataLoader`` yields the global batch that ``jit`` shards),
+and the train step takes its data row's rows of it
+(``models.transformer.train_forward``): the ranks never exchange data.
+
 Two generators:
 
 * ``lm_batch`` — learnable LM stream: tokens from a per-position Markov

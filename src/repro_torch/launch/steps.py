@@ -11,6 +11,13 @@ parameters and optimizer moments into the tensors it is given (see
 ``optim.adamw``), and where the loss is not finite it writes nothing, so a
 caller that drops the step's result keeps the state it had, as with the
 reference's.
+
+Under a mesh (``models.common.use_mesh``) the same steps run on every
+rank: the train step takes the FSDP layout's parameters and the global
+batch, sums the replicated leaves' gradients over ``data``
+(``optim.grad_utils.data_parallel_grads``) and updates each rank's leaves,
+the ranks agreeing on whether to write; its loss and metrics are the
+global ones, the same on every rank.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ReaLBConfig, TrainConfig
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
-from repro_torch.optim.grad_utils import value_and_grad
+from repro_torch.optim.grad_utils import data_parallel_grads, value_and_grad
 
 
 def make_train_step(cfg: ModelConfig, rcfg: ReaLBConfig, tcfg: TrainConfig):
@@ -33,6 +40,7 @@ def make_train_step(cfg: ModelConfig, rcfg: ReaLBConfig, tcfg: TrainConfig):
     def train_step(params, opt_state, m_state, batch):
         (loss, (m_new, metrics)), grads = value_and_grad(
             tf.train_loss, params, cfg, rcfg, batch, m_state)
+        grads = data_parallel_grads(grads)
         params, opt_state, opt_metrics = adamw.adamw_update(
             params, grads, opt_state, tcfg, apply=torch.isfinite(loss))
         return params, opt_state, m_new, {**metrics, **opt_metrics,

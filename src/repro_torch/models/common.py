@@ -9,9 +9,11 @@ the second-to-last dim, ``embed`` normals with their own std, zero norms.
 
 Under a :class:`Mesh` (``use_mesh``) a rank holds the slice of each
 parameter whose logical axes the rules map onto mesh axes; only the
-expert stacks have such an axis (``expert`` over ``model``).  The rank
-draws each block whole and keeps its slice, so its values equal the
-matching slice of the whole model's and it never holds the whole stack.
+expert stacks have such axes: ``expert`` over ``model`` and, in the FSDP
+layout of training (``fsdp=True``), ``embed`` (their D dim) over
+``data``.  The rank draws each block whole and keeps its slice, so its
+values equal the matching slice of the whole model's and it never holds
+the whole stack.
 """
 from __future__ import annotations
 
@@ -48,8 +50,11 @@ def resolve_device(device: Union[str, torch.device, None] = None
 AXES = ("data", "model")
 # logical name -> mesh axis, as far as the EP path needs them (the
 # reference's DEFAULT_RULES): rows over data, the dispatch sequence and the
-# expert stacks over model
-RULES: Dict[str, str] = {"batch": "data", "seq": "model", "expert": "model"}
+# expert stacks over model, the experts' D dim over data (FSDP)
+RULES: Dict[str, str] = {"batch": "data", "seq": "model", "expert": "model",
+                         "embed": "data"}
+# axes cut only in the FSDP layout (the reference's ``fsdp=True``)
+FSDP_AXES = ("embed",)
 
 
 class Mesh:
@@ -162,11 +167,13 @@ def ep_size(mesh: Optional[Mesh]) -> int:
     return 1 if mesh is None else mesh.size("model")
 
 
-def local_slice(n: int, axis: Optional[str],
-                mesh: Optional[Mesh]) -> slice:
+def local_slice(n: int, axis: Optional[str], mesh: Optional[Mesh],
+                fsdp: bool = False) -> slice:
     """The slice of a dim of size ``n`` with logical axis ``axis`` that this
     rank holds (the whole dim unless the rules map ``axis`` onto a mesh
-    axis of size > 1)."""
+    axis of size > 1; an ``FSDP_AXES`` axis only with ``fsdp``)."""
+    if axis in FSDP_AXES and not fsdp:
+        return slice(0, n)
     mesh_axis = RULES.get(axis) if axis is not None else None
     if mesh is None or mesh_axis is None or mesh.size(mesh_axis) == 1:
         return slice(0, n)
@@ -195,12 +202,14 @@ class P:
 
 def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
               device: torch.device, stack: int = 0,
-              mesh: Optional[Mesh] = None) -> torch.Tensor:
+              mesh: Optional[Mesh] = None, fsdp: bool = False
+              ) -> torch.Tensor:
     """One parameter (``stack`` adds a leading block dim).  Stacked normals
     are drawn one block at a time in f32, so the f32 draw never holds more
     than one block of the parameter.  Under ``mesh`` the result is this
-    rank's slice, cut from each block's whole draw."""
-    cut = tuple(local_slice(n, a, mesh)
+    rank's slice (with ``fsdp``, the FSDP layout's), cut from each block's
+    whole draw."""
+    cut = tuple(local_slice(n, a, mesh, fsdp)
                 for n, a in zip(p.shape, p.axes or (None,) * len(p.shape)))
     local = tuple(c.stop - c.start for c in cut)
     shape = (stack, *local) if stack else local
@@ -221,11 +230,12 @@ def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
 
 def init_params(tree: Tree, gen: torch.Generator, default_dtype: str,
                 device: torch.device, stack: int = 0,
-                mesh: Optional[Mesh] = None) -> Tree:
+                mesh: Optional[Mesh] = None, fsdp: bool = False) -> Tree:
     """Initialise a nested dict of :class:`P` (in sorted key order)."""
     if isinstance(tree, P):
-        return init_leaf(tree, gen, default_dtype, device, stack, mesh)
-    return {k: init_params(tree[k], gen, default_dtype, device, stack, mesh)
+        return init_leaf(tree, gen, default_dtype, device, stack, mesh, fsdp)
+    return {k: init_params(tree[k], gen, default_dtype, device, stack, mesh,
+                           fsdp)
             for k in sorted(tree)}
 
 
@@ -285,6 +295,40 @@ def tree_leaves(tree: Tree) -> Iterator[torch.Tensor]:
             yield from tree_leaves(tree[k])
     else:
         yield tree
+
+
+def tree_items(tree: Tree, path: Tuple[str, ...] = ()
+               ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """``(key path, leaf)`` of a nested dict, in :func:`tree_leaves`'
+    order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+# the dim of each expert stack that the FSDP layout cuts over ``data``
+# (``embed``: D)
+FSDP_DIM = {"w_gate": -2, "w_up": -2, "w_down": -1}
+
+
+def is_expert_path(path: Tuple[str, ...]) -> bool:
+    """Whether a key path names an expert stack (``.../moe/w_*``), the
+    leaves a mesh cuts over its ranks."""
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_KEYS
+
+
+def row_chunks(t: torch.Tensor, max_elems: int) -> list:
+    """Views of ``t`` along its first dim of at most ``max_elems`` elements
+    each (a larger row alone): ``[t]`` when it fits or has no dim.  An
+    elementwise pass over the chunks in turn holds one chunk's
+    temporaries, not the whole tensor's."""
+    if t.dim() == 0 or t.numel() <= max_elems:
+        return [t]
+    row = max(t.numel() // max(t.shape[0], 1), 1)
+    return list(torch.split(t, max(1, max_elems // row), dim=0))
 
 
 def tree_bytes(tree: Tree) -> int:

@@ -14,7 +14,7 @@ prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``device="cpu"``, and none of them reads the device on the host.
 Training: ``train_forward`` (logits of whole sequences, no cache, with the
 reference's ``remat`` policies), ``cross_entropy`` and ``train_loss``, on
-one device.
+one device or under a mesh.
 
 Under a mesh (``models.common.use_mesh``) the same entry points run on
 every rank of the EP group.  The reference lets GSPMD pick the layout of
@@ -27,25 +27,48 @@ all-to-all dispatch over the rank's ``S/ep`` expert slots, and all-gathers
 its output back over ``model``.  ``init_model`` builds only the rank's
 expert slots.  A chunk or prompt length must divide by the EP size (the
 engine's power-of-two chunk buckets, 8 and up, do for EP 2, 4 and 8).
+
+Training under a mesh (the reference's ``jit(value_and_grad(train_loss))``
+under ``use_mesh``) takes the FSDP layout (``init_model(fsdp=True)``:
+each expert stack's slots over ``model`` and its D dim over ``data``) and
+one ``m_state`` group a data row.  Each data row trains on its ``B/data``
+rows of the global batch for the whole step, its non-expert part
+replicated over ``model``; the MoE layers gather their slabs over
+``data`` (``fsdp=True``, as the reference's ``train_forward`` passes it);
+the loss is the global masked mean (numerator and denominator summed over
+``data``), the same on every rank.  Every collective has its transpose
+(``core.ep_moe.Comm``), so each rank's gradient is the global loss's
+with respect to what it holds: the expert shards' is complete (the FSDP
+gather's transpose sums the rows), a replicated leaf's is its data row's
+part, which ``optim.grad_utils.data_parallel_grads`` sums over ``data``.
+Under ``remat`` a checkpointed block's recompute re-issues its
+collectives inside the backward, the whole block on every rank in the
+same order (early stop off), and the census counts them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig, ReaLBConfig
 from repro_torch.core import ep_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (DTYPES, P, current_mesh, init_params,
-                                       resolve_device, rms_norm)
+                                       local_slice, resolve_device, rms_norm,
+                                       use_mesh)
 
 Tree = Any
 AUX_KEYS = ep_moe.AUX_SCALARS
-EXPERT_AXES = ("expert", None, None)
+# the expert stacks' logical axes: slots over model, D (``embed``) over
+# data in the FSDP layout
+EXPERT_AXES = {"w_gate": ("expert", "embed", None),
+               "w_up": ("expert", "embed", None),
+               "w_down": ("expert", None, "embed")}
 F32 = torch.float32
 
 
@@ -71,9 +94,9 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
     e, d = cfg.moe, cfg.d_model
     return {
         "router": P((d, e.num_experts), dtype="float32"),
-        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES),
-        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES),
-        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES),
+        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_gate"]),
+        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_up"]),
+        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES["w_down"]),
     }
 
 
@@ -112,11 +135,12 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None,
-               mesh=None) -> Tree:
+               mesh=None, fsdp: bool = False) -> Tree:
     """Random parameters from a seeded ``torch.Generator`` on the device,
     under the reference's key paths and layouts.  Under ``mesh`` (default:
     the current one) only this rank's ``S/ep`` expert slots, equal to the
-    matching slice of the whole model's."""
+    matching slice of the whole model's; with ``fsdp`` (the layout
+    training under a mesh takes) only their ``D/data`` slice."""
     mesh = current_mesh() if mesh is None else mesh
     device = resolve_device(mesh.device if device is None and mesh
                             is not None else device)
@@ -124,10 +148,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
     _, n_blocks, _ = block_structure(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = {k: init_params(v, gen, cfg.param_dtype, device, mesh=mesh)
+    params = {k: init_params(v, gen, cfg.param_dtype, device, mesh=mesh,
+                             fsdp=fsdp)
               for k, v in spec.items() if k != "blocks"}
     params["blocks"] = init_params(spec["blocks"], gen, cfg.param_dtype,
-                                   device, stack=n_blocks, mesh=mesh)
+                                   device, stack=n_blocks, mesh=mesh,
+                                   fsdp=fsdp)
     return params
 
 
@@ -218,7 +244,7 @@ def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
 
 def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
               rcfg: ReaLBConfig, ffn: str, *, mode: str, m_state, modality,
-              valid=None, placement=None):
+              valid=None, placement=None, fsdp=False):
     """The layer's dense or MoE FFN on the residual ``x``: (x, m_state,
     aux_scalars, stats, estats, sstats)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
@@ -236,7 +262,8 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
         y, m_state, moe_aux = ep_moe.ep_moe_forward(
             lp["moe"], h2, cfg, rcfg, m_state, modality,
             mode="broadcast" if mode == "decode" else "dispatch",
-            valid=valid, placement=placement, train=mode == "train")
+            valid=valid, placement=placement, train=mode == "train",
+            fsdp=fsdp)
         if "shared" in lp:
             y = y + ffn_mod.ffn_forward(lp["shared"], h2, cfg)
         x = x + y
@@ -256,7 +283,7 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
-                cache_len=0, placement=None):
+                cache_len=0, placement=None, fsdp=False):
     """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
     (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
     "decode" (the new rows written into ``cache_in`` in place, whose
@@ -268,7 +295,7 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                    cache_len=cache_len)
     x, m_state, aux, stats, estats, sstats = _ffn_part(
         lp, x + o, cfg, rcfg, ffn, mode=mode, m_state=m_state,
-        modality=modality, valid=valid, placement=placement)
+        modality=modality, valid=valid, placement=placement, fsdp=fsdp)
     return x, kv, m_state, aux, stats, estats, sstats
 
 
@@ -314,7 +341,7 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
                m_state, modality, chunk_len=None, valid=None, cache_len=0,
-               placement=None):
+               placement=None, fsdp=False):
     """Prefix layers, then a loop over the stacked blocks; the cache is
     updated in place and returned: a chunk or decode writes only its new
     rows (``attention.write_rows_``), a prefill fills a new zero cache of
@@ -329,7 +356,8 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     aux_acc = {k: torch.zeros((), dtype=F32, device=x.device)
                for k in AUX_KEYS}
     kw = dict(mode=mode, positions=positions, pos=pos, modality=modality,
-              chunk_len=chunk_len, valid=valid, cache_len=cache_len)
+              chunk_len=chunk_len, valid=valid, cache_len=cache_len,
+              fsdp=fsdp)
     for i in range(n_prefix):
         c = None if cache is None else cache["prefix"][str(i)]
         x, co, m_state, aux, _, _, _ = apply_layer(
@@ -386,7 +414,19 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
     rest of the layer apart, so each attention output is a saved boundary
     and the rest is recomputed.  A recompute gives the same values; what
     the block returns (``m_state``, the statistics) is the first pass's.
-    Kernel launch counters count the recompute too."""
+    Kernel launch counters count the recompute too.  Under a mesh the
+    recompute runs whole (checkpoint's early stop off), so every rank
+    re-issues every collective of the checkpointed part, in order, and
+    under the mesh of the forward: on a card it runs on autograd's thread,
+    where the mesh context (thread-local) is not set."""
+    mesh = current_mesh()
+
+    def in_mesh(fn):
+        def run(*args):
+            with use_mesh(mesh):
+                return fn(*args)
+        return run
+
     def layer(i, f, x, m):
         lp = _index(params["blocks"][f"layer{i}"], b)
         if cfg.remat != "attn_out":
@@ -394,12 +434,12 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
                 lp, x, cfg, rcfg, f, cache_in=None, m_state=m,
                 placement=placement, **kw)
             return x, m, aux, st, es, ss
-        o = checkpoint(lambda x: _mixer(lp, x, cfg, cache_in=None, **{
-            k: kw[k] for k in ("mode", "positions", "pos")})[0], x,
+        o = checkpoint(in_mesh(lambda x: _mixer(lp, x, cfg, cache_in=None, **{
+            k: kw[k] for k in ("mode", "positions", "pos")})[0]), x,
             use_reentrant=False)
-        return checkpoint(lambda x, o, m: _ffn_part(
+        return checkpoint(in_mesh(lambda x, o, m: _ffn_part(
             lp, x + o, cfg, rcfg, f, m_state=m, placement=placement, **{
-                k: kw[k] for k in ("mode", "modality", "valid")}),
+                k: kw[k] for k in ("mode", "modality", "valid", "fsdp")})),
             x, o, m, use_reentrant=False)
 
     def block(x, m):
@@ -413,12 +453,16 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
             st, es, ss = st + stats, es + estats, ss + sstats
         return x, m, aux_b, st, es, ss
 
-    if cfg.remat == "full":
-        return checkpoint(block, x, m_state, use_reentrant=False)
-    if cfg.remat not in ("none", "attn_out"):
+    if cfg.remat not in ("none", "full", "attn_out"):
         raise ValueError(f"remat {cfg.remat!r}: 'none', 'full' or "
                          "'attn_out'")
-    return block(x, m_state)
+    whole = set_checkpoint_early_stop(False) if mesh is not None \
+        else contextlib.nullcontext()
+    with whole:
+        if cfg.remat == "full":
+            return checkpoint(in_mesh(block), x, m_state,
+                              use_reentrant=False)
+        return block(x, m_state)
 
 
 def _index(tree: Tree, b: int) -> Tree:
@@ -505,24 +549,36 @@ def decode_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     return ForwardResult(logits[:, 0], cache, m_state, aux)
 
 
+def _train_rows(b: int, m_state) -> slice:
+    """The rows of the global batch this rank trains on: under a mesh with
+    one ``m_state`` group a data row, its data row's ``B/data``; else
+    all."""
+    mesh = current_mesh()
+    if mesh is None or m_state.dim() != 2 or m_state.shape[0] == 1:
+        return slice(0, b)
+    return local_slice(b, "batch", mesh)
+
+
 def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                   m_state, placement=None) -> ForwardResult:
     """Logits ``[B, S, V]`` (f32) of whole sequences and the MoE statistics,
     with no cache: batch tokens [B,S], modality [B,S] (optional).  The MoE
     layers run their training form (FP4 off, the BF16 expert FFN with its
     gradient kernel; the policy and its AIMD update still run), and
-    ``cfg.remat`` sets what the backward recomputes."""
-    if current_mesh() is not None:
-        raise NotImplementedError("training under a mesh is not ported yet: "
-                                  "ROADMAP Queue A item 6")
+    ``cfg.remat`` sets what the backward recomputes.  Under a mesh (see
+    the module docstring) every rank passes the global batch and the FSDP
+    layout's parameters; the logits are those of its data row's rows,
+    ``m_state`` and the statistics the global ones."""
     tokens, modality = _prepare_inputs(cfg, batch)
+    rows = _train_rows(tokens.shape[0], m_state)
+    tokens, modality = tokens[rows], modality[rows]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "train")
     x, _, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="train", positions=positions, pos=None,
         cache=None, m_state=m_state, modality=modality,
-        placement=placement)
+        placement=placement, fsdp=current_mesh() is not None)
     return ForwardResult(_unembed(params, cfg, x), None, m_state, aux)
 
 
@@ -530,22 +586,34 @@ def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
 # losses
 # --------------------------------------------------------------------------
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token CE. logits [B,S,V] f32, labels [B,S] int (-1 = pad)."""
+    """Mean token CE. logits [B,S,V] f32, labels [B,S] int (-1 = pad).
+    Under a mesh with data rows, ``logits`` and ``labels`` are this data
+    row's rows and the mean is the global one: the numerator and the
+    denominator summed over ``data`` (not the mean of the rows' means)."""
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       torch.clamp(labels, min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(F32)
     nll = (lse - ll) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    num, den = nll.sum(), mask.sum()
+    mesh = current_mesh()
+    if mesh is not None and mesh.size("data") > 1:
+        num, den = ep_moe._dist_comm(mesh).psum(
+            [num.reshape(1), den.reshape(1)], axis="data")
+        num, den = num.reshape(()), den.reshape(())
+    return num / torch.clamp(den, min=1.0)
 
 
 def train_loss(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                m_state) -> Tuple[torch.Tensor, Tuple[torch.Tensor, Dict]]:
     """(loss, (m_state, metrics)): the CE plus the MoE load-balance and
     router-z losses at the config's coefficients; metrics ``ce`` and the
-    MoE scalars, detached."""
+    MoE scalars, detached.  Under a mesh the loss is the global one, the
+    same on every rank."""
     res = train_forward(params, cfg, rcfg, batch, m_state)
-    ce = cross_entropy(res.logits, batch["labels"])
+    labels = batch["labels"]
+    ce = cross_entropy(res.logits, labels[_train_rows(labels.shape[0],
+                                                      m_state)])
     loss = ce
     if cfg.moe is not None:
         loss = (loss + cfg.moe.aux_loss_coef * res.aux["lb_loss"]

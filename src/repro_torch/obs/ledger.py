@@ -217,6 +217,71 @@ class FlopByteLedger:
                                   "bytes": gather * layers},
         }
 
+    def predict_train_census(self, t_local: int, layers: int, rows: int,
+                             itemsize: int, param_itemsize: int,
+                             replicated_shapes, remat: str = "none"
+                             ) -> Dict[str, Dict[str, int]]:
+        """Predicted collective census of one train step under a ``(rows,
+        ep)`` mesh (``ep`` > 1; ``launch.steps.make_train_step``, the FSDP
+        layout): what one rank issues, by the port's kinds.
+
+        Forward, per MoE layer: :meth:`predict_graph_census`'s all-to-alls,
+        psums and packed all-reduces, the output gathered over ``model``,
+        with ``rows`` > 1 the statistics gathered over ``data`` (the rows'
+        activations are not) and the three FSDP gathers of the slab
+        shards (``fsdp_all_gather``).  ``remat`` "full" or "attn_out"
+        re-runs all of that in the backward.  Backward, per MoE layer: the
+        combine's and the dispatch's transposes (``all_to_all_grad``, the
+        expert ids have none), the sequence slice's and the router
+        logits' (``layout_all_gather_grad``), the three reduce-scatters of
+        the whole slabs' gradients.  Then the loss's numerator and
+        denominator summed over ``data``, the replicated leaves' gradient
+        (``replicated_shapes``: their shapes in tree order) in the f32
+        buckets of ``optim.grad_utils.data_parallel_grads``
+        (``grad_all_reduce``), the global norm's all-gather and the
+        agreement on the update."""
+        import torch
+
+        from repro_torch.models.common import row_chunks
+        from repro_torch.optim.grad_utils import BUCKET_ELEMS, buckets
+        ep, d = self.ep, self.d
+        s = self.n_experts
+        fwd = self.predict_graph_census(t_local, layers, itemsize)
+        if rows > 1:
+            g = fwd["layout_all_gather"]
+            g["count"] += layers
+            g["bytes"] += 4 * (ep + 7 + 2 * ep + 2 * self.n_experts
+                               + 2 * s) * layers
+            shard = (s // ep) * (d // rows) * self.d_ff * param_itemsize
+            fwd["fsdp_all_gather"] = {"count": 3 * layers,
+                                      "bytes": 3 * shard * layers}
+        passes = 2 if remat in ("full", "attn_out") else 1
+        out = {k: {"count": v["count"] * passes, "bytes": v["bytes"] * passes}
+               for k, v in fwd.items()}
+        cap_raw = math.ceil(t_local * self.top_k / ep
+                            * float(self.cfg.moe.capacity_factor))
+        cap = max(8, -(-cap_raw // 8) * 8)   # ep_moe's capacity
+        out["all_to_all_grad"] = {
+            "count": 2 * layers, "bytes": 2 * ep * cap * d * itemsize * layers}
+        out["layout_all_gather_grad"] = {
+            "count": 2 * layers,
+            "bytes": t_local * (d * itemsize + 4 * self.n_experts) * layers}
+        if rows > 1:
+            out["fsdp_reduce_scatter"] = {
+                "count": 3 * layers,
+                "bytes": 3 * (s // ep) * d * self.d_ff * param_itemsize
+                * layers}
+            out["psum_data"] = {"count": 2, "bytes": 8}
+            out["all_reduce_data"] = {"count": 1, "bytes": 8}
+            sizes = [c.numel() for shape in replicated_shapes
+                     for c in row_chunks(torch.empty(shape, device="meta"),
+                                         BUCKET_ELEMS)]
+            out["grad_all_reduce"] = {"count": len(buckets(sizes)),
+                                      "bytes": 4 * sum(sizes)}
+        out["norm_all_gather"] = {"count": 1, "bytes": 4}
+        out["agree_all_reduce"] = {"count": 1, "bytes": 4}
+        return out
+
     def rank_loads(self, moe_stats) -> np.ndarray:
         """``[L, ep]`` realized per-layer per-rank assignment counts from
         ``aux["moe_stats"]`` (``[L, 2, groups, ep]`` or ``[L, 2, ep]``);

@@ -14,6 +14,18 @@ temporaries on top of the state and not a second copy of it (at full
 width the f32 moments alone are 20 GB).  Its ``apply`` predicate stands in
 for the reference's caller dropping a poisoned update: where it is false
 on the device, nothing is written and the step does not advance.
+
+The update runs over each leaf in chunks of at most ``CHUNK_ELEMS`` (an
+elementwise pass: the same bits), so its f32 temporaries are a chunk's,
+not the largest leaf's (the embedding's 1.3 GB at full width).
+
+Under a mesh (``models.common.use_mesh``) each rank updates the leaves it
+holds: the replicated ones whole and its shards of the expert stacks.
+:func:`global_norm` counts every element of the global tree once (the
+replicated leaves on each rank alone, the expert shards' squares summed
+over every rank of the mesh), so the clip scale is the same on every rank,
+and the ranks agree on ``apply`` (false on one rank: nothing written on
+any).
 """
 from __future__ import annotations
 
@@ -23,12 +35,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models.common import DTYPES
+from repro_torch.models.common import (DTYPES, current_mesh, is_expert_path,
+                                       row_chunks, tree_items)
 from repro_torch.models.common import tree_leaves as leaves
 from repro_torch.models.common import tree_map
 
 Tree = Any
 F32 = torch.float32
+CHUNK_ELEMS = 1 << 24        # elements an update pass holds at once
 
 
 class OptState(NamedTuple):
@@ -60,10 +74,27 @@ def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    total = 0
-    for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.to(F32)))
-    return torch.sqrt(total)
+    """The L2 norm of every leaf.  Under a mesh of more than one rank, of
+    the global tree: the expert stacks' (each rank a shard) squares summed
+    over the mesh, the replicated leaves' once."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size("data") * mesh.size("model") == 1:
+        total = 0
+        for x in leaves(tree):
+            total = total + torch.sum(torch.square(x.to(F32)))
+        return torch.sqrt(total)
+    from repro_torch.core.ep_moe import _dist_comm
+    rep = part = None
+    for path, x in tree_items(tree):
+        sq = torch.sum(torch.square(x.to(F32)))
+        if is_expert_path(path):
+            part = sq if part is None else part + sq
+        else:
+            rep = sq if rep is None else rep + sq
+    dev = next(leaves(tree)).device
+    zero = torch.zeros((), dtype=F32, device=dev)
+    part = _dist_comm(mesh).sum_over_mesh(zero if part is None else part)
+    return torch.sqrt((zero if rep is None else rep) + part)
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -87,7 +118,13 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
     """One AdamW step, written into ``params`` and ``state``'s moments
     (returned, with the advanced step).  ``apply``: a 0-dim bool tensor;
     where it is false the parameters, moments and step stay as they were.
-    Nothing is read on the host."""
+    Nothing is read on the host (a staged mesh's collectives copy through
+    it).  Under a mesh the ranks' ``apply`` are and-ed."""
+    mesh = current_mesh()
+    if apply is not None and mesh is not None \
+            and mesh.size("data") * mesh.size("model") > 1:
+        from repro_torch.core.ep_moe import _dist_comm
+        apply = _dist_comm(mesh).all_true(apply)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
     gnorm = global_norm(grads)
@@ -96,22 +133,25 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
     c1 = 1.0 - b1 ** step.to(F32)
     c2 = 1.0 - b2 ** step.to(F32)
     with torch.no_grad():
-        for p, g, m, v in zip(leaves(params), leaves(grads),
-                              leaves(state.mu), leaves(state.nu)):
-            gf = _clipped(g, scale).to(F32)
-            m2 = b1 * m + (1 - b1) * gf
-            v2 = b2 * v + (1 - b2) * torch.square(gf)
-            delta = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
-            if p.dim() >= 2:  # decoupled weight decay on matrices only
-                delta = delta + cfg.weight_decay * p.to(F32)
-            p2 = (p.to(F32) - lr * delta).to(p.dtype)
-            if apply is not None:
-                p2 = torch.where(apply, p2, p)
-                m2 = torch.where(apply, m2, m)
-                v2 = torch.where(apply, v2, v)
-            p.copy_(p2)
-            m.copy_(m2.to(m.dtype))
-            v.copy_(v2.to(v.dtype))
+        for leaf in zip(leaves(params), leaves(grads), leaves(state.mu),
+                        leaves(state.nu)):
+            decay = leaf[0].dim() >= 2   # decoupled, on matrices only
+            for p, g, m, v in zip(*(row_chunks(t, CHUNK_ELEMS)
+                                    for t in leaf)):
+                gf = _clipped(g, scale).to(F32)
+                m2 = b1 * m + (1 - b1) * gf
+                v2 = b2 * v + (1 - b2) * torch.square(gf)
+                delta = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
+                if decay:
+                    delta = delta + cfg.weight_decay * p.to(F32)
+                p2 = (p.to(F32) - lr * delta).to(p.dtype)
+                if apply is not None:
+                    p2 = torch.where(apply, p2, p)
+                    m2 = torch.where(apply, m2, m)
+                    v2 = torch.where(apply, v2, v)
+                p.copy_(p2)
+                m.copy_(m2.to(m.dtype))
+                v.copy_(v2.to(v.dtype))
         if apply is not None:
             step = torch.where(apply, step, state.step)
     return params, OptState(step.to(torch.int32), state.mu, state.nu), \

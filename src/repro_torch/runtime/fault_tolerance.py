@@ -17,6 +17,16 @@ The port's train step (``launch.steps.make_train_step``) updates its state
 in place and writes nothing when the loss is not finite, so dropping its
 returned state leaves the loop's state as it was before the step, as the
 reference's pure step does.
+
+On a mesh (``mesh=``; every rank runs the loop with its shard of the
+state, in the FSDP layout training takes) the checkpoints are
+written collectively and synchronously (``checkpoint.ckpt.save(mesh=)``:
+the global layout, rank 0 writes), a preemption caught on any rank stops
+every rank after the same step (the ranks agree on it after each step),
+and :meth:`TrainLoop.restore_or_init` resumes every rank from the same
+step (it raises if the ranks see different newest checkpoints).  The
+loss a step reports is the global one, so the NaN guard decides alike on
+every rank.
 """
 from __future__ import annotations
 
@@ -78,8 +88,11 @@ class TrainLoop:
     def __init__(self, step_fn: Callable, *, ckpt_dir: str,
                  checkpoint_every: int = 100, keep: int = 3,
                  nan_tolerance: int = 3, log_every: int = 10,
-                 logger: Callable[[str], None] = print):
+                 logger: Callable[[str], None] = print, mesh=None):
         self.step_fn = step_fn
+        self.mesh = mesh if mesh is not None and \
+            mesh.size("data") * mesh.size("model") > 1 else None
+        self.keep = keep
         self.ckpt_dir = ckpt_dir
         self.checkpoint_every = checkpoint_every
         self.nan_tolerance = nan_tolerance
@@ -99,14 +112,43 @@ class TrainLoop:
             except ValueError:
                 pass  # not the main thread (tests)
 
+    def _comm(self):
+        from repro_torch.core.ep_moe import _dist_comm
+        return _dist_comm(self.mesh)
+
+    def _restore(self, state):
+        return ckpt_lib.restore(self.ckpt_dir, state, mesh=self.mesh,
+                                fsdp=True)
+
+    def _save(self, step: int, state) -> None:
+        if self.mesh is None:
+            self.checkpointer.save(step, state)
+        else:
+            ckpt_lib.save(self.ckpt_dir, step, state, keep=self.keep,
+                          mesh=self.mesh, fsdp=True)
+
     def restore_or_init(self, state: Dict[str, Tree]
                         ) -> tuple[int, Dict[str, Tree]]:
         step = ckpt_lib.latest_step(self.ckpt_dir)
+        if self.mesh is not None:
+            mine = -1 if step is None else step
+            hi, neg_lo = self._comm().agree_max([mine, -mine])
+            if hi != -neg_lo:
+                raise RuntimeError(f"the ranks see newest checkpoints from "
+                                   f"step {int(-neg_lo)} to {int(hi)} under "
+                                   f"{self.ckpt_dir}")
         if step is None:
             return 0, state
-        step, restored = ckpt_lib.restore(self.ckpt_dir, state)
+        step, restored = self._restore(state)
         self.log(f"[ft] restored checkpoint at step {step}")
         return step, restored
+
+    def _stopping(self) -> bool:
+        """Whether a signal stops the loop: on a mesh, caught on any
+        rank."""
+        if self.mesh is None:
+            return self._stop
+        return self._comm().agree_max([float(self._stop)])[0] > 0
 
     def run(self, state: Dict[str, Tree], data_iter, total_steps: int,
             start_step: int = 0) -> Dict[str, Tree]:
@@ -114,7 +156,7 @@ class TrainLoop:
         bad_streak = 0
         step = start_step
         t0 = time.perf_counter()
-        while step < total_steps and not self._stop:
+        while step < total_steps and not self._stopping():
             batch = next(data_iter)
             new_state, metrics = self.step_fn(state, batch)
             loss = float(metrics.get("loss", np.nan))
@@ -127,7 +169,7 @@ class TrainLoop:
                     self.checkpointer.wait()
                     last = ckpt_lib.latest_step(self.ckpt_dir)
                     if last is not None:
-                        _, state = ckpt_lib.restore(self.ckpt_dir, state)
+                        _, state = self._restore(state)
                         self.log(f"[ft] rolled back to step {last}")
                         step = last
                     bad_streak = 0
@@ -142,8 +184,9 @@ class TrainLoop:
                     self.log(f"[ft] step {step}: loss={loss:.4f} "
                              f"({dt*1e3:.0f} ms/step)")
                 if step % self.checkpoint_every == 0:
-                    self.checkpointer.save(step, state)
+                    self._save(step, state)
         self.checkpointer.wait()
-        ckpt_lib.save(self.ckpt_dir, step, state)
+        ckpt_lib.save(self.ckpt_dir, step, state, keep=self.keep,
+                      mesh=self.mesh, fsdp=True)
         self.log(f"[ft] final checkpoint at step {step}")
         return state

@@ -1,4 +1,5 @@
-"""Rank-side halves of the port's multi-rank tests (``test_torch_ep*.py``).
+"""Rank-side halves of the port's multi-rank tests (``test_torch_ep*.py``,
+``test_torch_train_mesh.py``, ``test_torch_ckpt_mesh.py``).
 
 Each function runs in a spawned gloo rank (``_torch_dist.run_ranks``) under
 the mesh, imports only torch and the port, takes numpy inputs and returns
@@ -897,6 +898,330 @@ def elastic_cases(mesh, cases):
     for name, c in cases.items():
         try:
             out[name] = ELASTIC_CASES[name](mesh, c)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+# --------------------------------------------------------------------------
+# training under a mesh (test_torch_train_mesh.py, test_torch_ckpt_mesh.py)
+# --------------------------------------------------------------------------
+def train_cfg(c):
+    """Reduced olmoe-1b-7b at ``c["layers"]`` layers with the MoE fields
+    of ``c["moe"]`` (the reference's recipe: aux coefficients 0, capacity
+    factor 8)."""
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config("olmoe-1b-7b"), n_layers=c["layers"])
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, **c["moe"]), remat=c.get("remat", "none"))
+
+
+def _digest(t):
+    import hashlib
+    t = t.detach().contiguous().reshape(-1)
+    return hashlib.sha256(bytes(t.view(torch.uint8).numpy())).hexdigest()
+
+
+def _replicated_digests(tree):
+    from repro_torch.models.common import is_expert_path, tree_items
+    return {"/".join(p): _digest(t) for p, t in tree_items(tree)
+            if not is_expert_path(p)}
+
+
+def _state_bytes(params, opt):
+    from repro_torch.models.common import tree_leaves
+    return [bytes(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                  .numpy())
+            for t in [*tree_leaves(params), *tree_leaves(opt.mu),
+                      *tree_leaves(opt.nu), opt.step]]
+
+
+def _fsdp_checks(mesh, c, params):
+    """The FSDP gather of block 0's ``w_gate``/``w_down`` shards against
+    the rank's slots of the whole slab, and its transpose against the sum
+    over the data rows of seeded per-row cotangents, bit for bit."""
+    from repro_torch.core import ep_moe
+    from repro_torch.models.common import FSDP_DIM
+    comm = ep_moe._dist_comm(mesh)
+    rows, ep = mesh.size("data"), mesh.size("model")
+    g, my = mesh.index("data"), mesh.index("model")
+    out = {}
+    for key in ("w_gate", "w_down"):
+        shard = params["blocks"]["layer0"]["moe"][key][0]
+        whole = c["params"]["blocks"]["layer0"]["moe"][key][0]
+        n = whole.shape[0] // ep
+        want = torch.from_numpy(np.array(whole[my * n:(my + 1) * n]))
+        full = comm.fsdp_gather(shard, FSDP_DIM[key])
+        out[f"gather_{key}"] = _same_bytes(full, want)
+        w = shard.clone().requires_grad_()
+        cot = [torch.randn(want.shape, generator=torch.Generator()
+                           .manual_seed(100 + r)) for r in range(rows)]
+        with torch.enable_grad():
+            (comm.fsdp_gather(w, FSDP_DIM[key]) * cot[g]).sum().backward()
+        total = cot[0]
+        for part in cot[1:]:
+            total = total + part
+        dim = FSDP_DIM[key] % total.dim()
+        out[f"reduce_scatter_{key}"] = _same_bytes(
+            w.grad, torch.chunk(total, rows, dim=dim)[g])
+    return out
+
+
+def _fsdp_init_is_slice(mesh, cfg):
+    """``init_model(fsdp=True)`` under the mesh holds exactly the rank's
+    slots and D slice of the one-device init's expert stacks, and every
+    other leaf whole."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import (FSDP_DIM, is_expert_path,
+                                           tree_items, use_mesh)
+    rows, ep = mesh.size("data"), mesh.size("model")
+    g, my = mesh.index("data"), mesh.index("model")
+    with use_mesh(None):
+        whole = dict(tree_items(tf.init_model(cfg, seed=3, device="cpu")))
+    for path, t in tree_items(tf.init_model(cfg, seed=3, fsdp=True)):
+        w = whole[path]
+        if is_expert_path(path):
+            n = w.shape[-3] // ep
+            w = w.narrow(w.dim() - 3, my * n, n)
+            dim = w.dim() + FSDP_DIM[path[-1]]
+            w = w.narrow(dim, g * w.shape[dim] // rows, w.shape[dim] // rows)
+        if not _same_bytes(t, w):
+            return False
+    return True
+
+
+def _compressed_checks(mesh):
+    """On the mesh's ``data`` axis: ``compressed_grad_psum`` of seeded
+    per-row leaves equals the sum of every row's int8-dequantized leaf,
+    its residual plus the rank's own dequantized leaf is the leaf, and
+    ``compressed_all_reduce`` carries that sum in every row."""
+    from repro_torch.optim import grad_utils as gu
+    rows, g = mesh.size("data"), mesh.index("data")
+
+    def leaf(r):
+        gen = torch.Generator().manual_seed(200 + r)
+        return {"w": torch.randn((4, 8), generator=gen) * 0.1,
+                "b": torch.randn((8,), generator=gen)}
+
+    mine = leaf(g)
+    err = gu.init_error_feedback(mine)
+    red, new_err = gu.compressed_grad_psum(mine, err, "data")
+    out = {}
+    for k in mine:
+        deq = []
+        for r in range(rows):
+            q, scale = gu._quantize_int8(leaf(r)[k])
+            deq.append(q.to(torch.float32) * scale)
+        total = deq[0]
+        for part in deq[1:]:
+            total = total + part
+        out[f"sum_{k}"] = _same_bytes(red[k], total)
+        out[f"residual_{k}"] = _same_bytes(deq[g] + new_err[k], mine[k])
+    stacked = {k: torch.stack([leaf(r)[k] for r in range(rows)])
+               for k in mine}
+    red_s, err_s = gu.compressed_all_reduce(
+        stacked, gu.init_error_feedback(stacked), mesh, "data")
+    out["stacked"] = all(_same_bytes(red_s[k][r], red[k])
+                         for k in mine for r in range(rows)) and all(
+        _same_bytes(err_s[k][g], new_err[k]) for k in mine)
+    return out
+
+
+def _train_steps(mesh, c, cfg, rcfg):
+    """Three AdamW steps of ``launch.steps.make_train_step`` on seeded
+    batches: the losses, the census of step 1, the replicated leaves'
+    digests after step 3; then a step whose loss is not finite on every
+    rank (rank 0 poisons a replicated leaf) writes nothing anywhere."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import ep_moe
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1)
+    params = params_from_numpy(c["params"], mesh=mesh, fsdp=True)
+    opt = adamw.init_opt_state(params, tcfg)
+    m = torch.full(ep_moe.moe_state_shape(mesh, 4), 0.9)
+    step = make_train_step(cfg, rcfg, tcfg)
+    comm = ep_moe._dist_comm(mesh)
+    out = {"losses": []}
+    for i, b in enumerate(c["batches"]):
+        comm.census.reset()
+        params, opt, m, met = step(params, opt, m, _batch(b))
+        if i == 0:
+            out["census"] = comm.census.snapshot()
+        out["losses"].append(float(met["loss"]))
+    out["digests"] = _replicated_digests(params)
+    out["step"] = int(opt.step)
+    if mesh.index("data") == 0 and mesh.index("model") == 0:
+        params["final_norm"][0] = float("nan")
+    before = _state_bytes(params, opt)
+    params, opt, m, met = step(params, opt, m, _batch(c["batches"][0]))
+    out["nan_loss"] = float(met["loss"])
+    out["nan_untouched"] = before == _state_bytes(params, opt)
+    flag = torch.tensor(mesh.index("data") + mesh.index("model") > 0)
+    out["agree"] = bool(comm.all_true(flag))
+    return out
+
+
+def _batch(b):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+
+
+def _train_mesh_case(mesh, c):
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import is_expert_path, tree_items
+    from repro_torch.obs.ledger import FlopByteLedger
+    from repro_torch.optim import adamw
+    from repro_torch.optim.grad_utils import data_parallel_grads, value_and_grad
+    cfg, rcfg = train_cfg(c), ReaLBConfig(**c["rcfg"])
+    rows, ep = mesh.size("data"), mesh.size("model")
+    params = params_from_numpy(c["params"], mesh=mesh, fsdp=True)
+    m = torch.full(ep_moe.moe_state_shape(mesh, 4), 0.9)
+    (loss, (m_new, met)), grads = value_and_grad(
+        tf.train_loss, params, cfg, rcfg, _batch(c["batch"]), m)
+    grads = data_parallel_grads(grads)
+    out = {"loss": float(loss), "grads": _np(grads), "m": _np(m_new),
+           "m_grad": bool(m_new.requires_grad),
+           "gnorm": float(adamw.global_norm(grads)),
+           "coords": (mesh.index("data"), mesh.index("model"))}
+    out.update(_fsdp_checks(mesh, c, params))
+    out["init_slice"] = _fsdp_init_is_slice(mesh, cfg)
+    if rows > 1:
+        out.update(_compressed_checks(mesh))
+    out.update(_train_steps(mesh, c, cfg, rcfg))
+    shapes = [tuple(t.shape) for p, t in tree_items(params)
+              if not is_expert_path(p)]
+    out["census_pred"] = FlopByteLedger(cfg, ep=ep).predict_train_census(
+        4 // rows * 16 // ep, cfg.n_layers, rows, 4, 4, shapes,
+        remat=cfg.remat)
+    return out
+
+
+def train_mesh_cases(mesh, c):
+    try:
+        return _train_mesh_case(mesh, c)
+    except Exception:
+        return {"error": traceback.format_exc()}
+
+
+def compressed_one_rank(mesh, c):
+    """``compressed_all_reduce`` on a 1-rank ``data`` mesh of the
+    reference's contract test's inputs."""
+    from repro_torch.optim import grad_utils as gu
+    grads = {k: torch.from_numpy(np.array(v)) for k, v in c.items()}
+    red, err = gu.compressed_all_reduce(grads, gu.init_error_feedback(grads),
+                                        mesh, "data")
+    return _np(red), _np(err)
+
+
+def train_case(mesh, argv):
+    """``python -m repro_torch.launch.train`` on every rank."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    return rc, buf.getvalue()
+
+
+def _ckpt_mesh_case(mesh, c):
+    """An FSDP state (parameters, AdamW moments, AIMD state) saved on the
+    mesh and restored onto it, onto a ``(1, 2)`` mesh of the first two
+    ranks and onto one device, each against the numpy trees it came
+    from, byte for byte."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.convert import opt_state_from_numpy, params_from_numpy
+    from repro_torch.models.common import Mesh, tree_leaves
+    from repro_torch.optim.adamw import OptState
+
+    def state_on(m, fsdp):
+        return {"params": params_from_numpy(c["params"], mesh=m, fsdp=fsdp),
+                "opt": opt_state_from_numpy(c["opt"], mesh=m, fsdp=fsdp),
+                "m": torch.from_numpy(np.array(c["m"]))}
+
+    def same(a, b):
+        return all(_same_bytes(x.reshape(-1), y.reshape(-1)) for x, y in zip(
+            [*tree_leaves(a["params"]), *_opt_leaves(a["opt"]), a["m"]],
+            [*tree_leaves(b["params"]), *_opt_leaves(b["opt"]), b["m"]]))
+
+    mine = state_on(mesh, True)
+    path = ckpt.save(c["dir"], 7, mine, mesh=mesh, fsdp=True)
+    out = {"path": path}
+    step, back = ckpt.restore(c["dir"], mine, mesh=mesh, fsdp=True)
+    out["same_mesh"] = step == 7 and same(back, mine)
+    sub = Mesh((1, 2), "gloo", "cpu", ranks=[[0, 1]])
+    if sub.member:
+        want = state_on(sub, True)
+        _, back = ckpt.restore(c["dir"], want, mesh=sub, fsdp=True)
+        out["sub_mesh"] = same(back, want)
+    if mesh.device_mesh.get_rank() == 0:
+        want = state_on(None, False)
+        _, back = ckpt.restore(c["dir"], want)
+        out["one_device"] = same(back, want)
+        out["types"] = isinstance(back["opt"], OptState)
+    return out
+
+
+def _opt_leaves(opt):
+    from repro_torch.models.common import tree_leaves
+    return [*tree_leaves(opt.mu), *tree_leaves(opt.nu), opt.step]
+
+
+def _trainloop_case(mesh, c):
+    """``launch.train.build`` and ``TrainLoop`` on the mesh: preempted on
+    one rank after step ``c["stop"]`` (every rank stops there and saves),
+    restarted to ``c["steps"]``, against an uninterrupted run: the losses
+    after the restart and the final state, bit for bit."""
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=c["steps"])
+    rcfg = ReaLBConfig(enabled=False)
+    last = mesh.device_mesh.get_rank() == mesh.size("data") \
+        * mesh.size("model") - 1
+
+    def run(ckpt_dir, until, stop_after=None):
+        cfg, state, step_fn = train.build("olmoe-1b-7b", "tiny", 4, 16, tcfg,
+                                          rcfg, mesh=mesh, device="cpu")
+        losses = []
+        holder = {}
+
+        def logged(state, batch):
+            new, met = step_fn(state, batch)
+            losses.append(met["loss"])
+            if stop_after is not None and last \
+                    and len(losses) == stop_after:
+                holder["loop"]._stop = True       # a signal on one rank
+            return new, met
+
+        loop = TrainLoop(logged, ckpt_dir=ckpt_dir, checkpoint_every=2,
+                         log_every=1000, logger=lambda *_: None, mesh=mesh)
+        holder["loop"] = loop
+        start, state = loop.restore_or_init(state)
+        data = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                     global_batch=4), start_step=start)
+        state = loop.run(state, data, until, start_step=start)
+        return losses, start, [_digest(t) for t in
+                               tree_leaves(state["params"])]
+
+    first, _, _ = run(c["dir"] + "/pre", c["steps"], c["stop"])
+    after, start, final = run(c["dir"] + "/pre", c["steps"])
+    straight, _, final_straight = run(c["dir"] + "/straight", c["steps"])
+    return {"first": first, "after": after, "start": start,
+            "straight": straight, "same_final": final == final_straight}
+
+
+def ckpt_mesh_cases(mesh, c):
+    out = {}
+    for name, fn in (("ckpt", _ckpt_mesh_case),
+                     ("trainloop", _trainloop_case)):
+        try:
+            out[name] = fn(mesh, c[name])
         except Exception:
             out[name] = {"error": traceback.format_exc()}
     return out

@@ -1546,18 +1546,19 @@ def test_grouped_ffn_bwd_cuda_edges(cuda, dtype):
     assert all(torch.all(t == 0) for t in got)
 
 
-def test_grouped_ffn_bwd_cuda_first_in_a_new_thread(cuda):
-    """The backward as the first CUDA work of a host thread (autograd's
-    worker thread runs a backward so) after the main thread launched it:
-    it launches and gives the main thread's bits (its tensor maps need the
-    device's context bound on the thread)."""
-    args = _bwd_args(cuda, 37, 64, 64, [10, 0, 12, 15], 3, torch.bfloat16, 5)
-    want = ffn.grouped_ffn_bwd_cuda(*args)
+def _first_in_a_new_thread(launch):
+    """``launch()`` on this thread, then as the first CUDA work of a new
+    host thread (as autograd's worker thread runs a backward, and a
+    checkpoint's recompute there): the new thread's outputs equal this
+    thread's bit for bit.  A launch that encodes tensor maps needs the
+    device's context bound on its thread, which a warm launch no longer
+    binds through the runtime."""
+    want = launch()
     got = {}
 
     def run():
         try:
-            got["out"] = ffn.grouped_ffn_bwd_cuda(*args)
+            got["out"] = launch()
             torch.cuda.synchronize()
         except Exception as exc:  # noqa: BLE001 - reported below
             got["error"] = exc
@@ -1567,7 +1568,43 @@ def test_grouped_ffn_bwd_cuda_first_in_a_new_thread(cuda):
     thread.join(timeout=120)
     assert not thread.is_alive()
     assert "error" not in got, got.get("error")
-    assert all(torch.equal(a, b) for a, b in zip(got["out"], want))
+    want = want if isinstance(want, tuple) else (want,)
+    out = got["out"] if isinstance(got["out"], tuple) else (got["out"],)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_grouped_ffn_bwd_cuda_first_in_a_new_thread(cuda):
+    """The backward as the first CUDA work of a host thread (autograd's
+    worker thread runs a backward so) after the main thread launched it:
+    it launches and gives the main thread's bits (its tensor maps need the
+    device's context bound on the thread)."""
+    args = _bwd_args(cuda, 37, 64, 64, [10, 0, 12, 15], 3, torch.bfloat16, 5)
+    _first_in_a_new_thread(lambda: ffn.grouped_ffn_bwd_cuda(*args))
+
+
+def test_grouped_ffn_cuda_first_in_a_new_thread(cuda):
+    """The BF16 grouped FFN forward (``csrc/grouped_ffn_sm90.cuh``) as a
+    new thread's first CUDA work: under ``remat`` a checkpoint reruns it
+    in the backward, on autograd's thread."""
+    args = _plain_ffn_args(cuda, 37, 64, 64, [10, 0, 12, 15], 3,
+                           torch.bfloat16, 6)
+    _first_in_a_new_thread(lambda: ffn.grouped_ffn_cuda(*args))
+
+
+def test_grouped_fp4_ffn_cuda_first_in_a_new_thread(cuda):
+    """The W4A4 grouped FFN (``csrc/grouped_fp4_ffn_sm90.cuh``) as a new
+    thread's first CUDA work."""
+    args = _ffn_args(cuda, 37, 64, 64, [10, 0, 12, 15], torch.bfloat16, 7)
+    _first_in_a_new_thread(lambda: ffn.grouped_fp4_ffn_cuda(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp4_matmul_cuda_first_in_a_new_thread(cuda, dtype):
+    """``fp4_matmul`` (``csrc/fp4_matmul.cu``, bf16 and f32 x) as a new
+    thread's first CUDA work, a4 off and on."""
+    args = _mm_args(cuda, 37, 130, 96, dtype, 8)
+    for a4 in (False, True):
+        _first_in_a_new_thread(lambda: mm.fp4_matmul_cuda(*args, a4=a4))
 
 
 def test_grouped_ffn_autograd_uses_the_backward_kernel(cuda):
