@@ -400,14 +400,11 @@ def check_quantize(dev):
         del rows, pk_r, sc_r
         n = view.numel()
         nbytes = n * 2 + n // 2 + (n // 16) * 4
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        # ~12 f32 operations per weight (abs, max, divide, 7 compares,
-        # select, shift/or) off the tensor cores
-        bound_ops = n * 12 / F32_FLOP_PER_S * 1e3
+        q_bound, q_by = quantizer_bound(n)
         log(f"quantize_fp4 {name}: {ms:.4f} ms (predicate 0: "
             f"{idle_ms:.4f} ms, device {idle_dev:.4f} ms; plain "
             f"{plain_ms:.4f} ms; K contiguous, bitwise: {rows_ms:.4f} ms), "
-            f"bound {max(bound_bytes, bound_ops):.4f} ms "
+            f"bound {q_bound:.4f} ms "
             f"({nbytes / 1e6:.1f} MB), {nbytes / ms / 1e6:.1f} GB/s")
         rec.setdefault("name", "quantize_fp4")
         s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=10)
@@ -432,10 +429,8 @@ def check_quantize(dev):
         if name == "gate_up":
             rec.update(max_abs_err=err, ms=ms, idle_ms=idle_ms,
                        idle_device_ms=idle_dev, plain_ms=plain_ms,
-                       k_contiguous_ms=rows_ms,
-                       bound_ms=max(bound_bytes, bound_ops),
-                       bound_by="bytes" if bound_bytes >= bound_ops
-                       else "operations")
+                       k_contiguous_ms=rows_ms, bound_ms=q_bound,
+                       bound_by=q_by)
             srec.update(max_abs_err=0.0, ms=s_ms, idle_ms=s_idle_ms,
                         idle_device_ms=s_idle_dev, plain_ms=s_plain_ms,
                         library_ms=s_lib_ms, abs_amax_ms=s_amax_ms,
@@ -543,12 +538,33 @@ def sync_checked_forwards(counter):
             setattr(tf, f"{name}_forward", fn)
 
 
-def check_ffn_at_main_shapes(kept):
-    """Phases 5b and 7a: the grouped FFN kernels against their plain
+def plain_by_slot(plain, args, fp4):
+    """The plain FFN ``plain`` on ``args`` one weight slot at a time (each
+    slot's rows against its own weights; a slot without weights, and rows
+    past the counts, give 0): the same function in a slot's memory, where
+    the whole plain version would dequantize every slot at once."""
+    import torch
+    xs, gs = args[0], args[1]
+    n_w = args[2].shape[0]
+    y = torch.zeros_like(xs)
+    start = 0
+    for e, c in enumerate(gs.tolist()):
+        if e < n_w and c:
+            rows = slice(start, start + c)
+            w = tuple(t[e:e + 1] for t in args[2:8]) + (args[8],) if fp4 \
+                else tuple(t[e:e + 1] for t in args[2:5])
+            y[rows] = plain(xs[rows], gs.new_tensor([c]), *w)
+        start += c
+    return y
+
+
+def check_ffn_at_main_shapes(kept, by_slot=False):
+    """Phases 5b, 7a and 15c: the grouped FFN kernels against their plain
     versions on the inputs full-width forwards gave their first launch,
     consuming ``kept`` (keys ``<forward>_fp4``: the FP4 kernel with FP4
     firing; ``<forward>_bf16``: the plain kernel with FP4 off); returns the
-    kernel's ms at each forward's launch, by key."""
+    kernel's ms at each forward's launch, by key.  ``by_slot``: the plain
+    versions run a slot at a time (:func:`plain_by_slot`)."""
     from repro_torch.kernels import grouped_fp4_ffn as ffn
     from test_torch_cuda import check_ffn, check_plain_ffn
 
@@ -562,6 +578,8 @@ def check_ffn_at_main_shapes(kept):
              check_plain_ffn))
         args = kept.pop(key)
         launch = getattr(ffn, wrapper)
+        if by_slot:
+            plain = (lambda p: lambda *a: plain_by_slot(p, a, fp4))(plain)
         err = check(launch(*args), plain(*args))
         ms = time_ms(lambda: launch(*args), iters=5)
         plain_ms = time_ms(lambda: plain(*args), iters=2)
@@ -1589,23 +1607,6 @@ def long_context(dev, params, cfg):
 # --------------------------------------------------------------------------
 # phase 12: the compiled step (CUDA graphs of the chunk and decode steps)
 # --------------------------------------------------------------------------
-def bitwise_equal(a, b) -> bool:
-    """Two trees of tensors (dicts, tuples) hold the same bytes."""
-    import torch
-    if isinstance(a, dict):
-        return set(a) == set(b) and all(bitwise_equal(a[k], b[k]) for k in a)
-    if isinstance(a, (list, tuple)):
-        return len(a) == len(b) and all(bitwise_equal(x, y)
-                                        for x, y in zip(a, b))
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.dtype.is_floating_point:
-        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
-            a.element_size()]
-        return torch.equal(a.view(view), b.view(view))
-    return torch.equal(a, b)
-
-
 def graph_forwards(dev, params, cfg, smi):
     """Phase 12a-b: phase 5a's [8, 256] chunk and [8, 1] decode through one
     captured graph each (``serving.graphs.StepGraphs``, the engine's), FP4
@@ -1621,6 +1622,7 @@ def graph_forwards(dev, params, cfg, smi):
     from repro_torch.models import common
     from repro_torch.models import transformer as tf
     from repro_torch.serving.graphs import StepGraphs
+    from test_torch_cuda import graphed_equals_eager, step_body
 
     # phase 5a's FP4 configuration: every virtual rank hot, the gate open;
     # FP4 fires wherever a rank holds a vision token, so all-text inputs
@@ -1654,55 +1656,24 @@ def graph_forwards(dev, params, cfg, smi):
     state = (clone(origin["chunk"]), m0.clone())
     sent = Sentinel(strict=True)
     sg = StepGraphs(dev, sentinel=sent)
-    bufs = {}
-
-    def body_for(kind):
-        def body(params, cache, m):
-            res = fwds[kind](params, cfg, rcfg, bufs[kind], cache, m)
-            m.copy_(res.m_state)
-            return res.logits, res.aux
-        return body
-    bodies = {k: body_for(k) for k in fwds}
-
-    def step(kind, fp4, reset=True):
-        cache, m = state
-        with sent.hot(f"12a {kind}"):
-            if reset:
-                for src, dst in _leaf_pairs(cache, origin[kind]):
-                    dst.copy_(src)
-                m.copy_(m0)
-            bufs[kind] = sg.inputs(kind, inputs[kind][fp4])
-            return sg.run(kind, kind, bodies[kind], (params, cache, m))
-
     for kind in ("chunk", "decode"):
         for fp4 in ("on", "off"):
             first = sg.captures[kind] == 0
-            logits, aux = step(kind, fp4)
-            got = (logits.clone(), {k: v.clone() for k, v in aux.items()},
-                   clone(state[0]), state[1].clone())
-            res = fwds[kind](params, cfg, rcfg, inputs[kind][fp4],
-                             clone(origin[kind]), m0.clone())
-            want = (res.logits, dict(res.aux), res.cache, res.m_state)
-            how = "eager first call (then captured)" if first else "replay"
-            fired = float(got[1]["fp4_ranks"])
-            if not bitwise_equal(got, want):
-                raise AssertionError(f"12a {kind} FP4 {fp4}: the {how} "
-                                     "differs from the eager forward")
+            # a first call (eager, then captured) is replayed on its inputs
+            for _ in range(2 if first else 1):
+                fired = graphed_equals_eager(
+                    sg, sent, kind, fwds[kind], params, cfg, rcfg, state,
+                    origin[kind], m0, inputs[kind][fp4],
+                    f"12a {kind} FP4 {fp4}")
             if (fired > 0) != (fp4 == "on"):
                 raise AssertionError(f"12a {kind} FP4 {fp4}: FP4 virtual "
                                      f"ranks {fired}")
-            if first:
-                logits, aux = step(kind, fp4)     # the replay, same inputs
-                if not bitwise_equal((logits, aux) + state, want):
-                    raise AssertionError(f"12a {kind} FP4 {fp4}: the "
-                                         "replay differs from the eager "
-                                         "forward")
-                how += " and replay"
+            how = ("eager first call (then captured) and replay" if first
+                   else "replay")
             log(f"12a {kind} [{b}, {s if kind == 'chunk' else 1}] FP4 {fp4} "
                 f"(FP4 virtual ranks summed over the layers {fired:.0f}): "
                 f"{how} bitwise equal to the eager forward (logits, every "
                 "statistic, the cache, m_state)")
-            del res, want, got
     if sg.captures != {"chunk": 1, "decode": 1} or sg.dropped \
             or sg.replays != {"chunk": 2, "decode": 2}:
         raise AssertionError(f"12a: captures {sg.captures}, replays "
@@ -1720,10 +1691,11 @@ def graph_forwards(dev, params, cfg, smi):
     cache, m = state
     for kind in ("chunk", "decode"):
         for fp4 in ("on", "off"):
-            bufs[kind] = sg.inputs(kind, inputs[kind][fp4])
+            body = step_body(fwds[kind], cfg, rcfg,
+                             sg.inputs(kind, inputs[kind][fp4]))
             eager = lambda: fwds[kind](params, cfg, rcfg,  # noqa: E731
                                        inputs[kind][fp4], cache, m)
-            graphed = lambda: sg.run(kind, kind, bodies[kind],  # noqa: E731
+            graphed = lambda: sg.run(kind, kind, body,  # noqa: E731
                                      (params, cache, m))
             row = {}
             for how, fn in (("eager", eager), ("graphed", graphed)):
@@ -1737,19 +1709,10 @@ def graph_forwards(dev, params, cfg, smi):
                     "time: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
             rows[f"{kind}_{fp4}"] = row
     log(f"12b: {smi}")
-    del sg, state, origin, bufs
+    del sg, state, origin
     gc.collect()
     torch.cuda.empty_cache()
     return rows, pool
-
-
-def _leaf_pairs(dst, src):
-    """``(src leaf, dst leaf)`` pairs of two trees of one structure."""
-    if isinstance(dst, dict):
-        for k in dst:
-            yield from _leaf_pairs(dst[k], src[k])
-    else:
-        yield src, dst
 
 
 def serve_virtual(eng, specs, t0: float = 0.0, at_once: bool = False):
@@ -4596,6 +4559,611 @@ def mesh_training(dev, smi: str):
     return {k: [r["counts"][k] for r in ranks] for k in want}, kernels
 
 
+# --------------------------------------------------------------------------
+# phase 15: Mamba layers and the hybrid MoE
+# --------------------------------------------------------------------------
+# jamba-1.5-large-398b at its published widths, cut to fit one 80 GB card:
+# one 8-layer block of its 9 (1 attention + 7 Mamba, MoE on the odd
+# layers) and 8 of its 16 experts (25.91 B parameters, 51.82 GB in bf16)
+PHASE15_JAMBA = dict(n_layers=8, num_experts=8)
+JAMBA_D, JAMBA_F = 8192, 24576
+
+
+def phase15_jamba_cfg():
+    """jamba-1.5-large-398b cut to ``PHASE15_JAMBA`` (widths as published)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        cfg, n_layers=PHASE15_JAMBA["n_layers"],
+        moe=dataclasses.replace(cfg.moe,
+                                num_experts=PHASE15_JAMBA["num_experts"]))
+
+
+def quantizer_bound(n: int):
+    """The least time of one quantizer launch over ``n`` bf16 weights,
+    ``(ms, bound_by)``: the weights read, the codes and scales written;
+    ~12 f32 operations per weight (abs, max, divide, 7 compares, select,
+    shift/or) off the tensor cores."""
+    nbytes = n * 2 + n // 2 + (n // 16) * 4
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = n * 12 / F32_FLOP_PER_S * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                 else "operations")
+
+
+def check_kernels_at_jamba_shapes(dev):
+    """Phase 15a: the serving kernels at jamba's expert shapes (D = 8192,
+    F = 24576; a [8, 24576, 8192] stack is 1.61e9 weights, 3.22 GB, past
+    2^31 bytes).  The quantizer and the global scale bitwise against their
+    plain versions on [2, 24576, 8192] and [2, 8192, 24576] bf16 views,
+    and on a whole [8, 24576, 8192] view (two sampled experts, the last
+    one's offsets the largest, against the plain quantizer on those
+    experts alone); the BF16 and W4A4 grouped FFNs within ``check_ffn``'s
+    and ``check_plain_ffn``'s bounds of their plain versions on 1024 rows
+    over G = 2 plus the pad slot.  Returns each kernel's record there."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import grouped_fp4_ffn as ffn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize_fp4 as qk
+    from test_torch_cuda import check_ffn, check_plain_ffn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    recs = {}
+
+    def same_q(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(
+            a[1].view(torch.int32), b[1].view(torch.int32))
+
+    def stack(shape):
+        """A bf16 stack made one expert at a time (a whole f32 draw of the
+        8-expert stack would take 6.4 GB)."""
+        w = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        for e in range(shape[0]):
+            w[e].copy_(torch.randn(shape[1:], generator=gen, device=dev)
+                       * 0.02)
+        return w
+
+    for name, shape in (("gate_up", (2, JAMBA_D, JAMBA_F)),
+                        ("down", (2, JAMBA_F, JAMBA_D))):
+        view = stack(shape).transpose(-1, -2)
+        gs = quant.global_scale_for(view)
+        gs_k = qk.global_scale_cuda(view)
+        if not torch.equal(gs_k.view(torch.int32), gs.view(torch.int32)):
+            raise AssertionError(f"15a global scale {name}: not bitwise")
+        if not same_q(qk.quantize_fp4_cuda(view, gs),
+                      qk.quantize_fp4_plain(view, gs)):
+            raise AssertionError(f"15a quantize_fp4 {name} "
+                                 f"{tuple(view.shape)}: not bitwise")
+        log(f"15a {name} view {tuple(view.shape)} bf16: the global scale "
+            "and the quantizer bitwise equal to their plain versions")
+        del view
+
+    # the whole stack a jamba MoE layer quantizes (w_gate's view)
+    w = stack((PHASE15_JAMBA["num_experts"], JAMBA_D, JAMBA_F))
+    view = w.transpose(-1, -2)
+    n = view.numel()
+    gs = quant.global_scale_for(view)
+    if not torch.equal(qk.global_scale_cuda(view).view(torch.int32),
+                       gs.view(torch.int32)):
+        raise AssertionError("15a global scale, whole stack: not bitwise")
+    pk, sc = qk.quantize_fp4_cuda(view, gs)
+    torch.cuda.synchronize()
+    for e in (0, view.shape[0] - 1):
+        ref = qk.quantize_fp4_plain(view[e:e + 1], gs)
+        if not same_q((pk[e:e + 1], sc[e:e + 1]), ref):
+            raise AssertionError(f"15a quantize_fp4, whole stack: expert {e}"
+                                 " not bitwise")
+    del pk, sc, ref
+    q_ms = time_ms(lambda: qk.quantize_fp4_cuda(view, gs), iters=5)
+    # the plain quantizer over the whole stack, an expert at a time (its f32
+    # temporaries for all eight at once would take ~40 GB)
+    q_plain = time_ms(lambda: [qk.quantize_fp4_plain(view[e:e + 1], gs)
+                               for e in range(view.shape[0])], iters=1)
+    q_bound, q_by = quantizer_bound(n)
+    s_ms = time_ms(lambda: qk.global_scale_cuda(view), iters=5)
+    s_plain = time_ms(lambda: quant.global_scale_for(view), iters=2)
+    s_lib = time_ms(lambda: torch.linalg.vector_norm(view, ord=float("inf")),
+                    iters=5)
+    s_bound = max(n * 2 / HBM_BYTES_PER_S, n * 2 / F32_FLOP_PER_S) * 1e3
+    log(f"15a whole stack {tuple(view.shape)} ({n / 1e9:.3f} e9 weights, "
+        f"{n * 2 / 1e9:.2f} GB): global scale bitwise, {s_ms:.4f} ms (plain "
+        f"{s_plain:.4f}, vector_norm(inf) {s_lib:.4f}), bound {s_bound:.4f} "
+        f"ms (bytes); quantizer experts 0 and {view.shape[0] - 1} bitwise "
+        f"against the plain quantizer on each alone, {q_ms:.4f} ms (plain "
+        f"{q_plain:.4f}, its eight experts in turn), bound {q_bound:.4f} ms ({q_by})")
+    recs["quantize_fp4"] = dict(ms=q_ms, plain_ms=q_plain, bound_ms=q_bound,
+                                bound_by=q_by, max_abs_err=0.0)
+    recs["global_scale_fp4"] = dict(ms=s_ms, plain_ms=s_plain,
+                                    bound_ms=s_bound, bound_by="bytes",
+                                    max_abs_err=0.0, library_ms=s_lib)
+    del w, view
+
+    # the FFNs: ~1024 routed rows over 2 slots with weights, the pad slot's
+    # capacity rows zero
+    gs_list, n_w = [500, 524, 256], 2
+    m = sum(gs_list)
+    plain_w = {k: stack(s) for k, s in (("w_gate", (n_w, JAMBA_D, JAMBA_F)),
+                                        ("w_up", (n_w, JAMBA_D, JAMBA_F)),
+                                        ("w_down", (n_w, JAMBA_F, JAMBA_D)))}
+    xs = torch.randn(m, JAMBA_D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    xs[sum(gs_list[:n_w]):] = 0
+    counts = torch.tensor(gs_list, dtype=torch.int32, device=dev)
+    plain_args = (xs, counts, plain_w["w_gate"], plain_w["w_up"],
+                  plain_w["w_down"])
+    wq = [ops.quantize_experts_fp4(plain_w[k].transpose(-1, -2))
+          for k in ("w_gate", "w_up", "w_down")]
+    fp4_args = (xs, counts, *(t for q in wq for t in (q.packed, q.scales)),
+                torch.stack([q.global_scale.reshape(()) for q in wq]))
+    for name, launch, plain, check, args, fp4 in (
+            ("grouped_ffn", ffn.grouped_ffn_cuda, ffn.grouped_ffn_plain,
+             check_plain_ffn, plain_args, False),
+            ("grouped_fp4_ffn", ffn.grouped_fp4_ffn_cuda,
+             ffn.grouped_fp4_ffn_plain, check_ffn, fp4_args, True)):
+        y = launch(*args)
+        err = check(y, plain(*args))
+        if not torch.all(y[sum(gs_list[:n_w]):] == 0):
+            raise AssertionError(f"15a {name}: the pad slot's rows are not 0")
+        ms = time_ms(lambda: launch(*args), iters=5)
+        plain_ms = time_ms(lambda: plain(*args), iters=1)
+        bound, by = ffn_bound(args, fp4)
+        log(f"15a {name} at D = {JAMBA_D}, F = {JAMBA_F}, M = {m} (counts "
+            f"{gs_list}, {n_w} slots with weights) bf16: max abs err "
+            f"{err:.4g} (within its check's bound); {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}), bound {bound:.4f} ms ({by})")
+        recs[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, max_abs_err=err)
+    del plain_w, xs, plain_args, fp4_args, wq, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"15a took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+@contextlib.contextmanager
+def timing_ssm(spans):
+    """While open, each top-level call of the Mamba layer's scan
+    (``models.ssm.associative_scan``; its recursion is not timed again) and
+    of ``ssm_forward`` / ``ssm_decode`` records CUDA events around it into
+    ``spans[name]``."""
+    import torch
+    from repro_torch.models import ssm
+    saved = {n: getattr(ssm, n) for n in ("associative_scan", "ssm_forward",
+                                          "ssm_decode")}
+    depth = {"associative_scan": 0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            if depth.get(name):
+                return fn(*a, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            depth[name] = 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                depth[name] = 0
+            ev[1].record()
+            spans.setdefault(name, []).append(ev)
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(ssm, name, timed(name, fn))
+    try:
+        yield spans
+    finally:
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+
+
+def forward_profile(label, fn, smi, note=""):
+    """One warm call of ``fn`` (a forward): host enqueue, wall, device busy
+    and idle, the top device kernels (``host_and_device_ms``), and the
+    device ms of the Mamba layers and of their scans in one more call
+    (CUDA events, :func:`timing_ssm`).  Returns the row."""
+    import torch
+    host, wall, device, top, _ = host_and_device_ms(fn)
+    spans = {}
+    with timing_ssm(spans):
+        fn()
+    torch.cuda.synchronize()
+    ssm_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in spans.items()}
+    layer_ms = ssm_ms.get("ssm_forward", 0.0) + ssm_ms.get("ssm_decode",
+                                                           0.0)
+    scan_ms = ssm_ms.get("associative_scan", 0.0)
+    busy = "device not measured (no device event in the trace)" \
+        if device is None else (f"device busy {device:.2f} ms (idle "
+                                f"{1 - device / wall:.1%})")
+    share = "" if not device else (
+        f" (÷ busy: {layer_ms / device:.1%}; the scans "
+        f"{scan_ms / device:.1%})")
+    log(f"{label}{note}, warm: host enqueue {host:.2f} ms, wall {wall:.2f} "
+        f"ms, {busy}; spans between CUDA events around the Mamba layers "
+        f"{layer_ms:.2f} ms, around their scans {scan_ms:.2f} ms (device "
+        f"idle inside a span included){share}; most device time: "
+        + "; ".join(
+            f"{n} {t:.2f} ms" for n, t in top) + f"; {smi}")
+    return {"host_ms": host, "wall_ms": wall, "device_ms": device,
+            "ssm_ms": layer_ms, "scan_ms": scan_ms,
+            "top": [(n, t) for n, t in top]}
+
+
+def decode_graph_bitwise(dev, params, cfg, rcfg, origin, m0, inputs,
+                         label):
+    """One CUDA graph (the engine's ``StepGraphs``) of ``decode_forward``
+    over ``origin``'s cache (KV rows and Mamba states, written in place)
+    serves every entry of ``inputs`` (then the first again); each call,
+    the eager first one and the replays, is held bit for bit against the
+    eager forward by ``test_torch_cuda.graphed_equals_eager``, all inside a
+    strict ``Sentinel``'s hot window (0 syncs).  Returns the graphs and the
+    state they read (for timing)."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.graphs import StepGraphs
+    from test_torch_cuda import graphed_equals_eager
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(dev, sentinel=sent)
+    state = (common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    order = list(inputs) + [list(inputs)[0]]
+    for i, key in enumerate(order):
+        fired = graphed_equals_eager(sg, sent, "decode", tf.decode_forward,
+                                     params, cfg, rcfg, state, origin, m0,
+                                     inputs[key], f"{label} decode {key}")
+        if key.startswith("FP4") and (fired > 0) != (key == "FP4 on"):
+            raise AssertionError(f"{label} {key}: FP4 virtual ranks {fired}")
+        how = "eager first call, then captured" if i == 0 else "replay"
+        log(f"{label} decode {key} ({how}; FP4 virtual ranks {fired:.0f}): "
+            "bitwise equal to the eager decode_forward (logits, every "
+            "statistic, the cache with the Mamba states, m_state)")
+    if sg.captures["decode"] != 1 or sg.replays["decode"] != len(order) - 1 \
+            or sg.dropped or sent.violations:
+        raise AssertionError(f"{label}: {sg.summary()}, syncs "
+                             f"{sent.violations}")
+    return sg, state
+
+
+def hybrid_stream_run(dev, eng, requests, label, smi):
+    """``requests`` through ``eng`` (graphed, a strict sentinel) on the
+    wall clock, one pass (its captures included), the launch counters
+    zeroed just before and read just after, the working launches counted
+    on the device: returns the run's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, working
+    t_start = time.monotonic()
+    eng.clock = lambda: time.monotonic() - t_start
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    working.track(dev)
+    t_run = time.perf_counter()
+    step_s = serve_wall_clock(eng, requests, eng.clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts, work = ops.launch_counts(), working.counts()
+    working.track(None)
+    peak = torch.cuda.max_memory_allocated()
+    done = eng.scheduler.finished
+    toks = sum(len(r.generated) for r in done)
+    pre = [s for s in eng.stats if s.phase == "prefill"]
+    ttft = float(np.median([r.ttft for r in done]))
+    tpot = float(np.median([r.tpot for r in done if r.tpot is not None]))
+    fp4_iters = sum(1 for s in pre if s.fp4_ranks > 0)
+    sent = eng.sentinel
+    log(f"{label}: {len(done)}/{len(requests)} requests, {toks} tokens "
+        f"generated, {len(pre)} one-shot prefills (chunked={eng.chunked}), "
+        f"step mode '{eng.step_mode}', wall {wall:.3f} s, "
+        f"{toks / wall:.2f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, TPOT p50 "
+        f"{tpot * 1e3:.2f} ms, max memory allocated {peak / 2 ** 30:.2f} GiB; "
+        f"FP4 fired in {fp4_iters}/{len(pre)} prefills (duty "
+        f"{np.mean([s.fp4_ranks for s in pre]):.4f} virtual ranks a layer); "
+        "engine steps: " + ", ".join(
+            f"{k} {len(v)} x {np.mean(v) * 1e3:.1f} ms" for k, v in
+            step_s.items() if v)
+        + f"; graphs {eng._graphs.summary()}; strict sentinel: syncs "
+        f"{len(sent.violations)}, sanctioned {sent.sanctioned_pulls}; "
+        f"kernel launches {counts} (derived under replay), working launches "
+        f"counted on the device {work}; {smi}")
+    if len(done) != len(requests) or sent.violations or eng.chunked:
+        raise AssertionError(f"{label}: finished {len(done)}, syncs "
+                             f"{sent.violations}, chunked {eng.chunked}")
+    for r in done:
+        if not all(0 <= t < eng.cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"{label}: request {r.uid} token out of "
+                                 "range")
+    return {"tok_s": toks / wall, "ttft_ms": ttft * 1e3,
+            "tpot_ms": tpot * 1e3, "wall_s": wall, "peak_gib": peak / 2 ** 30,
+            "fp4_prefills": fp4_iters, "prefills": len(pre),
+            "counts": counts, "working": work}
+
+
+def falcon_whole(dev, smi):
+    """Phase 15b: falcon-mamba-7b whole (64 Mamba layers, d 4096, d_inner
+    8192, N 16, vocab 65024, tied embeddings; random bf16 weights from
+    seed 0): decode after a prefill of s tokens against a prefill of s + 1
+    (the reference's consistency check; bound: twice the bf16 model's own
+    distance from its f32 copy on that prefill); graphed decode bitwise
+    against eager; one prefill and one decode step profiled; then 8
+    requests of 256-1024 prompt tokens and 32 new tokens each through a
+    graphed ``Engine`` (one-shot prefill) under a strict sentinel."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig, get_config
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.serving.engine import Engine
+    from repro_torch.workloads.arrivals import ArrivalConfig, arrival_times
+    from repro_torch.workloads.multimodal import make_stream, profile
+    from test_torch_cuda import step_body
+
+    t_phase = time.perf_counter()
+    cfg = get_config("falcon-mamba-7b")
+    rcfg = ReaLBConfig()
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"15b init {cfg.name}: {cfg.n_layers} Mamba layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.ssm.expand * cfg.d_model}, N "
+        f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{tree_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    m0 = torch.zeros((1, 1), device=dev)
+
+    # the reference's prefill/decode consistency, at full width in bf16
+    b, s = 2, 48
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    def consistency(p, c):
+        with torch.no_grad():
+            ref = tf.prefill_forward(p, c, rcfg, {"tokens": toks}, m0,
+                                     cache_len=s + 1).logits
+            pre = tf.prefill_forward(p, c, rcfg, {"tokens": toks[:, :s]}, m0,
+                                     cache_len=s + 1)
+            dec = tf.decode_forward(p, c, rcfg, {
+                "tokens": toks[:, s:], "pos": torch.full(
+                    (b,), s, dtype=torch.int32, device=dev)},
+                pre.cache, pre.m_state).logits
+        return ref, dec
+    ref, dec = consistency(params, cfg)
+    gap = float((dec - ref).abs().max())
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = common.tree_map(lambda t: t.float(), params)
+    ref32, dec32 = consistency(p32, cfg32)
+    del p32
+    torch.cuda.empty_cache()
+    noise = float((ref - ref32).abs().max())
+    gap32 = float((dec32 - ref32).abs().max())
+    log(f"15b consistency, B = {b}, s = {s}: max |decode(token s | cache of "
+        f"s) - prefill(s + 1)| {gap:.4g} in bf16 (max |logit| "
+        f"{float(ref.abs().max()):.4g}); the bf16 model's distance from its "
+        f"f32 copy on prefill(s + 1) {noise:.4g}; the f32 copy's own "
+        f"decode/prefill gap {gap32:.4g} (the reference's bound: 2e-3 + 2e-3 "
+        "x |logit|)")
+    if not (torch.isfinite(ref).all() and gap <= 2 * noise):
+        raise AssertionError(f"15b: decode/prefill gap {gap} past twice the "
+                             f"bf16 rounding distance {noise}")
+    # the f32 copy held to the reference's own bound, element by element
+    if not torch.all((dec32 - ref32).abs() <= 2e-3 + 2e-3 * ref32.abs()):
+        raise AssertionError(f"15b: the f32 copy's decode/prefill gap "
+                             f"{gap32} past 2e-3 + 2e-3 x |logit|")
+    del ref, dec, ref32, dec32
+
+    # graphed decode against eager, from a prefill cache of 8 rows
+    b, s = 8, 64
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    origin = tf.prefill_forward(params, cfg, rcfg, {"tokens": toks}, m0,
+                                cache_len=s + 8).cache
+    i32 = dict(dtype=torch.int32, device=dev)
+    inputs = {f"tokens {j}": {
+        "tokens": torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                                **i32),
+        "pos": torch.full((b,), s, **i32),
+        "modality": torch.zeros((b, 1), dtype=torch.bool, device=dev),
+        "valid": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+        for j in (1, 2)}
+    sg, state = decode_graph_bitwise(
+        dev, params, cfg, rcfg, origin, m0, inputs, "15b")
+    rows = {}
+    long_toks = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                              device=dev, dtype=torch.int32)
+    rows["prefill_1024"] = forward_profile(
+        "15b prefill_forward [1, 1024]", lambda: tf.prefill_forward(
+            params, cfg, rcfg, {"tokens": long_toks}, m0, cache_len=1025),
+        smi)
+    key = "tokens 1"
+    rows["decode_eager"] = forward_profile(
+        "15b decode_forward [8, 1] eager", lambda: tf.decode_forward(
+            params, cfg, rcfg, inputs[key], state[0], state[1]), smi)
+    body = step_body(tf.decode_forward, cfg, rcfg,
+                     sg.inputs("decode", inputs[key]))
+    host, wall, device, top, _ = host_and_device_ms(
+        lambda: sg.run("decode", "decode", body, (params,) + state))
+    rows["decode_graphed"] = {"host_ms": host, "wall_ms": wall,
+                              "device_ms": device, "top": top}
+    log(f"15b decode [8, 1] graphed (replay), warm: host enqueue {host:.2f}"
+        f" ms, wall {wall:.2f} ms, device busy "
+        + (f"{device:.2f} ms (idle {1 - device / wall:.1%})"
+           if device else "not measured") + "; most device time: "
+        + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f"; {smi}")
+    del sg, state, origin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the stream
+    n_req, new = 8, 32
+    prof = profile("MMMU", prompt_len_mean=640, prompt_len_std=256,
+                   prompt_len_min=256, prompt_len_max=1024,
+                   max_new_mean=new, max_new_min=new, max_new_max=new)
+    specs = make_stream(prof, arrival_times(ArrivalConfig(
+        kind="poisson", rate=8.0, n_requests=n_req, seed=0)),
+        cfg.vocab_size, seed=2)
+    lens = [len(sp.tokens) for sp in specs]
+    log(f"15b stream: {n_req} requests, prompts {min(lens)}-{max(lens)} "
+        f"tokens ({sum(lens)} in all), {new} new tokens each")
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=1024 + new + 1,
+                 device=dev, sentinel=Sentinel(strict=True))
+    run = hybrid_stream_run(dev, eng, [sp.to_request() for sp in specs],
+                            "15b falcon-mamba-7b stream", smi)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"15b took {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "run": run, "gap": gap, "noise": noise}
+
+
+def jamba_serving(dev, smi):
+    """Phase 15c: jamba-1.5-large-398b at its published widths cut to
+    ``PHASE15_JAMBA`` (d 8192, 64/8 heads of 128, d_ff 24576, d_inner
+    16384, N 16, top-2, capacity 1.25; random bf16 weights from seed 0):
+    graphed decode bitwise against eager, FP4 on and off through one graph;
+    one FP4 prefill and one decode step profiled, the FFN kernels held
+    against their plain versions on their first launch's inputs there;
+    phase 5's MMMU stream through a graphed ``Engine`` with
+    ``virtual_ep=4`` and phase 5's policy with the gate at 256 (FP4 fires
+    in the one-shot prefills of prompts past 128 tokens) under a strict
+    sentinel, the counters zeroed just before and read just after."""
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.serving.engine import Engine
+    from test_torch_cuda import step_body
+
+    t_phase = time.perf_counter()
+    cfg = phase15_jamba_cfg()
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"15c init {cfg.name} cut to {PHASE15_JAMBA} (published: 72 layers,"
+        f" 16 experts; one card): layers {cfg.layer_kinds()}, FFNs "
+        f"{cfg.ffn_kinds()}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, d_inner"
+        f" {cfg.ssm.expand * cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+        f"parameters, {tree_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    # phase 5a's FP4 configuration: every virtual rank hot, the gate open;
+    # FP4 fires wherever a rank holds a vision token
+    fp4 = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                      adaptive=False)
+    m0 = torch.zeros((1, 4), device=dev)
+
+    # one prefill (FP4 firing; then off) and one decode step profiled; the
+    # FFN kernels against their plain versions on their first launch there
+    rows, kept = {}, {}
+    p_toks = torch.randint(0, cfg.vocab_size, (1, 384), generator=gen,
+                           device=dev, dtype=torch.int32)
+    p_vis = torch.rand((1, 384), generator=gen, device=dev) < 0.72
+    bf16 = ReaLBConfig(gate_gamma=10 ** 9)
+    for key, rcfg, wrapper in (("prefill_fp4", fp4, "grouped_fp4_ffn_cuda"),
+                               ("prefill_bf16", bf16, "grouped_ffn_cuda")):
+        fwd = lambda rcfg=rcfg: tf.prefill_forward(  # noqa: E731
+            params, cfg, rcfg, {"tokens": p_toks, "modality": p_vis}, m0,
+            cache_len=512)
+        with keeping_first_inputs(kept, key, wrapper):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = fwd()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        fired = float(res.aux["fp4_ranks"])
+        if (fired > 0) != (key == "prefill_fp4") \
+                or not torch.isfinite(res.logits).all():
+            raise AssertionError(f"15c {key}: FP4 virtual ranks {fired}")
+        log(f"15c {key}: prefill_forward [1, 384] under "
+            f"set_sync_debug_mode('error'): no sync; FP4 virtual ranks "
+            f"summed over the MoE layers {fired:.0f}")
+        rows[key] = forward_profile(f"15c prefill_forward [1, 384] {key}",
+                                    fwd, smi)
+        del res
+    # the whole plain W4A4 FFN would dequantize the 8 slots' three stacks
+    # in f32 beside the 51.8 GB of weights
+    ffn_main = check_ffn_at_main_shapes(kept, by_slot=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # graphed decode against eager, FP4 on and off by the inputs alone
+    b, s = 8, 64
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    vis = torch.rand((b, s), generator=gen, device=dev) < 0.6
+    origin = tf.prefill_forward(params, cfg, fp4, {"tokens": toks,
+                                                   "modality": vis}, m0,
+                                cache_len=s + 8).cache
+    i32 = dict(dtype=torch.int32, device=dev)
+    inputs = {f"FP4 {mode}": {
+        "tokens": toks[:, :1].contiguous(), "pos": torch.full((b,), s, **i32),
+        "modality": torch.full((b, 1), mode == "on", device=dev),
+        "valid": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+        for mode in ("on", "off")}
+    sg, state = decode_graph_bitwise(
+        dev, params, cfg, fp4, origin, m0, inputs, "15c")
+
+    key = "FP4 off"
+    rows["decode_eager"] = forward_profile(
+        "15c decode_forward [8, 1] eager", lambda: tf.decode_forward(
+            params, cfg, fp4, inputs[key], state[0], state[1]), smi)
+    body = step_body(tf.decode_forward, cfg, fp4,
+                     sg.inputs("decode", inputs[key]))
+    host, wall, device, top, _ = host_and_device_ms(
+        lambda: sg.run("decode", "decode", body, (params,) + state))
+    rows["decode_graphed"] = {"host_ms": host, "wall_ms": wall,
+                              "device_ms": device, "top": top}
+    log(f"15c decode [8, 1] FP4 off graphed (replay), warm: host enqueue "
+        f"{host:.2f} ms, wall {wall:.2f} ms, device busy "
+        + (f"{device:.2f} ms (idle {1 - device / wall:.1%})"
+           if device else "not measured") + "; most device time: "
+        + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f"; {smi}")
+    del sg, state, origin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 5's stream, graphed.  Each prompt is prefilled alone (31-241
+    # tokens, top-2: at most 482 routed assignments), so phase 5's gate
+    # of 512 (set for its 1024-token chunks) would never open; at 256 it
+    # opens for the prompts past 128 tokens, and FP4 fires there
+    rcfg = ReaLBConfig(gate_gamma=256, md_init=0.0, adaptive=False)
+    specs = mmmu_stream(cfg)
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=512,
+                 virtual_ep=4, device=dev, sentinel=Sentinel(strict=True))
+    run = hybrid_stream_run(dev, eng, [sp.to_request() for sp in specs],
+                            "15c jamba stream", smi)
+    counts, work = run["counts"], run["working"]
+    if run["fp4_prefills"] == 0 or min(counts[k] for k in SERVE_KERNELS) \
+            == 0 or min(work.get(k, 0) for k in ("quantize_fp4",
+                                                 "grouped_fp4_ffn")) == 0:
+        raise AssertionError(f"15c: FP4 prefills {run['fp4_prefills']}, "
+                             f"launches {counts}, working {work}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"15c took {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "run": run, "ffn_main_ms": ffn_main}
+
+
+def hybrid_serving(dev, smi):
+    """Phase 15 (15a-c above)."""
+    t0 = time.perf_counter()
+    recs = check_kernels_at_jamba_shapes(dev)
+    falcon = falcon_whole(dev, smi)
+    jamba = jamba_serving(dev, smi)
+    log(f"15: phase 15 took {time.perf_counter() - t0:.1f} s")
+    return {"recs": recs, "falcon": falcon, "jamba": jamba}
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -4669,6 +5237,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_counts, mesh_kernels = mesh_training(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase15 = hybrid_serving(dev, smi)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -4770,6 +5341,15 @@ def main() -> int:
         if rec is not None:
             k.update({f"mesh_train_{f}": rec[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    # phase 15: launches (working, on the device) on 15c's jamba stream,
+    # and the serving kernels at jamba's expert shapes (15a)
+    p15 = phase15["jamba"]["run"]
+    for k in kernels:
+        k["hybrid_launches"] = p15["counts"].get(k["name"], 0)
+        k["hybrid_working_launches"] = p15["working"].get(k["name"], 0)
+        rec = phase15["recs"].get(k["name"])
+        if rec is not None:
+            k.update({f"jamba_{f}": v for f, v in rec.items()})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

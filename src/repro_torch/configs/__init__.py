@@ -11,6 +11,7 @@ from repro_torch.configs.base import (  # noqa: F401
     PlacementConfig,
     ReaLBConfig,
     ReplicationConfig,
+    SSMConfig,
     TrainConfig,
     reduced,
 )
@@ -18,6 +19,8 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-1.5-large-398b": "jamba_15_large_398b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

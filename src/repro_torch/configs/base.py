@@ -29,21 +29,38 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective SSM config."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or -(-d_model // 16)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """One decoder-only attention architecture."""
+    """One decoder-only architecture: attention, Mamba or the two
+    interleaved."""
 
     name: str
-    family: str                 # moe | dense
+    family: str                 # moe | dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
-    d_ff: int                   # dense-ffn hidden size
+    d_ff: int                   # dense-ffn hidden size (0 for attn-free)
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // n_heads
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
 
-    layer_pattern: str = "attn"  # the port runs all-attention stacks only
+    # layer pattern: "attn" (all attention), "ssm" (all mamba), "jamba"
+    # (1 attn : 7 mamba per 8-block); the reference's "cross5" is not ported
+    layer_pattern: str = "attn"
     n_dense_layers: int = 0     # leading layers that use dense FFN even in MoE models
 
     activation: str = "swiglu"  # swiglu | geglu | gelu
@@ -60,13 +77,24 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.layer_pattern != "attn":
-            raise ValueError(f"layer_pattern {self.layer_pattern!r}: the "
-                             "port runs all-attention stacks only")
+        if self.layer_pattern == "cross5":
+            raise ValueError("layer_pattern 'cross5' (cross-attention "
+                             "layers) is not ported")
+        if self.layer_pattern not in ("attn", "ssm", "jamba"):
+            raise ValueError(f"layer_pattern {self.layer_pattern!r}")
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.layer_pattern != "ssm"
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer token-mixer kind for the decoder stack."""
-        return ("attn",) * self.n_layers
+        if self.layer_pattern == "attn":
+            return ("attn",) * self.n_layers
+        if self.layer_pattern == "ssm":
+            return ("ssm",) * self.n_layers
+        return tuple("attn" if i % 8 == 0 else "ssm"
+                     for i in range(self.n_layers))
 
     def ffn_kinds(self) -> Tuple[str, ...]:
         kinds = []
@@ -80,30 +108,9 @@ class ModelConfig:
 
     @property
     def scan_period(self) -> int:
-        """Layers per block of the stacked decoder parameters."""
-        return 1
-
-    def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: top_k + shared only), the
-        reference's count for an all-attention GQA stack."""
-        d = self.d_model
-        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        mult = 3 if self.activation in ("swiglu", "geglu") else 2
-        for ffn in self.ffn_kinds():
-            n += d * self.n_heads * self.head_dim               # q
-            n += 2 * d * self.n_kv_heads * self.head_dim        # k, v
-            n += self.n_heads * self.head_dim * d               # o
-            if ffn == "moe":
-                e = self.moe
-                n += (e.top_k + e.n_shared_experts) * mult * d * e.d_ff
-                n += d * e.num_experts                          # router
-            else:
-                dff = self.d_ff if self.d_ff else (
-                    self.moe.d_ff if self.moe else 0)
-                if dff:
-                    n += mult * d * dff
-            n += 2 * d                                          # rmsnorms
-        return n
+        """Layers per block of the stacked decoder parameters (the
+        repeating unit of the layer stack)."""
+        return {"jamba": 8}.get(self.layer_pattern, 1)
 
     def moe_block_structure(self) -> Tuple[int, int]:
         """(n_blocks, n_moe_layers_per_block) of the stacked decoder: the
@@ -114,6 +121,58 @@ class ModelConfig:
         assert len(rest) % period == 0, (len(rest), period)
         return len(rest) // period, sum(1 for f in rest[:period]
                                         if f == "moe")
+
+    # parameter counting ------------------------------------------------
+    def param_count(self) -> int:
+        """Total parameters (embedding + decoder)."""
+        n = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        return n + self._stack_params(self.layer_kinds(), self.ffn_kinds())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared only)."""
+        n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        return n + self._stack_params(self.layer_kinds(), self.ffn_kinds(),
+                                      active=True)
+
+    def _stack_params(self, layer_kinds, ffn_kinds,
+                      active: bool = False) -> int:
+        """The reference's count of a decoder stack's parameters (its MLA
+        and cross-attention terms are not ported)."""
+        d = self.d_model
+        total = 0
+        for mix, ffn in zip(layer_kinds, ffn_kinds):
+            # token mixer
+            if mix == "attn":
+                total += d * self.n_heads * self.head_dim          # q
+                total += 2 * d * self.n_kv_heads * self.head_dim   # k,v
+                total += self.n_heads * self.head_dim * d          # o
+            elif mix == "ssm":
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                dtr = s.resolved_dt_rank(d)
+                total += d * 2 * d_in                  # in_proj
+                total += d_in * s.d_conv               # conv
+                total += d_in * (dtr + 2 * s.d_state)  # x_proj
+                total += dtr * d_in + d_in             # dt_proj
+                total += d_in * s.d_state + d_in       # A_log, D
+                total += d_in * d                      # out_proj
+            # ffn
+            mult = 3 if self.activation in ("swiglu", "geglu") else 2
+            if ffn == "moe":
+                e = self.moe
+                per = mult * d * e.d_ff
+                n_e = (e.top_k if active else e.num_experts)
+                total += n_e * per + e.n_shared_experts * per
+                total += d * e.num_experts             # router
+            else:
+                dff = self.d_ff if self.d_ff else (
+                    self.moe.d_ff if self.moe else 0)
+                if dff:
+                    total += mult * d * dff
+            total += 2 * d  # two rmsnorm scales
+        return total
 
 
 # Nominal expert-slab migration bandwidth (bytes/s): the reference's prior,
@@ -245,7 +304,7 @@ class TrainConfig:
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests (the reference's recipe)."""
     small = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, 4 if cfg.layer_pattern == "attn" else 8),
         d_model=128,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads else 4,
@@ -259,5 +318,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff=64,
             capacity_factor=2.0)
+    if cfg.ssm is not None:
+        small["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2)
+    if cfg.layer_pattern == "jamba":
+        small["n_layers"] = 8
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

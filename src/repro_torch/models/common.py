@@ -194,7 +194,7 @@ class P:
     dim (None: every dim replicated)."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros | embed
+    init: str = "normal"          # normal | zeros | ones | embed
     scale: float = 1.0            # stddev multiplier
     dtype: Optional[str] = None   # override the model param dtype
     axes: Optional[Tuple[Optional[str], ...]] = None
@@ -216,6 +216,8 @@ def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
     dt = DTYPES[p.dtype or default_dtype]
     if p.init == "zeros":
         return torch.zeros(shape, dtype=dt, device=device)
+    if p.init == "ones":
+        return torch.ones(shape, dtype=dt, device=device)
     if p.init == "embed":
         std = p.scale
     else:   # fan-in scaled init on the second-to-last dim

@@ -1,32 +1,39 @@
-"""Decoder stack of the port (moonshot layout) with the ReaLB MoE layers.
+"""Decoder stack of the port with the ReaLB MoE layers.
 
-Counterpart of the attention-stack part of ``repro.models.transformer``:
-leading dense "prefix" layers, then ``n_blocks`` identical blocks whose
-parameters (and KV caches) are stacked along a leading ``[n_blocks]`` dim.
-The reference scans over that dim; the port loops over block indices and
-updates the stacked KV cache in place.  The AIMD ``m_state`` threads
-through the loop (each MoE layer applies one control update).
+Counterpart of the decoder part of ``repro.models.transformer``: leading
+dense "prefix" layers, then ``n_blocks`` identical blocks whose parameters
+(and caches) are stacked along a leading ``[n_blocks]`` dim.  A block's
+layers are attention or Mamba (``models.ssm``) token mixers by the
+config's ``layer_pattern`` ("attn"; "ssm", falcon-mamba; "jamba", one
+attention and seven Mamba layers a block of 8), each followed by a dense,
+MoE or no FFN.  An attention layer's cache is ``k``/``v``, a Mamba layer's
+its conv window ``conv`` and SSM state ``ssm``.  The reference scans over
+the blocks; the port loops over block indices and updates the stacked
+cache in place.  The AIMD ``m_state`` threads through the loop (each MoE
+layer applies one control update).
 
 Entry points: ``init_model``, ``init_cache``, ``prefill_forward`` (one-shot
 prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
-(one token per row).  They run on ``cuda`` unless the caller passes
-``device="cpu"``, and none of them reads the device on the host.
+(one token per row); ``chunk_forward`` runs all-attention stacks only.
+They run on ``cuda`` unless the caller passes ``device="cpu"``, and none
+of them reads the device on the host.
 Training: ``train_forward`` (logits of whole sequences, no cache, with the
 reference's ``remat`` policies), ``cross_entropy`` and ``train_loss``, on
-one device or under a mesh.
+one device or under a mesh, for stacks without Mamba layers.
 
 Under a mesh (``models.common.use_mesh``) the same entry points run on
 every rank of the EP group.  The reference lets GSPMD pick the layout of
 everything outside the MoE layer's ``shard_map``; the port fixes one, and
-the function is the same: the non-expert part (embedding, attention,
-norms, the dense and shared-expert FFNs, unembedding) and the KV cache are
-replicated on every rank; each MoE layer (``ep_moe_forward``) takes the
-rank's rows and, in dispatch, its ``S/ep`` slice of the sequence, runs the
-all-to-all dispatch over the rank's ``S/ep`` expert slots, and all-gathers
-its output back over ``model``.  ``init_model`` builds only the rank's
-expert slots.  A chunk or prompt length must divide by the EP size (the
-engine's power-of-two chunk buckets, 8 and up, do for EP 2, 4 and 8).
+the function is the same: the non-expert part (embedding, attention, the
+Mamba layers, norms, the dense and shared-expert FFNs, unembedding) and
+the cache are replicated on every rank; each MoE layer
+(``ep_moe_forward``) takes the rank's rows and, in dispatch, its ``S/ep``
+slice of the sequence, runs the all-to-all dispatch over the rank's
+``S/ep`` expert slots, and all-gathers its output back over ``model``.
+``init_model`` builds only the rank's expert slots.  A chunk or prompt
+length must divide by the EP size (the engine's power-of-two chunk
+buckets, 8 and up, do for EP 2, 4 and 8).
 
 Training under a mesh (the reference's ``jit(value_and_grad(train_loss))``
 under ``use_mesh``) takes the FSDP layout (``init_model(fsdp=True)``:
@@ -54,10 +61,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from repro_torch.configs.base import ModelConfig, ReaLBConfig
+from repro_torch.configs.base import ModelConfig, ReaLBConfig, SSMConfig
 from repro_torch.core import ep_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (DTYPES, P, current_mesh, init_params,
                                        local_slice, resolve_device, rms_norm,
                                        use_mesh)
@@ -100,10 +108,15 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
     }
 
 
-def layer_spec(cfg: ModelConfig, ffn: str) -> Dict[str, Any]:
+def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
-    spec: Dict[str, Any] = {"norm1": P((d,), init="zeros"),
-                            "attn": attn.gqa_spec(cfg)}
+    spec: Dict[str, Any] = {"norm1": P((d,), init="zeros")}
+    if mix == "attn":
+        spec["attn"] = attn.gqa_spec(cfg)
+    elif mix == "ssm":
+        spec["ssm"] = ssm_mod.ssm_spec(cfg)
+    else:
+        raise ValueError(f"token mixer {mix!r}")
     if ffn != "none":
         spec["norm2"] = P((d,), init="zeros")
     if ffn == "dense":
@@ -123,13 +136,14 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     spec: Dict[str, Any] = {
         "embed": P((v, d), init="embed", scale=0.02),
         "final_norm": P((d,), init="zeros"),
-        "blocks": {f"layer{i}": layer_spec(cfg, f)
-                   for i, (_, f) in enumerate(layout)},
+        "blocks": {f"layer{i}": layer_spec(cfg, m, f)
+                   for i, (m, f) in enumerate(layout)},
     }
     if not cfg.tie_embeddings:
         spec["unembed"] = P((d, v))
     if n_prefix:
-        spec["prefix"] = {str(i): layer_spec(cfg, "dense")
+        spec["prefix"] = {str(i): layer_spec(cfg, cfg.layer_kinds()[i],
+                                             "dense")
                           for i in range(n_prefix)}
     return spec
 
@@ -157,23 +171,39 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
     return params
 
 
+def _entry_shapes(cfg: ModelConfig, mix: str, batch: int, cache_len: int
+                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each cache entry of a layer (the reference's
+    ``_entry_spec``): attention ``k``/``v [B, L, K, Dh]``; Mamba ``conv
+    [B, d_conv-1, d_in]`` in the parameter dtype and ``ssm [B, d_in, N]``
+    in f32."""
+    dt = DTYPES[cfg.param_dtype]
+    if mix == "attn":
+        kv = ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim), dt)
+        return {"k": kv, "v": kv}
+    s = cfg.ssm or SSMConfig()
+    d_in = s.expand * cfg.d_model
+    return {"conv": ((batch, s.d_conv - 1, d_in), dt),
+            "ssm": ((batch, d_in, s.d_state), F32)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=None) -> Tree:
-    """Zero KV cache: prefix ``k``/``v [B, L, K, Dh]``, blocks
-    ``[n_blocks, B, L, K, Dh]``."""
+    """Zero cache: each prefix layer's entries (:func:`_entry_shapes`),
+    each block layer's stacked ``[n_blocks, ...]``."""
     device = resolve_device(device)
     layout, n_blocks, n_prefix = block_structure(cfg)
-    dt = DTYPES[cfg.param_dtype]
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
 
-    def kv(lead=()):
+    def entries(mix, lead=()):
         return {n: torch.zeros(lead + shape, dtype=dt, device=device)
-                for n in ("k", "v")}
+                for n, (shape, dt) in _entry_shapes(
+                    cfg, mix, batch, cache_len).items()}
 
-    out = {"blocks": {f"layer{i}": kv((n_blocks,))
-                      for i in range(len(layout))}}
+    out = {"blocks": {f"layer{i}": entries(m, (n_blocks,))
+                      for i, (m, _) in enumerate(layout)}}
     if n_prefix:
-        out["prefix"] = {str(i): kv() for i in range(n_prefix)}
+        kinds = cfg.layer_kinds()
+        out["prefix"] = {str(i): entries(kinds[i]) for i in range(n_prefix)}
     return out
 
 
@@ -226,8 +256,21 @@ def split_placement(placement, n_blocks: int):
 
 def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            positions, pos, cache_in, chunk_len=None, cache_len=0):
-    """The layer's attention output ``o`` and its KV (None in "train")."""
+    """The layer's token-mixer output ``o`` and its cache entries (None in
+    "train"): attention's KV, or a Mamba layer's final states (prefill;
+    decode writes them into ``cache_in`` in place, as attention writes its
+    KV row)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if "ssm" in lp:
+        if mode == "decode":
+            o, st = ssm_mod.ssm_decode(lp["ssm"], h, cache_in, cfg)
+            for n, t in st.items():
+                cache_in[n].copy_(t)
+            return o, cache_in
+        if mode != "prefill":
+            raise ValueError(f"mode {mode!r} of a Mamba layer: the port "
+                             "runs 'prefill' and 'decode'")
+        return ssm_mod.ssm_forward(lp["ssm"], h, cfg)
     if mode == "chunk":
         return attn.gqa_chunk(lp["attn"], h, cache_in, cfg,
                               positions=positions, chunk_len=chunk_len)
@@ -284,11 +327,13 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
                 cache_len=0, placement=None, fsdp=False):
-    """One attention layer plus its dense or MoE FFN.  ``mode``: "prefill"
-    (whole prompts; the KV comes back padded to ``cache_len``), "chunk" or
-    "decode" (the new rows written into ``cache_in`` in place, whose
-    tensors come back as ``cache_out``), or "train" (whole sequences, no
-    cache, ``cache_out`` None; the MoE layer in its training form).
+    """One attention or Mamba layer plus its dense or MoE FFN.  ``mode``:
+    "prefill" (whole prompts; the KV comes back padded to ``cache_len``, a
+    Mamba layer's final states as they are), "chunk" or "decode" (the new
+    rows, or a Mamba layer's new states, written into ``cache_in`` in
+    place, whose tensors come back as ``cache_out``), or "train" (whole
+    sequences, no cache, ``cache_out`` None; the MoE layer in its training
+    form).
     Returns (x, cache_out, m_state, aux_scalars, stats, estats, sstats)."""
     o, kv = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
                    cache_in=cache_in, chunk_len=chunk_len,
@@ -364,8 +409,8 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
             params["prefix"][str(i)], x, cfg, rcfg, "dense",
             cache_in=c, m_state=m_state, **kw)
         if mode == "prefill":
-            for n in ("k", "v"):
-                c[n].copy_(co[n])
+            for n, t in co.items():
+                c[n].copy_(t)
         aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}
 
     stats_b, estats_b, sstats_b = [], [], []
@@ -387,11 +432,11 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
             lp = _index(params["blocks"][f"layer{i}"], b)
             c = cache["blocks"][f"layer{i}"]
             x, co, m_state, aux, stats, estats, sstats = apply_layer(
-                lp, x, cfg, rcfg, f, cache_in={n: c[n][b] for n in ("k", "v")},
+                lp, x, cfg, rcfg, f, cache_in={n: t[b] for n, t in c.items()},
                 m_state=m_state, placement=place_b, **kw)
             if mode == "prefill":
-                for n in ("k", "v"):
-                    c[n][b].copy_(co[n])
+                for n, t in co.items():
+                    c[n][b].copy_(t)
             aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}
             st, es, ss = st + stats, es + estats, ss + sstats
         stats_b.append(st)
@@ -514,8 +559,13 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     position of each row's first chunk token), chunk_len [B] (valid tokens
     per row; 0 = idle row), modality [B,S].  Each row writes its chunk's KV
     at [start, start+chunk_len) and attends causally to its own prefix.
-    Returns logits at every row's last valid chunk position.
+    Returns logits at every row's last valid chunk position.  Only
+    all-attention stacks continue a chunk (no SSM state threading), as in
+    the reference.
     """
+    if cfg.layer_pattern != "attn" or cfg.ssm is not None:
+        raise ValueError("chunked prefill supports plain-attention stacks "
+                         "only")
     tokens, modality = _prepare_inputs(cfg, batch)
     start, chunk_len = batch["start"], batch["chunk_len"]
     b, s = tokens.shape
@@ -568,7 +618,13 @@ def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     ``cfg.remat`` sets what the backward recomputes.  Under a mesh (see
     the module docstring) every rank passes the global batch and the FSDP
     layout's parameters; the logits are those of its data row's rows,
-    ``m_state`` and the statistics the global ones."""
+    ``m_state`` and the statistics the global ones.  A stack with Mamba
+    layers is refused: their training is not ported yet (ROADMAP Queue A,
+    "SSM training")."""
+    if "ssm" in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"training {cfg.name}: Mamba layers train only in the reference "
+            "so far (ROADMAP Queue A, 'SSM training')")
     tokens, modality = _prepare_inputs(cfg, batch)
     rows = _train_rows(tokens.shape[0], m_state)
     tokens, modality = tokens[rows], modality[rows]

@@ -195,8 +195,10 @@ class Engine:
         self.max_slots, self.max_len = max_slots, max_len
         self.temperature = temperature
         self.prefill_budget = prefill_budget
-        # chunk continuation needs a plain GQA/MQA decoder stack
-        self.chunked = (prefill_budget > 0 and cfg.layer_pattern == "attn"
+        # chunk continuation needs a plain GQA/MQA decoder stack: an SSM or
+        # hybrid stack prefills each prompt in one shot
+        self.chunked = (prefill_budget > 0 and cfg.ssm is None
+                        and cfg.layer_pattern == "attn"
                         and cfg.family != "vlm")
         self.scheduler = Scheduler(max_slots, text_reserve=text_reserve)
         self.clock = clock
@@ -765,12 +767,13 @@ class Engine:
     # -- prefill ---------------------------------------------------------------
     def _insert_cache(self, slot: int, new_cache):
         """Copy a batch-1 prefill cache into slot ``slot`` of the engine
-        cache, in place.  Stacked block entries are [n_blocks, B, ...]
-        (batch axis 1); prefix entries are [B, ...] (axis 0)."""
+        cache, in place, every entry of every layer (KV rows, Mamba
+        states).  Stacked block entries are [n_blocks, B, ...] (batch axis
+        1); prefix entries are [B, ...] (axis 0)."""
         for group, axis in (("blocks", 1), ("prefix", 0)):
-            for name, kv in self.cache.get(group, {}).items():
-                for n in ("k", "v"):
-                    kv[n].narrow(axis, slot, 1).copy_(new_cache[group][name][n])
+            for name, entries in self.cache.get(group, {}).items():
+                for n, t in entries.items():
+                    t.narrow(axis, slot, 1).copy_(new_cache[group][name][n])
 
     def _prefill_oneshot(self, req: Request):
         """The whole prompt in one batch-1 forward, its cache copied into

@@ -13,7 +13,8 @@ memory, asynchronously.  The first call of a key runs the step eagerly
 (its result is the step's; it also makes every buffer a kernel makes at
 its first launch) on the capture stream, and the key is captured right
 after it; later calls replay the graph.  A capture executes nothing, so
-the cache and the AIMD state are written once per step.  All graphs of
+the cache (KV rows, and a Mamba layer's conv and SSM states, all written
+in place) and the AIMD state are written once per step.  All graphs of
 one object share one memory pool: they never run at once.
 
 A graph holds raw pointers.  Every call compares the addresses, shapes

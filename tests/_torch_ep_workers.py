@@ -184,6 +184,37 @@ def _model_case(mesh, c):
     except ValueError as err:
         out["odd_chunk"] = str(err)
     out["engine"] = _engine(c, params, cfg)
+    if c.get("hybrid") is not None:
+        out["hybrid"] = _hybrid_case(mesh, c["hybrid"])
+    return out
+
+
+def _hybrid_case(mesh, c):
+    """Reduced jamba (attention, Mamba and MoE layers) on the rank's shard:
+    ``prefill_forward`` then ``decode_forward``; the SSM weights and states
+    stay whole on every rank."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.convert import rank_shard
+    from repro_torch.models import transformer as tf
+    cfg = _cfg(c["arch"])
+    ep, rank = mesh.size("model"), mesh.index("model")
+    params = rank_shard(c["params"], ep, rank, device="cpu")
+    ssm = params["blocks"]["layer1"]["ssm"]["w_in"]
+    rcfg = ReaLBConfig(**c["rcfg"])
+    m = torch.full((1, ep), rcfg.md_init)
+    res = tf.prefill_forward(params, cfg, rcfg,
+                             {k: torch.from_numpy(v)
+                              for k, v in c["prefill"].items()},
+                             m, cache_len=c["cache_len"])
+    out = {"prefill": {"logits": _np(res.logits), "m": _np(res.m_state),
+                       "aux": _np(res.aux), "cache": _np(res.cache)},
+           "ssm_whole": tuple(ssm.shape) == c["ssm_w_in_shape"]}
+    res = tf.decode_forward(params, cfg, rcfg,
+                            {k: torch.from_numpy(v)
+                             for k, v in c["decode"].items()},
+                            res.cache, res.m_state)
+    out["decode"] = {"logits": _np(res.logits), "m": _np(res.m_state),
+                     "aux": _np(res.aux), "cache": _np(res.cache)}
     return out
 
 

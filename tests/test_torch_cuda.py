@@ -1206,14 +1206,53 @@ def test_crossrank_inplace_gather_on_card_equals_one_device(card_ranks):
 # the compiled step: CUDA graphs of the chunk and decode forwards
 # --------------------------------------------------------------------------
 def _bits_equal(a, b) -> bool:
+    """Two trees of tensors (dicts, tuples) hold the same bytes."""
     if isinstance(a, dict):
         return set(a) == set(b) and all(_bits_equal(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(map(_bits_equal, a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
     if a.dtype.is_floating_point:
-        view = {2: torch.int16, 4: torch.int32}[a.element_size()]
-        return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
     return torch.equal(a, b)
+
+
+def step_body(fwd, cfg, rcfg, bufs):
+    """The body a ``StepGraphs`` runs for ``fwd`` (``chunk_forward`` or
+    ``decode_forward``): the forward on the static input buffers ``bufs``
+    over the cache it is given, ``m_state`` written in place."""
+    def body(params, cache, m):
+        res = fwd(params, cfg, rcfg, bufs, cache, m)
+        m.copy_(res.m_state)
+        return res.logits, res.aux
+    return body
+
+
+def graphed_equals_eager(sg, sent, kind, fwd, params, cfg, rcfg, state,
+                         origin, m0, inputs, label) -> float:
+    """One step of ``sg``'s graph ``kind`` on ``inputs`` (the eager first
+    call, captured after, or a replay) inside ``sent``'s hot window, from
+    ``origin``'s cache and ``m0`` copied into ``state`` (the cache and
+    ``m_state`` the graphs read and write in place).  Raises unless it
+    equals the eager ``fwd`` on copies of ``origin`` and ``m0`` bit for
+    bit: the logits, every statistic, the cache (KV rows and Mamba
+    states) and ``m_state``.  Returns the FP4 virtual ranks it fired."""
+    cache, m = state
+    with sent.hot(label):
+        common.tree_map(lambda dst, src: dst.copy_(src), cache, origin)
+        m.copy_(m0)
+        body = step_body(fwd, cfg, rcfg, sg.inputs(kind, inputs))
+        logits, aux = sg.run(kind, kind, body, (params, cache, m))
+    want = fwd(params, cfg, rcfg, inputs,
+               common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    if not _bits_equal((logits, aux, cache, m),
+                       (want.logits, want.aux, want.cache, want.m_state)):
+        raise AssertionError(f"{label}: the graphed step differs from the "
+                             "eager forward")
+    return float(aux["fp4_ranks"])
 
 
 def test_graph_replay_equals_eager_forwards(cuda):
@@ -1698,3 +1737,95 @@ def test_train_step_on_the_card_matches_cpu(cuda):
                                           np.zeros((1, 4), np.float32))
     assert counts["grouped_ffn"] == counts["grouped_ffn_bwd"] == 3
     assert counts["quantize_fp4"] == counts["grouped_fp4_ffn"] == 0
+
+
+# --------------------------------------------------------------------------
+# Mamba layers and the hybrid MoE (jamba)
+# --------------------------------------------------------------------------
+def test_reduced_jamba_graphed_decode_equals_eager(cuda):
+    """Reduced jamba-1.5-large-398b (attention, Mamba and MoE layers, bf16)
+    on the card: one captured decode graph over a prefill's cache serves
+    FP4 on and off by the inputs alone; each call equals the eager
+    ``decode_forward`` bit for bit (logits, statistics, the cache with the
+    Mamba states written in place, ``m_state``), under a strict sentinel;
+    the prefill launches the quantizer and the W4A4 FFN."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.serving.graphs import StepGraphs
+    cfg = reduced(get_config("jamba-1.5-large-398b"), param_dtype="bfloat16")
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    rcfg = ReaLBConfig(gate_gamma=0, capacity_c=0.0, md_init=0.0,
+                       adaptive=False)
+    b, s, l = 4, 16, 24
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    m0 = torch.zeros((1, 4), device=cuda)
+    ops.reset_launch_counts()
+    origin = tf.prefill_forward(params, cfg, rcfg, {
+        "tokens": tok, "modality": torch.ones_like(tok, dtype=torch.bool)},
+        m0, cache_len=l).cache
+    counts = ops.launch_counts()
+    assert counts["quantize_fp4"] > 0 and counts["grouped_fp4_ffn"] > 0
+    i32 = dict(dtype=torch.int32, device=cuda)
+    inputs = {fp4: {"tokens": tok[:, :1].contiguous(),
+                    "pos": torch.tensor([s, l, s, s], **i32),
+                    "modality": torch.full((b, 1), fp4, device=cuda),
+                    "valid": torch.tensor([[True], [False], [True], [True]],
+                                          device=cuda)}
+              for fp4 in (True, False)}
+    state = (common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(cuda, sentinel=sent)
+    for fp4 in (True, False, True):
+        fired = graphed_equals_eager(sg, sent, "decode", tf.decode_forward,
+                                     params, cfg, rcfg, state, origin, m0,
+                                     inputs[fp4], f"decode FP4 {fp4}")
+        assert (fired > 0) == fp4
+    assert sg.captures["decode"] == 1 and sg.replays["decode"] == 2
+    assert sent.violations == []
+
+
+JAMBA_D, JAMBA_F = 8192, 24576
+
+
+def test_kernels_at_jamba_expert_shapes(cuda):
+    """The quantizer and the global scale bitwise against their plain
+    versions on a 2-expert stack at jamba's widths (D = 8192, F = 24576),
+    both views; the BF16 and W4A4 grouped FFNs within their checks' bounds
+    on ~1024 rows over the two slots plus the pad slot."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    w = {}
+    for name, shape in (("w_gate", (2, JAMBA_D, JAMBA_F)),
+                        ("w_up", (2, JAMBA_D, JAMBA_F)),
+                        ("w_down", (2, JAMBA_F, JAMBA_D))):
+        w[name] = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+        for e in range(2):
+            w[name][e].copy_(torch.randn(shape[1:], generator=gen,
+                                         device=cuda) * 0.02)
+    for name in ("w_gate", "w_down"):
+        view = w[name].transpose(-1, -2)
+        gs = quant.global_scale_for(view)
+        assert torch.equal(qk.global_scale_cuda(view).view(torch.int32),
+                           gs.view(torch.int32)), name
+        pk, sc = qk.quantize_fp4_cuda(view, gs)
+        pk_p, sc_p = qk.quantize_fp4_plain(view, gs)
+        assert torch.equal(pk, pk_p), name
+        assert torch.equal(sc.view(torch.int32), sc_p.view(torch.int32)), name
+        del pk, sc, pk_p, sc_p
+    gs_list = [500, 524, 256]
+    m = sum(gs_list)
+    xs = torch.randn(m, JAMBA_D, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    xs[1024:] = 0
+    counts = torch.tensor(gs_list, dtype=torch.int32, device=cuda)
+    plain = (xs, counts, w["w_gate"], w["w_up"], w["w_down"])
+    y = ffn.grouped_ffn_cuda(*plain)
+    check_plain_ffn(y, ffn.grouped_ffn_plain(*plain))
+    assert torch.all(y[1024:] == 0)
+    wq = [ops.quantize_experts_fp4(w[k].transpose(-1, -2))
+          for k in ("w_gate", "w_up", "w_down")]
+    args = (xs, counts, *(t for q in wq for t in (q.packed, q.scales)),
+            torch.stack([q.global_scale.reshape(()) for q in wq]))
+    y = ffn.grouped_fp4_ffn_cuda(*args)
+    check_ffn(y, ffn.grouped_fp4_ffn_plain(*args))
+    assert torch.all(y[1024:] == 0)

@@ -14,8 +14,14 @@ routing stats and ``m_state`` exact; the model forward's collective
 census against the ledger's prediction; a rank's init equal to its slice
 of the whole model's; the EP engine on a 16-token-prompt stream against
 the reference's engine with ``virtual_ep = ep``: the same tokens, request
-times and ``IterStats`` on every rank.  Then ``python -m
-repro_torch.launch.serve --mesh host --device cpu`` on two ranks.
+times and ``IterStats`` on every rank.  On the same ranks, reduced
+jamba-1.5-large-398b (attention, Mamba and MoE layers; the gate closed):
+``prefill_forward`` then ``decode_forward`` against the port's one-device
+forwards over the virtual topology of the EP size, the equality the
+reference asserts of its EP layer (within 5e-5; statistics and
+``m_state`` exact), with the SSM weights whole on every rank.  Then
+``python -m repro_torch.launch.serve --mesh host --device cpu`` on two
+ranks.
 """
 import dataclasses
 from functools import partial
@@ -34,7 +40,12 @@ from repro.models import transformer as jtf
 from repro.serving.engine import Engine as JEngine
 from repro.serving.scheduler import Request as JRequest
 from repro.workloads import IterationCostModel, VirtualClock
+import torch
+
+from repro_torch.configs import ReaLBConfig as TCfg
 from repro_torch.configs import get_config, reduced
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import transformer as ttf
 from repro_torch.obs.ledger import FlopByteLedger
 from repro_torch.workloads import arrivals as t_arrivals
 from repro_torch.workloads import multimodal as t_multimodal
@@ -48,6 +59,58 @@ POLICIES = {"bf16": dict(gate_gamma=10 ** 9, md_init=0.5),
 ENGINE = dict(max_slots=4, max_len=64, prefill_budget=16)
 ENGINE_POLICY = dict(gate_gamma=10 ** 9)                 # the gate closed
 N_REQ, MAX_PROMPT = 6, 16
+HYBRID = "jamba-1.5-large-398b"
+HYBRID_POLICY = dict(gate_gamma=10 ** 9, md_init=0.5)
+HYBRID_TOL = 5e-5                    # of max |one-device|
+
+
+def _hybrid_case():
+    """Reduced jamba's weights (the port's init, as numpy) and inputs: a
+    prefill of 3 x 12 tokens into 16 rows, then a decode with an idle
+    row."""
+    cfg = reduced(get_config(HYBRID))
+    params = ttf.init_model(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    b, s = 3, 12
+    return {"arch": HYBRID, "rcfg": HYBRID_POLICY, "cache_len": 16,
+            "params": _numpy(params),
+            "ssm_w_in_shape": tuple(
+                params["blocks"]["layer1"]["ssm"]["w_in"].shape),
+            "prefill": {"tokens": rng.integers(0, cfg.vocab_size, (b, s))
+                        .astype(np.int32),
+                        "modality": rng.random((b, s)) < 0.6},
+            "decode": {"tokens": rng.integers(0, cfg.vocab_size, (b, 1))
+                       .astype(np.int32),
+                       "pos": np.array([s, 16, s], np.int32),
+                       "modality": np.array([[True], [False], [False]]),
+                       "valid": np.array([[True], [False], [True]])}}
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.numpy().copy()
+
+
+def _hybrid_local(case, ep):
+    """The port's one-device forwards of the hybrid case over the virtual
+    topology of ``ep`` ranks."""
+    cfg = reduced(get_config(HYBRID))
+    params = params_from_numpy(case["params"], "cpu")
+    rcfg = TCfg(**case["rcfg"])
+    t = {k: torch.from_numpy(v) for k, v in case["prefill"].items()}
+    pre = ttf.prefill_forward(params, cfg, rcfg, t,
+                              torch.full((1, ep), rcfg.md_init),
+                              cache_len=case["cache_len"])
+    out = {"prefill": (pre.logits.numpy(), pre.m_state.numpy(),
+                       {k: v.numpy() for k, v in pre.aux.items()},
+                       _numpy(pre.cache))}
+    d = {k: torch.from_numpy(v) for k, v in case["decode"].items()}
+    dec = ttf.decode_forward(params, cfg, rcfg, d, pre.cache, pre.m_state)
+    out["decode"] = (dec.logits.numpy(), dec.m_state.numpy(),
+                     {k: v.numpy() for k, v in dec.aux.items()},
+                     _numpy(dec.cache))
+    return out
 
 
 def _inputs(cfg):
@@ -125,13 +188,14 @@ def ep_model(request, reference, tmp_path_factory):
             "cache": jax.tree.map(np.asarray, jtf.init_cache(cfg, B, L)),
             "m": np.full((1, ep), 0.5, np.float32), "odd_len": 5,
             "engine": ENGINE, "engine_rcfg": ENGINE_POLICY,
-            "requests": requests}
+            "requests": requests, "hybrid": _hybrid_case()}
     ranks = run_ranks(model_cases, request.param, case,
                       tmp_path_factory.mktemp("ep_model"))
     for i, r in enumerate(ranks):
         assert "error" not in r, f"rank {i}:\n{r.get('error')}"
     return (request.param, refs, ranks,
-            _ref_engine(params, cfg, requests, ep))
+            _ref_engine(params, cfg, requests, ep),
+            _hybrid_local(case["hybrid"], ep))
 
 
 def _compare(j, t, what):
@@ -141,7 +205,7 @@ def _compare(j, t, what):
 
 @pytest.mark.parametrize("policy", list(POLICIES))
 def test_chunk_then_decode_match_local_under_ep(ep_model, policy):
-    _, refs, ranks, _ = ep_model
+    _, refs, ranks, _, _ = ep_model
     ref = refs[policy]
     for r in ranks:
         for step in ("chunk", "decode"):
@@ -163,7 +227,7 @@ def test_chunk_then_decode_match_local_under_ep(ep_model, policy):
 def test_ranks_agree_bitwise(ep_model):
     """Every rank returns the same logits and state (the layout gathers
     the MoE output; everything else is replicated)."""
-    _, _, ranks, _ = ep_model
+    _, _, ranks, _, _ = ep_model
     for r in ranks[1:]:
         for pol in POLICIES:
             for step in ("chunk", "decode"):
@@ -174,7 +238,7 @@ def test_ranks_agree_bitwise(ep_model):
 def test_model_census_matches_prediction(ep_model):
     """A chunk forward's collectives: the ledger's prediction for its MoE
     layers (each rank dispatches B·S/ep tokens)."""
-    (rows, ep), _, ranks, _ = ep_model
+    (rows, ep), _, ranks, _, _ = ep_model
     cfg = reduced(get_config(ARCH))
     n_moe = sum(1 for f in cfg.ffn_kinds() if f == "moe")
     pred = FlopByteLedger(cfg, ep=ep).predict_graph_census(
@@ -185,7 +249,7 @@ def test_model_census_matches_prediction(ep_model):
 
 
 def test_init_model_builds_only_the_rank_shard(ep_model):
-    (_, ep), _, ranks, _ = ep_model
+    (_, ep), _, ranks, _, _ = ep_model
     cfg = reduced(get_config(ARCH))
     for r in ranks:
         assert r["init_slots"] == cfg.moe.num_experts // ep
@@ -200,7 +264,7 @@ def test_chunk_must_divide_over_ep(ep_model):
 def test_ep_engine_matches_reference_engine(ep_model):
     """Same tokens, request times, IterStats and AIMD state on every rank
     as the reference's engine over the virtual topology of the EP size."""
-    _, _, ranks, ref = ep_model
+    _, _, ranks, ref, _ = ep_model
     for r in ranks:
         eng = r["engine"]
         assert eng["tokens"] == ref["tokens"]
@@ -210,6 +274,31 @@ def test_ep_engine_matches_reference_engine(ep_model):
             assert a == b, (i, a, b)
         assert np.array_equal(eng["m"], ref["m"])
     assert any(s["phase"] == "decode" for s in ref["stats"])
+
+
+def test_hybrid_forwards_match_one_device_under_ep(ep_model):
+    """Reduced jamba's prefill and decode under the mesh equal the port's
+    one-device forwards; every rank holds the whole SSM weights and gives
+    the same logits."""
+    _, _, ranks, _, local = ep_model
+    for r in ranks:
+        h = r["hybrid"]
+        assert h["ssm_whole"]
+        for step in ("prefill", "decode"):
+            logits, m_state, aux, cache = local[step]
+            got = h[step]
+            err = np.abs(got["logits"] - logits).max()
+            assert err <= HYBRID_TOL * np.abs(logits).max(), (step, err)
+            assert np.array_equal(m_state, got["m"]), step
+            for k in ("moe_stats", "expert_stats", "slot_stats"):
+                assert np.array_equal(aux[k], got["aux"][k]), (step, k)
+            for layer, entries in cache["blocks"].items():
+                for n, v in entries.items():
+                    e = np.abs(got["cache"]["blocks"][layer][n] - v).max()
+                    assert e <= HYBRID_TOL * max(np.abs(v).max(), 1e-30), \
+                        (step, layer, n, e)
+        assert np.array_equal(h["decode"]["logits"],
+                              ranks[0]["hybrid"]["decode"]["logits"])
 
 
 def test_serve_mesh_host_on_two_cpu_ranks(tmp_path):

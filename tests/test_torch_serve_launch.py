@@ -1,6 +1,7 @@
 """The port's serving driver, ``python -m repro_torch.launch.serve``: it
-serves the tiny preset on the CPU and prints its summary (the reference
-driver's lines), and refuses a mesh it cannot build: the host mesh without
+serves the tiny preset on the CPU and prints its summary (the lines the
+reference prints), for the Mamba and hybrid architectures too (one-shot
+prefill), and refuses a mesh it cannot build: the host mesh without
 ranks to span (it serves under ``torchrun``, ``tests/test_torch_ep_model.py``)
 and the TPU pod slices."""
 import os
@@ -29,6 +30,17 @@ def test_serve_tiny_on_the_cpu_exits_zero():
     assert lines[1].startswith("iterations: ") and "gate duty" in lines[1]
     assert lines[2].startswith("TTFT p50/p99: ")
     assert "jax" not in out.stderr
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_tiny_mamba_and_hybrid_on_the_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--preset", "tiny", "--device",
+                       "cpu", "--requests", "4", "--max-new", "4"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert re.match(r"served 4 requests, \d+ prompt \+ 16 generated tokens",
+                    lines[0]), lines
+    assert "(prefill chunked=False)" in lines[1], lines
 
 
 @pytest.mark.parametrize("mesh", ["host", "single_pod", "multi_pod"])
