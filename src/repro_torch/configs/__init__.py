@@ -6,6 +6,7 @@ from typing import Dict, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
     MIGRATION_BW_DEFAULT,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     PlacementConfig,
@@ -20,6 +21,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "gemma-7b": "gemma_7b",
+    "minicpm3-4b": "minicpm3_4b",
+    "qwen1.5-0.5b": "qwen15_05b",
+    "command-r-35b": "command_r_35b",
     "jamba-1.5-large-398b": "jamba_15_large_398b",
 }
 

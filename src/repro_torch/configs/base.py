@@ -29,6 +29,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek/MiniCPM3 style)."""
+
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba-1 selective SSM config."""
 
@@ -56,6 +67,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // n_heads
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # layer pattern: "attn" (all attention), "ssm" (all mamba), "jamba"
@@ -138,13 +150,21 @@ class ModelConfig:
 
     def _stack_params(self, layer_kinds, ffn_kinds,
                       active: bool = False) -> int:
-        """The reference's count of a decoder stack's parameters (its MLA
-        and cross-attention terms are not ported)."""
+        """The reference's count of a decoder stack's parameters (its
+        cross-attention term is not ported)."""
         d = self.d_model
         total = 0
         for mix, ffn in zip(layer_kinds, ffn_kinds):
             # token mixer
-            if mix == "attn":
+            if mix == "attn" and self.mla is not None:
+                m = self.mla
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank * self.n_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)
+                total += self.n_heads * m.v_head_dim * d
+            elif mix == "attn":
                 total += d * self.n_heads * self.head_dim          # q
                 total += 2 * d * self.n_kv_heads * self.head_dim   # k,v
                 total += self.n_heads * self.head_dim * d          # o
@@ -318,6 +338,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff=64,
             capacity_factor=2.0)
+    if cfg.mla is not None:
+        small["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                 qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                 v_head_dim=16)
     if cfg.ssm is not None:
         small["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2)
     if cfg.layer_pattern == "jamba":

@@ -40,6 +40,12 @@
 //    gradients.
 //  * each block of 256 threads holds a 64 x 64 f32 tile, 4 x 4 a thread,
 //    from 16-deep operand tiles in shared memory.
+//  * compensated depth sums: each 16-deep slice of a product is summed
+//    apart and folded into the running sum with Kahan's compensation, so
+//    the running sum's rounding does not grow with the depth.  A plain
+//    FMA chain over D = 2048 (moonshot's width) put dx 2.9x as far from
+//    an f64 evaluation as cuBLAS's f32 GEMMs, and 5.8x as far as the
+//    reference's f32 jax.vjp.
 // No cuBLAS and no library GEMM: every product is written here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,9 +126,9 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   v[3] = q.w;
 }
 
-// acc[i][j] += a[k][ty*4+i] * b[k][tx*4+j] over the tile's depth.
+// part[i][j] += a[k][ty*4+i] * b[k][tx*4+j] over the tile's depth.
 __device__ __forceinline__ void mma_tile(float (*a)[LDT], float (*b)[LDT],
-                                         float (&acc)[4][4], int ty, int tx) {
+                                         float (&part)[4][4], int ty, int tx) {
 #pragma unroll
   for (int k = 0; k < BK; ++k) {
     float av[4], bv[4];
@@ -131,9 +137,38 @@ __device__ __forceinline__ void mma_tile(float (*a)[LDT], float (*b)[LDT],
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j)
+        part[i][j] = fmaf(av[i], bv[j], part[i][j]);
   }
 }
+
+// A running depth sum of 4 x 4 outputs with Kahan's compensation.
+struct KahanTile {
+  float sum[4][4];
+  float comp[4][4];
+  float part[4][4];  // the slice being summed (mma_tile's target)
+
+  __device__ __forceinline__ KahanTile() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum[i][j] = comp[i][j] = part[i][j] = 0.0f;
+  }
+
+  // sum += part, compensated; part = 0.
+  __device__ __forceinline__ void fold() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y = part[i][j] - comp[i][j];
+        const float t = sum[i][j] + y;
+        comp[i][j] = (t - sum[i][j]) - y;
+        sum[i][j] = t;
+        part[i][j] = 0.0f;
+      }
+  }
+};
 
 // dst[k][r] = src[(row0 + r) * ld + k0 + k] for r < nrows (0 past them):
 // a 64 x 16 tile of rows, transposed.
@@ -207,7 +242,7 @@ __global__ void __launch_bounds__(NT)
   const T* wu_g = wu + static_cast<int64_t>(t.slot) * D * F;
   const T* wd_g = wd + static_cast<int64_t>(t.slot) * F * D;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float accg[4][4] = {}, accu[4][4] = {}, accd[4][4] = {};
+  KahanTile accg, accu, accd;
   for (int64_t k0 = 0; k0 < D; k0 += BK) {
     load_rows_t<T>(x_t, xs, t.row0, t.nrows, D, k0, D);
     load_rows_t<T>(dy_t, dy, t.row0, t.nrows, D, k0, D);
@@ -215,9 +250,12 @@ __global__ void __launch_bounds__(NT)
     load_depth_rows<T>(wu_s, wu_g, F, k0, D, f0, F);
     load_depth_cols<T>(wd_s, wd_g, D, k0, D, f0, F);   // Wd [F, D]
     __syncthreads();
-    mma_tile(x_t, wg_s, accg, ty, tx);
-    mma_tile(x_t, wu_s, accu, ty, tx);
-    mma_tile(dy_t, wd_s, accd, ty, tx);
+    mma_tile(x_t, wg_s, accg.part, ty, tx);
+    mma_tile(x_t, wu_s, accu.part, ty, tx);
+    mma_tile(dy_t, wd_s, accd.part, ty, tx);
+    accg.fold();
+    accu.fold();
+    accd.fold();
     __syncthreads();
   }
 #pragma unroll
@@ -229,12 +267,12 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < 4; ++j) {
       const int64_t f = f0 + tx * 4 + j;
       if (f >= F) continue;
-      const float g = round_to<T>(accg[i][j]);
-      const float u = round_to<T>(accu[i][j]);
+      const float g = round_to<T>(accg.sum[i][j]);
+      const float u = round_to<T>(accu.sum[i][j]);
       const float s = 1.0f / (1.0f + expf(-g));
       const float a = round_to<T>(g * s);
       const float h = round_to<T>(a * u);
-      const float dh = accd[i][j];
+      const float dh = accd.sum[i][j];
       dg_out[row * F + f] = dh * u * (s * (1.0f + g * (1.0f - s)));
       du_out[row * F + f] = dh * a;
       h_out[row * F + f] = h;
@@ -262,15 +300,16 @@ __global__ void __launch_bounds__(NT)
   const T* wg_g = wg + static_cast<int64_t>(t.slot) * D * F;
   const T* wu_g = wu + static_cast<int64_t>(t.slot) * D * F;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
+  KahanTile acc;
   for (int64_t k0 = 0; k0 < F; k0 += BK) {
     load_rows_t<float>(dg_t, dg, t.row0, t.nrows, F, k0, F);
     load_rows_t<float>(du_t, du, t.row0, t.nrows, F, k0, F);
     load_depth_cols<T>(wg_s, wg_g, F, k0, F, d0, D);   // Wg^T: Wg [D, F]
     load_depth_cols<T>(wu_s, wu_g, F, k0, F, d0, D);
     __syncthreads();
-    mma_tile(dg_t, wg_s, acc, ty, tx);
-    mma_tile(du_t, wu_s, acc, ty, tx);
+    mma_tile(dg_t, wg_s, acc.part, ty, tx);
+    mma_tile(du_t, wu_s, acc.part, ty, tx);
+    acc.fold();
     __syncthreads();
   }
 #pragma unroll
@@ -281,7 +320,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int64_t d = d0 + tx * 4 + j;
-      if (d < D) dx[row * D + d] = from_f32<T>(acc[i][j]);
+      if (d < D) dx[row * D + d] = from_f32<T>(acc.sum[i][j]);
     }
   }
 }
@@ -330,7 +369,7 @@ __global__ void __launch_bounds__(NT)
   const int64_t n0 = (blockIdx.x % tiles_n) * BN;
   if (m0 >= job.ma) return;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
+  KahanTile acc;
   for (int64_t r0 = 0; r0 < rows; r0 += BK) {
     for (int e = threadIdx.x; e < BK * BM; e += NT) {
       const int k = e / BM, c = e % BM;
@@ -344,7 +383,8 @@ __global__ void __launch_bounds__(NT)
                       : 0.0f;
     }
     __syncthreads();
-    mma_tile(a_s, b_s, acc, ty, tx);
+    mma_tile(a_s, b_s, acc.part, ty, tx);
+    acc.fold();
     __syncthreads();
   }
   T* out = static_cast<T*>(job.out) + static_cast<int64_t>(slot) * job.ma * job.nb;
@@ -355,7 +395,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int64_t n = n0 + tx * 4 + j;
-      if (n < job.nb) out[m * job.nb + n] = from_f32<T>(acc[i][j]);
+      if (n < job.nb) out[m * job.nb + n] = from_f32<T>(acc.sum[i][j]);
     }
   }
 }

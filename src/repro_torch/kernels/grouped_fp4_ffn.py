@@ -119,21 +119,23 @@ def grouped_ffn_bwd_plain(xs, gs, w_gate, w_up, w_down, dy):
     These are the roundings of ``jax.vjp`` of the reference's
     ``_grouped_ffn``, where every cotangent takes its primal's dtype and
     the two uses of ``x`` add their cotangents in that dtype.  In f32 each
-    ``T`` is the identity."""
-    dt, f32 = xs.dtype, torch.float32
+    ``T`` is the identity.  f64 inputs evaluate the chain in f64 (the
+    yardstick the f32 entries are measured against)."""
+    dt = xs.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
 
     def rnd(t):
-        return t.to(dt).to(f32)
+        return t.to(dt).to(acc)
 
-    x = xs.to(f32)
-    wg, wu, wd = (w.to(dt).to(f32) for w in (w_gate, w_up, w_down))
+    x = xs.to(acc)
+    wg, wu, wd = (w.to(dt).to(acc) for w in (w_gate, w_up, w_down))
     n_g = wg.shape[0]
     g = rnd(grouped_matmul(x, wg, gs))
     u = rnd(grouped_matmul(x, wu, gs))
     s = torch.sigmoid(g)
     a = rnd(F.silu(g))
     h = rnd(a * u)
-    dyf = dy.to(f32)
+    dyf = dy.to(acc)
     dh = rnd(grouped_matmul(dyf, wd.transpose(-1, -2), gs))
     da = rnd(dh * u)
     du = rnd(dh * a)

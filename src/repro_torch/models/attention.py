@@ -1,8 +1,13 @@
-"""GQA/MQA self-attention with a KV cache: one-shot prefill, chunked
-prefill and decode, at any KV length.
+"""GQA/MQA and MLA self-attention with a KV cache: one-shot prefill,
+chunked prefill (GQA) and decode, at any KV length.
 
-Counterpart of the GQA subset of ``repro.models.attention``, written as
-plain tensor ops (the reference's attention is XLA einsums, not Pallas).
+Counterpart of the GQA and MLA parts of ``repro.models.attention``,
+written as plain tensor ops (the reference's attention is XLA einsums, not
+Pallas).  MLA (multi-head latent attention, minicpm3) caches the
+normalised latent ``[B, L, kv_lora_rank]`` and the roped key part
+``k_rope [B, L, qk_rope_head_dim]``; its prefill expands K/V from them,
+its decode takes the reference's absorbed path (the query mapped into the
+latent space, attention against the compressed cache).
 ``scaled_attention`` takes the reference's three branches: dense attention
 up to ``_DENSE_MAX_KV`` keys; above it, decode queries (at most 8) through
 ``_decode_flash`` and longer queries through the online-softmax
@@ -28,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import P, apply_rope
+from repro_torch.models.common import P, apply_rope, rms_norm
 
 Params = Dict[str, torch.Tensor]
 _DENSE_MAX_KV = 2048      # kv length above which the chunked path is used
@@ -50,6 +55,29 @@ def gqa_spec(cfg: ModelConfig) -> Dict[str, P]:
         spec["bk"] = P((k, hd), init="zeros")
         spec["bv"] = P((k, hd), init="zeros")
     return spec
+
+
+def mla_spec(cfg: ModelConfig) -> Dict[str, P]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": P((d, m.q_lora_rank)),
+        "q_norm": P((m.q_lora_rank,), init="zeros"),
+        "wq_b": P((m.q_lora_rank, h, qk)),
+        "wkv_a": P((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": P((m.kv_lora_rank,), init="zeros"),
+        "wk_b": P((m.kv_lora_rank, h, m.qk_nope_head_dim)),
+        "wv_b": P((m.kv_lora_rank, h, m.v_head_dim)),
+        "wo": P((h, m.v_head_dim, d),
+                scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5),
+    }
+
+
+def attn_spec(cfg: ModelConfig) -> Dict[str, P]:
+    """A self-attention layer's parameters: MLA's when the config has
+    one, else GQA's."""
+    return mla_spec(cfg) if cfg.mla is not None else gqa_spec(cfg)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -330,3 +358,92 @@ def gqa_chunk(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = _chunk_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
                            positions)
     return _out_proj(out, p["wo"]), {"k": k_cache, "v": v_cache}
+
+
+# --------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# --------------------------------------------------------------------------
+def _latent_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    """(normalised latent [B,S,r], roped k_rope [B,S,dr]) of x [B,S,D]."""
+    m = cfg.mla
+    kv = torch.matmul(x, p["wkv_a"].to(x.dtype))
+    latent, k_rope = torch.split(kv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                                 dim=-1)
+    latent = rms_norm(latent, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return latent, k_rope
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+           q_positions: torch.Tensor):
+    """(q_nope [B,S,H,dn], roped q_rope [B,S,H,dr]) of x [B,S,D]."""
+    m = cfg.mla
+    qa = rms_norm(torch.matmul(x, p["wq_a"].to(x.dtype)), p["q_norm"],
+                  cfg.norm_eps)
+    q = _proj(qa, p["wq_b"])
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    return q_nope, apply_rope(q_rope, q_positions, cfg.rope_theta)
+
+
+def _mla_qkv(p: Params, x: torch.Tensor, latent: torch.Tensor,
+             k_rope: torch.Tensor, cfg: ModelConfig,
+             q_positions: torch.Tensor):
+    """q from x; k and v expanded from (latent, k_rope): q/k [B,S,H,dn+dr],
+    v [B,T,H,dv]."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, x, cfg, q_positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k_nope = _proj(latent, p["wk_b"])
+    v = _proj(latent, p["wv_b"])
+    kr = k_rope[:, :, None, :].to(k_nope.dtype).expand(
+        *k_nope.shape[:3], m.qk_rope_head_dim)
+    return q, torch.cat([k_nope, kr], dim=-1), v
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full (prefill) MLA self-attention. Returns (out, {"latent",
+    "k_rope"})."""
+    latent, k_rope = _latent_kv(p, x, cfg, positions)
+    q, k, v = _mla_qkv(p, x, latent, k_rope, cfg, positions)
+    out = scaled_attention(q, k, v, _mla_scale(cfg), causal=True)
+    return _out_proj(out, p["wo"]), {"latent": latent, "k_rope": k_rope}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: ModelConfig, *, pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token MLA decode by the reference's absorbed path.  x [B,1,D];
+    cache latent [B,L,r], k_rope [B,L,dr], the new rows written in place
+    (``pos >= L`` writes nothing); pos [B].  The query's no-rope part is
+    mapped into the latent space (``q · W_kbᵀ``), the scores are f32 sums
+    of bf16 products against the latent and k_rope rows, and the context,
+    rounded to x's dtype, goes through ``W_vb`` and ``wo``."""
+    dt = x.dtype
+    lat_new, kr_new = _latent_kv(p, x, cfg, pos[:, None])
+    latent = _scatter_kv(cache["latent"], lat_new, pos)
+    k_rope = _scatter_kv(cache["k_rope"], kr_new, pos)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope,
+                         p["wk_b"].to(dt))                       # [B,1,H,r]
+    latf = latent.to(dt)
+    scores = (torch.einsum("bshr,btr->bhst", q_abs.to(F32), latf.to(F32))
+              + torch.einsum("bshe,bte->bhst", q_rope.to(F32),
+                             k_rope.to(dt).to(F32))) * _mla_scale(cfg)
+    valid = (torch.arange(latent.shape[1], device=x.device)[None, :]
+             <= pos[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full((), -1e30, dtype=F32,
+                                                   device=x.device))
+    probs = torch.softmax(scores, dim=-1)                       # [B,H,1,L]
+    ctx = torch.einsum("bhst,btr->bshr", probs.to(dt).to(F32),
+                       latf.to(F32)).to(dt)
+    vh = torch.einsum("bshr,rhe->bshe", ctx, p["wv_b"].to(dt))
+    return _out_proj(vh, p["wo"]), {"latent": latent, "k_rope": k_rope}

@@ -151,7 +151,8 @@ def _ssm_core(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
     dbx = dt[..., None] * b_mat[:, :, None, :] * x_conv[..., None]
 
     if seq_mode:
-        # the carried state enters as step 0's decayed term
+        # the carried state enters as step 0's decayed term, in place:
+        # autograd records the write (no node saved dbx for its backward)
         dbx[:, 0] = dbx[:, 0] + da[:, 0] * ssm_state
         _, h = associative_scan(_combine, [da, dbx], axis=1)
         new_ssm_state = h[:, -1]                            # [B,d_in,N]

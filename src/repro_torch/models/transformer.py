@@ -6,8 +6,10 @@ dense "prefix" layers, then ``n_blocks`` identical blocks whose parameters
 layers are attention or Mamba (``models.ssm``) token mixers by the
 config's ``layer_pattern`` ("attn"; "ssm", falcon-mamba; "jamba", one
 attention and seven Mamba layers a block of 8), each followed by a dense,
-MoE or no FFN.  An attention layer's cache is ``k``/``v``, a Mamba layer's
-its conv window ``conv`` and SSM state ``ssm``.  The reference scans over
+MoE or no FFN.  Attention is GQA, or MLA where the config has one
+(minicpm3).  An attention layer's cache is ``k``/``v`` (MLA: the latent
+``latent`` and the roped key part ``k_rope``), a Mamba layer's its conv
+window ``conv`` and SSM state ``ssm``.  The reference scans over
 the blocks; the port loops over block indices and updates the stacked
 cache in place.  The AIMD ``m_state`` threads through the loop (each MoE
 layer applies one control update).
@@ -15,12 +17,13 @@ layer applies one control update).
 Entry points: ``init_model``, ``init_cache``, ``prefill_forward`` (one-shot
 prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
-(one token per row); ``chunk_forward`` runs all-attention stacks only.
+(one token per row); ``chunk_forward`` runs all-GQA stacks only.
 They run on ``cuda`` unless the caller passes ``device="cpu"``, and none
 of them reads the device on the host.
 Training: ``train_forward`` (logits of whole sequences, no cache, with the
 reference's ``remat`` policies), ``cross_entropy`` and ``train_loss``, on
-one device or under a mesh, for stacks without Mamba layers.
+one device or under a mesh, for every ported stack (a Mamba layer trains
+through the scan's recursion under autograd).
 
 Under a mesh (``models.common.use_mesh``) the same entry points run on
 every rank of the EP group.  The reference lets GSPMD pick the layout of
@@ -112,7 +115,7 @@ def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"norm1": P((d,), init="zeros")}
     if mix == "attn":
-        spec["attn"] = attn.gqa_spec(cfg)
+        spec["attn"] = attn.attn_spec(cfg)
     elif mix == "ssm":
         spec["ssm"] = ssm_mod.ssm_spec(cfg)
     else:
@@ -174,10 +177,14 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
 def _entry_shapes(cfg: ModelConfig, mix: str, batch: int, cache_len: int
                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each cache entry of a layer (the reference's
-    ``_entry_spec``): attention ``k``/``v [B, L, K, Dh]``; Mamba ``conv
-    [B, d_conv-1, d_in]`` in the parameter dtype and ``ssm [B, d_in, N]``
-    in f32."""
+    ``_entry_spec``): attention ``k``/``v [B, L, K, Dh]``, MLA ``latent
+    [B, L, kv_lora_rank]`` and ``k_rope [B, L, qk_rope_head_dim]``, all in
+    the parameter dtype; Mamba ``conv [B, d_conv-1, d_in]`` in the
+    parameter dtype and ``ssm [B, d_in, N]`` in f32."""
     dt = DTYPES[cfg.param_dtype]
+    if mix == "attn" and cfg.mla is not None:
+        return {"latent": ((batch, cache_len, cfg.mla.kv_lora_rank), dt),
+                "k_rope": ((batch, cache_len, cfg.mla.qk_rope_head_dim), dt)}
     if mix == "attn":
         kv = ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim), dt)
         return {"k": kv, "v": kv}
@@ -257,29 +264,30 @@ def split_placement(placement, n_blocks: int):
 def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            positions, pos, cache_in, chunk_len=None, cache_len=0):
     """The layer's token-mixer output ``o`` and its cache entries (None in
-    "train"): attention's KV, or a Mamba layer's final states (prefill;
-    decode writes them into ``cache_in`` in place, as attention writes its
-    KV row)."""
+    "train"): attention's KV (MLA's latent and k_rope), or a Mamba layer's
+    final states (prefill; decode writes them into ``cache_in`` in place,
+    as attention writes its KV row)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if mode not in ("prefill", "chunk", "decode", "train"):
+        raise ValueError(f"mode {mode!r}: the port runs 'prefill', "
+                         "'chunk', 'decode' and 'train'")
     if "ssm" in lp:
         if mode == "decode":
             o, st = ssm_mod.ssm_decode(lp["ssm"], h, cache_in, cfg)
             for n, t in st.items():
                 cache_in[n].copy_(t)
             return o, cache_in
-        if mode != "prefill":
-            raise ValueError(f"mode {mode!r} of a Mamba layer: the port "
-                             "runs 'prefill' and 'decode'")
-        return ssm_mod.ssm_forward(lp["ssm"], h, cfg)
+        o, st = ssm_mod.ssm_forward(lp["ssm"], h, cfg)
+        return o, (None if mode == "train" else st)
+    mla = cfg.mla is not None
     if mode == "chunk":
         return attn.gqa_chunk(lp["attn"], h, cache_in, cfg,
                               positions=positions, chunk_len=chunk_len)
     if mode == "decode":
-        return attn.gqa_decode(lp["attn"], h, cache_in, cfg, pos=pos)
-    if mode not in ("prefill", "train"):
-        raise ValueError(f"mode {mode!r}: the port runs 'prefill', "
-                         "'chunk', 'decode' and 'train'")
-    o, kv = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+        decode = attn.mla_decode if mla else attn.gqa_decode
+        return decode(lp["attn"], h, cache_in, cfg, pos=pos)
+    forward = attn.mla_forward if mla else attn.gqa_forward
+    o, kv = forward(lp["attn"], h, cfg, positions=positions)
     if mode == "train":
         return o, None
     return o, {k: _pad_kv(v, cache_len) for k, v in kv.items()}
@@ -560,12 +568,13 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     per row; 0 = idle row), modality [B,S].  Each row writes its chunk's KV
     at [start, start+chunk_len) and attends causally to its own prefix.
     Returns logits at every row's last valid chunk position.  Only
-    all-attention stacks continue a chunk (no SSM state threading), as in
-    the reference.
+    all-GQA stacks continue a chunk (no SSM state threading, and no MLA
+    latent cache continued mid-prompt), as in the reference.
     """
-    if cfg.layer_pattern != "attn" or cfg.ssm is not None:
-        raise ValueError("chunked prefill supports plain-attention stacks "
-                         "only")
+    if cfg.layer_pattern != "attn" or cfg.ssm is not None \
+            or cfg.mla is not None:
+        raise ValueError("chunked prefill supports plain-attention "
+                         "(GQA/MQA) stacks only")
     tokens, modality = _prepare_inputs(cfg, batch)
     start, chunk_len = batch["start"], batch["chunk_len"]
     b, s = tokens.shape
@@ -618,13 +627,8 @@ def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     ``cfg.remat`` sets what the backward recomputes.  Under a mesh (see
     the module docstring) every rank passes the global batch and the FSDP
     layout's parameters; the logits are those of its data row's rows,
-    ``m_state`` and the statistics the global ones.  A stack with Mamba
-    layers is refused: their training is not ported yet (ROADMAP Queue A,
-    "SSM training")."""
-    if "ssm" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"training {cfg.name}: Mamba layers train only in the reference "
-            "so far (ROADMAP Queue A, 'SSM training')")
+    ``m_state`` and the statistics the global ones.  A Mamba layer runs
+    its whole-sequence form from zero state, as in prefill."""
     tokens, modality = _prepare_inputs(cfg, batch)
     rows = _train_rows(tokens.shape[0], m_state)
     tokens, modality = tokens[rows], modality[rows]

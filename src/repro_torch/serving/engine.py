@@ -195,9 +195,10 @@ class Engine:
         self.max_slots, self.max_len = max_slots, max_len
         self.temperature = temperature
         self.prefill_budget = prefill_budget
-        # chunk continuation needs a plain GQA/MQA decoder stack: an SSM or
-        # hybrid stack prefills each prompt in one shot
-        self.chunked = (prefill_budget > 0 and cfg.ssm is None
+        # chunk continuation needs a plain GQA/MQA decoder stack: an SSM,
+        # hybrid or MLA stack prefills each prompt in one shot
+        self.chunked = (prefill_budget > 0 and cfg.mla is None
+                        and cfg.ssm is None
                         and cfg.layer_pattern == "attn"
                         and cfg.family != "vlm")
         self.scheduler = Scheduler(max_slots, text_reserve=text_reserve)

@@ -1,5 +1,6 @@
 """Rank-side halves of the port's multi-rank tests (``test_torch_ep*.py``,
-``test_torch_train_mesh.py``, ``test_torch_ckpt_mesh.py``).
+``test_torch_train_mesh.py``, ``test_torch_ckpt_mesh.py``,
+``test_torch_ssm_train.py``).
 
 Each function runs in a spawned gloo rank (``_torch_dist.run_ranks``) under
 the mesh, imports only torch and the port, takes numpy inputs and returns
@@ -1129,6 +1130,60 @@ def _train_mesh_case(mesh, c):
         4 // rows * 16 // ep, cfg.n_layers, rows, 4, 4, shapes,
         remat=cfg.remat)
     return out
+
+
+def _ssm_train_mesh_case(mesh, c):
+    """Reduced jamba (``c["arch"]``, MoE fields ``c["moe"]``) on the mesh
+    in the FSDP layout: ``train_loss``'s gradient after the data-parallel
+    reduction, the replicated leaves' digests, whether each Mamba weight is
+    whole on the rank, and the replicated leaves' digests after one AdamW
+    step."""
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import ep_moe
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_items
+    from repro_torch.optim import adamw
+    from repro_torch.optim.grad_utils import data_parallel_grads, value_and_grad
+    from repro_torch.models import transformer as tf
+    cfg = _cfg(c["arch"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **c["moe"]))
+    rcfg = ReaLBConfig(**c["rcfg"])
+    params = params_from_numpy(c["params"], mesh=mesh, fsdp=True)
+    whole = {"/".join(p): tuple(np.shape(v)) for p, v in _flat_np(
+        c["params"])}
+    ssm_whole = all(tuple(t.shape) == whole["/".join(p)]
+                    for p, t in tree_items(params) if "ssm" in p)
+    m = torch.full(ep_moe.moe_state_shape(mesh, 4), 0.9)
+    (loss, (m_new, _)), grads = value_and_grad(
+        tf.train_loss, params, cfg, rcfg, _batch(c["batch"]), m)
+    grads = data_parallel_grads(grads)
+    out = {"loss": float(loss), "grads": _np(grads), "m": _np(m_new),
+           "ssm_whole": ssm_whole, "grad_digests": _replicated_digests(grads),
+           "coords": (mesh.index("data"), mesh.index("model"))}
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1)
+    step = make_train_step(cfg, rcfg, tcfg)
+    params, opt, m, met = step(params, adamw.init_opt_state(params, tcfg), m,
+                               _batch(c["batch"]))
+    out["step_loss"] = float(met["loss"])
+    out["digests"] = _replicated_digests(params)
+    return out
+
+
+def _flat_np(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_np(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def ssm_train_mesh_cases(mesh, c):
+    try:
+        return _ssm_train_mesh_case(mesh, c)
+    except Exception:
+        return {"error": traceback.format_exc()}
 
 
 def train_mesh_cases(mesh, c):

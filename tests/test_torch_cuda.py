@@ -1540,12 +1540,20 @@ def _bwd_args(cuda, m, d, f, gs, n_w, dtype, seed):
 BWD_CASES = [(m, d, f, gs, n_w) for m, d, f, gs in GROUPED_CASES + [
     (224, 64, 96, [1, 17, 63, 64, 65])]
     for n_w in (len(gs), len(gs) - 1)]
-# moonshot's widths at a few hundred rows, for the bf16 entry (the
-# training path's); the f32 entry's tolerance is the reference's for its
-# small patterns, and over a 2048-deep recompute its f32 sums part from
-# cuBLAS's by more than its atol of 1e-4
+# moonshot's widths at a few hundred rows.  bf16 against the plain version;
+# f32 against an f64 evaluation of the same chain (``f64_yardstick``): at
+# a 2048-deep recompute cuBLAS's own f32 GEMMs lie ~3.7e-4 from it, past
+# the atol of 1e-4, and so does the reference's f32 jax.vjp (~2e-4,
+# ``_torch_bwd_wide.py``)
 BWD_WIDE_CASES = [(448, 2048, 1408, [100, 0, 37, 200, 65, 30], n_w)
                   for n_w in (6, 5)]
+
+
+def f64_yardstick(args):
+    """The plain backward evaluated in f64 on f32 ``args``, rounded to f32:
+    what ``check_ffn_bwd`` holds the f32 entry against at full width."""
+    return tuple(t.float() for t in ffn.grouped_ffn_bwd_plain(
+        *(a.double() if a.is_floating_point() else a for a in args)))
 
 
 @pytest.mark.parametrize("m,d,f,gs,n_w", BWD_CASES)
@@ -1565,6 +1573,20 @@ def test_grouped_ffn_bwd_cuda_matches_plain_at_full_width(cuda, m, d, f, gs,
     got = ffn.grouped_ffn_bwd_cuda(*args)
     torch.cuda.synchronize()
     check_ffn_bwd(got, ffn.grouped_ffn_bwd_plain(*args))
+    assert torch.all(got[0][sum(gs[:n_w]):] == 0)
+
+
+@pytest.mark.parametrize("m,d,f,gs,n_w", BWD_WIDE_CASES)
+def test_grouped_ffn_bwd_f32_at_full_width_matches_f64(cuda, m, d, f, gs,
+                                                       n_w):
+    """The f32 entry at moonshot's widths under ``check_ffn_bwd``'s f32
+    tolerance (rtol 1e-5 / atol 1e-4), against the f64 evaluation of its
+    chain (the plain version's cuBLAS f32 is itself past that tolerance
+    there)."""
+    args = _bwd_args(cuda, m, d, f, gs, n_w, torch.float32, m + d + n_w)
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    check_ffn_bwd(got, f64_yardstick(args))
     assert torch.all(got[0][sum(gs[:n_w]):] == 0)
 
 
@@ -1829,3 +1851,112 @@ def test_kernels_at_jamba_expert_shapes(cuda):
     y = ffn.grouped_fp4_ffn_cuda(*args)
     check_ffn(y, ffn.grouped_fp4_ffn_plain(*args))
     assert torch.all(y[1024:] == 0)
+
+
+def wide_f32_spread(cuda, n_w):
+    """The f32 backward entry at moonshot's width on the numpy inputs of
+    ``_torch_bwd_wide`` (the CPU test measures the reference's f32
+    ``jax.vjp`` on the same): the largest gap of each output to an f64
+    evaluation of the same chain for the kernel and for the plain version
+    in f32 (cuBLAS, TF32 off).  Raises unless every output of the kernel
+    lies within ``RATIO`` x the plain version's gap and ``RATIO`` x the
+    reference's (a plain FMA chain over the depth did not: dx 2.9x the
+    plain version's and 5.8x the reference's; the compensated sums of
+    ``csrc/grouped_ffn_bwd.cu`` came to 0.24x and 0.47x).  Returns
+    {output: (kernel gap, plain gap, reference gap)}."""
+    import _torch_bwd_wide as bw
+    x, gs, w, dy = bw.inputs(n_w)
+    args = [torch.from_numpy(a).to(cuda) for a in (x, gs, *w, dy)]
+    got = ffn.grouped_ffn_bwd_cuda(*args)
+    plain = ffn.grouped_ffn_bwd_plain(*args)
+    f64 = ffn.grouped_ffn_bwd_plain(*(a.double() if a.is_floating_point()
+                                      else a for a in args))
+    k_gap = bw.gaps([t.cpu() for t in got], [t.cpu() for t in f64])
+    p_gap = bw.gaps([t.cpu() for t in plain], [t.cpu() for t in f64])
+    out = {n: (k_gap[n], p_gap[n], bw.REF_F64_GAP[n_w][n])
+           for n in bw.OUTPUTS}
+    bad = [n for n, (k, p, r) in out.items()
+           if not (k <= bw.RATIO * p and k <= bw.RATIO * r)]
+    if bad:
+        raise AssertionError(f"grouped_ffn_bwd f32 Gw={n_w}: the kernel's "
+                             f"gap to f64 past {bw.RATIO} x the plain "
+                             f"version's or the reference's in {bad}: "
+                             f"(kernel, plain, reference) {out}")
+    return out
+
+
+@pytest.mark.parametrize("n_w", (6, 5))
+def test_grouped_ffn_bwd_f32_within_the_f32_spread(cuda, n_w):
+    """The f32 entry at D = 2048, F = 1408 (448 rows) against an f64
+    evaluation: within 2x the plain version's distance and 2x the
+    reference's own, output by output (``wide_f32_spread``)."""
+    for n, gaps in wide_f32_spread(cuda, n_w).items():
+        print(f"Gw={n_w} {n}: kernel, plain, reference gaps to f64 {gaps}")
+
+
+def test_reduced_minicpm3_graphed_decode_equals_eager(cuda):
+    """Reduced minicpm3-4b (MLA, bf16) on the card: one captured decode
+    graph over a prefill's latent cache; each call equals the eager
+    absorbed ``decode_forward`` bit for bit (logits, statistics, the latent
+    and k_rope rows written in place, ``m_state``), under a strict
+    sentinel."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.serving.graphs import StepGraphs
+    cfg = reduced(get_config("minicpm3-4b"), param_dtype="bfloat16")
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    rcfg = ReaLBConfig()
+    b, s, l = 4, 16, 24
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    m0 = torch.zeros((1, 1), device=cuda)
+    origin = tf.prefill_forward(params, cfg, rcfg, {"tokens": tok}, m0,
+                                cache_len=l).cache
+    assert set(origin["blocks"]["layer0"]) == {"latent", "k_rope"}
+    i32 = dict(dtype=torch.int32, device=cuda)
+    state = (common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(cuda, sentinel=sent)
+    for step in range(3):
+        inputs = {"tokens": tok[:, step:step + 1].contiguous(),
+                  "pos": torch.tensor([s + step, l, s, s + 2 * step], **i32),
+                  "valid": torch.ones((b, 1), dtype=torch.bool,
+                                      device=cuda)}
+        graphed_equals_eager(sg, sent, "decode", tf.decode_forward, params,
+                             cfg, rcfg, state, origin, m0, inputs,
+                             f"minicpm3 decode {step}")
+    assert sg.captures["decode"] == 1 and sg.replays["decode"] == 2
+    assert sent.violations == []
+
+
+def test_reduced_gemma_graphed_chunk_equals_eager(cuda):
+    """Reduced gemma-7b (GeGLU, tied, softcap, sqrt(d) scale, bf16) on the
+    card: one captured chunk graph; each call (rows at different starts,
+    one idle) equals the eager ``chunk_forward`` bit for bit, under a
+    strict sentinel."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.serving.graphs import StepGraphs
+    cfg = reduced(get_config("gemma-7b"), param_dtype="bfloat16")
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    rcfg = ReaLBConfig()
+    b, s, l = 4, 16, 48
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    m0 = torch.zeros((1, 1), device=cuda)
+    origin = tf.init_cache(cfg, b, l, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    state = (common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(cuda, sentinel=sent)
+    for start, lens in (([0, 0, 0, 0], [16, 9, 0, 12]),
+                        ([16, 9, 0, 12], [16, 3, 5, 0]),
+                        ([32, 12, 5, 12], [8, 16, 16, 4])):
+        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=cuda, dtype=torch.int32)
+        inputs = {"tokens": tok, "start": torch.tensor(start, **i32),
+                  "chunk_len": torch.tensor(lens, **i32)}
+        graphed_equals_eager(sg, sent, "chunk", tf.chunk_forward, params,
+                             cfg, rcfg, state, origin, m0, inputs,
+                             f"gemma chunk {start}")
+        origin = common.tree_map(lambda t: t.clone(), state[0])
+    assert sg.captures["chunk"] == 1 and sg.replays["chunk"] == 2
+    assert sent.violations == []

@@ -2,14 +2,17 @@
 under autograd (the forward's and the backward kernel's plain versions)
 against autograd of ``grouped_ffn_plain`` and against ``jax.vjp`` of the
 reference's ``_grouped_ffn`` (``src/repro/core/ep_moe.py:330``), at the
-kernels' tolerance, rtol 1e-5 / atol 1e-4, in f32; and the plain backward
-in bf16 against ``jax.vjp`` in bf16, element for element."""
+kernels' tolerance, rtol 1e-5 / atol 1e-4, in f32; the plain backward
+in bf16 against ``jax.vjp`` in bf16, element for element; and, at
+moonshot's width, the f32 spread of the reference and of the plain version
+against an f64 evaluation (``_torch_bwd_wide.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import _torch_bwd_wide as bw
 from repro.core import ep_moe as jmoe
 from repro_torch.kernels import grouped_fp4_ffn as ffn
 from repro_torch.kernels import ops
@@ -154,3 +157,38 @@ def test_backward_plain_bf16_matches_reference_vjp(m, d, f, gs, n_w):
         assert equal >= 0.995, f"{name}: {equal:.4%} bitwise equal"
         gap = float(np.max(np.abs(a - r)))
         assert gap <= 2.0 ** -7 * float(np.max(np.abs(r))), (name, gap)
+
+
+@pytest.mark.parametrize("n_w", bw.N_W)
+def test_f32_spread_at_moonshot_width(n_w):
+    """At D = 2048 the f32 backward's own rounding exceeds the kernels'
+    atol of 1e-4, in the reference too.  Against an f64 evaluation of the
+    same chain on ``bw.inputs``: ``jax.vjp`` of the reference's
+    ``_grouped_ffn`` in f32 is off by ~2e-4 in every weight gradient
+    (``bw.REF_F64_GAP``, the card's yardstick, held here within 2 %); the
+    port's plain version in f32 (these BLAS sums measured 1.3-2.2x the
+    reference's distance) within the same f32 order, ``PLAIN_ORDER`` x.
+    The card holds the f32 CUDA entry within ``bw.RATIO`` x both
+    (``test_torch_cuda.py::test_grouped_ffn_bwd_f32_within_the_f32_spread``)."""
+    x, gs, w, dy = bw.inputs(n_w)
+    ref = _reference_vjp(x, gs, w, dy)[1:]
+    gst = torch.from_numpy(gs)
+    plain = ffn.grouped_ffn_bwd_plain(
+        torch.from_numpy(x), gst, *(torch.from_numpy(a) for a in w),
+        torch.from_numpy(dy))
+    f64 = ffn.grouped_ffn_bwd_plain(
+        torch.from_numpy(x).double(), gst,
+        *(torch.from_numpy(a).double() for a in w),
+        torch.from_numpy(dy).double())
+    assert all(t.dtype == torch.float64 for t in f64)
+    ref_gap, plain_gap = bw.gaps(ref, f64), bw.gaps(plain, f64)
+    for name in bw.OUTPUTS:
+        assert ref_gap[name] == pytest.approx(bw.REF_F64_GAP[n_w][name],
+                                              rel=0.02), (name, ref_gap)
+        assert plain_gap[name] <= PLAIN_ORDER * ref_gap[name], (name,
+                                                                plain_gap)
+    # the reference itself sits past atol 1e-4 in every weight gradient
+    assert min(ref_gap[n] for n in bw.OUTPUTS[1:]) > 1e-4
+
+
+PLAIN_ORDER = 4.0

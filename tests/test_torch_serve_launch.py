@@ -43,6 +43,21 @@ def test_serve_tiny_mamba_and_hybrid_on_the_cpu(arch, capsys):
     assert "(prefill chunked=False)" in lines[1], lines
 
 
+@pytest.mark.parametrize("arch,chunked", [("gemma-7b", True),
+                                          ("qwen1.5-0.5b", True),
+                                          ("command-r-35b", True),
+                                          ("minicpm3-4b", False)])
+def test_serve_tiny_dense_and_mla_on_the_cpu(arch, chunked, capsys):
+    """The dense configs prefill chunked; MLA one-shot (its latent cache is
+    not continued mid-prompt)."""
+    assert serve.main(["--arch", arch, "--preset", "tiny", "--device",
+                       "cpu", "--requests", "4", "--max-new", "4"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert re.match(r"served 4 requests, \d+ prompt \+ 16 generated tokens",
+                    lines[0]), lines
+    assert f"(prefill chunked={chunked})" in lines[1], lines
+
+
 @pytest.mark.parametrize("mesh", ["host", "single_pod", "multi_pod"])
 def test_serve_refuses_a_mesh(mesh, monkeypatch):
     for var in ("RANK", "WORLD_SIZE"):

@@ -230,14 +230,18 @@ def test_init_and_cache_layout_match_reference(arch):
 
 
 def test_mamba_stack_refuses_training_and_chunks():
+    """A Mamba stack refuses chunked prefill (no SSM state threading);
+    training, refused until SSM training was ported, now runs
+    (``test_torch_ssm_train.py`` holds its gradients)."""
     cfg = reduced(get_config("falcon-mamba-7b"))
     params = ttf.init_model(cfg, seed=0, device="cpu")
     from repro_torch.configs import ReaLBConfig
     from repro_torch.core.policy import init_m_state
     m = init_m_state(1, 1, ReaLBConfig())
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        ttf.train_forward(params, cfg, ReaLBConfig(), {"tokens": toks}, m)
+    res = ttf.train_forward(params, cfg, ReaLBConfig(), {"tokens": toks}, m)
+    assert res.logits.shape == (1, 8, cfg.vocab_size)
+    assert torch.isfinite(res.logits).all()
     with pytest.raises(ValueError, match="plain-attention"):
         ttf.chunk_forward(params, cfg, ReaLBConfig(), {
             "tokens": toks, "start": torch.zeros(1, dtype=torch.int32),

@@ -162,6 +162,25 @@ def test_driver_tiny_twice_to_a_checkpoint(tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 12
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "gemma-7b", "qwen1.5-0.5b",
+                                  "command-r-35b", "minicpm3-4b"])
+def test_driver_tiny_trains_every_arch(tmp_path, arch, capsys):
+    """``launch.train --arch ... --preset tiny --device cpu`` trains the
+    Mamba, hybrid, dense and MLA stacks: finite logged losses (the loop
+    logs every 10 steps), a checkpoint at the last step."""
+    assert train.main(["--arch", arch, "--preset", "tiny", "--device", "cpu",
+                       "--steps", "10", "--batch", "2", "--seq", "16",
+                       "--checkpoint-every", "10", "--ckpt-dir",
+                       str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if "loss=" in line]
+    assert losses and all(np.isfinite(losses)), out
+    assert "done: 10 steps" in out, out
+    assert ckpt.latest_step(str(tmp_path)) == 10
+
+
 def test_driver_without_a_card_raises(tmp_path, monkeypatch):
     """Without ``--device`` the driver trains on the card; with none it
     raises and does not fall back to the CPU."""
