@@ -198,6 +198,21 @@
    falls over 50 steps, and a ``TrainLoop`` stopped by a signal on one
    rank after step 5 restarts byte-exact against an uninterrupted run
    (checkpoints under ``build/phase14_ckpt``, removed after);
+17. the memory stream (``memory_stream``, after phase 16; graphed engines,
+   strict sentinels, no kernel on the path: the launch counters zeroed
+   just before and read just after each stream, all 0): (a)
+   llama-3.2-vision-90b at its published widths cut to 10 layers (8
+   self-attention, 2 cross-attention over 1601 vision rows): the f32
+   decode/prefill gap on its first block (logged where the cut is
+   chaotic) and one cross layer alone in f32 (``cross_decode`` against
+   ``cross_forward``'s last row), graphed decode bitwise against eager,
+   the cross cache's bytes a slot, a one-shot ``[1, 1601 + 256]`` prefill
+   profiled with the cross layers' share, 8 requests of 1601 vision rows
+   and 32-256 text tokens; (b) whisper-large-v3 whole: the f32 gap on 1
+   encoder and 1 decoder layer and one cross layer alone, graphed decode
+   bitwise against eager, the cross cache's bytes a slot, an ``[8,
+   1500]`` encode timed, 8 requests of 1500 frame embeds and one on a zero
+   memory; tok/s, TTFT/TPOT p50 and peak memory of each stream;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -214,7 +229,8 @@
    phase 13d's launches on the training path; the backward kernel's row
    (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
    device time by stage); every row's launches on phase 14a's mesh steps
-   by rank, and the two FFN kernels' checks there;
+   by rank, and the two FFN kernels' checks there; every row's launches
+   on phase 17's streams (0);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -5439,64 +5455,107 @@ def falcon_train_steps(dev, smi):
             "loss_bound": bound}
 
 
-def consistency_f32(params, cfg, rcfg, m0, toks, label):
-    """The reference's prefill/decode consistency on an f32 copy of the
-    first ``PHASE16_F32_LAYERS`` layers of ``params`` (with the model's own
-    embedding, final norm and head): decode(token s | cache of s) against
-    prefill(s + 1), held within ``2e-3 + 2e-3 x |logit|`` at every logit.
-    Past a few layers a random stack at its published widths is chaotic,
-    so the check runs where it is not; the f32 copy's own change in
-    prefill(s + 1) when its embedding moves by two f32 ulps is logged
-    beside the gap, as the check's scale.  Returns (gap, spread)."""
+def f32_copy(params, cfg, layers, enc_layers=0, vocab=0):
+    """(f32 config, f32 copy of ``params``) cut to the first ``layers``
+    decoder layers (whole blocks, no prefix), the first ``enc_layers``
+    encoder layers of an encoder-decoder, and, with ``vocab``, the first
+    ``vocab`` rows of the vocabulary (embedding and head)."""
     import dataclasses
 
-    import torch
     from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+    cut = dict(param_dtype="float32", n_layers=layers)
+    if cfg.is_encdec:
+        cut["n_enc_layers"] = enc_layers
+    if vocab:
+        cut["vocab_size"] = vocab
+    cfg32 = dataclasses.replace(cfg, **cut)
+    _, n_blocks, n_prefix = tf.block_structure(cfg32)
+    if n_prefix or n_blocks * cfg32.scan_period != layers:
+        raise ValueError(f"{cfg.name}: {layers} layers are not whole "
+                         "blocks without a prefix")
+    take = {"blocks": lambda t: t[:n_blocks].float(),
+            "enc_blocks": lambda t: t[:enc_layers].float()}
+    if vocab:
+        take.update(embed=lambda t: t[:vocab].float(),
+                    unembed=lambda t: t[:, :vocab].float())
+    p32 = {k: common.tree_map(take.get(k, lambda t: t.float()), v)
+           for k, v in params.items()}
+    return cfg32, p32
+
+
+def consistency_f32(params, cfg, rcfg, m0, toks, label,
+                    layers=PHASE16_F32_LAYERS, memory=None, enc_layers=0,
+                    vocab=0, spread_max=None):
+    """The reference's prefill/decode consistency on an f32 copy of the
+    first ``layers`` layers of ``params`` (:func:`f32_copy`, with the
+    model's own embedding, final norm and head, ``vocab`` rows of it if
+    set; an encoder-decoder's first ``enc_layers`` encoder layers):
+    decode(token s | cache of s) against prefill(s + 1), both prefills on
+    ``memory`` (a batch's ``vision_embeds`` or ``enc_embeds``, if any),
+    held within ``2e-3 + 2e-3 x |logit|`` at every logit.  Past a few
+    layers a random stack at its published widths is chaotic, so the
+    check runs where it is not; the f32 copy's own change in prefill(s +
+    1) when its embedding (and the memory) moves by two f32 ulps is logged
+    beside the gap, as the check's scale.  With ``spread_max``, a cut
+    whose change exceeds that share of the bound is chaotic: its gap is
+    logged, not held (no fixed bound tells a fault from rounding there),
+    and the caller's one-layer check stands for it.  Returns (gap, spread,
+    the gap's and the spread's shares of the bound at the worst logit)."""
+    import torch
     from repro_torch.models import transformer as tf
     b, s1 = toks.shape
     s = s1 - 1
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                n_layers=PHASE16_F32_LAYERS)
-    _, n_blocks, n_prefix = tf.block_structure(cfg32)
-    if n_prefix or n_blocks != PHASE16_F32_LAYERS:
-        raise ValueError(f"{label}: a layer a block, no prefix")
+    memory = memory or {}
     with torch.no_grad():
-        p32 = {k: common.tree_map(
-            (lambda t: t[:n_blocks].float()) if k == "blocks"
-            else (lambda t: t.float()), v) for k, v in params.items()}
+        cfg32, p32 = f32_copy(params, cfg, layers, enc_layers, vocab)
 
-        def prefill(p, n):
-            return tf.prefill_forward(p, cfg32, rcfg, {"tokens": toks[:, :n]},
-                                      m0, cache_len=s1)
-        ref = prefill(p32, s1).logits
-        pre = prefill(p32, s)
+        def prefill(p, n, mem):
+            return tf.prefill_forward(p, cfg32, rcfg,
+                                      {"tokens": toks[:, :n], **mem}, m0,
+                                      cache_len=s1)
+        ref = prefill(p32, s1, memory).logits
+        pre = prefill(p32, s, memory)
         dec = tf.decode_forward(p32, cfg32, rcfg, {
             "tokens": toks[:, s:], "pos": torch.full(
                 (b,), s, dtype=torch.int32, device=toks.device)},
             pre.cache, pre.m_state).logits
         del pre
-        embed, spread = p32["embed"], 0.0
+        atol, rtol = PHASE16_GAP_BOUND
+        bound = atol + rtol * ref.abs()
+        embed, spread, share = p32["embed"], 0.0, 0.0
         for f in (1 + 2.0 ** -22, 1 - 2.0 ** -22):
             p32["embed"] = embed * f
-            spread = max(spread, float((prefill(p32, s1).logits - ref)
-                                       .abs().max()))
-        del p32, embed
-    atol, rtol = PHASE16_GAP_BOUND
-    bound = atol + rtol * ref.abs()
+            moved = (prefill(p32, s1, {k: v * f for k, v in memory.items()})
+                     .logits - ref).abs()
+            spread = max(spread, float(moved.max()))
+            share = max(share, float((moved / bound).max()))
+        del p32, embed, moved
     gap = float((dec - ref).abs().max())
     worst = float(((dec - ref).abs() / bound).max())
-    log(f"{label} consistency on an f32 copy of the first {n_blocks} "
-        f"layers, B = {b}, s = {s}: max |decode(token s | cache of s) - "
-        f"prefill(s + 1)| {gap:.4g} (max |logit| "
-        f"{float(ref.abs().max()):.4g}), {worst:.4g} of the reference's "
-        f"bound {atol} + {rtol} x |logit| at its worst logit; the f32 "
-        f"copy's own change under two ulps of its embedding {spread:.4g}")
-    if worst > 1.0 or not torch.isfinite(ref).all():
+    mem = ", ".join(f"{k} {list(v.shape)}" for k, v in memory.items())
+    where = f"the first {layers} layers" + (
+        f" and {enc_layers} encoder layers" if cfg.is_encdec else "") + (
+        f", vocabulary cut to {vocab}" if vocab else "") + (
+        f", memory {mem}" if memory else "")
+    log(f"{label} consistency on an f32 copy of {where}, B = {b}, s = {s}: "
+        f"max |decode(token s | cache of s) - prefill(s + 1)| {gap:.4g} "
+        f"(max |logit| {float(ref.abs().max()):.4g}), {worst:.4g} of the "
+        f"reference's bound {atol} + {rtol} x |logit| at its worst logit; "
+        f"the f32 copy's own change under two ulps of its embedding "
+        f"{spread:.4g} ({share:.4g} of the bound)")
+    if not torch.isfinite(ref).all():
+        raise AssertionError(f"{label}: the f32 copy's logits not finite")
+    if spread_max is not None and share > spread_max:
+        log(f"{label}: this cut is chaotic (its own change {share:.4g} of "
+            f"the bound > {spread_max}): the gap is not held here; the one "
+            "cross layer alone stands for it")
+    elif worst > 1.0:
         raise AssertionError(f"{label}: the f32 copy's decode/prefill gap "
                              f"{gap} past the reference's bound ({worst} "
                              "of it)")
     torch.cuda.empty_cache()
-    return gap, spread
+    return gap, spread, worst, share
 
 
 def dense_serving(dev, smi):
@@ -5700,6 +5759,320 @@ def dense_and_mla(dev, smi):
             "dense": dense, "mla": mla}
 
 
+# Phase 17: the memory stream.  Depth: llama-3.2-vision-90b whole is 87.67
+# B parameters (175.3 GB in bf16), past the card's 80 GB; two of its 20
+# blocks (10 layers: 8 self-attention and 2 cross-attention) keep the
+# published widths at 10.66 B parameters, 21.32 GB.  whisper-large-v3 runs
+# whole (1.60 B parameters, 3.20 GB).
+PHASE17_VLM_LAYERS = 10
+# The f32 decode/prefill checks: llama-vision's first block (5 layers, the
+# least depth that holds a cross layer; vocabulary cut to 8192), whisper's
+# first decoder and encoder layer.  A cut's own change under two ulps of
+# its embedding and memory (tools/f32_depth_spread.py) must stay under 0.1
+# of the bound for its gap to mean anything.  On the H100 (random weights
+# from seed 0): llama-vision moves by 94.5 of the bound at 5 layers and
+# 1157 at 10, so no cut that holds a cross layer is quiet, and its gap is
+# logged, not held: one cross layer alone in f32 (run for both models)
+# stands for it; whisper moves by 0.027 at 1 + 1 layers (its gap held),
+# 26.5 at 2 + 2 and 1847 whole.
+PHASE17_VLM_F32 = dict(layers=5, vocab=8192)
+PHASE17_WHISPER_F32 = dict(layers=1, enc_layers=1, vocab=8192)
+PHASE17_SPREAD_MAX = 0.1
+
+
+def memory_requests(cfg, n, text, new, seed, without=()):
+    """``n`` seeded requests, ``new`` tokens each, arriving 50 ms apart.
+    A VLM's: ``cfg.n_vision_tokens`` rows of vision embeds (normal, sigma
+    0.02; llama-vision's 1601: one 560 x 560 tile plus cls) in front of
+    ``text`` = (lo, hi) text tokens; an encoder-decoder's: ``[enc_seq_len,
+    d_model]`` frame embeds (normal, sigma 1: 30 s of audio from the stub
+    frontend) and a decoder prompt of (lo, hi) tokens, none for the uids
+    in ``without`` (a zero memory)."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(seed)
+    rows, vision = tf.memory_len(cfg), cfg.family == "vlm"
+    out = []
+    for uid in range(n):
+        s = int(rng.integers(text[0], text[1] + 1)) + (rows if vision else 0)
+        tokens = rng.integers(0, cfg.vocab_size, s).astype(np.int32)
+        emb = rng.normal(0, 0.02 if vision else 1.0,
+                         (rows, cfg.d_model)).astype(np.float32)
+        out.append(Request(
+            uid=uid, tokens=tokens,
+            modality=np.arange(s) < (rows if vision else 0),
+            max_new_tokens=new, arrival_time=0.05 * uid,
+            vision_embeds=None if uid in without else emb))
+    return out
+
+
+def cross_layer_f32(lp, cfg, x, memory, label):
+    """One cross-attention layer alone at full width in f32: ``cross_decode``
+    of the last query row over the K/V ``cross_forward`` cached, against
+    that row of ``cross_forward``, within ``2e-3 + 2e-3 x |y|``.  Returns
+    the gap's share of the bound."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    with torch.no_grad():
+        p = common.tree_map(lambda t: t.float(), lp)
+        y, kv = attn.cross_forward(p, x, memory, cfg32)
+        yd, _ = attn.cross_decode(p, x[:, -1:], kv, cfg32)
+    atol, rtol = PHASE16_GAP_BOUND
+    ref = y[:, -1:]
+    share = float(((yd - ref).abs() / (atol + rtol * ref.abs())).max())
+    gap = float((yd - ref).abs().max())
+    log(f"{label} one cross layer alone in f32, x {list(x.shape)}, memory "
+        f"{list(memory.shape)}: cross_decode of the last row over the cached "
+        f"K/V against cross_forward's, max gap {gap:.4g}, {share:.4g} of "
+        f"the bound {atol} + {rtol} x |y|")
+    if share > 1.0 or not torch.isfinite(y).all():
+        raise AssertionError(f"{label}: one cross layer's decode/forward gap "
+                             f"{share} of the bound")
+    return share
+
+
+def memory_cache_bytes(cfg, layers):
+    """Bytes a slot of the memory's K/V (``xk``/``xv``) over the stack's
+    cross-attention layers, from ``_entry_shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    layout, n_blocks, _ = tf.block_structure(cfg)
+    per = {m: sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
+                  .element_size() for n, (shape, dt) in
+                  tf._entry_shapes(cfg, m, 1, 1).items() if n in ("xk", "xv"))
+           for m, _ in layout}
+    return n_blocks * sum(per.values()), {m: b for m, b in per.items() if b}
+
+
+def vision_serving(dev, smi):
+    """Phase 17a: llama-3.2-vision-90b at its published widths (d 8192,
+    64/8 heads of 128, d_ff 28672, vocab 128256, 1601 vision tokens) cut to
+    ``PHASE17_VLM_LAYERS`` layers (random bf16 weights from seed 0): the
+    f32 decode/prefill gap with the memory on its first block
+    (``consistency_f32``) and one cross layer alone; graphed decode
+    bitwise against eager over a prefill's cache; the cross cache's bytes
+    a slot; a one-shot prefill of 1601 + 256 tokens profiled, the cross
+    layers' share by CUDA events; 8 requests (1601 vision rows and 32-256
+    text tokens, 32 new) through a graphed ``Engine(max_slots=8,
+    max_len=2048)`` under a strict sentinel."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig, get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=PHASE17_VLM_LAYERS)
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    params = tf.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    nv = cfg.n_vision_tokens
+    log(f"17a init {cfg.name} cut to {cfg.n_layers} of {full.n_layers} layers "
+        f"({cfg.layer_kinds().count('cross')} cross): d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {nv} vision tokens, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters (the reference's count; "
+        f"whole {full.param_count() / 1e9:.3f} B), "
+        f"{tree_bytes(params) / 1e9:.2f} GB")
+    slot, per = memory_cache_bytes(cfg, cfg.n_layers)
+    log(f"17a cross cache a slot (xk + xv, bf16): {per.get('cross', 0)} B a "
+        f"cross layer, {slot} B over this cut's cross layers, "
+        f"{slot * full.n_layers // cfg.n_layers} B over the whole model's")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    i32 = dict(dtype=torch.int32, device=dev)
+    m0 = torch.zeros((1, 4), device=dev)
+
+    def vision(b):
+        return torch.randn((b, nv, cfg.d_model), generator=gen,
+                           device=dev) * 0.02
+    gaps = consistency_f32(params, cfg, rcfg, m0, torch.randint(
+        0, PHASE17_VLM_F32["vocab"], (2, nv + 49), generator=gen, **i32),
+        "17a",
+        memory={"vision_embeds": vision(2)}, spread_max=PHASE17_SPREAD_MAX,
+        **PHASE17_VLM_F32)
+    cross_share = cross_layer_f32(
+        {k: v[0] for k, v in params["blocks"]["layer4"]["cross"].items()},
+        cfg, torch.randn((2, 49, cfg.d_model), generator=gen, device=dev),
+        vision(2), "17a")
+    b, s = 4, nv + 16
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, **i32)
+    origin = tf.prefill_forward(params, cfg, rcfg, {
+        "tokens": toks, "vision_embeds": vision(b)}, m0,
+        cache_len=s + 8).cache
+    inputs = {f"tokens {j}": {
+        "tokens": torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                                **i32),
+        "pos": torch.tensor([s, s + 1, s + 8, s], **i32),
+        "modality": torch.zeros((b, 1), dtype=torch.bool, device=dev),
+        "valid": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+        for j in (1, 2)}
+    sg, state = decode_graph_bitwise(dev, params, cfg, rcfg, origin, m0,
+                                     inputs, "17a")
+    del sg, state, origin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    long_in = {"tokens": torch.randint(0, cfg.vocab_size, (1, nv + 256),
+                                       generator=gen, **i32),
+               "vision_embeds": vision(1)}
+
+    def prefill():
+        return tf.prefill_forward(params, cfg, rcfg, long_in, m0,
+                                  cache_len=nv + 256)
+    host, wall, device, top, _ = host_and_device_ms(prefill)
+    spans = {}
+    with timing_calls(attn, ("cross_forward",), spans):
+        prefill()
+    torch.cuda.synchronize()
+    cross_ms = sum(a.elapsed_time(e) for a, e in spans["cross_forward"])
+    log(f"17a prefill_forward [1, {nv} + 256] (one shot), warm: host enqueue "
+        f"{host:.2f} ms, wall {wall:.2f} ms, device busy "
+        + (f"{device:.2f} ms (idle {1 - device / wall:.1%})"
+           if device else "not measured")
+        + f"; the {len(spans['cross_forward'])} cross layers {cross_ms:.2f} "
+        f"ms between CUDA events ({cross_ms / wall:.1%} of the wall, device "
+        "idle inside a span included); most device time: "
+        + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f"; {smi}")
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=2048, device=dev,
+                 sentinel=Sentinel(strict=True))
+    run = hybrid_stream_run(dev, eng, memory_requests(
+        cfg, 8, (32, 256), 32, seed=17), "17a llama-3.2-vision-90b stream",
+        smi)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"17a took {time.perf_counter() - t0:.1f} s")
+    return {"run": run, "f32_gap": gaps, "cross_layer_f32": cross_share,
+            "cache_bytes": slot,
+            "prefill": {"host_ms": host, "wall_ms": wall, "device_ms": device,
+                        "cross_ms": cross_ms}}
+
+
+def whisper_serving(dev, smi):
+    """Phase 17b: whisper-large-v3 whole (32 encoder and 32 decoder layers,
+    d 1280, 20 heads of 64, d_ff 5120, GELU, QKV bias, vocab 51866; random
+    bf16 weights from seed 0): the f32 decode/prefill gap on its first
+    encoder and decoder layer (``PHASE17_WHISPER_F32``) and one cross
+    layer alone; graphed decode
+    bitwise against eager; the cross cache's bytes a slot; an ``[8,
+    1500]`` encode timed; 8 requests of 1500 frame embeds and a 4-32 token
+    prompt plus one with none (a zero memory), 64 new tokens each, through
+    a graphed ``Engine(max_slots=8, max_len=128)`` under a strict
+    sentinel."""
+    import torch
+    from repro_torch.analysis import Sentinel
+    from repro_torch.configs import ReaLBConfig, get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-large-v3")
+    rcfg = ReaLBConfig(gate_gamma=512, md_init=0.0, adaptive=False)
+    params = tf.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t = cfg.enc_seq_len
+    log(f"17b init {cfg.name} whole: {cfg.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers over {t} frames, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+        f"({cfg.activation}), QKV bias, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters (the reference's count), "
+        f"{tree_bytes(params) / 1e9:.2f} GB")
+    slot, per = memory_cache_bytes(cfg, cfg.n_layers)
+    log(f"17b cross cache a slot (xk + xv, bf16): {per['dec']} B a layer, "
+        f"{slot} B over {cfg.n_layers} layers")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    i32 = dict(dtype=torch.int32, device=dev)
+    m0 = torch.zeros((1, 4), device=dev)
+
+    def frames(b):
+        return torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+    gaps = consistency_f32(params, cfg, rcfg, m0, torch.randint(
+        0, PHASE17_WHISPER_F32["vocab"], (2, 49), generator=gen, **i32),
+        "17b", memory={"enc_embeds": frames(2)},
+        spread_max=PHASE17_SPREAD_MAX, **PHASE17_WHISPER_F32)
+    with torch.no_grad():
+        mem = tf._encode(params, cfg, rcfg, frames(2), m0).float()
+    cross_share = cross_layer_f32(
+        {k: v[0] for k, v in params["blocks"]["layer0"]["cross"].items()},
+        cfg, torch.randn((2, 49, cfg.d_model), generator=gen, device=dev),
+        mem, "17b")
+    del mem
+    b, s = 4, 24
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, **i32)
+    origin = tf.prefill_forward(params, cfg, rcfg, {
+        "tokens": toks, "enc_embeds": frames(b)}, m0, cache_len=s + 8).cache
+    inputs = {f"tokens {j}": {
+        "tokens": torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                                **i32),
+        "pos": torch.tensor([s, s + 1, s + 8, s], **i32),
+        "modality": torch.zeros((b, 1), dtype=torch.bool, device=dev),
+        "valid": torch.ones((b, 1), dtype=torch.bool, device=dev)}
+        for j in (1, 2)}
+    sg, state = decode_graph_bitwise(dev, params, cfg, rcfg, origin, m0,
+                                     inputs, "17b")
+    del sg, state, origin
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc_in = frames(8)
+
+    def encode():
+        with torch.no_grad():
+            return tf._encode(params, cfg, rcfg, enc_in, m0)
+    host, wall, device, top, _ = host_and_device_ms(encode)
+    log(f"17b encode [8, {t}, {cfg.d_model}] ({cfg.n_enc_layers} layers), "
+        f"warm: host enqueue {host:.2f} ms, wall {wall:.2f} ms, device busy "
+        + (f"{device:.2f} ms (idle {1 - device / wall:.1%})"
+           if device else "not measured")
+        + "; most device time: "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top) + f"; {smi}")
+    del enc_in
+    eng = Engine(cfg, params, rcfg, max_slots=8, max_len=128, device=dev,
+                 sentinel=Sentinel(strict=True))
+    run = hybrid_stream_run(dev, eng, memory_requests(
+        cfg, 9, (4, 32), 64, seed=18, without=(8,)),
+        "17b whisper-large-v3 stream (8 with frames, 1 on a zero memory)",
+        smi)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"17b took {time.perf_counter() - t0:.1f} s")
+    return {"run": run, "f32_gap": gaps, "cross_layer_f32": cross_share,
+            "cache_bytes": slot,
+            "encode": {"host_ms": host, "wall_ms": wall, "device_ms": device}}
+
+
+def memory_stream(dev, smi):
+    """Phase 17 (17a-b above).  Returns the records and the kernel launches
+    over both streams (the path has no kernel: dense stacks, no MoE)."""
+    import torch
+    t0 = time.perf_counter()
+    vlm = vision_serving(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = whisper_serving(dev, smi)
+    counts = {k: vlm["run"]["counts"].get(k, 0)
+              + whisper["run"]["counts"].get(k, 0)
+              for k in set(vlm["run"]["counts"]) | set(
+                  whisper["run"]["counts"])}
+    if any(counts.values()):
+        raise AssertionError(f"17: a kernel launched on a dense path: "
+                             f"{counts}")
+    log(f"17: phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"vlm": vlm, "whisper": whisper, "counts": counts}
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -5779,6 +6152,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase16 = dense_and_mla(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase17 = memory_stream(dev, smi)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -5892,6 +6268,9 @@ def main() -> int:
     # phase 16a's reduced jamba training run: launches on its main path
     for k in kernels:
         k["ssm_train_launches"] = phase16["counts"][k["name"]]
+    # phase 17's two streams (dense stacks with cross-attention): no launch
+    for k in kernels:
+        k["memory_launches"] = phase17["counts"].get(k["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "whisper-large-v3": "whisper_large_v3",
     "gemma-7b": "gemma_7b",
     "minicpm3-4b": "minicpm3_4b",
     "qwen1.5-0.5b": "qwen15_05b",

@@ -54,11 +54,12 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One decoder-only architecture: attention, Mamba or the two
-    interleaved."""
+    """One architecture: a decoder of attention, Mamba or the two
+    interleaved, with cross-attention layers to a vision memory (a VLM) or
+    an encoder in front (encoder-decoder)."""
 
     name: str
-    family: str                 # moe | dense | ssm | hybrid
+    family: str                 # moe | dense | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -70,8 +71,9 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
 
-    # layer pattern: "attn" (all attention), "ssm" (all mamba), "jamba"
-    # (1 attn : 7 mamba per 8-block); the reference's "cross5" is not ported
+    # layer pattern: "attn" (all attention), "ssm" (all mamba),
+    # "jamba" (1 attn : 7 mamba per 8-block), "cross5" (4 self + 1 cross
+    # per 5-block)
     layer_pattern: str = "attn"
     n_dense_layers: int = 0     # leading layers that use dense FFN even in MoE models
 
@@ -83,21 +85,31 @@ class ModelConfig:
     logit_softcap: float = 0.0
     embed_scale_sqrt_d: bool = False   # gemma-style sqrt(d) embedding scale
 
+    # encoder-decoder (whisper)
+    is_encdec: bool = False
+    n_enc_layers: int = 0
+    enc_seq_len: int = 0        # fixed encoder length (whisper: 1500 frames)
+
+    # vlm: number of vision tokens supplied by the (stubbed) frontend
+    n_vision_tokens: int = 0
+
     param_dtype: str = "bfloat16"
     remat: str = "full"         # none | full | attn_out (training only)
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.layer_pattern == "cross5":
-            raise ValueError("layer_pattern 'cross5' (cross-attention "
-                             "layers) is not ported")
-        if self.layer_pattern not in ("attn", "ssm", "jamba"):
+        if self.layer_pattern not in ("attn", "ssm", "jamba", "cross5"):
             raise ValueError(f"layer_pattern {self.layer_pattern!r}")
 
     @property
     def uses_attention(self) -> bool:
         return self.layer_pattern != "ssm"
+
+    @property
+    def full_attention_only(self) -> bool:
+        """True if every token-mixing layer is quadratic attention."""
+        return self.layer_pattern in ("attn", "cross5") or self.is_encdec
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer token-mixer kind for the decoder stack."""
@@ -105,6 +117,9 @@ class ModelConfig:
             return ("attn",) * self.n_layers
         if self.layer_pattern == "ssm":
             return ("ssm",) * self.n_layers
+        if self.layer_pattern == "cross5":
+            return tuple("cross" if i % 5 == 4 else "attn"
+                         for i in range(self.n_layers))
         return tuple("attn" if i % 8 == 0 else "ssm"
                      for i in range(self.n_layers))
 
@@ -122,7 +137,7 @@ class ModelConfig:
     def scan_period(self) -> int:
         """Layers per block of the stacked decoder parameters (the
         repeating unit of the layer stack)."""
-        return {"jamba": 8}.get(self.layer_pattern, 1)
+        return {"jamba": 8, "cross5": 5}.get(self.layer_pattern, 1)
 
     def moe_block_structure(self) -> Tuple[int, int]:
         """(n_blocks, n_moe_layers_per_block) of the stacked decoder: the
@@ -136,27 +151,38 @@ class ModelConfig:
 
     # parameter counting ------------------------------------------------
     def param_count(self) -> int:
-        """Total parameters (embedding + decoder)."""
+        """Total parameters (embedding + decoder [+ encoder])."""
         n = self.vocab_size * self.d_model
         if not self.tie_embeddings:
             n += self.vocab_size * self.d_model
-        return n + self._stack_params(self.layer_kinds(), self.ffn_kinds())
+        n += self._stack_params(self.layer_kinds(), self.ffn_kinds())
+        if self.is_encdec:
+            n += self._stack_params(("attn",) * self.n_enc_layers,
+                                    ("dense",) * self.n_enc_layers)
+        return n
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: top_k + shared only)."""
         n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
-        return n + self._stack_params(self.layer_kinds(), self.ffn_kinds(),
-                                      active=True)
+        n += self._stack_params(self.layer_kinds(), self.ffn_kinds(),
+                                active=True)
+        if self.is_encdec:
+            n += self._stack_params(("attn",) * self.n_enc_layers,
+                                    ("dense",) * self.n_enc_layers,
+                                    active=True)
+        return n
 
     def _stack_params(self, layer_kinds, ffn_kinds,
                       active: bool = False) -> int:
-        """The reference's count of a decoder stack's parameters (its
-        cross-attention term is not ported)."""
+        """The reference's count of a stack's parameters, as it is: a
+        ``"cross"`` layer counts a self-attention's projections and a
+        second K/V pair, and an encoder-decoder's decoder layers (kind
+        "attn") count no cross-attention."""
         d = self.d_model
         total = 0
         for mix, ffn in zip(layer_kinds, ffn_kinds):
             # token mixer
-            if mix == "attn" and self.mla is not None:
+            if mix in ("attn", "cross") and self.mla is not None:
                 m = self.mla
                 qk = m.qk_nope_head_dim + m.qk_rope_head_dim
                 total += d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk
@@ -164,10 +190,12 @@ class ModelConfig:
                 total += m.kv_lora_rank * self.n_heads * (
                     m.qk_nope_head_dim + m.v_head_dim)
                 total += self.n_heads * m.v_head_dim * d
-            elif mix == "attn":
+            elif mix in ("attn", "cross"):
                 total += d * self.n_heads * self.head_dim          # q
                 total += 2 * d * self.n_kv_heads * self.head_dim   # k,v
                 total += self.n_heads * self.head_dim * d          # o
+            if mix == "cross":  # the reference's extra kv proj
+                total += 2 * d * self.n_kv_heads * self.head_dim
             elif mix == "ssm":
                 s = self.ssm or SSMConfig()
                 d_in = s.expand * d
@@ -331,6 +359,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=512,
         head_dim=32,
+        enc_seq_len=16 if cfg.is_encdec else 0,
+        n_enc_layers=2 if cfg.is_encdec else 0,
+        n_vision_tokens=8 if cfg.n_vision_tokens else 0,
         param_dtype="float32",
         remat="none",
     )
@@ -346,5 +377,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2)
     if cfg.layer_pattern == "jamba":
         small["n_layers"] = 8
+    if cfg.layer_pattern == "cross5":
+        small["n_layers"] = 5
+        small["n_vision_tokens"] = 8
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

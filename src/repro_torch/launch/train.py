@@ -42,8 +42,8 @@ from repro_torch.data.pipeline import DataConfig, DataLoader
 from repro_torch.launch.mesh import init_distributed, mesh_for
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import (is_expert_path, resolve_device,
-                                       tree_items, use_mesh)
+from repro_torch.models.common import (DTYPES, is_expert_path,
+                                       resolve_device, tree_items, use_mesh)
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import TrainLoop
 
@@ -78,6 +78,14 @@ def build(arch: str, preset: str, batch: int, seq: int, tcfg: TrainConfig,
     def step_fn(state, np_batch):
         b = {k: torch.from_numpy(np.asarray(v)).to(device)
              for k, v in np_batch.items()}
+        # the cross-attention layers' memory: zeros where the batch has none
+        mem = {"vision_embeds": (cfg.family == "vlm", cfg.n_vision_tokens),
+               "enc_embeds": (cfg.is_encdec, cfg.enc_seq_len)}
+        for k, (wanted, rows) in mem.items():
+            if wanted and k not in b:
+                b[k] = torch.zeros((batch, rows, cfg.d_model),
+                                   dtype=DTYPES[cfg.param_dtype],
+                                   device=device)
         with use_mesh(mesh):
             params, opt, m2, metrics = step(state["params"], state["opt"],
                                             state["m"], b)

@@ -1,7 +1,8 @@
 """GQA/MQA and MLA self-attention with a KV cache: one-shot prefill,
-chunked prefill (GQA) and decode, at any KV length.
+chunked prefill (GQA) and decode, at any KV length; and cross-attention
+to a fixed memory (a VLM's vision embeddings, an encoder's output).
 
-Counterpart of the GQA and MLA parts of ``repro.models.attention``,
+Counterpart of ``repro.models.attention``,
 written as plain tensor ops (the reference's attention is XLA einsums, not
 Pallas).  MLA (multi-head latent attention, minicpm3) caches the
 normalised latent ``[B, L, kv_lora_rank]`` and the roped key part
@@ -27,7 +28,7 @@ reference the tests hold it against).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,8 +88,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         b, s, *w.shape[1:])
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 xkv: Optional[torch.Tensor] = None):
+    """q from ``x``, k and v from ``xkv`` (the memory of a
+    cross-attention; default ``x``, self-attention)."""
+    xkv = x if xkv is None else xkv
+    q, k, v = _proj(x, p["wq"]), _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -358,6 +363,34 @@ def gqa_chunk(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     out = _chunk_attention(q, k_cache, v_cache, cfg.head_dim ** -0.5,
                            positions)
     return _out_proj(out, p["wo"]), {"k": k_cache, "v": v_cache}
+
+
+# --------------------------------------------------------------------------
+# cross-attention (VLM / enc-dec): K/V from a fixed memory
+# --------------------------------------------------------------------------
+def cross_forward(p: Params, x: torch.Tensor, memory: torch.Tensor,
+                  cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Queries of x [B,S,D] against K/V projected from ``memory``
+    [B,T,D] (cast to x's dtype first): no RoPE, no mask.  Returns (out,
+    {"k", "v"} [B,T,K,Dh]), the memory's K/V a decode reads."""
+    q, k, v = _project_qkv(p, x, cfg, memory.to(x.dtype))
+    out = scaled_attention(q, k, v, cfg.head_dim ** -0.5, causal=False)
+    return _out_proj(out, p["wo"]), {"k": k, "v": v}
+
+
+def cross_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode-time cross-attention of x [B,1,D] against the memory's K/V
+    cached at prefill (cast to x's dtype); the cache is read, not
+    written, and returned as it is."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    out = scaled_attention(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                           cfg.head_dim ** -0.5, causal=False)
+    return _out_proj(out, p["wo"]), cache
 
 
 # --------------------------------------------------------------------------

@@ -88,9 +88,12 @@ F32 = torch.float32
 # --------------------------------------------------------------------------
 def block_structure(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, str], ...],
                                                int, int]:
-    """(block_layout, n_blocks, n_prefix). Layout entries: (mix, ffn)."""
+    """(block_layout, n_blocks, n_prefix). Layout entries: (mix, ffn); an
+    encoder-decoder's decoder layers are all "dec" (self-attention, then
+    cross-attention to the encoder's output)."""
+    mixes = ["dec"] * cfg.n_layers if cfg.is_encdec else cfg.layer_kinds()
     kinds = [(m, "none" if (f == "dense" and cfg.d_ff == 0) else f)
-             for m, f in zip(cfg.layer_kinds(), cfg.ffn_kinds())]
+             for m, f in zip(mixes, cfg.ffn_kinds())]
     n_prefix = cfg.n_dense_layers
     rest = kinds[n_prefix:]
     period = cfg.scan_period
@@ -114,12 +117,17 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
 def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"norm1": P((d,), init="zeros")}
-    if mix == "attn":
+    if mix in ("attn", "dec"):
         spec["attn"] = attn.attn_spec(cfg)
     elif mix == "ssm":
         spec["ssm"] = ssm_mod.ssm_spec(cfg)
+    elif mix == "cross":            # cross-attention alone, after norm1
+        spec["cross"] = attn.gqa_spec(cfg)
     else:
         raise ValueError(f"token mixer {mix!r}")
+    if mix == "dec":
+        spec["norm_cross"] = P((d,), init="zeros")
+        spec["cross"] = attn.gqa_spec(cfg)
     if ffn != "none":
         spec["norm2"] = P((d,), init="zeros")
     if ffn == "dense":
@@ -148,6 +156,9 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["prefix"] = {str(i): layer_spec(cfg, cfg.layer_kinds()[i],
                                              "dense")
                           for i in range(n_prefix)}
+    if cfg.is_encdec:
+        spec["enc_blocks"] = {"layer0": layer_spec(cfg, "attn", "dense")}
+        spec["enc_norm"] = P((d,), init="zeros")
     return spec
 
 
@@ -165,46 +176,66 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
     _, n_blocks, _ = block_structure(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    stacks = {"blocks": n_blocks, "enc_blocks": cfg.n_enc_layers}
     params = {k: init_params(v, gen, cfg.param_dtype, device, mesh=mesh,
                              fsdp=fsdp)
-              for k, v in spec.items() if k != "blocks"}
-    params["blocks"] = init_params(spec["blocks"], gen, cfg.param_dtype,
-                                   device, stack=n_blocks, mesh=mesh,
-                                   fsdp=fsdp)
+              for k, v in spec.items() if k not in stacks}
+    for k, n in stacks.items():
+        if k in spec:
+            params[k] = init_params(spec[k], gen, cfg.param_dtype, device,
+                                    stack=n, mesh=mesh, fsdp=fsdp)
     return params
 
 
-def _entry_shapes(cfg: ModelConfig, mix: str, batch: int, cache_len: int
+def memory_len(cfg: ModelConfig) -> int:
+    """Rows of the memory a cross-attention layer attends to: the
+    encoder's frames, a VLM's vision tokens (0 without one)."""
+    return cfg.enc_seq_len if cfg.is_encdec else cfg.n_vision_tokens
+
+
+def _entry_shapes(cfg: ModelConfig, mix: str, batch: int, cache_len: int,
+                  mem_len: Optional[int] = None
                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each cache entry of a layer (the reference's
     ``_entry_spec``): attention ``k``/``v [B, L, K, Dh]``, MLA ``latent
     [B, L, kv_lora_rank]`` and ``k_rope [B, L, qk_rope_head_dim]``, all in
     the parameter dtype; Mamba ``conv [B, d_conv-1, d_in]`` in the
-    parameter dtype and ``ssm [B, d_in, N]`` in f32."""
+    parameter dtype and ``ssm [B, d_in, N]`` in f32; a cross-attention's
+    memory K/V ``xk``/``xv [B, mem_len, K, Dh]`` (default
+    :func:`memory_len`) in the parameter dtype, beside a "dec" layer's
+    self-attention ``k``/``v``."""
     dt = DTYPES[cfg.param_dtype]
-    if mix == "attn" and cfg.mla is not None:
-        return {"latent": ((batch, cache_len, cfg.mla.kv_lora_rank), dt),
-                "k_rope": ((batch, cache_len, cfg.mla.qk_rope_head_dim), dt)}
-    if mix == "attn":
+    out = {}
+    if mix in ("attn", "dec") and cfg.mla is not None:
+        out = {"latent": ((batch, cache_len, cfg.mla.kv_lora_rank), dt),
+               "k_rope": ((batch, cache_len, cfg.mla.qk_rope_head_dim), dt)}
+    elif mix in ("attn", "dec"):
         kv = ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim), dt)
-        return {"k": kv, "v": kv}
-    s = cfg.ssm or SSMConfig()
-    d_in = s.expand * cfg.d_model
-    return {"conv": ((batch, s.d_conv - 1, d_in), dt),
-            "ssm": ((batch, d_in, s.d_state), F32)}
+        out = {"k": kv, "v": kv}
+    elif mix == "ssm":
+        s = cfg.ssm or SSMConfig()
+        d_in = s.expand * cfg.d_model
+        out = {"conv": ((batch, s.d_conv - 1, d_in), dt),
+               "ssm": ((batch, d_in, s.d_state), F32)}
+    if mix in ("cross", "dec"):
+        mem_len = memory_len(cfg) if mem_len is None else mem_len
+        xkv = ((batch, mem_len, cfg.n_kv_heads, cfg.head_dim), dt)
+        out.update(xk=xkv, xv=xkv)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=None) -> Tree:
-    """Zero cache: each prefix layer's entries (:func:`_entry_shapes`),
-    each block layer's stacked ``[n_blocks, ...]``."""
+               device=None, mem_len: Optional[int] = None) -> Tree:
+    """Zero cache: each prefix layer's entries (:func:`_entry_shapes`;
+    ``mem_len`` rows of memory K/V, default :func:`memory_len`), each
+    block layer's stacked ``[n_blocks, ...]``."""
     device = resolve_device(device)
     layout, n_blocks, n_prefix = block_structure(cfg)
 
     def entries(mix, lead=()):
         return {n: torch.zeros(lead + shape, dtype=dt, device=device)
                 for n, (shape, dt) in _entry_shapes(
-                    cfg, mix, batch, cache_len).items()}
+                    cfg, mix, batch, cache_len, mem_len).items()}
 
     out = {"blocks": {f"layer{i}": entries(m, (n_blocks,))
                       for i, (m, _) in enumerate(layout)}}
@@ -263,14 +294,15 @@ def split_placement(placement, n_blocks: int):
 
 def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            positions, pos, cache_in, chunk_len=None, cache_len=0):
-    """The layer's token-mixer output ``o`` and its cache entries (None in
-    "train"): attention's KV (MLA's latent and k_rope), or a Mamba layer's
-    final states (prefill; decode writes them into ``cache_in`` in place,
-    as attention writes its KV row)."""
+    """The layer's self token-mixer output ``o`` and its cache entries
+    (None in "train" and "encode"): attention's KV (MLA's latent and
+    k_rope), or a Mamba layer's final states (prefill; decode writes them
+    into ``cache_in`` in place, as attention writes its KV row).  "encode"
+    is an encoder layer's non-causal attention, with no cache."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    if mode not in ("prefill", "chunk", "decode", "train"):
+    if mode not in ("prefill", "chunk", "decode", "train", "encode"):
         raise ValueError(f"mode {mode!r}: the port runs 'prefill', "
-                         "'chunk', 'decode' and 'train'")
+                         "'chunk', 'decode', 'train' and 'encode'")
     if "ssm" in lp:
         if mode == "decode":
             o, st = ssm_mod.ssm_decode(lp["ssm"], h, cache_in, cfg)
@@ -286,11 +318,36 @@ def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     if mode == "decode":
         decode = attn.mla_decode if mla else attn.gqa_decode
         return decode(lp["attn"], h, cache_in, cfg, pos=pos)
+    if mode == "encode":
+        return attn.gqa_forward(lp["attn"], h, cfg, positions=positions,
+                                causal=False)[0], None
     forward = attn.mla_forward if mla else attn.gqa_forward
     o, kv = forward(lp["attn"], h, cfg, positions=positions)
     if mode == "train":
         return o, None
     return o, {k: _pad_kv(v, cache_len) for k, v in kv.items()}
+
+
+def _cross_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                memory, cache_in):
+    """A cross-attention layer's residual step (a "cross" layer's, after
+    ``norm1``; a "dec" layer's after ``norm_cross``, following its
+    self-attention): (x, the memory's K/V as ``xk``/``xv``).  Prefill and
+    "train" project ``memory``; decode reads the K/V the prefill cached in
+    ``cache_in`` and writes nothing.  A layer without one returns x and
+    None."""
+    if "cross" not in lp:
+        return x, None
+    hn = rms_norm(x, lp.get("norm_cross", lp["norm1"]), cfg.norm_eps)
+    if mode == "decode":
+        o, kv = attn.cross_decode(lp["cross"], hn, {
+            "k": cache_in["xk"], "v": cache_in["xv"]}, cfg)
+    elif mode in ("prefill", "train"):
+        o, kv = attn.cross_forward(lp["cross"], hn, memory, cfg)
+    else:
+        raise ValueError(f"mode {mode!r}: a cross-attention layer runs "
+                         "'prefill', 'decode' and 'train'")
+    return x + o, {"xk": kv["k"], "xv": kv["v"]}
 
 
 def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
@@ -334,20 +391,29 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
-                cache_len=0, placement=None, fsdp=False):
-    """One attention or Mamba layer plus its dense or MoE FFN.  ``mode``:
+                cache_len=0, placement=None, fsdp=False, memory=None):
+    """One attention or Mamba layer, a cross-attention layer, or the two
+    attentions of a "dec" layer, then its dense or MoE FFN.  ``mode``:
     "prefill" (whole prompts; the KV comes back padded to ``cache_len``, a
-    Mamba layer's final states as they are), "chunk" or "decode" (the new
-    rows, or a Mamba layer's new states, written into ``cache_in`` in
-    place, whose tensors come back as ``cache_out``), or "train" (whole
-    sequences, no cache, ``cache_out`` None; the MoE layer in its training
-    form).
+    Mamba layer's final states as they are, the memory's K/V at its own
+    length), "chunk" or "decode" (the new rows, or a Mamba layer's new
+    states, written into ``cache_in`` in place, whose tensors come back as
+    ``cache_out``; the memory's K/V are read), "train" (whole sequences,
+    no cache, ``cache_out`` None; the MoE layer in its training form) or
+    "encode" (an encoder layer: non-causal, no cache).
     Returns (x, cache_out, m_state, aux_scalars, stats, estats, sstats)."""
-    o, kv = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
-                   cache_in=cache_in, chunk_len=chunk_len,
-                   cache_len=cache_len)
+    kv = None
+    if "attn" in lp or "ssm" in lp:
+        o, kv = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
+                       cache_in=cache_in, chunk_len=chunk_len,
+                       cache_len=cache_len)
+        x = x + o
+    x, xkv = _cross_part(lp, x, cfg, mode=mode, memory=memory,
+                         cache_in=cache_in)
+    if xkv is not None and mode != "train":
+        kv = {**(kv or {}), **xkv}
     x, m_state, aux, stats, estats, sstats = _ffn_part(
-        lp, x + o, cfg, rcfg, ffn, mode=mode, m_state=m_state,
+        lp, x, cfg, rcfg, ffn, mode=mode, m_state=m_state,
         modality=modality, valid=valid, placement=placement, fsdp=fsdp)
     return x, kv, m_state, aux, stats, estats, sstats
 
@@ -365,17 +431,22 @@ class ForwardResult(NamedTuple):
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            vision_embeds: Optional[torch.Tensor] = None,
            mode: str = "decode") -> torch.Tensor:
-    """Token embeddings.  ``vision_embeds`` replace the leading rows only in
-    a VLM (``family="vlm"``, not ported); a MoE backbone such as moonshot
-    ignores them, as the reference does."""
+    """Token embeddings.  In a VLM (``family="vlm"``) ``vision_embeds``
+    [B, N, D] overwrite the leading N rows of every sequence, after the
+    sqrt(d) scale, except in decode (the reference's
+    ``dynamic_update_slice``); a MoE backbone such as moonshot ignores
+    them, as the reference does."""
     dt = DTYPES[cfg.param_dtype]
     x = params["embed"][tokens.long()].to(dt)
     if cfg.embed_scale_sqrt_d:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     if cfg.family == "vlm" and vision_embeds is not None \
             and mode != "decode":
-        raise NotImplementedError("vision embeds of a VLM: no VLM config is "
-                                  "ported")
+        if vision_embeds.shape[1] > x.shape[1]:
+            raise ValueError(f"{vision_embeds.shape[1]} rows of vision "
+                             f"embeds over a sequence of {x.shape[1]}")
+        x = torch.cat([vision_embeds.to(dt),
+                       x[:, vision_embeds.shape[1]:]], dim=1)
     return x
 
 
@@ -394,23 +465,25 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
                m_state, modality, chunk_len=None, valid=None, cache_len=0,
-               placement=None, fsdp=False):
+               placement=None, fsdp=False, memory=None):
     """Prefix layers, then a loop over the stacked blocks; the cache is
     updated in place and returned: a chunk or decode writes only its new
     rows (``attention.write_rows_``), a prefill fills a new zero cache of
-    ``cache_len`` rows with each layer's padded KV, "train" has none.  A
+    ``cache_len`` rows with each layer's padded KV (and the memory's K/V,
+    at the memory's own length), "train" has none.  A
     shared placement table serves every block; a per-layer one gives block
     ``b`` its slice ``b`` (views, no copy).  In "train" ``cfg.remat``
     picks what the backward recomputes (:func:`_train_block`)."""
     layout, n_blocks, n_prefix = block_structure(cfg)
     place_shared, place_stacked = split_placement(placement, n_blocks)
     if mode == "prefill":
-        cache = init_cache(cfg, x.shape[0], cache_len, x.device)
+        cache = init_cache(cfg, x.shape[0], cache_len, x.device, mem_len=(
+            None if memory is None else memory.shape[1]))
     aux_acc = {k: torch.zeros((), dtype=F32, device=x.device)
                for k in AUX_KEYS}
     kw = dict(mode=mode, positions=positions, pos=pos, modality=modality,
               chunk_len=chunk_len, valid=valid, cache_len=cache_len,
-              fsdp=fsdp)
+              fsdp=fsdp, memory=memory)
     for i in range(n_prefix):
         c = None if cache is None else cache["prefix"][str(i)]
         x, co, m_state, aux, _, _, _ = apply_layer(
@@ -463,15 +536,16 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
     ``cfg.remat`` (the reference's policies, with
     ``torch.utils.checkpoint``, non-reentrant): "none" keeps every
     activation; "full" checkpoints the block, so the backward reruns it
-    from its input; "attn_out" checkpoints each layer's attention and the
-    rest of the layer apart, so each attention output is a saved boundary
-    and the rest is recomputed.  A recompute gives the same values; what
-    the block returns (``m_state``, the statistics) is the first pass's.
-    Kernel launch counters count the recompute too.  Under a mesh the
-    recompute runs whole (checkpoint's early stop off), so every rank
-    re-issues every collective of the checkpointed part, in order, and
-    under the mesh of the forward: on a card it runs on autograd's thread,
-    where the mesh context (thread-local) is not set."""
+    from its input; "attn_out" checkpoints each layer's self-attention (or
+    Mamba mixer) and the rest of the layer apart, so each such output is a
+    saved boundary and the rest, a cross-attention included (the
+    reference names only the self-attention's output), is recomputed.  A
+    recompute gives the same values; what the block returns (``m_state``,
+    the statistics) is the first pass's. Kernel launch counters count the
+    recompute too. Under a mesh the recompute runs whole (checkpoint's early
+    stop off), so every rank re-issues every collective of the checkpointed
+    part, in order, and under the mesh of the forward: on a card it runs on
+    autograd's thread, where the mesh context (thread-local) is not set."""
     mesh = current_mesh()
 
     def in_mesh(fn):
@@ -487,13 +561,20 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
                 lp, x, cfg, rcfg, f, cache_in=None, m_state=m,
                 placement=placement, **kw)
             return x, m, aux, st, es, ss
+        def rest(x, m):
+            x, _ = _cross_part(lp, x, cfg, mode=kw["mode"],
+                               memory=kw["memory"], cache_in=None)
+            return _ffn_part(lp, x, cfg, rcfg, f, m_state=m,
+                             placement=placement, **{
+                                 k: kw[k] for k in ("mode", "modality",
+                                                    "valid", "fsdp")})
+        if "attn" not in lp and "ssm" not in lp:
+            return checkpoint(in_mesh(rest), x, m, use_reentrant=False)
         o = checkpoint(in_mesh(lambda x: _mixer(lp, x, cfg, cache_in=None, **{
             k: kw[k] for k in ("mode", "positions", "pos")})[0]), x,
             use_reentrant=False)
-        return checkpoint(in_mesh(lambda x, o, m: _ffn_part(
-            lp, x + o, cfg, rcfg, f, m_state=m, placement=placement, **{
-                k: kw[k] for k in ("mode", "modality", "valid", "fsdp")})),
-            x, o, m, use_reentrant=False)
+        return checkpoint(in_mesh(lambda x, o, m: rest(x + o, m)), x, o, m,
+                          use_reentrant=False)
 
     def block(x, m):
         aux_b = {k: torch.zeros((), dtype=F32, device=x.device)
@@ -525,36 +606,83 @@ def _index(tree: Tree, b: int) -> Tree:
     return tree[b]
 
 
-def _prepare_inputs(cfg: ModelConfig, batch):
-    """(tokens, modality): modality defaults to all text."""
+def _prepare_inputs(cfg: ModelConfig, batch, mode: str):
+    """(tokens, modality): modality defaults to all text, or, in a VLM
+    outside decode, to vision at the first ``n_vision_tokens``
+    positions."""
     tokens = batch["tokens"]
     modality = batch.get("modality")
     if modality is None:
-        modality = torch.zeros(tokens.shape, dtype=torch.bool,
-                               device=tokens.device)
+        b, s = tokens.shape
+        if cfg.family == "vlm" and mode != "decode":
+            modality = (torch.arange(s, device=tokens.device)[None, :]
+                        < cfg.n_vision_tokens).expand(b, s)
+        else:
+            modality = torch.zeros(tokens.shape, dtype=torch.bool,
+                                   device=tokens.device)
     return tokens, modality
+
+
+def _encode(params, cfg: ModelConfig, rcfg: ReaLBConfig, enc_embeds,
+            m_state, train: bool = False) -> torch.Tensor:
+    """The encoder of an encoder-decoder: ``n_enc_layers`` non-causal
+    attention + dense FFN layers over ``enc_embeds`` [B, T, D] (cast to
+    the parameter dtype), then ``enc_norm``.  In training under
+    ``remat="full"`` each layer is checkpointed, as the reference's
+    ``jax.checkpoint`` of its scan body."""
+    x = enc_embeds.to(DTYPES[cfg.param_dtype])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def layer(lp, h):
+        return apply_layer(lp, h, cfg, rcfg, "dense", mode="encode",
+                           positions=positions, pos=None, cache_in=None,
+                           m_state=m_state, modality=None)[0]
+    for i in range(cfg.n_enc_layers):
+        lp = _index(params["enc_blocks"]["layer0"], i)
+        if train and cfg.remat == "full":
+            x = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x = layer(lp, x)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _memory(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch, m_state,
+            rows: slice = slice(None), train: bool = False):
+    """What the cross-attention layers attend to (None without them): an
+    encoder-decoder's encoded ``enc_embeds``, a VLM's ``vision_embeds``;
+    ``rows`` of the batch."""
+    name = "enc_embeds" if cfg.is_encdec else (
+        "vision_embeds" if cfg.family == "vlm" else None)
+    if name is None:
+        return None
+    if batch.get(name) is None:
+        raise ValueError(f"{cfg.name}: the batch has no {name!r} (its "
+                         "cross-attention layers' memory)")
+    if cfg.is_encdec:
+        return _encode(params, cfg, rcfg, batch[name][rows], m_state, train)
+    return batch[name][rows]
 
 
 def prefill_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                     m_state, cache_len: int = 0,
                     placement=None) -> ForwardResult:
     """One-shot prefill of whole prompts.  batch: tokens [B,S], modality
-    [B,S] (optional), vision_embeds [B,S_v,D] (optional; ignored by a MoE
-    backbone).  Every token is real.  Returns the logits at the last
-    position and a cache of ``cache_len`` rows (default S) holding the
-    prompt's KV at rows [0, S) and zeros after."""
-    if cfg.family == "vlm":
-        raise NotImplementedError("one-shot prefill of a VLM: no VLM config "
-                                  "is ported")
-    tokens, modality = _prepare_inputs(cfg, batch)
+    [B,S] (optional), vision_embeds [B,S_v,D] (a VLM's memory, required
+    there; ignored by a MoE backbone), enc_embeds [B,T,D] (an
+    encoder-decoder's encoder input, required there).  Every token is
+    real.  Returns the logits at the last position and a cache of
+    ``cache_len`` rows (default S) holding the prompt's KV at rows [0, S)
+    and zeros after, and the memory's K/V at its own length."""
+    tokens, modality = _prepare_inputs(cfg, batch, "prefill")
     b, s = tokens.shape
     cache_len = cache_len or s
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    memory = _memory(params, cfg, rcfg, batch, m_state)
     x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "prefill")
     x, cache, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="prefill", positions=positions, pos=None,
         cache=None, m_state=m_state, modality=modality,
-        cache_len=cache_len, placement=placement)
+        cache_len=cache_len, placement=placement, memory=memory)
     logits = _unembed(params, cfg, x[:, -1:, :])
     return ForwardResult(logits[:, 0], cache, m_state, aux)
 
@@ -568,14 +696,15 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     per row; 0 = idle row), modality [B,S].  Each row writes its chunk's KV
     at [start, start+chunk_len) and attends causally to its own prefix.
     Returns logits at every row's last valid chunk position.  Only
-    all-GQA stacks continue a chunk (no SSM state threading, and no MLA
-    latent cache continued mid-prompt), as in the reference.
+    all-GQA stacks continue a chunk (no SSM state threading, no MLA
+    latent cache continued mid-prompt, no memory of cross-attention
+    layers), as in the reference.
     """
     if cfg.layer_pattern != "attn" or cfg.ssm is not None \
-            or cfg.mla is not None:
+            or cfg.mla is not None or cfg.is_encdec:
         raise ValueError("chunked prefill supports plain-attention "
                          "(GQA/MQA) stacks only")
-    tokens, modality = _prepare_inputs(cfg, batch)
+    tokens, modality = _prepare_inputs(cfg, batch, "chunk")
     start, chunk_len = batch["start"], batch["chunk_len"]
     b, s = tokens.shape
     dev = tokens.device
@@ -597,7 +726,7 @@ def decode_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                    cache, m_state, placement=None) -> ForwardResult:
     """batch: tokens [B,1], pos [B], modality [B,1] (vision flag of the new
     token), valid [B,1] (False = dummy slot excluded from routing stats)."""
-    tokens, modality = _prepare_inputs(cfg, batch)
+    tokens, modality = _prepare_inputs(cfg, batch, "decode")
     pos = batch["pos"]
     x = _embed(params, cfg, tokens)
     x, cache, m_state, aux = _run_stack(
@@ -621,24 +750,30 @@ def _train_rows(b: int, m_state) -> slice:
 def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                   m_state, placement=None) -> ForwardResult:
     """Logits ``[B, S, V]`` (f32) of whole sequences and the MoE statistics,
-    with no cache: batch tokens [B,S], modality [B,S] (optional).  The MoE
+    with no cache: batch tokens [B,S], modality [B,S] (optional), and the
+    memory where the stack has cross-attention layers (``vision_embeds``
+    [B,N,D], ``enc_embeds`` [B,T,D], as in prefill).  The MoE
     layers run their training form (FP4 off, the BF16 expert FFN with its
     gradient kernel; the policy and its AIMD update still run), and
     ``cfg.remat`` sets what the backward recomputes.  Under a mesh (see
     the module docstring) every rank passes the global batch and the FSDP
-    layout's parameters; the logits are those of its data row's rows,
-    ``m_state`` and the statistics the global ones.  A Mamba layer runs
-    its whole-sequence form from zero state, as in prefill."""
-    tokens, modality = _prepare_inputs(cfg, batch)
+    layout's parameters; the logits are those of its data row's rows
+    (its memory rows too), ``m_state`` and the statistics the global
+    ones.  A Mamba layer runs its whole-sequence form from zero state, as
+    in prefill."""
+    tokens, modality = _prepare_inputs(cfg, batch, "train")
     rows = _train_rows(tokens.shape[0], m_state)
     tokens, modality = tokens[rows], modality[rows]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "train")
+    memory = _memory(params, cfg, rcfg, batch, m_state, rows, train=True)
+    vision = batch.get("vision_embeds")
+    x = _embed(params, cfg, tokens, None if vision is None else vision[rows],
+               "train")
     x, _, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="train", positions=positions, pos=None,
         cache=None, m_state=m_state, modality=modality,
-        placement=placement, fsdp=current_mesh() is not None)
+        placement=placement, fsdp=current_mesh() is not None, memory=memory)
     return ForwardResult(_unembed(params, cfg, x), None, m_state, aux)
 
 

@@ -11,9 +11,15 @@ cache of ``max_slots`` sequences.  Each iteration packs up to
 ``prefill_budget`` prompt tokens across every slot with pending prefill
 work into one ``[max_slots, bucket]`` chunk forward, then runs one batched
 decode step over the decode-ready slots.  A request that carries
-``vision_embeds``, or every request when ``prefill_budget=0``, is
-prefilled whole in a batch-1 ``prefill_forward`` at admission and its
-cache copied into its slot.  The AIMD ``m_state`` of ReaLB persists across
+``vision_embeds``, every request of a stack that cannot continue a
+chunk (Mamba, MLA, cross-attention or an encoder-decoder), or every
+request when ``prefill_budget=0``, is prefilled whole in a batch-1
+``prefill_forward`` at admission and its cache copied into its slot.  A
+VLM request carries its ``n_vision_tokens`` rows of vision embeddings;
+an encoder-decoder request carries its ``enc_seq_len`` frame embeddings
+in the same field (none: a zero memory, as the reference's); both are
+the memory of the stack's cross-attention, whose K/V the prefill caches
+and every decode reads.  The AIMD ``m_state`` of ReaLB persists across
 iterations; per-iteration routing stats are kept in ``self.stats`` and fed,
 with every finished request, to an optional
 :class:`~repro_torch.serving.telemetry.Telemetry`.  ``virtual_ep`` sizes
@@ -196,9 +202,10 @@ class Engine:
         self.temperature = temperature
         self.prefill_budget = prefill_budget
         # chunk continuation needs a plain GQA/MQA decoder stack: an SSM,
-        # hybrid or MLA stack prefills each prompt in one shot
+        # hybrid, MLA, cross-attention or encoder-decoder stack prefills
+        # each prompt in one shot
         self.chunked = (prefill_budget > 0 and cfg.mla is None
-                        and cfg.ssm is None
+                        and cfg.ssm is None and not cfg.is_encdec
                         and cfg.layer_pattern == "attn"
                         and cfg.family != "vlm")
         self.scheduler = Scheduler(max_slots, text_reserve=text_reserve)
@@ -651,6 +658,17 @@ class Engine:
         if req.prompt_len + req.max_new_tokens > self.max_len:
             raise ValueError(f"request needs {req.prompt_len} + "
                              f"{req.max_new_tokens} > max_len {self.max_len}")
+        cfg = self.cfg
+        if cfg.family == "vlm" or cfg.is_encdec:
+            # the memory's K/V fill the slot's xk/xv rows: the reference's
+            # cache insert fails on any other count (a VLM request without
+            # embeds in its prefill)
+            rows = tf.memory_len(cfg)
+            got = None if req.vision_embeds is None \
+                else np.shape(req.vision_embeds)[0]
+            if got != rows and (cfg.family == "vlm" or got is not None):
+                raise ValueError(f"request {req.uid}: {got} rows of memory "
+                                 f"embeds, {cfg.name} attends to {rows}")
         if req.arrival_time is None:
             req.arrival_time = self.clock()
         self.scheduler.submit(req)
@@ -769,8 +787,8 @@ class Engine:
     def _insert_cache(self, slot: int, new_cache):
         """Copy a batch-1 prefill cache into slot ``slot`` of the engine
         cache, in place, every entry of every layer (KV rows, Mamba
-        states).  Stacked block entries are [n_blocks, B, ...] (batch axis
-        1); prefix entries are [B, ...] (axis 0)."""
+        states, the memory's K/V).  Stacked block entries are [n_blocks,
+        B, ...] (batch axis 1); prefix entries are [B, ...] (axis 0)."""
         for group, axis in (("blocks", 1), ("prefix", 0)):
             for name, entries in self.cache.get(group, {}).items():
                 for n, t in entries.items():
@@ -778,12 +796,18 @@ class Engine:
 
     def _prefill_oneshot(self, req: Request):
         """The whole prompt in one batch-1 forward, its cache copied into
-        the request's slot (with its vision embeds, if any)."""
+        the request's slot (with its vision embeds, if any; an
+        encoder-decoder's encoder runs on them, or on zeros)."""
+        dt = DTYPES[self.cfg.param_dtype]
         batch = {"tokens": self._tensor(req.tokens, torch.int32)[None],
                  "modality": self._tensor(req.modality, torch.bool)[None]}
         if req.vision_embeds is not None:
-            batch["vision_embeds"] = self._tensor(
-                req.vision_embeds, DTYPES[self.cfg.param_dtype])[None]
+            batch["vision_embeds"] = self._tensor(req.vision_embeds, dt)[None]
+        if self.cfg.is_encdec:
+            batch["enc_embeds"] = self._tensor(
+                req.vision_embeds if req.vision_embeds is not None
+                else np.zeros((self.cfg.enc_seq_len, self.cfg.d_model),
+                              np.float32), dt)[None]
         fwd = self._begin("prefill")
         res = self._counted["prefill"](self.params, self.cfg, self.rcfg,
                                        batch, self.m_state,

@@ -14,7 +14,10 @@ memory, asynchronously.  The first call of a key runs the step eagerly
 its first launch) on the capture stream, and the key is captured right
 after it; later calls replay the graph.  A capture executes nothing, so
 the cache (KV rows, and a Mamba layer's conv and SSM states, all written
-in place) and the AIMD state are written once per step.  All graphs of
+in place) and the AIMD state are written once per step; a cross-attention
+layer's memory K/V (``xk``/``xv``, filled by the one-shot prefill) are
+read, like every other cache entry, at the address they were captured
+over.  All graphs of
 one object share one memory pool: they never run at once.
 
 A graph holds raw pointers.  Every call compares the addresses, shapes

@@ -1,6 +1,6 @@
 """Rank-side halves of the port's multi-rank tests (``test_torch_ep*.py``,
 ``test_torch_train_mesh.py``, ``test_torch_ckpt_mesh.py``,
-``test_torch_ssm_train.py``).
+``test_torch_ssm_train.py``, ``test_torch_memory_mesh.py``).
 
 Each function runs in a spawned gloo rank (``_torch_dist.run_ranks``) under
 the mesh, imports only torch and the port, takes numpy inputs and returns
@@ -1184,6 +1184,32 @@ def ssm_train_mesh_cases(mesh, c):
         return _ssm_train_mesh_case(mesh, c)
     except Exception:
         return {"error": traceback.format_exc()}
+
+
+def memory_train_mesh_cases(mesh, c):
+    """For each arch of ``c`` (reduced, the reference's weights and a
+    batch with its memory): ``train_loss`` on the mesh in the FSDP layout
+    (one ``m_state`` group a data row) and its gradient after the
+    data-parallel reduction."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.grad_utils import data_parallel_grads, value_and_grad
+    out = {}
+    for arch, case in c.items():
+        try:
+            params = params_from_numpy(case["params"], mesh=mesh, fsdp=True)
+            m = torch.full(ep_moe.moe_state_shape(mesh, 4), 0.9)
+            (loss, _), grads = value_and_grad(
+                tf.train_loss, params, _cfg(arch), ReaLBConfig(),
+                _batch(case["batch"]), m)
+            out[arch] = {"loss": float(loss),
+                         "grads": _np(data_parallel_grads(grads)),
+                         "m_rows": int(m.shape[0])}
+        except Exception:
+            out[arch] = {"error": traceback.format_exc()}
+    return out
 
 
 def train_mesh_cases(mesh, c):

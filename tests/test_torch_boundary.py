@@ -1,6 +1,7 @@
-"""The port's package boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package, and the port's entry points
-never fall back to the CPU on their own."""
+"""The port's package boundary: ``repro_torch``, ``chip_smoke.py`` and the
+card's scripts under ``tools/`` import neither ``jax`` nor anything of the
+JAX package, and the port's entry points never fall back to the CPU on
+their own."""
 import ast
 import os
 import pathlib
@@ -89,7 +90,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     for name in _imports(path):

@@ -1960,3 +1960,57 @@ def test_reduced_gemma_graphed_chunk_equals_eager(cuda):
         origin = common.tree_map(lambda t: t.clone(), state[0])
     assert sg.captures["chunk"] == 1 and sg.replays["chunk"] == 2
     assert sent.violations == []
+
+
+def _memory_graphed_decode(cuda, arch, memory_rows):
+    """Reduced ``arch`` (bf16) on the card: a prefill of 16 tokens on a
+    seeded memory (the memory's K/V cached in ``xk``/``xv``), then one
+    captured decode graph; each call equals the eager ``decode_forward``
+    bit for bit (logits, statistics, the whole cache, ``m_state``), under
+    a strict sentinel, and no call writes the memory's K/V."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.serving.graphs import StepGraphs
+    cfg = reduced(get_config(arch), param_dtype="bfloat16")
+    params = tf.init_model(cfg, seed=0, device=cuda)
+    rcfg = ReaLBConfig()
+    b, s, l = 4, 16, 24
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    name = "enc_embeds" if cfg.is_encdec else "vision_embeds"
+    mem = torch.randn((b, memory_rows, cfg.d_model), generator=gen,
+                      device=cuda) * 0.02
+    m0 = torch.zeros((1, 1), device=cuda)
+    origin = tf.prefill_forward(params, cfg, rcfg, {"tokens": tok, name: mem},
+                                m0, cache_len=l).cache
+    xk = [c["xk"].clone() for c in origin["blocks"].values() if "xk" in c]
+    assert xk and all(t.shape[2] == memory_rows for t in xk)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    state = (common.tree_map(lambda t: t.clone(), origin), m0.clone())
+    sent = Sentinel(strict=True)
+    sg = StepGraphs(cuda, sentinel=sent)
+    for step in range(3):
+        inputs = {"tokens": tok[:, step:step + 1].contiguous(),
+                  "pos": torch.tensor([s + step, l, s, s + 2 * step], **i32),
+                  "valid": torch.ones((b, 1), dtype=torch.bool,
+                                      device=cuda)}
+        graphed_equals_eager(sg, sent, "decode", tf.decode_forward, params,
+                             cfg, rcfg, state, origin, m0, inputs,
+                             f"{arch} decode {step}")
+    assert sg.captures["decode"] == 1 and sg.replays["decode"] == 2
+    assert sent.violations == []
+    got = [c["xk"] for c in state[0]["blocks"].values() if "xk" in c]
+    assert all(torch.equal(a, g) for a, g in zip(xk, got))
+
+
+def test_reduced_vlm_graphed_decode_equals_eager(cuda):
+    """Reduced llama-3.2-vision-90b (four self-attention layers and one
+    cross layer over 8 vision rows): graphed decode bitwise eager."""
+    _memory_graphed_decode(cuda, "llama-3.2-vision-90b", 8)
+
+
+def test_reduced_whisper_graphed_decode_equals_eager(cuda):
+    """Reduced whisper-large-v3 (2 encoder layers over 16 frames; each
+    decoder layer self- then cross-attention, QKV bias, GELU): graphed
+    decode bitwise eager."""
+    _memory_graphed_decode(cuda, "whisper-large-v3", 16)

@@ -65,7 +65,7 @@ def _close(j, t, what, tol=TOL):
 
 def test_config_and_counts_are_the_reference_copy():
     cfg_t, cfg_j = get_config(ARCH), jget(ARCH)
-    assert ARCH in ARCH_IDS and len(ARCH_IDS) == 8
+    assert ARCH in ARCH_IDS and len(ARCH_IDS) == 10
     ft, fj = dataclasses.asdict(cfg_t), dataclasses.asdict(cfg_j)
     for k, v in ft.items():
         assert fj[k] == v, k

@@ -46,10 +46,12 @@ def test_serve_tiny_mamba_and_hybrid_on_the_cpu(arch, capsys):
 @pytest.mark.parametrize("arch,chunked", [("gemma-7b", True),
                                           ("qwen1.5-0.5b", True),
                                           ("command-r-35b", True),
-                                          ("minicpm3-4b", False)])
+                                          ("minicpm3-4b", False),
+                                          ("whisper-large-v3", False)])
 def test_serve_tiny_dense_and_mla_on_the_cpu(arch, chunked, capsys):
     """The dense configs prefill chunked; MLA one-shot (its latent cache is
-    not continued mid-prompt)."""
+    not continued mid-prompt), and whisper one-shot (its encoder runs on
+    the zero memory of a request without frame embeds)."""
     assert serve.main(["--arch", arch, "--preset", "tiny", "--device",
                        "cpu", "--requests", "4", "--max-new", "4"]) == 0
     lines = capsys.readouterr().out.splitlines()

@@ -198,10 +198,18 @@ def test_config_copies_match_reference(arch, full):
     assert ttf.block_structure(ct) == jtf.block_structure(cj)
 
 
-def test_cross5_is_refused_by_name():
-    with pytest.raises(ValueError, match="cross5"):
-        dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
-                            layer_pattern="cross5")
+def test_cross5_is_accepted_with_the_reference_kinds():
+    """``"cross5"`` (four self-attention and one cross-attention layer a
+    block of 5) is a pattern of the port: its kinds, block period and
+    block structure are the reference's."""
+    ct = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
+                             layer_pattern="cross5", n_layers=10)
+    cj = dataclasses.replace(jreduced(jget("olmoe-1b-7b")),
+                             layer_pattern="cross5", n_layers=10)
+    assert ct.layer_kinds() == cj.layer_kinds()
+    assert ct.layer_kinds()[4] == ct.layer_kinds()[9] == "cross"
+    assert ct.scan_period == cj.scan_period == 5
+    assert ttf.block_structure(ct) == jtf.block_structure(cj)
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b"])

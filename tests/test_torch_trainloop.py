@@ -164,11 +164,15 @@ def test_driver_tiny_twice_to_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b",
                                   "gemma-7b", "qwen1.5-0.5b",
-                                  "command-r-35b", "minicpm3-4b"])
+                                  "command-r-35b", "minicpm3-4b",
+                                  "llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
 def test_driver_tiny_trains_every_arch(tmp_path, arch, capsys):
     """``launch.train --arch ... --preset tiny --device cpu`` trains the
-    Mamba, hybrid, dense and MLA stacks: finite logged losses (the loop
-    logs every 10 steps), a checkpoint at the last step."""
+    Mamba, hybrid, dense, MLA, cross-attention and encoder-decoder stacks
+    (the last two on zero memory, as the reference's launcher fills it):
+    finite logged losses (the loop logs every 10 steps), a checkpoint at
+    the last step."""
     assert train.main(["--arch", arch, "--preset", "tiny", "--device", "cpu",
                        "--steps", "10", "--batch", "2", "--seq", "16",
                        "--checkpoint-every", "10", "--ckpt-dir",
