@@ -213,6 +213,24 @@
    bitwise against eager, the cross cache's bytes a slot, an ``[8,
    1500]`` encode timed, 8 requests of 1500 frame embeds and one on a zero
    memory; tok/s, TTFT/TPOT p50 and peak memory of each stream;
+18. the dry run and the invariant checks (``dryrun_serving`` after phase
+   12 on phase 5's weights, ``dryrun_training`` after phase 17): (a) on
+   moonshot-v1-16b-a3b whole, one prefill and one decode cell at the
+   largest batch of ``PHASE18_SEQ``-token prompts (of caches of as many
+   rows) whose dry-run peak is at most ``PHASE18_PEAK_GIB`` on ``meta``
+   (``launch.steps.lower_cell``), the shapes and the prediction printed
+   before the card runs; each step on the card under the op-level
+   analyzer with the counters zeroed just before and read just after: its
+   flops, traffic, memory record, census and kernels' work exactly equal
+   to meta's, its predicted peak within ``PHASE18_PEAK_TOL`` of the
+   allocator's, warm ms by CUDA events, the roofline bound and fraction,
+   model FLOPs, MFU and useful-FLOP ratio; (b) a train step at phase
+   13d's cut and batch, the same checks (the weights' gradients and AdamW
+   moments in the peak, the backward kernel priced by its formula); (c)
+   the dispatch audit of (a)'s steps on the card (clean, its known
+   widenings at their count) and of a decode step with an ``.item()``
+   injected (flagged); (d) the lint over the
+   port, this script and ``tools/`` (0 unsuppressed findings);
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -230,7 +248,7 @@
    (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
    device time by stage); every row's launches on phase 14a's mesh steps
    by rank, and the two FFN kernels' checks there; every row's launches
-   on phase 17's streams (0);
+   on phase 17's streams (0), and on phase 18's cells (18a, 18b);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -250,6 +268,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))   # the card's checks
+
+from repro_torch.configs.hw import GIGA, TERA  # noqa: E402  report units
+from repro_torch.kernels import cost as kcost  # noqa: E402  kernels' work
 
 # the card's rates, set in main() from its record in repro_torch/configs/hw.py
 # (the H100 data sheet, by variant): HBM bytes/s, dense bf16 tensor-core
@@ -415,7 +436,7 @@ def check_quantize(dev):
         rows_ms = time_ms(lambda: qk.quantize_fp4_cuda(rows, gs), iters=10)
         del rows, pk_r, sc_r
         n = view.numel()
-        nbytes = n * 2 + n // 2 + (n // 16) * 4
+        nbytes = kcost.quantizer(n, view.element_size()).nbytes
         q_bound, q_by = quantizer_bound(n)
         log(f"quantize_fp4 {name}: {ms:.4f} ms (predicate 0: "
             f"{idle_ms:.4f} ms, device {idle_dev:.4f} ms; plain "
@@ -434,12 +455,13 @@ def check_quantize(dev):
             view, ord=float("inf")), iters=10)
         s_amax_ms = time_ms(lambda: view.abs().amax(), iters=10)
         # it reads the stack once; ~2 operations (abs, max) per weight
-        s_bytes = n * view.element_size() / HBM_BYTES_PER_S * 1e3
+        s_mem = kcost.global_scale(n, view.element_size()).nbytes \
+            / HBM_BYTES_PER_S * 1e3
         s_ops = n * 2 / F32_FLOP_PER_S * 1e3
         log(f"global_scale_fp4 {name}: bitwise equal; {s_ms:.4f} ms "
             f"(predicate 0: {s_idle_ms:.4f} ms, device {s_idle_dev:.4f} ms; "
             f"plain {s_plain_ms:.4f} ms; torch.linalg.vector_norm(inf) "
-            f"{s_lib_ms:.4f} ms, view.abs().amax() {s_amax_ms:.4f} ms), bound {max(s_bytes, s_ops):.4f} ms "
+            f"{s_lib_ms:.4f} ms, view.abs().amax() {s_amax_ms:.4f} ms), bound {max(s_mem, s_ops):.4f} ms "
             f"({n * view.element_size() / 1e6:.1f} MB), "
             f"{n * view.element_size() / s_ms / 1e6:.1f} GB/s")
         if name == "gate_up":
@@ -450,8 +472,8 @@ def check_quantize(dev):
             srec.update(max_abs_err=0.0, ms=s_ms, idle_ms=s_idle_ms,
                         idle_device_ms=s_idle_dev, plain_ms=s_plain_ms,
                         library_ms=s_lib_ms, abs_amax_ms=s_amax_ms,
-                        bound_ms=max(s_bytes, s_ops),
-                        bound_by="bytes" if s_bytes >= s_ops
+                        bound_ms=max(s_mem, s_ops),
+                        bound_by="bytes" if s_mem >= s_ops
                         else "operations")
         del w, view, pk, sc, pk_p, sc_p
 
@@ -476,13 +498,13 @@ def check_quantize(dev):
 
 
 def ffn_bound(args, fp4=True):
-    """Least time of one FFN launch on these inputs, ``(ms, bound_by)``.
-    Bytes: x and y once each, and the weights (FP4: packed codes and
-    scales, 4.25 bits a weight; plain: 16 or 32 bits) of the slots that
-    hold a nonzero row.  Operations: 6·D·F per nonzero row at the bf16 MMA
-    rate (H100 has no FP4 MMA).  All-zero rows (the pad slot's unfilled
-    capacity), rows of slots without weights and rows of slots with a zero
-    count need no work: their output is 0."""
+    """Least time of one FFN launch on these inputs, ``(ms, bound_by)``,
+    from ``kernels.cost.grouped_ffn`` at this run's work: the rows that
+    work (nonzero rows of slots with weights and a count; all-zero rows,
+    the pad slot's unfilled capacity, need none: their output is 0) at
+    6·D·F each on the bf16 MMA rate (H100 has no FP4 MMA), and the
+    weights of the slots that hold such a row (FP4: codes and scales,
+    4.25 bits a weight; plain: 16 or 32 bits), x and y once each."""
     import torch
     xs, gs = args[0], args[1]
     m, d = xs.shape
@@ -494,14 +516,12 @@ def ffn_bound(args, fp4=True):
     work = (xs != 0).any(-1) & (slot < min(gs.numel(), n_w))
     rows = int(work.sum())
     n_live = int(torch.unique(slot[work]).numel())
-    w_bytes = 0.5 + 4 / 16 if fp4 else args[2].element_size()
-    nbytes = (n_live * 3 * f * d * w_bytes
-              + 2 * m * d * xs.element_size() + gs.numel() * 4
-              + (12 if fp4 else 0))
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = 6.0 * rows * d * f / BF16_FLOP_PER_S * 1e3
-    return (max(bound_bytes, bound_ops),
-            "bytes" if bound_bytes >= bound_ops else "operations")
+    w = kcost.grouped_ffn(m, d, f, xs.element_size(), gs.numel(), rows,
+                          n_live, fp4, args[2].element_size())
+    mem_ms = w.nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = w.flops / BF16_FLOP_PER_S * 1e3
+    return (max(mem_ms, ops_ms),
+            "bytes" if mem_ms >= ops_ms else "operations")
 
 
 @contextlib.contextmanager
@@ -856,7 +876,7 @@ def check_grouped_ffn(dev):
             f"G={e + 1} (pad slot without weights) bf16: max abs err "
             f"{err:.4g}; {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
             f"{bound:.4f} ms ({by}), "
-            f"{6.0 * t * k * d * f / ms / 1e9:.1f} TFLOP/s")
+            f"{6.0 * t * k * d * f / ms / GIGA:.1f} TFLOP/s")
         times[name] = ms
     return times
 
@@ -923,18 +943,18 @@ def check_fp4_linear(dev):
                          warmup=3)
     bf16_lib_ms = time_ms(lambda: torch.matmul(x, w16.t()), iters=50,
                           warmup=3)
-    flops = 2.0 * m * n * k
-    nbytes = m * k * 2 + n * k // 2 + n * k // 16 * 4 + m * n * 4
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    work = kcost.fp4_matmul(m, n, k, 2, 4)
+    flops, nbytes = work.flops, work.nbytes
+    bound_mem = nbytes / HBM_BYTES_PER_S * 1e3
     bound_tc = flops / BF16_FLOP_PER_S * 1e3
     # promotion: one FFMA per output and group (a4: an FMUL too)
     bound_promo = 2.0 * m * n * (k // 16) / F32_FLOP_PER_S * 1e3
     log(f"fp4_matmul [{m}, {k}] . [{n}, {k}]^T -> f32: bf16 x "
-        f"{times['bf16 x']:.4f} ms ({flops / times['bf16 x'] / 1e9:.1f} "
+        f"{times['bf16 x']:.4f} ms ({flops / times['bf16 x'] / GIGA:.1f} "
         f"TFLOP/s), a4 {times['a4']:.4f} ms, f32 x {times['f32 x']:.4f} ms; "
         f"plain {plain_ms:.4f} ms; bounds: bf16 tensor ops "
-        f"{bound_tc:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s), f32 x "
-        f"three passes {3 * bound_tc:.4f} ms, bytes {bound_bytes:.4f} ms "
+        f"{bound_tc:.4f} ms ({flops / GIGA:.1f} GFLOP at 989 TFLOP/s), f32 x "
+        f"three passes {3 * bound_tc:.4f} ms, bytes {bound_mem:.4f} ms "
         f"({nbytes / 1e6:.1f} MB), promotion FFMA {bound_promo:.4f} ms "
         f"(a4 {2 * bound_promo:.4f}) on the f32 pipes beside the tensor "
         f"cores; yardsticks: torch.matmul(x.float(), w_deq.T) "
@@ -942,8 +962,8 @@ def check_fp4_linear(dev):
         f"w_deq.bfloat16().T) {bf16_lib_ms:.4f} ms (cuBLAS bf16, rounded)")
     rec.update(ms=times["bf16 x"], a4_ms=times["a4"],
                f32_x_ms=times["f32 x"], plain_ms=plain_ms,
-               bound_ms=max(bound_bytes, bound_tc),
-               bound_by="bytes" if bound_bytes >= bound_tc else "operations",
+               bound_ms=max(bound_mem, bound_tc),
+               bound_by="bytes" if bound_mem >= bound_tc else "operations",
                library_ms=f32_lib_ms, bf16_library_ms=bf16_lib_ms)
     return rec, counts
 
@@ -1127,7 +1147,7 @@ def serve(dev):
     torch.cuda.synchronize()
     log(f"init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
-        f"{tree_bytes(params) / 1e9:.2f} GB of weights in "
+        f"{tree_bytes(params) / GIGA:.2f} GB of weights in "
         f"{time.perf_counter() - t0:.1f} s")
     main_ms = check_ffn_at_main_shapes(sync_free_forwards(dev, params, cfg))
     torch.cuda.empty_cache()
@@ -2116,12 +2136,12 @@ def managed_serve(dev, params, cfg, arm: str, mgr, note, **engine_kw):
         f"{len(eng.stats)} iterations; wall {wall:.3f} s, "
         f"{toks / wall:.2f} tok/s, TTFT p50 {np.median(ttft) * 1e3:.1f} ms, "
         f"TPOT p50 {np.median(tpot) * 1e3:.2f} ms; max memory allocated "
-        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB); forwards under "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / GIGA:.2f} GB); forwards under "
         f"set_sync_debug_mode('error'): {checked}")
     log(f"8{arm}: replans attempted {len(attempts)} (verdicts {verdicts}), "
         f"plans committed {mgr.n_migrations}; bytes moved "
-        f"{eng.migration_bytes_moved} ({eng.migration_bytes_moved / 1e9:.3f} "
-        f"GB); measured bandwidth EWMA {mgr.bandwidth.bytes_per_s / 1e9:.1f} "
+        f"{eng.migration_bytes_moved} ({eng.migration_bytes_moved / GIGA:.3f} "
+        f"GB); measured bandwidth EWMA {mgr.bandwidth.bytes_per_s / GIGA:.1f} "
         f"GB/s over {mgr.bandwidth.n_obs} timed gathers; stall "
         f"{eng.migration_stall_s:.4f} s; capacity factors {factors}")
     if len(timed) != len(drains):
@@ -2130,16 +2150,16 @@ def managed_serve(dev, params, cfg, arm: str, mgr, note, **engine_kw):
     for d, (counted, got, secs) in zip(drains, timed):
         log(f"8{arm}: migration.drain {d['mode']}: {d['bytes']} bytes "
             f"counted, {got} copied by the gathers ({got / counted:.3f}x); "
-            f"apply {secs * 1e3:.3f} ms ({counted / secs / 1e9:.1f} GB/s "
-            f"counted, {got / secs / 1e9:.1f} GB/s copied), stall "
+            f"apply {secs * 1e3:.3f} ms ({counted / secs / GIGA:.1f} GB/s "
+            f"counted, {got / secs / GIGA:.1f} GB/s copied), stall "
             f"{d['stall_s'] * 1e3:.3f} ms, {d['layers']} layer(s)"
             + (f", plan landed {d['done']}" if "done" in d else ""))
     if timed:
         counted, got, secs = (sum(t[i] for t in timed) for i in range(3))
         log(f"8{arm}: all timed applies: {counted} bytes counted, {got} "
             f"copied ({got / counted:.3f}x) in {secs * 1e3:.3f} ms: "
-            f"{counted / secs / 1e9:.1f} GB/s counted, "
-            f"{got / secs / 1e9:.1f} GB/s copied")
+            f"{counted / secs / GIGA:.1f} GB/s counted, "
+            f"{got / secs / GIGA:.1f} GB/s copied")
     working = {k: v if isinstance(v, int) else sum(v.values())
                for k, v in note.working().items()}
     log(f"8{arm}: kernel launches {counts}; of those, launches that did "
@@ -2303,8 +2323,8 @@ def placement_and_replication(dev, params, cfg):
     from repro_torch.models.common import tree_bytes
     log(f"8b: expand_moe_params to {mgr.n_slots} slots in place in "
         f"{time.perf_counter() - t0:.2f} s; weights now "
-        f"{tree_bytes(params) / 1e9:.2f} GB; peak "
-        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+        f"{tree_bytes(params) / GIGA:.2f} GB; peak "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / GIGA:.2f} GB)")
     check_block(params, b0, logical, mgr.rset.slot_owner, "8b expanded")
     empty = np.flatnonzero(mgr.rset.slot_owner < 0)
     zeros = all(bool((params["blocks"]["layer0"]["moe"][k][:, empty] == 0)
@@ -2480,8 +2500,8 @@ def elastic_serving(dev):
     peak = torch.cuda.max_memory_allocated()
     log(f"9: expand_moe_params to {mgr.n_slots} slots ({PHASE9_VEP} ranks x "
         f"{mgr.slots_per_rank}) in place in {time.perf_counter() - t0:.2f} "
-        f"s; weights {tree_bytes(params) / 1e9:.2f} GB; peak "
-        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+        f"s; weights {tree_bytes(params) / GIGA:.2f} GB; peak "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / GIGA:.2f} GB)")
     check_block(params, b0, logical, mgr.rsets[b0].slot_owner, "9 expanded")
     g80 = check_kernels_at_slots(params, b0, "9")
     place = tuple(torch.as_tensor(np.asarray(a), device=dev)
@@ -2569,9 +2589,9 @@ def elastic_serving(dev):
     mgr.observe, mgr.observe_slots = noted_observe, checked_slots
 
     usage = shutil.disk_usage(ckdir.parent)
-    log(f"9: checkpoint directory {ckdir}: disk {usage.free / 1e9:.1f} GB "
-        f"free of {usage.total / 1e9:.1f} GB; host MemAvailable "
-        f"{meminfo_available() / 1e9:.1f} GB")
+    log(f"9: checkpoint directory {ckdir}: disk {usage.free / GIGA:.1f} GB "
+        f"free of {usage.total / GIGA:.1f} GB; host MemAvailable "
+        f"{meminfo_available() / GIGA:.1f} GB")
     note = ServeLaunches(keep_inputs=True)
     counts = working = None
     try:
@@ -2581,9 +2601,9 @@ def elastic_serving(dev):
         ck_bytes = sum(f.stat().st_size for f in ckdir.rglob("*")
                        if f.is_file())
         log(f"9: engine checkpoint saved: {ck_bytes} bytes "
-            f"({ck_bytes / 1e9:.2f} GB) in {save_s:.1f} s "
-            f"({ck_bytes / save_s / 1e9:.2f} GB/s); host MemAvailable "
-            f"after {meminfo_available() / 1e9:.1f} GB")
+            f"({ck_bytes / GIGA:.2f} GB) in {save_s:.1f} s "
+            f"({ck_bytes / save_s / GIGA:.2f} GB/s); host MemAvailable "
+            f"after {meminfo_available() / GIGA:.1f} GB")
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2656,13 +2676,13 @@ def elastic_serving(dev):
     p_sum = prof.summary()
     log(f"9: recovery chunks {seen['chunks']} landing "
         f"{seen['recovered_layers']} lost layers; bytes patched from the "
-        f"checkpoint {co.patched_bytes} ({co.patched_bytes / 1e9:.3f} GB); "
+        f"checkpoint {co.patched_bytes} ({co.patched_bytes / GIGA:.3f} GB); "
         f"recoveries {tel.recoveries} s; degraded iterations "
         f"{tel.degraded_iters}, availability {tel.availability:.4f}, lost "
         f"tokens {tel.lost_tokens_total:.0f}; dead-slot checks "
         f"{seen['dead_checked']}; events "
         f"{[(e['kind'], e.get('rank')) for e in co.events]}; max memory "
-        f"allocated {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+        f"allocated {peak / 2 ** 30:.2f} GiB ({peak / GIGA:.2f} GB)")
     log(f"9: profiler ({prof.ledger.hw.name} record): MFU {p_sum['mfu']:.6f}, "
         f"roofline fraction {p_sum['roofline_fraction']:.6f}, time_scale "
         f"{p_sum['time_scale']:.4f}, forward s {p_sum['forward_s_total']:.3f} "
@@ -2920,7 +2940,7 @@ def ep_rank_work(mesh, layers):
     params = tf.init_model(cfg, seed=0)
     torch.cuda.synchronize()
     res = {"init_s": time.perf_counter() - t0,
-           "weights_gb": tree_bytes(params) / 1e9,
+           "weights_gb": tree_bytes(params) / GIGA,
            "slots": int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[1])}
     sent = Sentinel(strict=True)
     comm = ep_moe._dist_comm(mesh)
@@ -3236,7 +3256,7 @@ def ep_migration_work(mesh, holder, cfg, sent):
                                      migrate_async=True)
     ep_check_blocks(params, logical, lambda b: mgr.tables[b].owner, ep, my,
                     "11b")
-    out["b"]["bw_gbps"] = mgr.bandwidth.bytes_per_s / 1e9
+    out["b"]["bw_gbps"] = mgr.bandwidth.bytes_per_s / GIGA
     del eng, params, logical, mgr, note
     gc.collect()
     torch.cuda.empty_cache()
@@ -3257,7 +3277,7 @@ def ep_migration_work(mesh, holder, cfg, sent):
     out["c_expand_s"] = time.perf_counter() - t0
     out["c_slots"] = int(params["blocks"]["layer0"]["moe"]["w_gate"]
                          .shape[1])
-    out["c_weights_gb"] = tree_bytes(params) / 1e9
+    out["c_weights_gb"] = tree_bytes(params) / GIGA
     ep_check_blocks(params, logical,
                     lambda b: mgr.rsets[b].slot_owner, ep, my, "11c expanded")
     ckdir = ROOT / "build" / "phase11_ckpt"
@@ -3643,7 +3663,7 @@ def ep_migration_checks(ranks, backend, layers, smi):
             f"{r0['sent_count']} all-to-alls a rank; timed gathers "
             f"{[(b, round(t * 1e3, 3)) for b, t in r0['timed']]} (bytes, "
             f"ms; rank 0, agreed over the ranks), "
-            f"{sum(b for b, _ in r0['timed']) / max(sum(secs), 1e-9) / 1e9:.3f}"
+            f"{sum(b for b, _ in r0['timed']) / max(sum(secs), 1e-9) / GIGA:.3f}"
             f" GB/s counted; stall {r0['stall_s']:.3f} s; wall "
             f"{r0['wall_s']:.3f} s, {r0['tokens'] / r0['wall_s']:.2f} tok/s, "
             f"TTFT p50 {r0['ttft_p50_ms']:.1f} ms, TPOT p50 "
@@ -3664,7 +3684,7 @@ def ep_migration_checks(ranks, backend, layers, smi):
     log(f"11c: {p[0]['c_slots']} slots a rank after expand_moe_params in "
         f"{p[0]['c_expand_s']:.2f} s ({p[0]['c_weights_gb']:.2f} GB a rank); "
         f"EP checkpoint {p[0]['c_ckpt_bytes']} bytes "
-        f"({p[0]['c_ckpt_bytes'] / 1e9:.2f} GB, rank 0 writes) in "
+        f"({p[0]['c_ckpt_bytes'] / GIGA:.2f} GB, rank 0 writes) in "
         f"{p[0]['c_save_s']:.1f} s; kills {c0['kills']}; refused "
         f"{c0['refused']}; recovery s {c0['recovery_s']}; degraded "
         f"iterations {c0['degraded_iters']}, availability "
@@ -3712,24 +3732,21 @@ def ep_migration_checks(ranks, backend, layers, smi):
 # --------------------------------------------------------------------------
 def bwd_bound(args):
     """Least time of one backward launch on these inputs, ``(ms,
-    bound_by)``.  Operations: eight products of 2·D·F a row (g, u and dh
-    recomputed, dx twice, three weight gradients) over the rows of slots
-    with weights, at the bf16 tensor-core rate.  Bytes: xs and dy read and
-    dxs written once each, the weights of the slots with rows read once,
-    the three weight gradients written once."""
+    bound_by)``, from ``kernels.cost.grouped_ffn_bwd`` at this run's work:
+    eight products of 2·D·F a row over the rows of slots with weights, at
+    the bf16 tensor-core rate; xs and dy read and dxs written once each,
+    the weights of the slots with rows read once, the three weight
+    gradients written once."""
     xs, gs, wg = args[0], args[1], args[2]
     m, d = xs.shape
     n_w, _, f = wg.shape
     counts = gs[:n_w].long().clamp(min=0)
-    rows = int(counts.sum())
-    n_live = int((counts > 0).sum())
-    el = xs.element_size()
-    nbytes = (3 * m * d * el + gs.numel() * 4
-              + 3 * d * f * el * (n_live + n_w))
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = 16.0 * rows * d * f / BF16_FLOP_PER_S * 1e3
-    return (max(bound_bytes, bound_ops),
-            "bytes" if bound_bytes >= bound_ops else "operations")
+    w = kcost.grouped_ffn_bwd(m, d, f, xs.element_size(), gs.numel(), n_w,
+                              int(counts.sum()), int((counts > 0).sum()))
+    mem_ms = w.nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = w.flops / BF16_FLOP_PER_S * 1e3
+    return (max(mem_ms, ops_ms),
+            "bytes" if mem_ms >= ops_ms else "operations")
 
 
 def check_grouped_ffn_bwd_cases(dev):
@@ -3804,7 +3821,7 @@ def check_grouped_ffn_bwd(args):
     m, d = args[0].shape
     n_w, _, f = args[2].shape
     rows = int(args[1][:n_w].sum())
-    tflops = 16.0 * rows * d * f / ms / 1e9
+    tflops = 16.0 * rows * d * f / ms / GIGA
     log(f"grouped_ffn_bwd at the full-width train step's first backward: "
         f"M={m} ({rows} rows in slots with weights, G={args[1].numel()}, "
         f"Gw={n_w}) D={d} F={f} {args[0].dtype}: max abs err {err:.4g}; "
@@ -3993,7 +4010,7 @@ def full_width_steps(dev):
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     log(f"13d: {cfg.name} at full width, {cfg.n_layers} layers "
         f"({cfg.ffn_kinds().count('moe')} MoE), remat {cfg.remat}: "
-        f"{n_params / 1e9:.3f} B parameters, state built in "
+        f"{n_params / GIGA:.3f} B parameters, state built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     step = make_train_step(cfg, rcfg, tcfg)
@@ -4266,7 +4283,7 @@ def mesh_train_rank_work(mesh, layers, tokens, one):
     res = {"init_s": time.perf_counter() - t0,
            "state_gb": (tree_bytes(state["params"])
                         + tree_bytes(state["opt"].mu)
-                        + tree_bytes(state["opt"].nu)) / 1e9,
+                        + tree_bytes(state["opt"].nu)) / GIGA,
            "slots": int(state["params"]["blocks"]["layer0"]["moe"]
                         ["w_gate"].shape[1])}
     # step 1 against the one-card step (no update)
@@ -4605,11 +4622,10 @@ def quantizer_bound(n: int):
     ``(ms, bound_by)``: the weights read, the codes and scales written;
     ~12 f32 operations per weight (abs, max, divide, 7 compares, select,
     shift/or) off the tensor cores."""
-    nbytes = n * 2 + n // 2 + (n // 16) * 4
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_mem = kcost.quantizer(n, 2).nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = n * 12 / F32_FLOP_PER_S * 1e3
-    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
-                                 else "operations")
+    return max(b_mem, b_ops), ("bytes" if b_mem >= b_ops
+                               else "operations")
 
 
 def check_kernels_at_jamba_shapes(dev):
@@ -4688,8 +4704,8 @@ def check_kernels_at_jamba_shapes(dev):
     s_lib = time_ms(lambda: torch.linalg.vector_norm(view, ord=float("inf")),
                     iters=5)
     s_bound = max(n * 2 / HBM_BYTES_PER_S, n * 2 / F32_FLOP_PER_S) * 1e3
-    log(f"15a whole stack {tuple(view.shape)} ({n / 1e9:.3f} e9 weights, "
-        f"{n * 2 / 1e9:.2f} GB): global scale bitwise, {s_ms:.4f} ms (plain "
+    log(f"15a whole stack {tuple(view.shape)} ({n / GIGA:.3f} e9 weights, "
+        f"{n * 2 / GIGA:.2f} GB): global scale bitwise, {s_ms:.4f} ms (plain "
         f"{s_plain:.4f}, vector_norm(inf) {s_lib:.4f}), bound {s_bound:.4f} "
         f"ms (bytes); quantizer experts 0 and {view.shape[0] - 1} bitwise "
         f"against the plain quantizer on each alone, {q_ms:.4f} ms (plain "
@@ -4947,8 +4963,8 @@ def falcon_whole(dev, smi):
     log(f"15b init {cfg.name}: {cfg.n_layers} Mamba layers, d_model "
         f"{cfg.d_model}, d_inner {cfg.ssm.expand * cfg.d_model}, N "
         f"{cfg.ssm.d_state}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.3f} B parameters, "
-        f"{tree_bytes(params) / 1e9:.2f} GB in "
+        f"{cfg.param_count() / GIGA:.3f} B parameters, "
+        f"{tree_bytes(params) / GIGA:.2f} GB in "
         f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(15)
     m0 = torch.zeros((1, 1), device=dev)
@@ -5084,8 +5100,8 @@ def jamba_serving(dev, smi):
     log(f"15c init {cfg.name} cut to {PHASE15_JAMBA} (published: 72 layers,"
         f" 16 experts; one card): layers {cfg.layer_kinds()}, FFNs "
         f"{cfg.ffn_kinds()}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, d_inner"
-        f" {cfg.ssm.expand * cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
-        f"parameters, {tree_bytes(params) / 1e9:.2f} GB in "
+        f" {cfg.ssm.expand * cfg.d_model}, {cfg.param_count() / GIGA:.3f} B "
+        f"parameters, {tree_bytes(params) / GIGA:.2f} GB in "
         f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(16)
     # phase 5a's FP4 configuration: every virtual rank hot, the gate open;
@@ -5385,7 +5401,7 @@ def falcon_train_steps(dev, smi):
                                 device=dev, cfg=cfg)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     log(f"16a {cfg.name} at its published widths cut to {cfg.n_layers} of "
-        f"64 layers, remat {cfg.remat}: {n_params / 1e9:.3f} B parameters, "
+        f"64 layers, remat {cfg.remat}: {n_params / GIGA:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with "
         "AdamW's state")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)
@@ -5590,8 +5606,8 @@ def dense_serving(dev, smi):
                if layers else " whole")
             + f": d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
             f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-            f"{cfg.param_count() / 1e9:.3f} B parameters, "
-            f"{tree_bytes(params) / 1e9:.2f} GB")
+            f"{cfg.param_count() / GIGA:.3f} B parameters, "
+            f"{tree_bytes(params) / GIGA:.2f} GB")
         gen = torch.Generator(device=dev).manual_seed(16)
         m0 = torch.zeros((1, 4), device=dev)
         gaps = None
@@ -5671,8 +5687,8 @@ def minicpm3_serving(dev, smi):
         f"{cfg.d_model}, {cfg.n_heads} heads, q_lora {m.q_lora_rank}, "
         f"kv_lora {m.kv_lora_rank}, qk {m.qk_nope_head_dim}+"
         f"{m.qk_rope_head_dim}, v {m.v_head_dim}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.3f} B parameters, "
-        f"{tree_bytes(params) / 1e9:.2f} GB")
+        f"{cfg.param_count() / GIGA:.3f} B parameters, "
+        f"{tree_bytes(params) / GIGA:.2f} GB")
 
     def bytes_a_token(c):
         return c.n_layers * sum(
@@ -5882,9 +5898,9 @@ def vision_serving(dev, smi):
         f"({cfg.layer_kinds().count('cross')} cross): d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {nv} vision tokens, "
-        f"{cfg.param_count() / 1e9:.3f} B parameters (the reference's count; "
-        f"whole {full.param_count() / 1e9:.3f} B), "
-        f"{tree_bytes(params) / 1e9:.2f} GB")
+        f"{cfg.param_count() / GIGA:.3f} B parameters (the reference's count; "
+        f"whole {full.param_count() / GIGA:.3f} B), "
+        f"{tree_bytes(params) / GIGA:.2f} GB")
     slot, per = memory_cache_bytes(cfg, cfg.n_layers)
     log(f"17a cross cache a slot (xk + xv, bf16): {per.get('cross', 0)} B a "
         f"cross layer, {slot} B over this cut's cross layers, "
@@ -5987,8 +6003,8 @@ def whisper_serving(dev, smi):
         f"{cfg.n_layers} decoder layers over {t} frames, d {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
         f"({cfg.activation}), QKV bias, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.3f} B parameters (the reference's count), "
-        f"{tree_bytes(params) / 1e9:.2f} GB")
+        f"{cfg.param_count() / GIGA:.3f} B parameters (the reference's count), "
+        f"{tree_bytes(params) / GIGA:.2f} GB")
     slot, per = memory_cache_bytes(cfg, cfg.n_layers)
     log(f"17b cross cache a slot (xk + xv, bf16): {per['dec']} B a layer, "
         f"{slot} B over {cfg.n_layers} layers")
@@ -6073,6 +6089,344 @@ def memory_stream(dev, smi):
     return {"vlm": vlm, "whisper": whisper, "counts": counts}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the dry run and the invariant checks
+# --------------------------------------------------------------------------
+PHASE18_SEQ = 4096                # 18a: prompt tokens, and cache rows
+PHASE18_PEAK_GIB = 70             # 18a: the dry-run peak a batch may reach
+PHASE18_TRAIN = dict(layers=4, batch=4, seq=1024)   # 18b: phase 13d's cut
+# predicted against measured peak: within 5 % or 512 MiB, the larger
+PHASE18_PEAK_TOL = (0.05, 512 << 20)
+
+
+def phase18_inputs(cfg, shape, dev, seed=18):
+    """The card's inputs of a cell's step, of the dry run's shapes
+    (``launch.steps.input_specs``) but the parameters: a seeded batch,
+    zero AIMD state, a zero cache."""
+    import torch
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.models import transformer as tf
+    spec = input_specs(cfg, shape)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {}
+    for k, t in spec["batch"].items():
+        if k == "pos":
+            batch[k] = torch.full(t.shape, shape.seq_len - 1,
+                                  dtype=t.dtype, device=dev)
+        elif t.dtype == torch.bool:
+            batch[k] = torch.rand(t.shape, generator=gen, device=dev) < 0.5
+        elif t.dtype == torch.int32:
+            batch[k] = torch.randint(0, cfg.vocab_size, t.shape,
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+        else:
+            batch[k] = (torch.randn(t.shape, generator=gen, device=dev)
+                        * 0.02).to(t.dtype)
+    out = {"batch": batch,
+           "m_state": torch.zeros(spec["m_state"].shape, device=dev)}
+    if "cache" in spec:
+        out["cache"] = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                     device=dev)
+    return out
+
+
+def largest_batch(cfg, kind: str, limit: int):
+    """(batch, meta records by batch): the largest batch of ``PHASE18_SEQ``
+    token prompts (``kind`` "prefill") or ``PHASE18_SEQ``-row caches
+    ("decode") whose dry-run peak (``launch.steps.lower_cell`` on
+    ``meta``) is at most ``limit`` bytes.  The peak is nearly affine in the
+    batch: the builds at 1 and 2 place a first guess, a bracket grows from
+    it and a bisection closes it on a batch that fits beside one past it
+    that does not."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import lower_cell
+    recs = {}
+
+    def peak(b):
+        if b not in recs:
+            recs[b] = lower_cell(cfg, ShapeConfig(f"{kind}_4k", PHASE18_SEQ,
+                                                  b, kind))
+        return recs[b]["memory"]["peak_bytes"]
+
+    p1 = peak(1)
+    if p1 > limit:
+        raise AssertionError(f"18a {kind}: one {PHASE18_SEQ}-token row "
+                             f"needs {p1 / 2**30:.2f} GiB on meta")
+    b = max(1, 1 + int((limit - p1) // max(peak(2) - p1, 1)))
+    if peak(b) <= limit:
+        lo, step = b, 1
+        while peak(lo + step) <= limit:
+            lo, step = lo + step, step * 2
+        hi = lo + step
+    else:
+        hi, step = b, 1
+        while hi - step > 1 and peak(hi - step) > limit:
+            hi, step = hi - step, step * 2
+        lo = max(hi - step, 1)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if peak(mid) <= limit else (lo, mid)
+    return lo, recs
+
+
+def same_counts(meta, an, mem, label):
+    """The analyzer's counts on the card (``an``, ``mem``) exactly equal to
+    its counts of the same step on ``meta`` (a ``lower_cell`` record)."""
+    pairs = {"flops": (meta["flops_per_device"], an.flops),
+             "traffic": (meta["bytes_per_device"], an.traffic),
+             "memory": (meta["memory"], mem),
+             "census": (meta["census"], an.census),
+             "kernels": (meta["kernels"], an.kernels),
+             "ops": (meta["n_ops"], an.n_ops)}
+    bad = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"{label}: the analyzer's counts on meta and "
+                             f"on the card differ: {bad}")
+
+
+def check_peak(label, predicted, measured):
+    rel, floor = PHASE18_PEAK_TOL
+    tol = max(rel * measured, floor)
+    log(f"{label} peak: predicted {predicted / 2**30:.3f} GiB, measured "
+        f"{measured / 2**30:.3f} GiB (max_memory_allocated, the step's "
+        f"arguments and what it makes), off by "
+        f"{(predicted - measured) / 2**20:+.1f} MiB, tolerance "
+        f"{tol / 2**20:.0f} MiB")
+    if abs(predicted - measured) > tol:
+        raise AssertionError(f"{label}: predicted peak {predicted} B, "
+                             f"measured {measured} B")
+
+
+def analyzed_on_card(step, args, meta, label):
+    """One run of ``step(*args)`` on the card under the analyzer, with the
+    launch counters zeroed just before and read just after; checks its
+    counts against ``meta``'s and its predicted peak against the
+    allocator's.  Returns (analyzer, memory, launch counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.op_analysis import storage_bytes
+    from repro_torch.launch.steps import analyze_step
+    gc.collect()
+    torch.cuda.synchronize()
+    # what the allocator holds beside the step's arguments
+    other = torch.cuda.memory_allocated() - storage_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out, an, mem = analyze_step(step, args)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    measured = torch.cuda.max_memory_allocated() - other
+    del out
+    same_counts(meta, an, mem, label)
+    log(f"{label}: flops {an.flops:.6g}, traffic {an.traffic} B, census "
+        f"{an.census}, {an.n_ops} aten ops, kernels {an.kernels}: equal on "
+        "meta and on the card")
+    check_peak(label, mem["peak_bytes"], measured)
+    launched = {k: v for k, v in counts.items() if v}
+    by_analyzer = {k: int(v["launches"]) for k, v in an.kernels.items()}
+    if torch.cuda.is_available() and launched != by_analyzer:
+        raise AssertionError(f"{label}: launches {launched}, the analyzer "
+                             f"saw {by_analyzer}")
+    return an, mem, counts, measured
+
+
+def roofline_report(label, cfg, shape, an, ms, card):
+    """The whole step's roofline bound and fraction, model FLOPs, MFU and
+    useful-FLOP ratio at the card's record; returns them."""
+    from repro_torch.launch import roofline
+    terms = roofline.roofline_terms(an.flops, an.traffic,
+                                    an.collective_bytes(), card)
+    mf = roofline.model_flops(cfg, shape)
+    rep = {"ms": ms, "bound_ms": terms["bound_s"] * 1e3,
+           "dominant": terms["dominant"],
+           "roofline_fraction": terms["roofline_fraction"],
+           "achieved_of_bound": terms["bound_s"] * 1e3 / ms,
+           "model_flops": mf, "flops": an.flops,
+           "mfu": mf / (ms / 1e3 * card.peak_bf16),
+           "useful_flop_ratio": mf / an.flops if an.flops else 0.0}
+    log(f"{label}: warm {ms:.2f} ms (CUDA events); roofline bound "
+        f"{rep['bound_ms']:.2f} ms ({terms['dominant']}: compute "
+        f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.2f} ms), roofline fraction "
+        f"{rep['roofline_fraction']:.4f}, bound / measured "
+        f"{rep['achieved_of_bound']:.4f}; model FLOPs {mf:.6g} of "
+        f"{an.flops:.6g} counted (useful-FLOP ratio "
+        f"{rep['useful_flop_ratio']:.4f}), MFU {rep['mfu']:.4f} at "
+        f"{card.peak_bf16 / TERA:.0f} TFLOP/s")
+    return rep
+
+
+def injected_item_is_flagged(step, args):
+    """18c: the audit over a step whose MoE layers read their FP4 decision
+    on the host (``.item()`` injected) must flag it."""
+    import torch
+    from repro_torch.analysis.dispatch_audit import DispatchAudit
+    from repro_torch.core import ep_moe
+    orig = ep_moe._use_fp4
+
+    def leaky(*a, **kw):
+        f = orig(*a, **kw)
+        f.item()
+        return f
+
+    ep_moe._use_fp4 = leaky
+    try:
+        with DispatchAudit() as audit:
+            step(*args)
+        torch.cuda.synchronize()
+    finally:
+        ep_moe._use_fp4 = orig
+    rep = audit.report()
+    syncs = [v for v in rep.violations if v.kind == "host_sync"]
+    if not syncs:
+        raise AssertionError("18c: an injected .item() was not flagged")
+    log(f"18c: the injected .item() flagged {len(syncs)} times "
+        f"({syncs[0].format()[:160]})")
+
+
+def dryrun_serving(dev, params, cfg, smi):
+    """Phase 18a and 18c on phase 5's weights (moonshot-v1-16b-a3b whole,
+    eager, one card, no mesh): for a prefill cell and a decode cell, the
+    largest batch of ``PHASE18_SEQ``-token prompts (of caches of as many
+    rows) whose dry-run peak is at most ``PHASE18_PEAK_GIB``, chosen on
+    ``meta`` and printed with the prediction before the card runs; then
+    on the card the same step under the analyzer (its counts exactly
+    equal to meta's, its peak within ``PHASE18_PEAK_TOL`` of the
+    allocator's, the launch counters zeroed just before and read just
+    after), warm device ms by CUDA events, the roofline, MFU and
+    useful-FLOP ratio; and the dispatch audit of each step (clean, its
+    known widenings at their count) and of a decode step with an injected
+    ``.item()`` (flagged)."""
+    import torch
+    from repro_torch.analysis.dispatch_audit import DispatchAudit
+    from repro_torch.configs import ReaLBConfig, ShapeConfig, hw
+    from repro_torch.kernels import working
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.common import tree_bytes
+    card = hw.current()
+    props = torch.cuda.get_device_properties(0)
+    log(f"18: {card.name} record hbm_bytes {card.hbm_bytes} "
+        f"({card.hbm_bytes / 2**30:.2f} GiB); the card's total_memory "
+        f"{props.total_memory} ({props.total_memory / 2**30:.2f} GiB); "
+        f"{smi}")
+    working.track(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"18a: {cfg.name}, {cfg.n_layers} layers, "
+        f"{tree_bytes(params) / GIGA:.2f} GB of weights; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    limit = int(PHASE18_PEAK_GIB * 2**30)
+    rcfg = ReaLBConfig()
+    out = {"counts": {}, "cells": {}}
+    for kind in ("prefill", "decode"):
+        t0 = time.perf_counter()
+        b, recs = largest_batch(cfg, kind, limit)
+        meta = recs[b]
+        shape = ShapeConfig(f"{kind}_4k", PHASE18_SEQ, b, kind)
+        log(f"18a {kind}: batch {b} of {PHASE18_SEQ} "
+            f"{'tokens' if kind == 'prefill' else 'cache rows'} (dry-run "
+            f"peaks by batch: "
+            f"{ {k: round(v['memory']['peak_bytes'] / 2**30, 3) for k, v in sorted(recs.items())} } GiB, "
+            f"limit {PHASE18_PEAK_GIB} GiB; {len(recs)} builds on meta in "
+            f"{time.perf_counter() - t0:.1f} s); prediction: memory "
+            f"{meta['memory']}, flops {meta['flops_per_device']:.6g}, "
+            f"traffic {meta['bytes_per_device']} B, census "
+            f"{meta['census']}, kernels {meta['kernels']}")
+        step, names = build_step(cfg, shape, rcfg)
+        inputs = phase18_inputs(cfg, shape, dev)
+        inputs["params"] = params
+        args = [inputs[n] for n in names]
+        an, mem, counts, measured = analyzed_on_card(step, args, meta,
+                                                     f"18a {kind}")
+        for k, v in counts.items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+        ms = time_ms(lambda: step(*args), iters=2, warmup=0)
+        rep = roofline_report(f"18a {kind}", cfg, shape, an, ms, card)
+        rep.update(batch=b, predicted_peak=mem["peak_bytes"],
+                   measured_peak=measured, counts=counts)
+        out["cells"][kind] = rep
+        with DispatchAudit() as audit:
+            step(*args)
+        torch.cuda.synchronize()
+        ar = audit.report()
+        # the BF16 decode experts' f32 activation, one a slab of products
+        # of each MoE layer (``dispatch_audit.KNOWN_WIDENINGS``)
+        n_moe = sum(1 for f in cfg.ffn_kinds() if f == "moe")
+        known = n_moe * inputs["m_state"].shape[-1] if kind == "decode" \
+            else 0
+        log(f"18c {kind}: audit of the card's eager step: {ar.n_ops} aten "
+            f"ops, {len(ar.widenings)} widenings ({len(ar.known)} known, "
+            f"{known} expected), {ar.f64_allowed} f64 ops on the allowlist "
+            f"(RoPE's frequencies), violations "
+            f"{[v.format() for v in ar.violations]}")
+        if not ar.ok:
+            raise AssertionError(f"18c {kind}: the audit is not clean")
+        if len(ar.known) != known:
+            raise AssertionError(f"18c {kind}: {len(ar.known)} known "
+                                 f"widenings, {known} expected")
+        if kind == "decode":
+            injected_item_is_flagged(step, args)
+        del inputs, args, an
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_training(dev, smi):
+    """Phase 18b and 18d: moonshot-v1-16b-a3b at phase 13d's cut (its
+    published widths, ``PHASE18_TRAIN`` layers, bf16, ``remat="full"``)
+    and batch: one AdamW step predicted on ``meta`` and run on the card
+    under the analyzer (counts exactly equal, the peak with the
+    gradients and the moments within ``PHASE18_PEAK_TOL``; the backward
+    kernel priced by its formula); then the lint over the port, this
+    script and ``tools/`` (0 unsuppressed findings)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import lint
+    from repro_torch.configs import (ReaLBConfig, ShapeConfig, TrainConfig,
+                                     get_config, hw)
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_step, lower_cell
+    c = PHASE18_TRAIN
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=c["layers"], remat="full")
+    shape = ShapeConfig("train_4x1024", c["seq"], c["batch"], "train")
+    rcfg, tcfg = ReaLBConfig(), TrainConfig()
+    cfg, state, _ = train.build(cfg.name, "full", c["batch"], c["seq"], tcfg,
+                                rcfg, device=dev, cfg=cfg)
+    t0 = time.perf_counter()
+    meta = lower_cell(cfg, shape, rcfg=rcfg, tcfg=tcfg)
+    log(f"18b: {cfg.name} at {cfg.n_layers} layers, a [{c['batch']}, "
+        f"{c['seq']}] train step on meta in {time.perf_counter() - t0:.1f} "
+        f"s; prediction: memory {meta['memory']}, flops "
+        f"{meta['flops_per_device']:.6g}, traffic "
+        f"{meta['bytes_per_device']} B, kernels {meta['kernels']}")
+    inputs = phase18_inputs(cfg, shape, dev)
+    inputs.update(params=state["params"], opt_state=state["opt"],
+                  m_state=state["m"])
+    del state
+    step, names = build_step(cfg, shape, rcfg, tcfg)
+    args = [inputs[n] for n in names]
+    an, mem, counts, measured = analyzed_on_card(step, args, meta, "18b")
+    ms = time_ms(lambda: step(*args), iters=2, warmup=0)
+    rep = roofline_report("18b", cfg, shape, an, ms, hw.current())
+    rep.update(predicted_peak=mem["peak_bytes"], measured_peak=measured,
+               counts=counts)
+    del inputs, args, an
+    gc.collect()
+    torch.cuda.empty_cache()
+    found = lint.lint_paths([str(ROOT / "src" / "repro_torch"),
+                             str(ROOT / "chip_smoke.py"),
+                             str(ROOT / "tools")])
+    unsup = [f for f in found if not f.suppressed]
+    log(f"18d: lint over src/repro_torch, chip_smoke.py and tools: "
+        f"{len(unsup)} findings, {len(found) - len(unsup)} suppressed")
+    if unsup:
+        raise AssertionError("18d: " + "; ".join(f.format() for f in unsup))
+    return rep
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -6102,9 +6456,9 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; rates of the "
-        f"{card.name} record: HBM {card.hbm_bw / 1e12:.2f} TB/s, bf16 "
-        f"{card.peak_bf16 / 1e12:.0f} TFLOP/s, f32 "
-        f"{card.peak_f32 / 1e12:.0f} TFLOP/s")
+        f"{card.name} record: HBM {card.hbm_bw / TERA:.2f} TB/s, bf16 "
+        f"{card.peak_bf16 / TERA:.0f} TFLOP/s, f32 "
+        f"{card.peak_f32 / TERA:.0f} TFLOP/s")
     _build.load(verbose=True)
     log(f"kernels built and loaded in {_build.build_seconds:.1f} s")
     for name, regs, smem, spill in ptxas_summary(_build.build_log):
@@ -6131,6 +6485,9 @@ def main() -> int:
     phase12 = compiled_step(dev, params, cfg, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    phase18 = dryrun_serving(dev, params, cfg, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase8, g68 = placement_and_replication(dev, params, cfg)
     del params
     gc.collect()
@@ -6155,6 +6512,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase17 = memory_stream(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase18b = dryrun_training(dev, smi)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -6271,6 +6631,12 @@ def main() -> int:
     # phase 17's two streams (dense stacks with cross-attention): no launch
     for k in kernels:
         k["memory_launches"] = phase17["counts"].get(k["name"], 0)
+    # phase 18: the dry run's whole-model cells (18a) and train step (18b)
+    for k in kernels:
+        k["dryrun_launches"] = phase18["counts"].get(k["name"], 0)
+        k["dryrun_train_launches"] = phase18b["counts"].get(k["name"], 0)
+    log(json.dumps({"dryrun": {**phase18["cells"], "train": {
+        f: v for f, v in phase18b.items() if f != "counts"}}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

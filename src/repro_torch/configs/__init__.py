@@ -1,17 +1,28 @@
-"""Architecture registry of the port: ``get_config(arch_id)``."""
+"""Architecture registry of the port: ``get_config(arch_id)``, and the
+dry run's cells (``get_shape``, ``shape_supported``, ``all_cells``), as
+the reference's ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
     MIGRATION_BW_DEFAULT,
+    MULTI_POD_MESH,
+    PREFILL_32K,
+    SINGLE_POD_MESH,
+    TRAIN_4K,
+    MeshConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
     PlacementConfig,
     ReaLBConfig,
     ReplicationConfig,
+    ShapeConfig,
     SSMConfig,
     TrainConfig,
     reduced,
@@ -38,3 +49,29 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}")
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch × shape) cell runs, by the reference's rule."""
+    if shape.name == "long_500k" and cfg.full_attention_only:
+        return False, ("skip: long_500k requires sub-quadratic attention; "
+                       f"{cfg.name} is pure full-attention")
+    return True, ""
+
+
+def all_cells() -> List[Tuple[str, str, bool, str]]:
+    """(arch, shape, supported, reason) of all 40 cells."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in ALL_SHAPES:
+            ok, why = shape_supported(cfg, shape)
+            out.append((arch, shape.name, ok, why))
+    return out

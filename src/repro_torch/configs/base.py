@@ -8,6 +8,7 @@ frozen dataclasses, so they hash and compare by value.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -347,6 +348,57 @@ class TrainConfig:
     grad_compression: bool = False   # int8 all-reduce w/ error feedback
     checkpoint_every: int = 100
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry run (the reference's)."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A production mesh of the reference: its shape and axis names.  The
+    port's meshes have two axes, ``data`` and ``model``: every axis other
+    than ``model`` folds into ``data`` (the reference's ``batch`` rule is
+    ``("pod", "data")``), see :attr:`port_shape`."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def model_axis_size(self) -> int:
+        return dict(zip(self.axis_names, self.shape)).get("model", 1)
+
+    @property
+    def data_axis_size(self) -> int:
+        return dict(zip(self.axis_names, self.shape)).get("data", 1)
+
+    @property
+    def port_shape(self) -> Tuple[int, int]:
+        """``(data, model)`` of the port's mesh: ``pod`` folded into
+        ``data``."""
+        model = self.model_axis_size
+        return self.n_devices // model, model
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -16,6 +16,13 @@ Per card:
   prices FP4 experts at the TPU's int8 MXU rate, ``PEAK_INT8``.)
 - ``peak_f32``: f32 rate of the CUDA cores, outside the tensor cores.
 - ``hbm_bw``: HBM bandwidth (B/s).
+- ``hbm_bytes``: the card's memory (bytes), what the dry run judges a
+  cell's per-device peak against (``repro_torch.launch.dryrun``).  The
+  SXM record holds what an H100 80GB HBM3 reports as
+  ``torch.cuda.get_device_properties(0).total_memory`` (85017493504 B,
+  79.18 GiB), not the data sheet's 80 GiB: a peak between the two does
+  not run.  The PCIe and NVL records hold the data sheet's sizes, read
+  from no card.
 
 Inter-rank bandwidth is not a property of one card here: the serving
 stack prices dispatch and migration bytes at
@@ -26,6 +33,11 @@ from __future__ import annotations
 import dataclasses
 
 
+# decimal units of the reports: giga and tera (GB, TB/s, TFLOP/s)
+GIGA = 1e9
+TERA = 1e12
+
+
 @dataclasses.dataclass(frozen=True)
 class Hardware:
     """Peak rates of one accelerator, the ledger's and profiler's input."""
@@ -34,14 +46,15 @@ class Hardware:
     peak_fp4_gemm: float        # FLOP/s the FP4 expert GEMMs run at
     peak_f32: float             # FLOP/s, f32 off the tensor cores
     hbm_bw: float               # B/s
+    hbm_bytes: int = 0          # bytes of device memory (0: unknown)
 
 
 H100_SXM = Hardware("H100 SXM", peak_bf16=989e12, peak_fp4_gemm=989e12,
-                    peak_f32=67e12, hbm_bw=3.35e12)
+                    peak_f32=67e12, hbm_bw=3.35e12, hbm_bytes=85017493504)
 H100_PCIE = Hardware("H100 PCIe", peak_bf16=756e12, peak_fp4_gemm=756e12,
-                     peak_f32=51e12, hbm_bw=2.0e12)
+                     peak_f32=51e12, hbm_bw=2.0e12, hbm_bytes=80 << 30)
 H100_NVL = Hardware("H100 NVL", peak_bf16=835e12, peak_fp4_gemm=835e12,
-                    peak_f32=60e12, hbm_bw=3.9e12)
+                    peak_f32=60e12, hbm_bw=3.9e12, hbm_bytes=94 << 30)
 
 
 def for_device_name(name: str) -> Hardware:
@@ -67,4 +80,4 @@ def current() -> Hardware:
 
 
 __all__ = ["Hardware", "H100_SXM", "H100_PCIE", "H100_NVL",
-           "for_device_name", "current"]
+           "for_device_name", "current", "GIGA", "TERA"]

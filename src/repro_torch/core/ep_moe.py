@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig, ReaLBConfig
 from repro_torch.core import quant
 from repro_torch.core.policy import realb_policy
+from repro_torch.kernels import cost as kcost
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import FSDP_DIM, current_mesh, local_slice
 
@@ -356,7 +357,12 @@ class Comm:
     def _run(self, op, tensors, outs, async_op=False):
         """``op(*tensors, async_op=...)``; returns its work (None when
         done).  Staged: ``tensors`` go to the host, the op runs there and
-        the tensors at indices ``outs`` come back."""
+        the tensors at indices ``outs`` come back.  Abstract (the dry
+        run's mesh): nothing runs; the outputs keep the shapes they were
+        made with (an all-to-all's and an all-reduce's those of the input,
+        an all-gather's ``n`` times it, a scatter's ``1/n``)."""
+        if self.mesh.backend == "abstract":
+            return None
         if not self.staged:
             return op(*tensors, async_op=async_op)
         ctx = (contextlib.nullcontext() if self.sentinel is None
@@ -669,12 +675,13 @@ def _quantize_experts(w: Dict[str, torch.Tensor], rcfg: ReaLBConfig,
     +0.0 (a packed code's sign bit), NaN when the dispatched tokens hold an
     inf.  The add is one more pass over the weights, made whatever ``fi``."""
     out = {}
-    for name, wt in w.items():
-        wt_t = wt.transpose(-1, -2)
-        if overlap_token is not None:
-            wt_t = wt_t + overlap_token.to(wt_t.dtype)
-        out[name] = kops.quantize_experts_fp4(wt_t, group=rcfg.group_size,
-                                              pred=fi)
+    with kcost.branch("fp4"):
+        for name, wt in w.items():
+            wt_t = wt.transpose(-1, -2)
+            if overlap_token is not None:
+                wt_t = wt_t + overlap_token.to(wt_t.dtype)
+            out[name] = kops.quantize_experts_fp4(
+                wt_t, group=rcfg.group_size, pred=fi)
     return out
 
 
@@ -694,8 +701,10 @@ def _expert_ffns(xs, gs, w, wq, f, fi, rcfg):
     """Both expert-FFN branches over slot-sorted rows ``xs`` with counts
     ``gs``, each with its counts masked by the decision ``f`` (``fi`` as
     int32), and the chosen one's output (the reference's ``lax.cond``)."""
-    y_fp4 = kops.grouped_fp4_ffn(xs, gs * fi, wq, group=rcfg.group_size)
-    y_bf16 = kops.grouped_ffn(xs, gs * (1 - fi), w)
+    with kcost.branch("fp4"):
+        y_fp4 = kops.grouped_fp4_ffn(xs, gs * fi, wq, group=rcfg.group_size)
+    with kcost.branch("bf16"):
+        y_bf16 = kops.grouped_ffn(xs, gs * (1 - fi), w)
     return torch.where(f, y_fp4, y_bf16)
 
 
@@ -953,28 +962,50 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     s_pol = n_slots // pol_ep
     n_part = s_loc // s_pol
     ys = []
-    for j in range(n_part):
-        sl = slice(j * s_pol, (j + 1) * s_pol)
-        g = torch.matmul(x_t, w["w_gate"][sl].to(dt))        # [s_pol,t,F]
-        u = torch.matmul(x_t, w["w_up"][sl].to(dt))
-        h = F.silu(g.to(F32)).to(dt) * u
-        ys.append(torch.matmul(h, w["w_down"][sl].to(dt)))   # [s_pol,t,D]
-    y_bf16 = ys[0] if n_part == 1 else torch.cat(ys)
+    with kcost.branch("bf16"):
+        for j in range(n_part):
+            sl = slice(j * s_pol, (j + 1) * s_pol)
+            g = torch.matmul(x_t, w["w_gate"][sl].to(dt))    # [s_pol,t,F]
+            u = torch.matmul(x_t, w["w_up"][sl].to(dt))
+            h = _swiglu(g, u)
+            ys.append(torch.matmul(h, w["w_down"][sl].to(dt)))  # [s_pol,t,D]
+        y_bf16 = ys[0] if n_part == 1 else torch.cat(ys)
     # FP4: the grouped W4A4 kernel over x_t once per local slot (the
     # reference's decode FP4 recipe is the grouped kernel's), its counts
     # masked by the decision
-    xs = x_t.repeat(s_loc, 1)                                 # [E·t,D]
-    gs = torch.full((s_loc,), t, dtype=torch.int32, device=x_t.device) * fi
-    y_fp4 = kops.grouped_fp4_ffn(xs, gs, wq, group=rcfg.group_size)
+    with kcost.branch("fp4"):
+        xs = x_t.repeat(s_loc, 1)                             # [E·t,D]
+        gs = torch.full((s_loc,), t, dtype=torch.int32,
+                        device=x_t.device) * fi
+        y_fp4 = kops.grouped_fp4_ffn(xs, gs, wq, group=rcfg.group_size)
     y_e = torch.where(f, y_fp4.reshape(s_loc, t, -1), y_bf16)
 
     pidx = r["flat_p"].reshape(t, k)                          # [t,K] placed
     leid = pidx % s_loc
     if stop_stage == "expert_gemm":
         return r["gates"], r["dec"].m_new, y_e, leid
+    out = _combine_broadcast(r["gates"], pidx, leid, y_e, s_pol, comm)
+    aux = _aux(r, torch.zeros((), dtype=F32, device=x_t.device), k, e_cfg)
+    return out.to(dt), r["dec"].m_new, aux
+
+
+def _swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``silu(g)·u`` of an expert's products, the activation evaluated in
+    f32 and rounded to their dtype (the reference's ``_grouped_ffn``)."""
+    return F.silu(g.to(F32)).to(g.dtype) * u
+
+
+def _combine_broadcast(gates, pidx, leid, y_e, s_pol: int,
+                       comm: Comm) -> torch.Tensor:
+    """The decode combine: each token's gate-weighted sum of this rank's
+    expert outputs ``y_e [s_loc, t, D]``, summed over the EP group in rank
+    order (f32)."""
+    s_loc, t = y_e.shape[:2]
+    n_part = s_loc // s_pol
+    dt = y_e.dtype
     sel = torch.div(pidx, s_loc, rounding_mode="floor") == comm.my_rank
-    local_gate = torch.where(sel, r["gates"], torch.zeros((), dtype=F32,
-                                                          device=x_t.device))
+    local_gate = torch.where(sel, gates, torch.zeros((), dtype=F32,
+                                                     device=y_e.device))
     onehot = (leid[..., None] == torch.arange(
         s_loc, device=leid.device)).to(dt)                    # [t,K,s_loc]
     weight_e = torch.einsum("tk,tke->te", local_gate.to(dt), onehot)
@@ -987,10 +1018,7 @@ def _moe_broadcast(x_t, mod_t, val_t, p, m_vec, cfg, rcfg, rep, pol_ep,
     for j in range(1, n_part):
         partial = partial + torch.einsum("te,etd->td", we[:, j],
                                          ye[j].to(F32))
-    out = comm.sum_in_order(partial)
-
-    aux = _aux(r, torch.zeros((), dtype=F32, device=x_t.device), k, e_cfg)
-    return out.to(dt), r["dec"].m_new, aux
+    return comm.sum_in_order(partial)
 
 
 # --------------------------------------------------------------------------
@@ -1059,10 +1087,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         if rep.slot_owner.shape[0] % pol_ep:
             raise ValueError(f"{rep.slot_owner.shape[0]} slots over "
                              f"{pol_ep} ranks")
-        out = fn(x.reshape(b * s, d), modality.reshape(b * s),
-                 valid.reshape(b * s), p, m_state.reshape(-1), cfg, rcfg,
-                 rep, pol_ep, _local_comm(), stop_stage=stop_stage,
-                 **train_kw)
+        with kcost.alternatives():
+            out = fn(x.reshape(b * s, d), modality.reshape(b * s),
+                     valid.reshape(b * s), p, m_state.reshape(-1), cfg,
+                     rcfg, rep, pol_ep, _local_comm(), stop_stage=stop_stage,
+                     **train_kw)
         if stop_stage is not None:     # instrumented prefix: raw boundary
             return out
         y, m_new, aux = out
@@ -1100,6 +1129,9 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     # them), the dispatch's sequence over model
     cut_b = local_slice(b, "batch", mesh) if m_state.shape[0] > 1 \
         and not train else slice(0, b)
+    if mode != "broadcast" and s % ep:
+        raise ValueError(f"a seq dim of {s} does not divide over the {ep} "
+                         "ranks of the mesh's 'model' axis")
     cut_s = slice(0, s) if mode == "broadcast" \
         else local_slice(s, "seq", mesh)
     xb = x[cut_b]
@@ -1116,10 +1148,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         kw["logits"] = comm.scatter(
             (xb.reshape(-1, d).to(F32) @ p["router"].to(F32))
             .reshape(bl, s, -1), "model", 1).reshape(bl * sl, -1)
-    y, m_new, aux = fn(xl.reshape(bl * sl, d),
-                       modality[cut_b, cut_s].reshape(bl * sl),
-                       valid[cut_b, cut_s].reshape(bl * sl), p, m_part, cfg,
-                       rcfg, rep, ep, comm, **train_kw, **kw)
+    with kcost.alternatives():
+        y, m_new, aux = fn(xl.reshape(bl * sl, d),
+                           modality[cut_b, cut_s].reshape(bl * sl),
+                           valid[cut_b, cut_s].reshape(bl * sl), p, m_part,
+                           cfg, rcfg, rep, ep, comm, **train_kw, **kw)
     y = y.reshape(bl, sl, d)
     if mode != "broadcast":
         y = comm.all_gather_model(y).permute(1, 0, 2, 3).reshape(bl, s, d)

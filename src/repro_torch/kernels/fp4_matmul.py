@@ -48,6 +48,16 @@ def fp4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return torch.matmul(xf, w.t()).to(out_dtype)
 
 
+def fp4_matmul_meta(x: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, gs: torch.Tensor, *,
+                    a4: bool = False, out_dtype=torch.float32
+                    ) -> torch.Tensor:
+    """The kernel's shape function on ``meta`` tensors: the output
+    :func:`fp4_matmul_cuda` allocates."""
+    return torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype,
+                       device=x.device)
+
+
 def fp4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
                     scales: torch.Tensor, gs: torch.Tensor, *,
                     a4: bool = False, out_dtype=torch.float32

@@ -190,6 +190,56 @@ def _common_args(name, xs, gs, weights, n_g, d, f):
     return args
 
 
+def _fwd_buffers(xs, f: int, fp4: bool):
+    """``(xq, nz, hq, out)`` of a forward launch over ``xs [M, D]`` with
+    ``f`` hidden: the FP4 design's quantized rows (None for the plain
+    one), the f32 design's zero-row flags (None in bf16), the hidden rows
+    and the zero-filled output."""
+    (m, d), dt, dev = xs.shape, xs.dtype, xs.device
+    xq = torch.empty((m, d), dtype=dt, device=dev) if fp4 else None
+    nz = torch.empty((m,), dtype=torch.int32, device=dev) \
+        if dt == torch.float32 else None
+    hq = torch.empty((m, f), dtype=dt, device=dev)
+    out = torch.zeros((m, d), dtype=dt, device=dev)
+    return xq, nz, hq, out
+
+
+def _bwd_buffers(xs, w_gate, w_up, w_down):
+    """``(dg, du, h, dxs, dws)`` of a backward launch: the tensor-core
+    design (bf16) writes every element of its outputs; the FMA design
+    (f32) takes them zeroed, and with no rows or no weights nothing
+    launches and the outputs are zeros."""
+    (m, d), dt, dev = xs.shape, xs.dtype, xs.device
+    n_g, _, f = w_gate.shape
+    alloc = torch.empty if dt == torch.bfloat16 and m and n_g \
+        else torch.zeros
+    dg, du, h = (torch.empty((m, f), dtype=dt, device=dev)
+                 for _ in range(3))
+    dxs = alloc((m, d), dtype=dt, device=dev)
+    dws = [alloc(w.shape, dtype=dt, device=dev)
+           for w in (w_gate, w_up, w_down)]
+    return dg, du, h, dxs, dws
+
+
+def grouped_fp4_ffn_meta(xs, gs, gate_packed, *rest) -> torch.Tensor:
+    """The FP4 kernel's shape function on ``meta`` tensors: the buffers
+    :func:`grouped_fp4_ffn_cuda` allocates, its output returned."""
+    return _fwd_buffers(xs, gate_packed.shape[1], fp4=True)[3]
+
+
+def grouped_ffn_meta(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
+    """The plain kernel's shape function on ``meta`` tensors."""
+    return _fwd_buffers(xs, w_gate.shape[2], fp4=False)[3]
+
+
+def grouped_ffn_bwd_meta(xs, gs, w_gate, w_up, w_down, dy):
+    """The backward kernel's shape function on ``meta`` tensors:
+    ``(dxs, dw_gate, dw_up, dw_down)`` as :func:`grouped_ffn_bwd_cuda`
+    allocates them."""
+    _, _, _, dxs, dws = _bwd_buffers(xs, w_gate, w_up, w_down)
+    return (dxs, *dws)
+
+
 def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
                          up_scales, down_packed, down_scales, global_scales
                          ) -> torch.Tensor:
@@ -213,12 +263,7 @@ def grouped_fp4_ffn_cuda(xs, gs, gate_packed, gate_scales, up_packed,
         raise ValueError(f"grouped_fp4_ffn_cuda: {g32.shape[0]} counts, the "
                          f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
-    xq = torch.empty((m, d), dtype=xs.dtype, device=dev)
-    # zero-row flags of the f32 design; the bf16 design takes none
-    nz = torch.empty((m,), dtype=torch.int32, device=dev) \
-        if xs.dtype == torch.float32 else None
-    hq = torch.empty((m, f), dtype=xs.dtype, device=dev)
-    out = torch.zeros((m, d), dtype=xs.dtype, device=dev)
+    xq, nz, hq, out = _fwd_buffers(xs, f, fp4=True)
     fn = _build.entry("grouped_fp4_ffn", _ENTRY[xs.dtype], _ARGTYPES)
     err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, gp.data_ptr(),
              gsc.data_ptr(), up.data_ptr(), usc.data_ptr(), dp.data_ptr(),
@@ -254,11 +299,7 @@ def grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
         raise ValueError(f"grouped_ffn_cuda: {g32.shape[0]} counts, the "
                          f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
-    # zero-row flags of the f32 design; the bf16 design takes none
-    nz = torch.empty((m,), dtype=torch.int32, device=dev) \
-        if dt == torch.float32 else None
-    hq = torch.empty((m, f), dtype=dt, device=dev)
-    out = torch.zeros((m, d), dtype=dt, device=dev)
+    _, nz, hq, out = _fwd_buffers(xs, f, fp4=False)
     fn = _build.entry("grouped_fp4_ffn", _PLAIN_ENTRY[dt], _PLAIN_ARGTYPES)
     err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g, wg.data_ptr(),
              wu.data_ptr(), wd.data_ptr(),
@@ -302,14 +343,7 @@ def grouped_ffn_bwd_cuda(xs, gs, w_gate, w_up, w_down, dy):
         raise ValueError(f"grouped_ffn_bwd_cuda: {g32.shape[0]} counts, the "
                          f"bf16 kernel takes at most {MAX_SLOTS}")
     dev = xs.device
-    # the tensor-core design writes every element; with no rows or no
-    # weights it does not launch, and the outputs are zeros
-    alloc = torch.empty if tensor_cores and m and n_g else torch.zeros
-    dg, du, h = (torch.empty((m, f), dtype=dt, device=dev)
-                 for _ in range(3))
-    dxs = alloc((m, d), dtype=dt, device=dev)
-    dws = [alloc(w.shape, dtype=dt, device=dev)
-           for w in (w_gate, w_up, w_down)]
+    dg, du, h, dxs, dws = _bwd_buffers(xs, w_gate, w_up, w_down)
     if m and n_g:
         fn = _build.entry("grouped_ffn_bwd", _BWD_ENTRY[dt], _BWD_ARGTYPES)
         err = fn(x.data_ptr(), g32.data_ptr(), g32.shape[0], n_g,

@@ -5,8 +5,12 @@ Counterpart of ``repro.kernels.ops`` (``quantize_experts_fp4``,
 ``grouped_fp4_ffn``, ``quantize_fp4``, ``fp4_matmul``, ``fp4_linear``) and
 of the reference MoE layer's BF16 expert FFN (``grouped_ffn``).  Dispatch
 is by the device of the tensor: a CPU tensor takes the plain PyTorch
-version, a CUDA tensor launches the CUDA kernel or raises.  Nothing (no
-switch, no environment variable) sends a CUDA tensor to the plain version.
+version, a ``meta`` tensor the kernel's shape function (the dry run's;
+outputs of the CUDA wrapper's shapes, nothing computed), a CUDA tensor
+launches the CUDA kernel or raises.  Nothing (no switch, no environment
+variable) sends a CUDA tensor to the plain version.  Each entry reports
+its launches' work (``kernels.cost``) to the dry run's analyzer when one
+is active, and does nothing more when none is.
 The kernels mask ragged edges themselves, so callers pass real shapes (any
 token count, any d_ff that is a multiple of 32) with no padding, and no
 block-size arguments.
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.core.quant import GROUP, QTensor
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import fp4_matmul as _mm
 from repro_torch.kernels import grouped_fp4_ffn as _ffn
 from repro_torch.kernels import quantize_fp4 as _quant
@@ -79,14 +84,38 @@ def quantize_experts_fp4(wt: torch.Tensor, *, group: int = GROUP,
     when it is 0 nothing is computed (on the card the kernels exit at once
     and the returned tensors hold whatever was in memory; on the CPU they
     are zeros)."""
-    if wt.device.type == "cpu":
+    def works():
+        n, el = wt.numel(), wt.element_size()
+        return {"global_scale_fp4": cost.global_scale(n, el),
+                "quantize_fp4": cost.quantizer(n, el)}
+    return cost.run(works, _quantize_experts, wt, group, pred)
+
+
+def _quantize_experts(wt, group, pred) -> QTensor:
+    dev = wt.device.type
+    if dev == "cpu":
         gscale = _quant.global_scale_plain(wt, pred)
         packed, scales = _quant.quantize_fp4_plain(wt, gscale, group, pred)
+    elif dev == "meta":
+        gscale = _quant.global_scale_meta(wt, pred)
+        packed, scales = _quant.quantize_fp4_meta(wt, gscale, pred)
     else:
         _check_group(group, "quantizer")
         gscale = _quant.global_scale_cuda(wt, pred)
         packed, scales = _quant.quantize_fp4_cuda(wt, gscale, pred)
     return QTensor(packed, scales, gscale)
+
+
+def _ffn_works(name, xs, gs, w, fp4):
+    """The work of one FFN launch at its shapes (every row and slot)."""
+    def works():
+        m, d = xs.shape
+        n_w = w.shape[0]
+        f = w.shape[1] if fp4 else w.shape[2]
+        return {name: cost.grouped_ffn(
+            m, d, f, xs.element_size(), gs.numel(), m, n_w, fp4,
+            None if fp4 else w.element_size())}
+    return works
 
 
 def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
@@ -97,6 +126,12 @@ def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
     along D and ``w_down`` along d_ff, with ``Gw <= G`` rows each, as
     ``ep_moe._quantize_experts`` produces them; rows of slots past ``Gw``
     give 0."""
+    return cost.run(_ffn_works("grouped_fp4_ffn", xs, gs,
+                               wq["w_gate"].packed, True),
+                    _grouped_fp4_ffn, xs, gs, wq, group)
+
+
+def _grouped_fp4_ffn(xs, gs, wq, group) -> torch.Tensor:
     qg, qu, qd = wq["w_gate"], wq["w_up"], wq["w_down"]
     gscales = torch.stack([qg.global_scale.reshape(()),
                            qu.global_scale.reshape(()),
@@ -105,14 +140,36 @@ def grouped_fp4_ffn(xs: torch.Tensor, gs: torch.Tensor,
             qd.packed, qd.scales, gscales)
     if xs.device.type == "cpu":
         return _ffn.grouped_fp4_ffn_plain(*args, group=group)
+    if xs.device.type == "meta":
+        return _ffn.grouped_fp4_ffn_meta(*args)
     _check_group(group, "FFN kernel")
     return _ffn.grouped_fp4_ffn_cuda(*args)
 
 
 def _grouped_ffn_fwd(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
+    return cost.run(_ffn_works("grouped_ffn", xs, gs, w_gate, False),
+                    _grouped_ffn_launch, xs, gs, w_gate, w_up, w_down)
+
+
+def _grouped_ffn_launch(xs, gs, w_gate, w_up, w_down) -> torch.Tensor:
     if xs.device.type == "cpu":
         return _ffn.grouped_ffn_plain(xs, gs, w_gate, w_up, w_down)
+    if xs.device.type == "meta":
+        return _ffn.grouped_ffn_meta(xs, gs, w_gate, w_up, w_down)
     return _ffn.grouped_ffn_cuda(xs, gs, w_gate, w_up, w_down)
+
+
+def _grouped_ffn_bwd(xs, gs, w_gate, w_up, w_down, dy):
+    def works():
+        m, d = xs.shape
+        n_w, _, f = w_gate.shape
+        return {"grouped_ffn_bwd": cost.grouped_ffn_bwd(
+            m, d, f, xs.element_size(), gs.numel(), n_w, m, n_w)}
+    dev = xs.device.type
+    bwd = _ffn.grouped_ffn_bwd_plain if dev == "cpu" \
+        else _ffn.grouped_ffn_bwd_meta if dev == "meta" \
+        else _ffn.grouped_ffn_bwd_cuda
+    return cost.run(works, bwd, xs, gs, w_gate, w_up, w_down, dy)
 
 
 class GroupedFFN(torch.autograd.Function):
@@ -129,10 +186,8 @@ class GroupedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xs, gs, w_gate, w_up, w_down = ctx.saved_tensors
-        bwd = _ffn.grouped_ffn_bwd_plain if xs.device.type == "cpu" \
-            else _ffn.grouped_ffn_bwd_cuda
-        dxs, dwg, dwu, dwd = bwd(xs, gs, w_gate, w_up, w_down,
-                                 dy.contiguous())
+        dxs, dwg, dwu, dwd = _grouped_ffn_bwd(xs, gs, w_gate, w_up, w_down,
+                                              dy.contiguous())
         return dxs, None, dwg, dwu, dwd
 
 
@@ -170,9 +225,21 @@ def fp4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                a4: bool = False, out_dtype=torch.float32) -> torch.Tensor:
     """``x [M, K] @ Wᵀ`` with W stored as packed NVFP4 ``[N, K/2]``: any M
     and N, K a multiple of ``2·group``."""
+    def works():
+        (m, k), n = x.shape, packed.shape[0]
+        return {"fp4_matmul": cost.fp4_matmul(
+            m, n, k, x.element_size(), torch.finfo(out_dtype).bits // 8)}
+    return cost.run(works, _fp4_matmul, x, packed, scales, global_scale,
+                    group, a4, out_dtype)
+
+
+def _fp4_matmul(x, packed, scales, global_scale, group, a4, out_dtype):
     if x.device.type == "cpu":
         return _mm.fp4_matmul_plain(x, packed, scales, global_scale, a4=a4,
                                     group=group, out_dtype=out_dtype)
+    if x.device.type == "meta":
+        return _mm.fp4_matmul_meta(x, packed, scales, global_scale, a4=a4,
+                                   out_dtype=out_dtype)
     _check_group(group, "W4A4 GEMM")
     return _mm.fp4_matmul_cuda(x, packed, scales, global_scale, a4=a4,
                                out_dtype=out_dtype)

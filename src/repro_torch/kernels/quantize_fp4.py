@@ -117,6 +117,24 @@ def _pred_ptr(pred: Optional[torch.Tensor]):
     return p32, p32.data_ptr()
 
 
+def quantize_fp4_meta(w: torch.Tensor, gs: torch.Tensor,
+                      pred: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's shape function on ``meta`` tensors: the outputs
+    :func:`quantize_fp4_cuda` allocates, unwritten."""
+    *lead, k = w.shape
+    return (torch.empty((*lead, k // 2), dtype=torch.uint8, device=w.device),
+            torch.empty((*lead, k // quant.GROUP), dtype=torch.float32,
+                        device=w.device))
+
+
+def global_scale_meta(w: torch.Tensor,
+                      pred: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The global-scale kernel's shape function on ``meta`` tensors."""
+    return torch.empty((1,), dtype=torch.float32,
+                       device=w.device).reshape(())
+
+
 def quantize_fp4_cuda(w: torch.Tensor, gs: torch.Tensor,
                       pred: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

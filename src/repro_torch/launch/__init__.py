@@ -1,3 +1,6 @@
 """launch subpackage: the serving driver (``python -m
 repro_torch.launch.serve``), the training driver (``python -m
-repro_torch.launch.train``) and their step functions (``steps``)."""
+repro_torch.launch.train``), their step functions and abstract cells
+(``steps``), the meshes (``mesh``), and the dry run of the production
+cells (``python -m repro_torch.launch.dryrun``) with its op-level
+analyzer (``op_analysis``) and roofline (``roofline``)."""

@@ -4,7 +4,10 @@ Counterpart of ``repro.launch.mesh``.  ``mesh_for("host")`` is the
 ``(1, world)`` mesh of every rank of the default process group (one EP
 group over the ``model`` axis); ``make_mesh`` builds any ``(data, model)``
 grid of it.  The reference's production meshes (``single_pod`` 16×16,
-``multi_pod`` 2×16×16) are TPU pod slices and are refused here.
+``multi_pod`` 2×16×16) exist here only as abstract meshes, for the dry
+run (``mesh_for(kind, abstract=True)``, ``make_production_mesh``): no
+process group, rank 0's coordinates, computation on ``meta``, ``pod``
+folded into ``data``.  Without ``abstract=True`` they are refused.
 
 The backend of the collectives follows the process group and the device:
 an NCCL group gives ``"nccl"``; a gloo group gives ``"gloo"`` on the CPU
@@ -17,6 +20,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.configs.base import (MULTI_POD_MESH, SINGLE_POD_MESH,
+                                     MeshConfig)
 from repro_torch.models.common import Mesh
 
 
@@ -74,16 +79,32 @@ def make_mesh(shape: Tuple[int, int], backend: Optional[str] = None,
                 else device)
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as an abstract mesh: 16×16 (256
+    devices) or 2×16×16 (512), ``pod`` folded into ``data`` (32×16)."""
+    return Mesh(mesh_config_for("multi_pod" if multi_pod else "single_pod")
+                .port_shape, "abstract", "meta")
+
+
+def mesh_config_for(kind: str) -> MeshConfig:
+    return MULTI_POD_MESH if kind in ("multi", "multi_pod") \
+        else SINGLE_POD_MESH
+
+
 def mesh_for(kind: str, backend: Optional[str] = None,
-             device: Union[str, torch.device, None] = None) -> Mesh:
+             device: Union[str, torch.device, None] = None,
+             abstract: bool = False) -> Mesh:
+    if kind in ("single", "single_pod", "multi", "multi_pod"):
+        if abstract:
+            return make_production_mesh(multi_pod=kind.startswith("multi"))
+        raise NotImplementedError(
+            f"mesh {kind!r} is a TPU pod slice (16x16 or 2x16x16 chips); the "
+            "port builds the host mesh over the ranks torchrun starts (the "
+            "dry run builds it abstract: abstract=True)")
     if kind == "host":
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("--mesh host needs an initialised process "
                                "group (launch under torchrun)")
         return make_mesh((1, dist.get_world_size()), backend, device)
-    if kind in ("single", "single_pod", "multi", "multi_pod"):
-        raise NotImplementedError(
-            f"mesh {kind!r} is a TPU pod slice (16x16 or 2x16x16 chips); the "
-            "port builds the host mesh over the ranks torchrun starts")
     raise ValueError(f"unknown mesh kind {kind!r}")

@@ -5,7 +5,9 @@ Counterpart of the numerics and the mesh context of
 ``repro.models.common``.  Parameters are declared as :class:`P` leaves
 (shape + init, and the logical axis of each dim) and initialised from a
 seeded ``torch.Generator`` on the target device: fan-in scaled normals on
-the second-to-last dim, ``embed`` normals with their own std, zero norms.
+the second-to-last dim, ``embed`` normals with their own std, zero norms;
+``abstract_params`` gives the same tree as ``meta`` tensors (the dry
+run's), with no draw and no allocation.
 
 Under a :class:`Mesh` (``use_mesh``) a rank holds the slice of each
 parameter whose logical axes the rules map onto mesh axes; only the
@@ -13,7 +15,10 @@ expert stacks have such axes: ``expert`` over ``model`` and, in the FSDP
 layout of training (``fsdp=True``), ``embed`` (their D dim) over
 ``data``.  The rank draws each block whole and keeps its slice, so its
 values equal the matching slice of the whole model's and it never holds
-the whole stack.
+the whole stack.  A dim that does not divide over its mesh axis is
+replicated, as the reference's ``resolve_spec`` does.  The dry run's
+abstract mesh (backend ``"abstract"``) needs no process group and stands
+for rank 0.
 """
 from __future__ import annotations
 
@@ -66,7 +71,8 @@ class Mesh:
     tensors copied to the host around gloo collectives: several ranks on
     one card, where NCCL refuses two ranks of one communicator on one
     device and gloo has no CUDA all-to-all; for correctness only).
-    ``device`` is where this rank computes.
+    ``device`` is where this rank computes.  ``"abstract"`` (the dry
+    run's) needs no process group: see :meth:`_abstract`.
 
     ``ranks`` (a ``rows x ep`` grid of global ranks) builds a mesh over a
     subset of the world, as :func:`repro_torch.runtime.elastic.shrink_mesh`
@@ -81,8 +87,11 @@ class Mesh:
                  device: Union[str, torch.device], ranks=None):
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
-        if backend not in ("nccl", "gloo", "staged"):
+        if backend not in ("nccl", "gloo", "staged", "abstract"):
             raise ValueError(f"mesh backend {backend!r}")
+        if backend == "abstract":
+            self._abstract(shape)
+            return
         if not dist.is_initialized():
             raise RuntimeError("a Mesh needs an initialised default process "
                                "group (torch.distributed.init_process_group)")
@@ -109,9 +118,26 @@ class Mesh:
             sorted(ranks.reshape(-1).tolist()))
         self.comm = None          # built by core.ep_moe on first use
 
+    def _abstract(self, shape: Tuple[int, int]) -> None:
+        """The ``"abstract"`` backend: no process group and no collective;
+        this process stands for rank 0 (coordinate 0 on every axis) and
+        computes on ``meta``.  ``core.ep_moe.Comm`` gives each collective
+        its output's shape and counts it; the dry run
+        (``launch.steps.lower_cell``) builds cells under it."""
+        rows, ep = (int(n) for n in shape)
+        self.shape = {"data": rows, "model": ep}
+        self.backend = "abstract"
+        self.device = torch.device("meta")
+        self.ranks = torch.arange(rows * ep).reshape(rows, ep)
+        self.device_mesh = None
+        self._all = None
+        self.comm = None
+
     @property
     def member(self) -> bool:
         """Whether this process is one of the mesh's ranks."""
+        if self.device_mesh is None:
+            return True
         return self.device_mesh.get_coordinate() is not None
 
     def size(self, axis: str) -> int:
@@ -119,12 +145,14 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
+        if self.device_mesh is None:
+            return 0
         return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis: Optional[str] = None):
         """The process group of the ranks that share every other axis
-        (``None``: every rank of the mesh)."""
-        if axis is None:
+        (``None``: every rank of the mesh; an abstract mesh has none)."""
+        if axis is None or self.device_mesh is None:
             return self._all
         return self.device_mesh.get_group(axis)
 
@@ -170,8 +198,11 @@ def ep_size(mesh: Optional[Mesh]) -> int:
 def local_slice(n: int, axis: Optional[str], mesh: Optional[Mesh],
                 fsdp: bool = False) -> slice:
     """The slice of a dim of size ``n`` with logical axis ``axis`` that this
-    rank holds (the whole dim unless the rules map ``axis`` onto a mesh
-    axis of size > 1; an ``FSDP_AXES`` axis only with ``fsdp``)."""
+    rank holds: the whole dim unless the rules map ``axis`` onto a mesh
+    axis of size > 1 that divides ``n`` (an ``FSDP_AXES`` axis only with
+    ``fsdp``).  A dim that does not divide is replicated, as the
+    reference's ``resolve_spec`` keeps the longest prefix of candidate
+    axes whose product divides it (the port's rules name one axis each)."""
     if axis in FSDP_AXES and not fsdp:
         return slice(0, n)
     mesh_axis = RULES.get(axis) if axis is not None else None
@@ -179,8 +210,7 @@ def local_slice(n: int, axis: Optional[str], mesh: Optional[Mesh],
         return slice(0, n)
     parts = mesh.size(mesh_axis)
     if n % parts:
-        raise ValueError(f"a {axis} dim of {n} does not divide over the "
-                         f"{parts} ranks of the mesh's {mesh_axis!r} axis")
+        return slice(0, n)
     i = mesh.index(mesh_axis)
     return slice(i * n // parts, (i + 1) * n // parts)
 
@@ -228,6 +258,30 @@ def init_leaf(p: P, gen: torch.Generator, default_dtype: str,
         block.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
                                 device=device)[cut] * std)
     return out
+
+
+def abstract_leaf(p: P, default_dtype: str, stack: int = 0,
+                  mesh: Optional[Mesh] = None, fsdp: bool = False
+                  ) -> torch.Tensor:
+    """:func:`init_leaf`'s shape and dtype as a ``meta`` tensor: no
+    generator, no allocation.  Under ``mesh``, this rank's slice (the
+    abstract mesh's rank 0)."""
+    local = tuple(c.stop - c.start for c in (
+        local_slice(n, a, mesh, fsdp)
+        for n, a in zip(p.shape, p.axes or (None,) * len(p.shape))))
+    shape = (stack, *local) if stack else local
+    return torch.empty(shape, dtype=DTYPES[p.dtype or default_dtype],
+                       device="meta")
+
+
+def abstract_params(tree: Tree, default_dtype: str, stack: int = 0,
+                    mesh: Optional[Mesh] = None, fsdp: bool = False) -> Tree:
+    """:func:`init_params`' tree as ``meta`` tensors (the reference's
+    ``abstract_params``, with the port's layout under ``mesh``)."""
+    if isinstance(tree, P):
+        return abstract_leaf(tree, default_dtype, stack, mesh, fsdp)
+    return {k: abstract_params(tree[k], default_dtype, stack, mesh, fsdp)
+            for k in sorted(tree)}
 
 
 def init_params(tree: Tree, gen: torch.Generator, default_dtype: str,

@@ -14,7 +14,9 @@ the blocks; the port loops over block indices and updates the stacked
 cache in place.  The AIMD ``m_state`` threads through the loop (each MoE
 layer applies one control update).
 
-Entry points: ``init_model``, ``init_cache``, ``prefill_forward`` (one-shot
+Entry points: ``init_model``, ``init_cache`` (and their ``meta`` trees,
+``abstract_model`` and ``abstract_cache``, for the dry run),
+``prefill_forward`` (one-shot
 prefill of whole prompts, returning a cache padded to ``cache_len``),
 ``chunk_forward`` (chunked prefill against the cache) and ``decode_forward``
 (one token per row); ``chunk_forward`` runs all-GQA stacks only.
@@ -69,9 +71,9 @@ from repro_torch.core import ep_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (DTYPES, P, current_mesh, init_params,
-                                       local_slice, resolve_device, rms_norm,
-                                       use_mesh)
+from repro_torch.models.common import (DTYPES, P, abstract_params,
+                                       current_mesh, init_params, local_slice,
+                                       resolve_device, rms_norm, use_mesh)
 
 Tree = Any
 AUX_KEYS = ep_moe.AUX_SCALARS
@@ -185,6 +187,27 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
             params[k] = init_params(spec[k], gen, cfg.param_dtype, device,
                                     stack=n, mesh=mesh, fsdp=fsdp)
     return params
+
+
+def abstract_model(cfg: ModelConfig, mesh=None, fsdp: bool = False) -> Tree:
+    """:func:`init_model`'s tree as ``meta`` tensors (the reference's
+    ``abstract_model``): the same key paths, shapes and dtypes, under
+    ``mesh`` (default: the current one) rank 0's slices; no generator
+    draws and nothing is allocated."""
+    mesh = current_mesh() if mesh is None else mesh
+    spec = model_spec(cfg)
+    _, n_blocks, _ = block_structure(cfg)
+    stacks = {"blocks": n_blocks, "enc_blocks": cfg.n_enc_layers}
+    return {k: abstract_params(v, cfg.param_dtype, stacks.get(k, 0), mesh,
+                               fsdp)
+            for k, v in spec.items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   mem_len: Optional[int] = None) -> Tree:
+    """:func:`init_cache`'s tree as ``meta`` tensors (the reference's
+    ``abstract_cache``); the port replicates the cache under a mesh."""
+    return init_cache(cfg, batch, cache_len, device="meta", mem_len=mem_len)
 
 
 def memory_len(cfg: ModelConfig) -> int:

@@ -62,6 +62,14 @@ def init_opt_state(params: Tree, cfg: TrainConfig) -> OptState:
                     tree_map(zeros, params), tree_map(zeros, params))
 
 
+def abstract_opt_state(params: Tree, cfg: TrainConfig) -> OptState:
+    """:func:`init_opt_state`'s state as ``meta`` tensors, for the shapes
+    of ``params`` (the reference's ``abstract_opt_state``)."""
+    return init_opt_state(tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+        params), cfg)
+
+
 def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     """Linear warmup to ``cfg.lr``, then a cosine down to a tenth of it by
     ``total_steps`` (f32, on ``step``'s device)."""

@@ -1399,3 +1399,35 @@ def card_gather(mesh, c):
                                           w.shape[1] // ep).cpu())
             for (_, m), (_, w) in zip(_moe_leaves(mine), _moe_leaves(whole)))
     return out
+
+
+def abstract_mesh_cases(mesh, archs):
+    """``{"<arch> <shape> <fsdp>": {key path: (shape, dtype)}}``: this
+    rank's ``init_model(mesh=)`` on the ``(2, 2)`` mesh and on a ``(1, 2)``
+    mesh of ranks 0 and 1 (every rank builds both, the construction being
+    collective), for ``test_torch_dryrun.py``'s abstract meshes."""
+    try:
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.common import Mesh
+
+        def layout(tree, prefix=""):
+            if isinstance(tree, dict):
+                out = {}
+                for k, v in tree.items():
+                    out.update(layout(v, f"{prefix}/{k}"))
+                return out
+            return {prefix: (tuple(tree.shape),
+                             str(tree.dtype).split(".")[-1])}
+
+        pair = Mesh((1, 2), "gloo", "cpu", ranks=[[0, 1]])
+        out = {}
+        for shape, m in (((2, 2), mesh), ((1, 2), pair)):
+            if not m.member:
+                continue
+            for arch in archs:
+                for fsdp in (False, True):
+                    out[f"{arch} {shape} {fsdp}"] = layout(tf.init_model(
+                        _cfg(arch), seed=0, mesh=m, fsdp=fsdp))
+        return out
+    except Exception:
+        return {"error": traceback.format_exc()}

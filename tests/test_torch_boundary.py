@@ -72,7 +72,10 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.optim", "repro_torch.optim.adamw",
               "repro_torch.optim.grad_utils", "repro_torch.launch.train",
-              "repro_torch.launch.steps"):
+              "repro_torch.launch.steps", "repro_torch.launch.roofline",
+              "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+              "repro_torch.kernels.cost", "repro_torch.analysis.lint",
+              "repro_torch.analysis.dispatch_audit"):
         assert m in mods, m
     paths = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
     assert "src/repro_torch/checkpoint/ckpt.py" in paths

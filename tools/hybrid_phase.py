@@ -46,13 +46,13 @@ def main() -> int:
     cs.log(smi)
     cs.log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     _build.load()
-    t0 = time.time()
+    t0 = time.perf_counter()
     out = cs.hybrid_serving(torch.device("cuda"), smi)
     run = out["jamba"]["run"]
     cs.log(json.dumps({"kernels_15a": out["recs"],
                        "falcon_run": out["falcon"]["run"],
                        "jamba_run": run}, default=str))
-    cs.log(f"phase 15 passed in {time.time() - t0:.1f} s; {smi}")
+    cs.log(f"phase 15 passed in {time.perf_counter() - t0:.1f} s; {smi}")
     return 0
 
 
