@@ -231,6 +231,27 @@
    widenings at their count) and of a decode step with an ``.item()``
    injected (flagged); (d) the lint over the
    port, this script and ``tools/`` (0 unsuppressed findings);
+19. the tensor-parallel layout of the dense part and the cache
+   (``tp_layout``, after phase 18; ``tools/tp_phase.py`` runs it alone):
+   four rank processes of a ``(2, 2)`` mesh on the card through the
+   ``staged`` backend under the default rules; (a) moonshot-v1-16b-a3b at
+   its published widths cut to ``PHASE19_LAYERS`` (one dense and two MoE
+   layers), a ``[2, 1024]`` chunk and four decode steps, each under the
+   op-level analyzer with the launch counters and the census zeroed just
+   before and read just after: the census equal to
+   ``predict_graph_census``, the analyzer's counts equal to those on
+   ``meta`` under the abstract ``(2, 2)`` mesh and its peak within
+   ``PHASE18_PEAK_TOL`` of the allocator's (the bf16 logits are not held:
+   a random bf16 MoE stack moves them by most of their largest value
+   under a one-ulp embedding change); the same five steps on the f32
+   copy of the weights: every rank's
+   logits within the reference's f32 bound of the one-device forwards',
+   each data row's AIMD state equal, its routing within
+   ``PHASE19_FLIPS`` of the assignments (near ties), a skewed
+   chunk's FP4 decision equal; (b) a train step at phase 13d's cut: step
+   1's CE and gradients within phase 14's spread bound of the one-card
+   step's, the census equal to ``predict_train_census``;
+   the kernels' launches by rank on both paths in the ``kernels`` line;
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -248,7 +269,8 @@
    (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
    device time by stage); every row's launches on phase 14a's mesh steps
    by rank, and the two FFN kernels' checks there; every row's launches
-   on phase 17's streams (0), and on phase 18's cells (18a, 18b);
+   on phase 17's streams (0), on phase 18's cells (18a, 18b), and on
+   phase 19's paths by rank (19a, 19b);
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2903,9 +2925,12 @@ def ep_rank_main(rank, world, backend, store_path, layers, out,
             dist.init_process_group("gloo", store=store, rank=rank,
                                     world_size=world)
         try:
-            from repro_torch.models.common import Mesh, use_mesh
+            from repro_torch.models.common import (EP_ONLY_RULES, Mesh,
+                                                   use_mesh)
             mesh = Mesh((1, world), backend, dev)
-            with use_mesh(mesh):
+            # phases 10 and 11 pin the EP-only layout (its bitwise EP
+            # equality with the one-device forward, its census)
+            with use_mesh(mesh, rules=EP_ONLY_RULES):
                 res = ep_rank_work(mesh, layers)
         finally:
             dist.destroy_process_group()
@@ -4180,9 +4205,11 @@ def mesh_train_rank_main(rank, world, backend, store_path, shape, layers,
             dist.init_process_group("gloo", store=store, rank=rank,
                                     world_size=world)
         try:
-            from repro_torch.models.common import Mesh, use_mesh
+            from repro_torch.models.common import (EP_ONLY_RULES, Mesh,
+                                                   use_mesh)
             mesh = Mesh(shape, backend, dev)
-            with use_mesh(mesh):
+            # phase 14 pins the EP-only layout's FSDP training (its census)
+            with use_mesh(mesh, rules=EP_ONLY_RULES):
                 res = mesh_train_rank_work(mesh, layers, tokens, one)
                 res["b"] = mesh_train_reduced(mesh)
         finally:
@@ -5229,9 +5256,10 @@ PHASE16_FALCON_STEPS = 3
 # the loss by a few thousandths more than its roundings do.
 PHASE16_FALCON_LOSS_ATOL = 1e-2
 # Depth: command-r-35b whole is ~61 GB in bf16, which leaves no room for
-# its f32-free serve beside the caches and the other models' phases; 16 of
-# its 40 layers (~27 GB) keep the published widths.
-PHASE16_COMMAND_R_LAYERS = 16
+# its f32-free serve beside the caches and the other models' phases; 8 of
+# its 40 layers keep the published widths (16 until phase 19 needed the
+# smoke's time: its four staged ranks take ~150 s).
+PHASE16_COMMAND_R_LAYERS = 8
 PHASE16_GAP_BOUND = (2e-3, 2e-3)     # the reference's atol, rtol
 # The f32 decode/prefill check runs on the first 2 layers of each model:
 # through more, a random stack at its published widths is chaotic (two
@@ -6427,6 +6455,579 @@ def dryrun_training(dev, smi):
     return rep
 
 
+# --------------------------------------------------------------------------
+# phase 19: the tensor-parallel layout under a (data, model) mesh
+# --------------------------------------------------------------------------
+PHASE19_MESH = (2, 2)
+# moonshot-v1-16b-a3b at its published widths: one dense and two MoE layers
+PHASE19_LAYERS = 3
+PHASE19_STEPS = dict(b=2, s=1024, decode=4, cache=2048, seed=19)
+PHASE19_DEADLINE_S = 600            # spawn to join, 19a and 19b
+# the f32 copy's routing: assignments a rank's layout may send elsewhere
+# than one device, of all (or 4x the one-device forward's own move under
+# two ulps of its embedding, where that is more): near ties of the top-k
+PHASE19_FLIPS = 1e-3
+
+
+def phase19_inputs(cfg, dev):
+    """19a's traffic, made from a seed: a ``[2, 1024]`` chunk from
+    position 0 (60 % vision) and four decode steps of one token a row."""
+    import torch
+    c = PHASE19_STEPS
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    b, s = c["b"], c["s"]
+    chunk = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "start": torch.zeros(b, dtype=torch.int32, device=dev),
+             "chunk_len": torch.full((b,), s, dtype=torch.int32, device=dev),
+             "modality": torch.rand((b, s), generator=gen, device=dev) < 0.6}
+    decs = [{"tokens": torch.randint(0, cfg.vocab_size, (b, 1),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev),
+             "modality": torch.zeros((b, 1), dtype=torch.bool, device=dev)}
+            for i in range(c["decode"])]
+    return chunk, decs
+
+
+def phase19_steps(cfg, rcfg):
+    """The chunk and decode steps of 19a, as functions of their arguments
+    (the analyzer tracks them)."""
+    from repro_torch.models import transformer as tf
+
+    def chunk_step(params, cache, m_state, batch):
+        return tf.chunk_forward(params, cfg, rcfg, batch, cache, m_state)
+
+    def decode_step(params, cache, m_state, batch):
+        return tf.decode_forward(params, cfg, rcfg, batch, cache, m_state)
+    return chunk_step, decode_step
+
+
+def phase19_stream(cfg, params, rcfg, dev, b, m, rows=slice(None)):
+    """19a on ``rows`` of the batch (on one device, or a rank's layout):
+    the chunk then every decode step; host copies of each step's logits,
+    AIMD state and routing counts."""
+    import torch
+    from repro_torch.models import transformer as tf
+    chunk, decs = phase19_inputs(cfg, dev)
+    cache = tf.init_cache(cfg, b, PHASE19_STEPS["cache"], device=dev)
+    out = []
+    res = tf.chunk_forward(params, cfg, rcfg,
+                           {k: v[rows] for k, v in chunk.items()}, cache, m)
+    for step in [None] + decs:
+        if step is not None:
+            res = tf.decode_forward(params, cfg, rcfg,
+                                    {k: v[rows] for k, v in step.items()},
+                                    res.cache, res.m_state)
+        out.append({"logits": res.logits.float().cpu().numpy(),
+                    "m": res.m_state.cpu().numpy(),
+                    "experts": res.aux["expert_stats"].cpu().numpy(),
+                    "slots": res.aux["slot_stats"].cpu().numpy(),
+                    "fp4_ranks": float(res.aux["fp4_ranks"])})
+    _sync(dev)
+    return out
+
+
+def _flips(a, b) -> int:
+    """Assignments routed elsewhere between two routing-count records
+    (``[blocks, 2, E]``, row 0 every token's): half the L1 gap."""
+    import numpy as np
+    return int(np.abs(np.asarray(a)[:, 0] - np.asarray(b)[:, 0]).sum()
+               // 2)
+
+
+def phase19_f32(cfg):
+    """The f32 copy of 19a's config (the same draws, kept in f32): a
+    random MoE stack in bf16 moves its logits by most of their largest
+    value under a one-ulp change of its embedding (on an H100: 2.97 to
+    4.32 against a largest logit of 4.4 to 5.0), so no reassociation
+    holds ``close_bf16``;
+    in f32 the layout's logits are held within the reference's f32 bound
+    (``PHASE16_GAP_BOUND``: atol + rtol x |logit|) of the one-device
+    forward's, or 4x that forward's own move under two ulps of its
+    embedding where that is larger."""
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="float32")
+
+
+def phase19_fp4(cfg, params, dev, ep, b, m_shape, rows=slice(None)):
+    """19a's chunk with the router skewed toward rank 0's experts and the
+    gate open (``PHASE10_HOT``): the FP4 ranks (summed over the MoE
+    layers), the gate and the AIMD state; the router restored after."""
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    hot = ReaLBConfig(**PHASE10_HOT)
+    chunk, _ = phase19_inputs(cfg, dev)
+    router = params["blocks"]["layer0"]["moe"]["router"].clone()
+    skew_router(params, ep)
+    try:
+        r = tf.chunk_forward(
+            params, cfg, hot, {k: v[rows] for k, v in chunk.items()},
+            tf.init_cache(cfg, b, PHASE19_STEPS["cache"], device=dev),
+            torch.full(m_shape, hot.md_init, device=dev))
+        _sync(dev)
+    finally:
+        params["blocks"]["layer0"]["moe"]["router"].copy_(router)
+    return {"fp4_ranks": float(r.aux["fp4_ranks"]),
+            "gate_open": float(r.aux["gate_open"]),
+            "m": r.m_state.cpu().numpy()}
+
+
+def phase19_meta(cfg, rcfg, shape):
+    """19a's chunk and the first decode step on ``meta`` under the abstract
+    ``shape`` mesh (rank 0's slices): each step's analyzer record."""
+    import torch
+    from repro_torch.core import ep_moe
+    from repro_torch.launch.steps import analyze_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Mesh, use_mesh
+    mesh = Mesh(shape, "abstract", "meta")
+    chunk, decs = phase19_inputs(cfg, torch.device("cpu"))
+    b = PHASE19_STEPS["b"]
+    recs = {}
+    with use_mesh(mesh):
+        params = tf.abstract_model(cfg, mesh=mesh)
+        cache = tf.abstract_cache(cfg, b, PHASE19_STEPS["cache"], mesh=mesh)
+        m = torch.zeros(ep_moe.moe_state_shape(mesh, b), device="meta")
+    for name, step, batch in zip(("chunk", "decode"),
+                                 phase19_steps(cfg, rcfg),
+                                 (chunk, decs[0])):
+        meta_batch = {k: torch.empty_like(v, device="meta")
+                      for k, v in batch.items()}
+        _, an, mem = analyze_step(step, [params, cache, m, meta_batch], mesh)
+        recs[name] = {"memory": mem, "flops_per_device": an.flops,
+                      "bytes_per_device": int(an.traffic),
+                      "census": an.census, "kernels": an.kernels,
+                      "n_ops": an.n_ops}
+    return recs
+
+
+def tp_rank_main(rank, world, backend, store_path, shape, ref, meta, grads,
+                 out, device_type="cuda"):
+    """One rank of phase 19 (a spawned process) under the default rules:
+    19a's analyzed serving steps and FP4 chunk, then 19b's train step."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        dev = torch.device(device_type, rank if backend == "nccl" else 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        store = dist.FileStore(store_path, world)
+        if backend == "nccl":
+            dist.init_process_group("nccl", store=store, rank=rank,
+                                    world_size=world, device_id=dev)
+        else:
+            dist.init_process_group("gloo", store=store, rank=rank,
+                                    world_size=world)
+        try:
+            from repro_torch.models.common import Mesh, use_mesh
+            mesh = Mesh(shape, backend, dev)
+            with use_mesh(mesh, rules={}):
+                res = tp_serving_rank(mesh, meta)
+                res["train"] = tp_train_rank(mesh, grads)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def tp_serving_rank(mesh, meta):
+    """19a on one rank: its slices of the weights (seed 0), the chunk and
+    the decode steps each under the analyzer with the launch counters and
+    the census zeroed just before and read just after (counts against
+    meta's, the peak against the allocator's), then the FP4 chunk with
+    the router skewed."""
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.launch.op_analysis import storage_bytes
+    from repro_torch.launch.steps import analyze_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_bytes
+    dev = mesh.device
+    cfg = phase10_cfg(PHASE19_LAYERS)
+    rcfg = ReaLBConfig(**PHASE10_OFF)
+    b = PHASE19_STEPS["b"]
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0)
+    cache = tf.init_cache(cfg, b, PHASE19_STEPS["cache"])
+    m = torch.full(ep_moe.moe_state_shape(mesh, b), rcfg.md_init,
+                   device=dev)
+    _sync(dev)
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": tree_bytes(params) / GIGA,
+           "cache_gb": tree_bytes(cache) / GIGA, "steps": [], "counts": {}}
+    comm = ep_moe._dist_comm(mesh)
+    chunk, decs = phase19_inputs(cfg, dev)
+    chunk_step, decode_step = phase19_steps(cfg, rcfg)
+    walls = []
+    ops.reset_launch_counts()
+    for i, (step, batch) in enumerate(((chunk_step, chunk),)
+                                      + tuple((decode_step, d)
+                                              for d in decs)):
+        args = [params, cache, m, batch]
+        gc.collect()
+        _sync(dev)
+        other = torch.cuda.memory_allocated(dev) - storage_bytes(args) \
+            if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        comm.census.reset()
+        t0 = time.perf_counter()
+        out, an, mem = analyze_step(step, args, mesh)
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        rec = {"logits": out.logits.float().cpu().numpy(),
+               "m": out.m_state.cpu().numpy(),
+               "experts": out.aux["expert_stats"].cpu().numpy(),
+               "slots": out.aux["slot_stats"].cpu().numpy(),
+               "fp4_ranks": float(out.aux["fp4_ranks"]),
+               "census": comm.census.snapshot()}
+        if i < 2:                   # the chunk and the first decode step
+            name = ("chunk", "decode")[i]
+            rec["counts_equal"] = {
+                k: (meta[name][k] == v) for k, v in (
+                    ("flops_per_device", an.flops),
+                    ("bytes_per_device", int(an.traffic)),
+                    ("memory", mem), ("census", an.census),
+                    ("kernels", an.kernels), ("n_ops", an.n_ops))}
+            rec["predicted_peak"] = mem["peak_bytes"]
+            rec["measured_peak"] = (torch.cuda.max_memory_allocated(dev)
+                                    - other) if dev.type == "cuda" else None
+        m.copy_(out.m_state)             # the engine's own AIMD buffer
+        cache = out.cache
+        res["steps"].append(rec)
+        del out, an
+    res["counts"] = ops.launch_counts()
+    res["walls_ms"] = walls
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else None
+    del params, cache
+    gc.collect()
+    # the f32 copy (``phase19_f32``): its stream, then the FP4 decision of
+    # the chunk with the router skewed and the gate open
+    cfg32 = phase19_f32(cfg)
+    params = tf.init_model(cfg32, seed=0)
+    m0 = torch.full(ep_moe.moe_state_shape(mesh, b), rcfg.md_init,
+                    device=dev)
+    res["f32"] = phase19_stream(cfg32, params, rcfg, dev, b, m0)
+    res["fp4"] = phase19_fp4(cfg32, params, dev, mesh.size("model"), b,
+                             ep_moe.moe_state_shape(mesh, b))
+    del params
+    gc.collect()
+    return res
+
+
+def tp_train_rank(mesh, one):
+    """19b on one rank: 13d's cut (``PHASE18_TRAIN``) in the layout from
+    ``launch.train.build``; one train step as ``launch.steps.
+    make_train_step`` composes it (the loss's gradient, the data-parallel
+    sums, one AdamW update) with the census and the launch counters
+    zeroed just before and read just after, its gradient of each leaf
+    held, before the update, against its slice of the one-card step's, in
+    units of the leaf's bound."""
+    import torch
+    from repro_torch.configs import ReaLBConfig, TrainConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import layout
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import (cut_of, decl_at, tree_bytes,
+                                           tree_items)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.grad_utils import (data_parallel_grads,
+                                              value_and_grad)
+    dev = mesh.device
+    c = PHASE18_TRAIN
+    cfg = phase14_cfg(c["layers"])
+    rcfg, tcfg = ReaLBConfig(), TrainConfig()
+    cfg, state, _ = train.build(cfg.name, "full", c["batch"], c["seq"],
+                                tcfg, rcfg, mesh=mesh, device=dev, cfg=cfg)
+    res = {"state_gb": (tree_bytes(state["params"])
+                        + tree_bytes(state["opt"].mu)
+                        + tree_bytes(state["opt"].nu)) / GIGA}
+    batch = _on(phase14_batch(cfg, (c["batch"], c["seq"]), 0), dev)
+    spec = tf.model_spec(cfg)
+    comm = ep_moe._dist_comm(mesh)
+    _sync(dev)
+    ops.reset_launch_counts()
+    comm.census.reset()
+    t0 = time.perf_counter()
+    (loss, (_, met1)), grads = value_and_grad(
+        tf.train_loss, state["params"], cfg, rcfg, batch, state["m"])
+    grads = data_parallel_grads(grads, spec)
+    ref, tol = one
+    worst, where, gap_at = 0.0, None, 0.0
+    for path, g in tree_items(grads):
+        cut = cut_of(decl_at(spec, path), mesh)
+        gap = _max_gap(g, layout.cut_leaf(_leaf(ref, path), cut, mesh))
+        name = "/".join(path)
+        if gap / tol[name] >= worst:
+            worst, where, gap_at = gap / tol[name], name, gap
+    adamw.adamw_update(state["params"], grads, state["opt"], tcfg,
+                       apply=torch.isfinite(loss), spec=spec)
+    _sync(dev)
+    res.update(loss1=float(loss), ce1=float(met1["ce"]), gap_ratio=worst,
+               gap_leaf=where, gap=gap_at,
+               wall_ms=(time.perf_counter() - t0) * 1e3,
+               census=comm.census.snapshot(), counts=ops.launch_counts())
+    del state, grads
+    gc.collect()
+    return res
+
+
+def tp_layout(dev, smi: str):
+    """Phase 19: the tensor-parallel layout of the dense part and the cache
+    (``models.layout``) under a ``(2, 2)`` mesh of four rank processes on
+    the card through the ``staged`` backend (host copies around gloo: the
+    times and memory are not NCCL's), under the default rules.  19a:
+    moonshot-v1-16b-a3b at its published widths, ``PHASE19_LAYERS``
+    deep, a ``[2, 1024]`` chunk then four decode steps in bf16 (the main
+    path): the census equal to ``predict_graph_census``, the analyzer's
+    counts equal on ``meta`` and on the card and its peak within
+    ``PHASE18_PEAK_TOL`` of the allocator's (:func:`phase19_f32` says why
+    its logits are not held); the same chunk and four decode steps on the
+    f32 copy: every rank's logits within the reference's f32 bound of the
+    one-device forwards of the same weights (one data row's row
+    at a time: each data row is its own EP group), each row's AIMD state
+    equal, the routing within ``PHASE19_FLIPS`` of the assignments (a near tie
+    of the top-k flips under any reassociation), the FP4 decision of a skewed
+    chunk equal. 19b: a train step at 13d's cut: step 1's CE and gradients
+    within phase 14's spread bound, the census equal to
+    ``predict_train_census``.
+    Returns the kernels' launches by rank on 19a's and 19b's paths."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_items
+    from repro_torch.obs.ledger import FlopByteLedger
+    from repro_torch.optim.grad_utils import value_and_grad
+
+    t_phase = time.perf_counter()
+    rows, ep = PHASE19_MESH
+    world = rows * ep
+    backend = "staged" if dev.type == "cuda" else "gloo"
+    cfg = phase10_cfg(PHASE19_LAYERS)
+    rcfg = ReaLBConfig(**PHASE10_OFF)
+    c = PHASE19_STEPS
+    log(f"19: backend {backend} ({world} rank processes on one card; each "
+        f"collective copies to the host around gloo: correctness only, no "
+        f"time or memory of it is NCCL's), a {rows}x{ep} mesh under the "
+        f"default rules; 19a {cfg.name} at {cfg.n_layers} layers, a "
+        f"[{c['b']}, {c['s']}] chunk and {c['decode']} decode steps over "
+        f"{c['cache']}-row caches")
+    # the one-device forwards of the f32 copy, one data row's row at a
+    # time (each data row is its own EP group), each beside its own change
+    # when the embedding moves by two ulps
+    cfg32 = phase19_f32(cfg)
+    params = tf.init_model(cfg32, seed=0, device=dev)
+    embed = params["embed"]
+    refs = []
+    for f in (1.0, 1 + 2.0 ** -22, 1 - 2.0 ** -22):
+        params["embed"] = embed * f
+        refs.append([phase19_stream(
+            cfg32, params, rcfg, dev, 1,
+            torch.full((1, ep), rcfg.md_init, device=dev), slice(g, g + 1))
+            for g in range(c["b"])])
+    params["embed"] = embed
+    fp4 = [phase19_fp4(cfg32, params, dev, ep, 1, (1, ep), slice(g, g + 1))
+           for g in range(c["b"])]
+    del params, embed
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta = phase19_meta(cfg, rcfg, PHASE19_MESH)
+    mesh_shape = {"data": rows, "model": ep}
+    pred = {"chunk": FlopByteLedger(cfg, ep=ep).predict_graph_census(
+        0, 0, layout=dict(mesh=mesh_shape, mode="chunk", batch=c["b"],
+                          seq=c["s"], cache_len=c["cache"])),
+            "decode": FlopByteLedger(cfg, ep=ep).predict_graph_census(
+        0, 0, layout=dict(mesh=mesh_shape, mode="decode", batch=c["b"],
+                          seq=1, cache_len=c["cache"]))}
+    log(f"19a: on meta under the abstract {rows}x{ep} mesh in "
+        f"{time.perf_counter() - t0:.1f} s; prediction: chunk memory "
+        f"{meta['chunk']['memory']}, decode memory "
+        f"{meta['decode']['memory']}; census chunk {json.dumps(pred['chunk'])}"
+        f", decode {json.dumps(pred['decode'])}")
+    for name in ("chunk", "decode"):
+        if meta[name]["census"] != pred[name]:
+            raise AssertionError(f"19a {name}: meta's census "
+                                 f"{meta[name]['census']} != predicted "
+                                 f"{pred[name]}")
+    # 19b: the one-card step 1 at 13d's cut and its own spread
+    tc = PHASE18_TRAIN
+    tcfg = phase14_cfg(tc["layers"])
+    trcfg = ReaLBConfig()
+    tparams = tf.init_model(tcfg, seed=0, device=dev)
+    m0 = torch.full((1, 1), trcfg.md_init, device=dev)
+    batch = _on(phase14_batch(tcfg, (tc["batch"], tc["seq"]), 0), dev)
+    (loss1, (_, met1)), one = value_and_grad(tf.train_loss, tparams, tcfg,
+                                             trcfg, batch, m0)
+    ce1 = float(met1["ce"])
+    embed, spread, ce_spread = tparams["embed"], {}, 0.0
+    for f in PHASE14_PERTURB:
+        tparams["embed"] = (embed.float() * f).to(embed.dtype)
+        (_, (_, met)), moved = value_and_grad(tf.train_loss, tparams, tcfg,
+                                              trcfg, batch, m0)
+        ce_spread = max(ce_spread, abs(float(met["ce"]) - ce1))
+        for path, t in tree_items(moved):
+            spread[path] = max(spread.get(path, 0.0),
+                               _max_gap(t, _leaf(one, path)))
+        del moved
+    tol = {"/".join(p): max(PHASE14_ATOL_REL * _max_gap(_leaf(one, p)),
+                            PHASE14_SPREAD * s)
+           for p, s in spread.items()}
+    del tparams, embed, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    loss1 = float(loss1)
+    tpred = FlopByteLedger(tcfg, ep=ep).predict_train_census(
+        0, 0, rows, 2, 2, (), layout=dict(mesh=mesh_shape,
+                                          batch=tc["batch"], seq=tc["seq"]))
+    log(f"19b: one-card step 1 loss {loss1:.6f} at {tcfg.n_layers} layers, "
+        f"[{tc['batch']}, {tc['seq']}]; predicted census of a step "
+        f"{json.dumps(tpred)}")
+    try:
+        ranks, took = run_rank_processes(
+            "19", tp_rank_main, world, PHASE19_DEADLINE_S,
+            lambda r, store, q: (r, world, backend, store, PHASE19_MESH,
+                                 None, meta, (one, tol), q, dev.type))
+    finally:
+        del one
+    log(f"19: {world} ranks ran in {took:.1f} s (spawn to join)")
+    def whole(run, i, key="logits"):
+        return np.concatenate([rows_[i][key] for rows_ in run])
+
+    n_steps = 1 + c["decode"]
+    for r, res in enumerate(ranks):
+        gaps, bounds, flips = [], [], []
+        for i, rec in enumerate(res["steps"]):      # the bf16 main path
+            name = "chunk" if i == 0 else "decode"
+            if rec["census"] != pred[name]:
+                raise AssertionError(f"19a rank {r} step {i}: census "
+                                     f"{rec['census']} != {pred[name]}")
+            if "counts_equal" in rec:
+                bad = [k for k, ok in rec["counts_equal"].items() if not ok]
+                if bad:
+                    raise AssertionError(f"19a rank {r} {name}: the "
+                                         f"analyzer's {bad} differ on meta "
+                                         "and on the card")
+                if rec["measured_peak"] is not None:
+                    check_peak(f"19a rank {r} {name}",
+                               rec["predicted_peak"], rec["measured_peak"])
+        if len(res["f32"]) != n_steps:
+            raise AssertionError(f"19a rank {r}: the f32 copy ran "
+                                 f"{len(res['f32'])} of {n_steps} steps")
+        for i, rec in enumerate(res["f32"]):        # the f32 copy, held
+            want = whole(refs[0], i)
+            spread = max(np.abs(whole(run, i) - want).max()
+                         for run in refs[1:])
+            atol, rtol = PHASE16_GAP_BOUND
+            bound = np.maximum(atol + rtol * np.abs(want),
+                               PHASE14_SPREAD * spread)
+            diff = np.abs(rec["logits"] - want)
+            gaps.append(float(diff.max()))
+            bounds.append(float((diff / bound).max()))
+            if not bounds[-1] <= 1.0:
+                raise AssertionError(f"19a rank {r} f32 step {i}: logits "
+                                     f"{diff.max()} from one device, "
+                                     f"{bounds[-1]} of the bound")
+            rows_ref = [x[i] for x in refs[0]]
+            for g, x in enumerate(rows_ref):
+                if not np.array_equal(rec["m"][g], x["m"][0]):
+                    raise AssertionError(f"19a rank {r} step {i}: m_state "
+                                         f"{rec['m']} against {x['m']}")
+            # the routing: assignments sent elsewhere than one device
+            # sends them, against that device's own move (a near tie of
+            # the top-k flips under any reassociation)
+            for key in ("experts", "slots"):
+                want_c = sum(x[key] for x in rows_ref)
+                own = max(_flips(sum(x[i][key] for x in run), want_c)
+                          for run in refs[1:])
+                n = int(np.asarray(want_c)[:, 0].sum())
+                got_f = _flips(rec[key], want_c)
+                allowed = max(PHASE14_SPREAD * own, PHASE19_FLIPS * n)
+                if key == "experts":
+                    flips.append((got_f, own, n))
+                if got_f > allowed:
+                    raise AssertionError(
+                        f"19a rank {r} step {i}: {got_f} of {n} {key} "
+                        f"assignments routed elsewhere than on one device "
+                        f"(its own move {own}, allowed {allowed})")
+        got = res["fp4"]
+        hot_ref = {"fp4_ranks": float(np.mean([x["fp4_ranks"] for x in fp4])),
+                   "gate_open": float(np.mean([x["gate_open"] for x in fp4]))}
+        if got["fp4_ranks"] != hot_ref["fp4_ranks"] \
+                or got["gate_open"] != hot_ref["gate_open"] \
+                or any(not np.array_equal(got["m"][g], x["m"][0])
+                       for g, x in enumerate(fp4)):
+            raise AssertionError(f"19a rank {r}: FP4 decision {got} against "
+                                 f"{hot_ref}, {[x['m'] for x in fp4]}")
+        log(f"19a rank {r}: {res['weights_gb']:.2f} GB of weights and "
+            f"{res['cache_gb']:.3f} GB of cache, built in "
+            f"{res['init_s']:.1f} s; bf16 main path ({n_steps} steps): "
+            f"census equal to the prediction, the analyzer's counts equal "
+            f"to meta's; f32 copy ({n_steps} steps): logits max abs gaps "
+            f"{[f'{v:.3g}' for v in gaps]}, "
+            f"at most {[f'{v:.3f}' for v in bounds]} of the bound (the "
+            f"reference's {PHASE16_GAP_BOUND[0]} + {PHASE16_GAP_BOUND[1]} x "
+            f"|logit|, or 4x the one-device f32 forward's own move), routing "
+            f"(assignments elsewhere, the one-device forward's own move, "
+            f"assignments) by step {flips}, AIMD state "
+            f"equal; FP4 chunk: {got['fp4_ranks']} FP4 ranks summed over "
+            f"the MoE layers, gate open {got['gate_open']} (equal); step "
+            f"walls ms {[round(w, 1) for w in res['walls_ms']]} (staged); "
+            f"peak {res['peak_gib'] and round(res['peak_gib'], 2)} GiB; "
+            f"launches {res['counts']}")
+        t = res["train"]
+        ce_bound = max(PHASE14_TOL, PHASE14_SPREAD * ce_spread)
+        log(f"19b rank {r}: {t['state_gb']:.2f} GB of parameters and "
+            f"moments; step 1 loss {t['loss1']:.6f} (one card {loss1:.6f}; "
+            f"the load-balance loss is the EP group's), CE {t['ce1']:.6f} "
+            f"(one card {ce1:.6f}, bound {ce_bound:.4g}: its own move "
+            f"under the perturbation {ce_spread:.4g}), "
+            f"gradient gaps at most {t['gap_ratio']:.3f} of their bounds "
+            f"(at {t['gap_leaf']}: {t['gap']:.3g}); the step (with the "
+            f"gradient check) {t['wall_ms']:.1f} ms (staged); "
+            f"launches {t['counts']}")
+        if abs(t["ce1"] - ce1) >= ce_bound or not t["gap_ratio"] <= 1.0:
+            raise AssertionError(f"19b rank {r}: step 1 CE {t['ce1']} "
+                                 f"against {ce1}, gradient gap {t['gap']} "
+                                 f"at {t['gap_leaf']}")
+        if t["census"] != tpred:
+            raise AssertionError(f"19b rank {r}: census {t['census']} != "
+                                 f"predicted {tpred}")
+    kinds = SERVE_KERNELS
+    if dev.type == "cuda":
+        # every MoE layer of every rank launches the quantizer, the global
+        # scale and both grouped FFNs (19a); training the BF16 FFN and its
+        # backward (19b)
+        for r, res in enumerate(ranks):
+            idle = [k for k in kinds if not res["counts"].get(k)] + [
+                k for k in ("grouped_ffn", "grouped_ffn_bwd")
+                if not res["train"]["counts"].get(k)]
+            if idle:
+                raise AssertionError(f"19 rank {r}: {idle} never launched "
+                                     "on the main path")
+    log(f"19: passed in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return ({k: [r["counts"].get(k, 0) for r in ranks] for k in kinds},
+            {k: [r["train"]["counts"].get(k, 0) for r in ranks]
+             for k in kinds + ("grouped_ffn_bwd",)})
+
+
 def check_small_against_cpu(dev):
     """Phase 6: reduced moonshot through the kernels on the card against
     the plain versions on the CPU (the same check as the card's tests)."""
@@ -6515,6 +7116,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase18b = dryrun_training(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_serve_counts, tp_train_counts = tp_layout(dev, smi)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -6635,6 +7239,11 @@ def main() -> int:
     for k in kernels:
         k["dryrun_launches"] = phase18["counts"].get(k["name"], 0)
         k["dryrun_train_launches"] = phase18b["counts"].get(k["name"], 0)
+    # phase 19: the tensor-parallel layout's serving (19a) and train (19b)
+    # paths, by rank
+    for k in kernels:
+        k["tp_launches"] = tp_serve_counts.get(k["name"], [0] * 4)
+        k["tp_train_launches"] = tp_train_counts.get(k["name"], [0] * 4)
     log(json.dumps({"dryrun": {**phase18["cells"], "train": {
         f: v for f, v in phase18b.items() if f != "counts"}}}))
     log(json.dumps({"kernels": kernels}))

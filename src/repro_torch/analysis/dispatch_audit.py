@@ -256,17 +256,21 @@ def census_matches_prediction(cfg, batch: int, seq: int, mesh
     """One prefill of ``[batch, seq]`` on ``meta`` under the abstract
     ``mesh`` (``launch.steps.lower_cell``): its ``Comm`` census beside
     ``predict_graph_census`` for its MoE layers (each rank dispatches its
-    rows' ``seq/ep`` tokens).  ``{"census", "predicted", "ok"}``."""
+    rows' ``seq/ep`` tokens; in the tensor-parallel layout of the rules in
+    force, every collective of the forward, ``layout=``).  ``{"census",
+    "predicted", "ok"}``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.ep_moe import moe_state_shape
     from repro_torch.launch.steps import lower_cell
-    from repro_torch.models.common import DTYPES
+    from repro_torch.models.common import DTYPES, tensor_parallel
     from repro_torch.obs.ledger import FlopByteLedger
     rows, ep = moe_state_shape(mesh, batch)
     rec = lower_cell(cfg, ShapeConfig("census", seq, batch, "prefill"), mesh)
     n_moe = sum(1 for f in cfg.ffn_kinds() if f == "moe")
+    layout = dict(mesh=mesh, mode="prefill", batch=batch, seq=seq) \
+        if tensor_parallel(mesh) else None
     pred = FlopByteLedger(cfg, ep=ep).predict_graph_census(
         t_local=(batch // rows) * (seq // ep), layers=n_moe,
-        itemsize=DTYPES[cfg.param_dtype].itemsize, rows=rows)
+        itemsize=DTYPES[cfg.param_dtype].itemsize, rows=rows, layout=layout)
     return {"census": rec["census"], "predicted": pred,
             "ok": rec["census"] == pred}

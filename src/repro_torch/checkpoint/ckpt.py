@@ -30,7 +30,11 @@ the saved slots.  In the FSDP layout of training (``fsdp=True``) the data
 rows hold different D slices of each slot: a save gathers each block over
 ``data`` first (every rank takes part), for the parameters and the AdamW
 moments alike, and a restore cuts the D slice again, for any
-``(data, model)`` shape or onto one device.
+``(data, model)`` shape or onto one device.  In the tensor-parallel
+layout of the default rules (``models.layout``) every leaf may be cut:
+``save(spec=)`` gathers each whole and ``restore(spec=)`` cuts each by
+the rules, so a checkpoint saved on one mesh restores on any other, or on
+one device.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import FSDP_DIM
+from repro_torch.models.common import (FSDP_DIM, cut_of, decl_at,
+                                       layout_spec)
 
 Tree = Any
 _SEP = "|"
@@ -199,18 +204,68 @@ def _write(root: pathlib.Path, step: int, flats: Dict[str, Any],
 
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Tree],
-         keep: int = 3, mesh=None, fsdp: bool = False) -> str:
+         keep: int = 3, mesh=None, fsdp: bool = False,
+         spec: Optional[Tree] = None) -> str:
     """Synchronous atomic save. state: {"params": tree, "opt": tree, ...}.
     Each leaf goes to the host when it is written.  Under ``mesh`` every
     rank of it calls this with its own shard (see the module docstring;
     ``fsdp``: the expert stacks in the FSDP layout); every rank returns
     once the checkpoint is complete, and if the write fails every rank
-    raises."""
-    if mesh is None or mesh.size("data") * mesh.size("model") == 1:
+    raises.  In the tensor-parallel layout (``spec``: the model's
+    declarations, ``transformer.model_spec``, required there:
+    ``models.common.layout_spec``; the AdamW moments follow their
+    parameters) every leaf the rules cut is gathered whole first
+    (:func:`models.layout.whole_leaf`, every rank taking part) and rank 0
+    writes the global arrays."""
+    if mesh is None or mesh.size(None) == 1:
         flats = {g: _flat_items(t) for g, t in state.items()}
         return str(_write(pathlib.Path(ckpt_dir), step, flats, keep))
+    spec = layout_spec(spec, mesh)
+    if spec is not None:
+        return _save_layout(pathlib.Path(ckpt_dir), step, state, keep, mesh,
+                            spec)
     return _save_global(pathlib.Path(ckpt_dir), step, state, keep, mesh,
                         fsdp and mesh.size("data") > 1)
+
+
+def _leaf_cut(spec: Tree, path, mesh):
+    """The cut axes of a state leaf at ``path``: its declaration's, or
+    the parameter's its AdamW moment follows (``.mu``, ``.nu``); None for
+    any other leaf (it is whole on every rank)."""
+    p = decl_at(spec, [k for k in path if k not in (".mu", ".nu")])
+    return None if p is None else cut_of(p, mesh)
+
+
+def _save_layout(root: pathlib.Path, step: int, state: Dict[str, Tree],
+                 keep: int, mesh, spec: Tree) -> str:
+    import torch.distributed as dist
+    from repro_torch.core.ep_moe import _dist_comm
+    from repro_torch.models.layout import whole_leaf
+    writer = dist.get_rank() == int(mesh.ranks[0, 0])
+
+    def items(tree):
+        for path, leaf in _leaves(tree):
+            cut = _leaf_cut(spec, path, mesh) if torch.is_tensor(leaf) \
+                else None
+            if cut is not None:
+                leaf = whole_leaf(leaf, cut, mesh)
+            if writer:
+                yield from _flat_items({_SEP.join(path): leaf})
+
+    err = None
+    flats = {g: items(t) for g, t in state.items()}
+    if writer:
+        try:
+            _write(root, step, flats, keep)
+        except Exception as e:       # noqa: BLE001 - agreed on below
+            err = e
+    for items_left in flats.values():   # every gather left takes place
+        for _ in items_left:
+            pass
+    if _dist_comm(mesh).agree_max([0.0 if err is None else 1.0])[0]:
+        raise err if err is not None else RuntimeError(
+            f"rank 0 failed to write the checkpoint under {root}")
+    return str(root / f"step_{step:08d}")
 
 
 def _is_expert(path) -> bool:
@@ -390,19 +445,25 @@ def decode_rows(rows: np.ndarray, ext: Optional[str]) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, templates: Dict[str, Tree],
-            step: Optional[int] = None, mesh=None, fsdp: bool = False
-            ) -> Tuple[int, Dict[str, Tree]]:
+            step: Optional[int] = None, mesh=None, fsdp: bool = False,
+            spec: Optional[Tree] = None) -> Tuple[int, Dict[str, Tree]]:
     """Restore onto ``templates``' structure: each leaf a tensor with the
     saved dtype, on the device of the template's leaf.  Under ``mesh``
     (the counterpart of the reference's ``shardings=``) each expert stack
     ``[.., S, a, b]`` comes back as this rank's ``S/ep`` slots (with
     ``fsdp``, their ``D/data`` slice), read through a memory map (``ep``
     the mesh's ``model`` size, which need not be the writer's); every
-    other leaf whole."""
+    other leaf whole.  In the tensor-parallel layout (``spec``, as
+    :func:`save` takes it) every leaf comes back as the slice the rules
+    cut for this rank, on any mesh."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    spec = None if mesh is None else layout_spec(spec, mesh)
+    if spec is not None:
+        return step, {g: _restore_layout(ckpt_dir, g, t, step, mesh, spec)
+                      for g, t in templates.items()}
     ep = 1 if mesh is None else mesh.size("model")
     rows = mesh.size("data") if mesh is not None and fsdp else 1
     out = {}
@@ -427,6 +488,27 @@ def restore(ckpt_dir: str, templates: Dict[str, Tree],
             flat[key] = mm[tuple(idx)]
         out[group] = _unflatten_into(tmpl, _decode_flat(flat))
     return step, out
+
+
+def _restore_layout(ckpt_dir: str, group: str, tmpl: Tree, step: int, mesh,
+                    spec: Tree) -> Tree:
+    """One group's leaves, each this rank's slice by the rules, read
+    through memory maps."""
+    paths = {_SEP.join(path): path for path, _ in _leaves(tmpl)}
+    flat = {}
+    maps = open_arrays(ckpt_dir, group, list(paths), step)
+    for key, (mm, ext) in maps.items():
+        cut = _leaf_cut(spec, paths[key], mesh)
+        idx = [slice(None)] * mm.ndim
+        for i, axes in enumerate(cut or ()):
+            dim = mm.ndim - len(cut) + i
+            if axes:
+                n = mm.shape[dim] // mesh.size(axes)
+                j = mesh.index(axes)
+                idx[dim] = slice(j * n, (j + 1) * n)
+        flat[key] = decode_rows(mm[tuple(idx)], ext) if ext \
+            else np.array(mm[tuple(idx)], copy=True)
+    return _unflatten_into(tmpl, flat)
 
 
 class AsyncCheckpointer:

@@ -131,6 +131,24 @@ def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
     return walk(tree, False)
 
 
+def layout_shard(tree: Tree, spec: Tree, mesh, device=None) -> Tree:
+    """This rank's parameters from the reference's numpy tree in the
+    tensor-parallel layout (``models.layout``): every leaf cut by the
+    rules in force as its declaration in ``spec`` (a stacked leaf's
+    leading dim whole); only the rank's part is copied to the device."""
+    from repro_torch.models.common import leaf_cuts
+    device = resolve_device(mesh.device if device is None else device)
+
+    def walk(node, decl):
+        if isinstance(node, dict):
+            return {k: walk(v, decl[k]) for k, v in node.items()}
+        arr = np.asarray(node)
+        cut = leaf_cuts(decl.shape, decl.axes, mesh)
+        lead = (slice(None),) * (arr.ndim - len(cut))
+        return tensor_from_numpy(arr[lead + cut], device)
+    return walk(tree, spec)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as numpy; bf16 widens to f32 (exact)."""
     t = t.detach().cpu()

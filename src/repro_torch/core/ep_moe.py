@@ -27,6 +27,13 @@ Two paths, as in the reference:
   per-expert products in BF16, the grouped W4A4 kernel in FP4), combine
   by one-hot gates, the partial sums added over the group in rank order.
 
+In the tensor-parallel layout of the default rules (``models.layout``)
+the layer receives the rank's rows and, in dispatch, its ``S/ep`` slice
+of the sequence as they are (the residual is sequence-parallel), returns
+its output for them, and gathers its expert stacks' D dim over ``data``
+on use (serving too, as the reference's GSPMD gathers them into its
+``shard_map``).
+
 The BF16-or-FP4 decision stays on the device, as the reference's in-graph
 ``lax.cond`` keeps it: ``_use_fp4`` gives a 0-dim tensor ``f``, the
 quantizer runs under ``f`` as a device predicate, the FP4 expert FFN runs
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,7 +68,8 @@ from repro_torch.core import quant
 from repro_torch.core.policy import realb_policy
 from repro_torch.kernels import cost as kcost
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import FSDP_DIM, current_mesh, local_slice
+from repro_torch.models.common import (FSDP_DIM, ROWS, current_mesh,
+                                       local_slice, tensor_parallel)
 
 F32 = torch.float32
 AUX_SCALARS = ("lb_loss", "z_loss", "drop_frac", "ib_global", "fp4_ranks",
@@ -202,7 +211,21 @@ class CollectiveCensus:
     ``all_to_all_grad`` and ``layout_all_gather_grad``, the FSDP slabs'
     ``fsdp_all_gather`` and ``fsdp_reduce_scatter``, the loss's
     ``psum_data``/``all_reduce_data``, the replicated leaves'
-    ``grad_all_reduce`` and the global norm's ``norm_all_gather``."""
+    ``grad_all_reduce`` and the global norm's ``norm_all_gather``.  The
+    tensor-parallel layout (``models.layout``): the residual's sequence
+    gathered into column-parallel layers (``tp_all_gather``) and the
+    row-parallel partials reduced back (``tp_reduce_scatter``, in decode
+    ``tp_all_reduce``), the weights' D dims gathered over ``data``
+    (``fsdp_all_gather``), the Mamba layer's ``w_in`` over ``model``
+    (``tp_weight_all_gather``), serving's head gathers
+    (``head_all_gather``), the attention partials' combine over the
+    cache's rows (``kv_combine_all_gather``), the last rows and the
+    logits (``last_row_all_gather``, ``logits_all_gather``), the loss's
+    max (``tp_max_all_reduce``); in training their transposes
+    (``*_grad``, ``fsdp_reduce_scatter``, ``tp_weight_reduce_scatter``)
+    and the gradient sums of replicated values (``tp_all_reduce_grad``).
+    An axis may be a tuple of mesh axes (``psum_pod_data``: a batch cut
+    over ``pod`` and ``data``)."""
 
     def __init__(self):
         self.kinds: Dict[str, Dict[str, int]] = {}
@@ -300,23 +323,103 @@ class _Scatter(torch.autograd.Function):
 
 
 class _FsdpGather(torch.autograd.Function):
-    """The FSDP gather of an expert slab (the reference's ``fsdp_gather``,
-    an all-gather over ``data`` along the ``embed`` dim ``dim``).  Each
-    data row uses the whole slab on its own tokens, so its cotangent holds
-    that row's part of the gradient: the transpose is a reduce-scatter
-    over ``data``, each rank keeping the sum over the rows of its own
-    slice.  It is an all-to-all of the slices and a sum in rank order, in
-    f32 rounded once to the slab's dtype, so every backend gives the same
-    bits."""
+    """The all-gather of a tensor a rank holds a slice of along ``dim``
+    over ``axis`` (the FSDP gather of a weight's ``embed`` dim over
+    ``data``, the reference's ``fsdp_gather``; the sequence of the
+    residual over ``model`` into a column-parallel layer).  Each rank
+    uses the whole tensor on its own data, so its cotangent holds that
+    rank's part of the gradient: the transpose is a reduce-scatter over
+    ``axis``, each rank keeping the sum over the ranks of its own slice.
+    It is an all-to-all of the slices and a sum in rank order, in f32
+    rounded once to the dtype, so every backend gives the same bits.
+    ``kinds`` names the forward's and the transpose's census kinds."""
 
     @staticmethod
-    def forward(ctx, w, comm, dim):
-        ctx.comm, ctx.dim = comm, dim
-        return comm._whole(w, dim)
+    def forward(ctx, w, comm, dim, axis="data",
+                kinds=("fsdp_all_gather", "fsdp_reduce_scatter")):
+        ctx.comm, ctx.dim, ctx.axis, ctx.kinds = comm, dim, axis, kinds
+        return comm._whole(w, dim, axis, kinds[0])
 
     @staticmethod
     def backward(ctx, dw):
-        return ctx.comm.reduce_scatter(dw, ctx.dim), None, None
+        return (ctx.comm.reduce_scatter(dw, ctx.dim, ctx.axis, ctx.kinds[1]),
+                None, None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Row-parallel partial sums summed over ``axis``, this rank's slice
+    along ``dim`` kept (a row-parallel layer's output back to the
+    sequence-parallel residual).  The slice's cotangent is this rank's
+    own; the whole partial on every rank feeds the sum, so the transpose
+    is the all-gather of the slices' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis, kinds):
+        ctx.comm, ctx.dim, ctx.axis, ctx.kinds = comm, dim, axis, kinds
+        return comm.reduce_scatter(x, dim, axis, kinds[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (ctx.comm._whole(dy.contiguous(), ctx.dim, ctx.axis,
+                                ctx.kinds[1]), None, None, None, None)
+
+
+class _Enter(torch.autograd.Function):
+    """A value every rank of ``axis`` holds alike, entering computations
+    that each use only a part of it (a column-parallel layer's input; a
+    weight replicated over ``model`` applied to a sequence-parallel
+    activation): the identity, whose transpose sums the ranks' partial
+    cotangents over ``axis`` (one all-reduce), so the replicated value's
+    cotangent is again the whole one on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        flat = dx.reshape(-1).to(F32).contiguous()
+        ctx.comm._all_reduce(flat, ctx.axis, "tp_all_reduce_grad")
+        return flat.reshape(dx.shape).to(dx.dtype), None, None
+
+
+class _OrderedSum(torch.autograd.Function):
+    """Partial sums added over ``axis`` in rank order (an all-gather and
+    sequential f32 adds, rounded once: the same bits on every rank).  The
+    sum is replicated and so is every use of it, so its cotangent is the
+    whole one on every rank and the transpose passes it to each addend
+    unchanged (as :class:`_PSum`)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, kind):
+        return comm._ordered_sum(x, axis, kind)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None, None
+
+
+# the staged backend's host buffers: one a tensor index of a collective,
+# made once by the process (pinned when the tensors are on a card: the
+# copies are DMA transfers into pages that already exist); a tensor
+# larger than a buffer gets fresh pageable memory.  Staged collectives
+# run one at a time (the lock).
+STAGING_BYTES = 1 << 30
+_STAGING: Dict[int, torch.Tensor] = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def _staging(i: int, t: torch.Tensor) -> torch.Tensor:
+    """A host tensor of ``t``'s shape and dtype for the ``i``-th tensor of
+    a staged collective (its contents undefined)."""
+    n = t.numel() * t.element_size()
+    if n > STAGING_BYTES:
+        return torch.empty(t.shape, dtype=t.dtype)
+    if i not in _STAGING:
+        _STAGING[i] = torch.empty(STAGING_BYTES, dtype=torch.uint8,
+                                  pin_memory=t.is_cuda)
+    return _STAGING[i][:n].view(t.dtype).view(t.shape)
 
 
 class Comm:
@@ -356,32 +459,46 @@ class Comm:
 
     def _run(self, op, tensors, outs, async_op=False):
         """``op(*tensors, async_op=...)``; returns its work (None when
-        done).  Staged: ``tensors`` go to the host, the op runs there and
-        the tensors at indices ``outs`` come back.  Abstract (the dry
-        run's mesh): nothing runs; the outputs keep the shapes they were
-        made with (an all-to-all's and an all-reduce's those of the input,
-        an all-gather's ``n`` times it, a scatter's ``1/n``)."""
+        done).  Staged: the op runs on host copies (:func:`_staging`'s
+        buffers) and the tensors at indices ``outs`` come back (those the
+        op only writes are not copied there first).  Abstract (the dry run's mesh): nothing
+        runs; the outputs keep the shapes they were made with (an
+        all-to-all's and an all-reduce's those of the input, an
+        all-gather's ``n`` times it, a scatter's ``1/n``)."""
         if self.mesh.backend == "abstract":
             return None
-        if not self.staged:
-            return op(*tensors, async_op=async_op)
-        ctx = (contextlib.nullcontext() if self.sentinel is None
-               else self.sentinel.sanctioned("collective"))
-        with ctx:
-            host = [t.to("cpu", copy=True) for t in tensors]
-            op(*host, async_op=False)
-            for i in outs:
-                tensors[i].copy_(host[i].to(tensors[i].device))
+        with kcost.uncounted():
+            if not self.staged:
+                return op(*tensors, async_op=async_op)
+            ctx = (contextlib.nullcontext() if self.sentinel is None
+                   else self.sentinel.sanctioned("collective"))
+            with ctx, _STAGING_LOCK:
+                host = [_staging(i, t) for i, t in enumerate(tensors)]
+                for i, (h, t) in enumerate(zip(host, tensors)):
+                    # an output beside an input is written whole by the
+                    # op: only what it reads crosses to the host (an
+                    # all-reduce's one tensor is both)
+                    if i not in outs or len(tensors) == 1:
+                        h.copy_(t)
+                op(*host, async_op=False)
+                for i in outs:
+                    tensors[i].copy_(host[i])
         return None
 
-    def psum(self, parts, axis: str = "model"):
+    def _tag(self, axis) -> str:
+        """A census suffix for ``axis`` (a tuple: its axes on the mesh)."""
+        return axis if isinstance(axis, str) else "_".join(
+            self.mesh._axes(axis))
+
+    def psum(self, parts, axis="model"):
         """Each tensor of ``parts`` (one dtype) summed over the mesh axis
         ``axis`` (the EP group by default), in one ``all_reduce`` of the
         parts packed."""
         if self.mesh is None or self.mesh.size(axis) == 1:
             return list(parts)
         flat = torch.cat([t.reshape(-1) for t in parts])
-        self.census.add("psum" if axis == "model" else f"psum_{axis}",
+        self.census.add("psum" if axis == "model"
+                        else f"psum_{self._tag(axis)}",
                         flat.nbytes, count=len(parts))
         if _records(flat):
             flat = _PSum.apply(flat, self, axis)
@@ -393,11 +510,12 @@ class Comm:
             i += t.numel()
         return out
 
-    def _all_reduce(self, flat: torch.Tensor, axis: str,
+    def _all_reduce(self, flat: torch.Tensor, axis,
                     kind: Optional[str] = None) -> None:
         import torch.distributed as dist
         self.census.add(kind or ("all_reduce" if axis == "model"
-                                 else f"all_reduce_{axis}"), flat.nbytes)
+                                 else f"all_reduce_{self._tag(axis)}"),
+                        flat.nbytes)
         group = self.mesh.group(axis)
         self._run(lambda t, async_op: dist.all_reduce(
             t, group=group, async_op=async_op), [flat], [0])
@@ -406,11 +524,7 @@ class Comm:
         """``x`` summed over every rank of the mesh in rank order (an
         all-gather over the mesh's group and sequential adds: the same bits
         on every rank), counted as ``norm_all_gather``."""
-        parts = self._gather(x, None, "norm_all_gather")
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total
+        return self._ordered_sum(x, None, "norm_all_gather")
 
     def all_true(self, flag: torch.Tensor) -> torch.Tensor:
         """A 0-dim bool ``flag`` and-ed over every rank of the mesh (one
@@ -458,11 +572,7 @@ class Comm:
         if self.mesh is None:
             return x
         self.census.add("psum", x.nbytes)
-        parts = self._gather(x, "model", "all_gather")
-        out = parts[0]
-        for part in parts[1:]:
-            out = out + part
-        return out
+        return self._ordered_sum(x, "model", "all_gather")
 
     def exchange_rows(self, send: torch.Tensor, send_counts,
                       recv_counts) -> torch.Tensor:
@@ -528,8 +638,8 @@ class Comm:
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[rows, *x.shape]``: every data row's ``x``."""
         if _records(x):
-            return _Gather.apply(x, self, "data")
-        return self._gather(x, "data")
+            return _Gather.apply(x, self, ROWS)
+        return self._gather(x, ROWS)
 
     def scatter(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """This rank's slice along ``dim`` of ``x``, which every rank of
@@ -545,32 +655,36 @@ class Comm:
         part = x.shape[dim] // self.mesh.size(axis)
         return x.narrow(dim, self.mesh.index(axis) * part, part)
 
-    def fsdp_gather(self, w: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole ``embed`` dim of an expert slab whose slice along
-        ``dim`` each data row holds (``_FsdpGather``)."""
-        if self.mesh is None or self.mesh.size("data") == 1:
+    def fsdp_gather(self, w: torch.Tensor, dim: int, axis="data",
+                    kinds=("fsdp_all_gather", "fsdp_reduce_scatter")
+                    ) -> torch.Tensor:
+        """The whole ``dim`` of a tensor whose slice along ``dim`` each rank
+        of ``axis`` holds (``_FsdpGather``; by default a weight's ``embed``
+        dim over ``data``)."""
+        if self.mesh is None or self.mesh.size(axis) == 1:
             return w
         if _records(w):
-            return _FsdpGather.apply(w, self, dim)
-        return self._whole(w, dim)
+            return _FsdpGather.apply(w, self, dim, axis, kinds)
+        return self._whole(w, dim, axis, kinds[0])
 
-    def _whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
-        return torch.cat(list(self._gather(w, "data", "fsdp_all_gather")),
-                         dim=dim)
+    def _whole(self, w: torch.Tensor, dim: int, axis="data",
+               kind: str = "fsdp_all_gather") -> torch.Tensor:
+        return torch.cat(list(self._gather(w, axis, kind)), dim=dim)
 
-    def reduce_scatter(self, dw: torch.Tensor, dim: int) -> torch.Tensor:
-        """``dw`` (a whole slab's part of the gradient, one a data row)
-        summed over ``data``, this rank's slice along ``dim`` kept: an
-        all-to-all of the ``rows`` slices and a sum in rank order in f32,
-        rounded once to ``dw``'s dtype.  Counted as
-        ``fsdp_reduce_scatter`` with the bytes of ``dw``."""
+    def reduce_scatter(self, dw: torch.Tensor, dim: int, axis="data",
+                       kind: str = "fsdp_reduce_scatter") -> torch.Tensor:
+        """``dw`` (a whole tensor's partial sum, one a rank of ``axis``)
+        summed over ``axis``, this rank's slice along ``dim`` kept: an
+        all-to-all of the slices and a sum in rank order in f32, rounded
+        once to ``dw``'s dtype.  Counted as ``kind`` with the bytes of
+        ``dw``."""
         import torch.distributed as dist
-        rows = self.mesh.size("data")
+        rows = self.mesh.size(axis)
         dim = dim % dw.dim()
         send = torch.stack(torch.chunk(dw, rows, dim=dim)).contiguous()
         recv = torch.empty_like(send)
-        self.census.add("fsdp_reduce_scatter", send.nbytes)
-        group = self.mesh.group("data")
+        self.census.add(kind, send.nbytes)
+        group = self.mesh.group(axis)
         self._run(lambda src, dst, async_op: dist.all_to_all_single(
             dst, src, group=group, async_op=async_op), [send, recv], [1])
         out = recv[0].to(F32)
@@ -578,13 +692,75 @@ class Comm:
             out = out + part.to(F32)
         return out.to(dw.dtype)
 
-    def _gather(self, x: torch.Tensor, axis: Optional[str],
+    # -- the tensor-parallel layout's collectives (models.layout) ------------
+    def gather_cat(self, x: torch.Tensor, dim: int, axis="model",
+                   kinds=("tp_all_gather", "tp_reduce_scatter_grad")
+                   ) -> torch.Tensor:
+        """Every rank's ``x`` of ``axis`` concatenated along ``dim`` in rank
+        order (the sequence of the residual into a column-parallel
+        layer); its transpose reduce-scatters (:class:`_FsdpGather`)."""
+        return self.fsdp_gather(x, dim, axis, kinds)
+
+    def reduce_scatter_cat(self, x: torch.Tensor, dim: int, axis="model",
+                           kinds=("tp_reduce_scatter", "tp_all_gather_grad")
+                           ) -> torch.Tensor:
+        """Partial sums ``x`` summed over ``axis``, this rank's slice along
+        ``dim`` kept (:class:`_ReduceScatter`)."""
+        if self.mesh is None or self.mesh.size(axis) == 1:
+            return x
+        if _records(x):
+            return _ReduceScatter.apply(x, self, dim, axis, kinds)
+        return self.reduce_scatter(x, dim, axis, kinds[0])
+
+    def enter(self, x: torch.Tensor, axis="model") -> torch.Tensor:
+        """A replicated value entering a computation each rank of ``axis``
+        does in part (:class:`_Enter`): the identity, and under autograd
+        its transpose all-reduces the cotangent."""
+        if self.mesh is None or self.mesh.size(axis) == 1 \
+                or not _records(x):
+            return x
+        return _Enter.apply(x, self, axis)
+
+    def ordered_sum(self, x: torch.Tensor, axis="model",
+                    kind: str = "tp_all_reduce") -> torch.Tensor:
+        """Partial sums ``x`` added over ``axis`` in rank order, the same
+        bits on every rank (:class:`_OrderedSum`)."""
+        if self.mesh is None or self.mesh.size(axis) == 1:
+            return x
+        if _records(x):
+            return _OrderedSum.apply(x, self, axis, kind)
+        return self._ordered_sum(x, axis, kind)
+
+    def _ordered_sum(self, x, axis, kind):
+        """The sum in rank order of every rank's ``x`` over ``axis`` (an
+        all-gather counted as ``kind``), accumulated in f32 and rounded
+        once to ``x``'s dtype."""
+        parts = self._gather(x.contiguous(), axis, kind)
+        out = parts[0].to(F32)
+        for part in parts[1:]:
+            out = out + part.to(F32)
+        return out.to(x.dtype)
+
+    def all_max(self, x: torch.Tensor, axis="model",
+                kind: str = "tp_max_all_reduce") -> torch.Tensor:
+        """The elementwise max of ``x`` over ``axis`` (no gradient: the
+        loss's shift, which its value does not depend on)."""
+        import torch.distributed as dist
+        if self.mesh is None or self.mesh.size(axis) == 1:
+            return x
+        out = x.detach().contiguous().clone()
+        self.census.add(kind, out.nbytes)
+        group = self.mesh.group(axis)
+        self._run(lambda t, async_op: dist.all_reduce(
+            t, op=dist.ReduceOp.MAX, group=group, async_op=async_op),
+            [out], [0])
+        return out
+
+    def _gather(self, x: torch.Tensor, axis,
                 kind: str = "layout_all_gather") -> torch.Tensor:
         """``[n, *x.shape]``, every rank's ``x`` over ``axis`` (None: every
         rank of the mesh), in rank order."""
-        n = 1 if self.mesh is None else (
-            self.mesh.size(axis) if axis is not None
-            else self.mesh.size("data") * self.mesh.size("model"))
+        n = 1 if self.mesh is None else self.mesh.size(axis)
         if n == 1:
             return x[None]
         import torch.distributed as dist
@@ -1049,7 +1225,11 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else every data row computes the whole batch.  In dispatch a rank
     takes its ``S/ep`` sequence slice (S must divide), in broadcast every
     token; the outputs are gathered back over ``model`` (dispatch) and
-    ``data``, collectives the census classes as layout.
+    ``data``, collectives the census classes as layout.  In the
+    tensor-parallel layout of the default rules (``models.layout``) ``x``
+    is this rank's rows and, in dispatch, its ``S/ep`` slice already, and
+    ``y`` is returned for them; the expert stacks' ``D`` dim is gathered
+    over ``data`` where the rules cut it.
 
     ``stop_stage`` (instrumented profiling, one rank only): end after the
     named phase (``route`` / ``weight_gather`` / ``quantize_fp4`` /
@@ -1076,8 +1256,9 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     train = train and mode != "broadcast"
     train_kw = {"train": True} if train else {}
     b, s, d = x.shape
-    if mesh is None or (mesh.size("model") == 1
-                        and not (train and mesh.size("data") > 1)):
+    tp = tensor_parallel(mesh)
+    if mesh is None or (mesh.size("model") == 1 and not tp
+                        and not (train and mesh.size(ROWS) > 1)):
         pol_ep = int(m_state.shape[-1]) if m_state.dim() else 1
         if cfg.moe.num_experts % pol_ep:
             raise ValueError(f"{cfg.moe.num_experts} experts over {pol_ep} "
@@ -1103,7 +1284,7 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
             "reference's (its prefixes are local-path only); under a mesh "
             "time the forward as a whole")
     comm = _dist_comm(mesh)
-    ep, rows = comm.ep, mesh.size("data")
+    ep, rows = comm.ep, mesh.size(ROWS)
     if m_state.dim() != 2 or m_state.shape[1] != ep \
             or m_state.shape[0] not in (1, rows):
         raise ValueError(f"m_state {tuple(m_state.shape)} on a "
@@ -1118,43 +1299,59 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(f"{n_slots} slots over {ep} ranks: a rank holds "
                          f"{n_slots // ep} of them, not "
                          f"{p['w_gate'].shape[0]} (pass its shard)")
-    d_held = d // rows if fsdp else d
-    if fsdp and d % rows or p["w_gate"].shape[1] != d_held \
-            or p["w_down"].shape[2] != d_held:
-        raise ValueError(f"expert slabs of D {p['w_gate'].shape[1]}, want "
-                         f"{d_held} (fsdp={fsdp} over {rows} data rows)")
-    g = mesh.index("data") if m_state.shape[0] > 1 else 0
+    if not tp:
+        d_held = d // rows if fsdp else d
+        if fsdp and d % rows or p["w_gate"].shape[1] != d_held \
+                or p["w_down"].shape[2] != d_held:
+            raise ValueError(f"expert slabs of D {p['w_gate'].shape[1]}, "
+                             f"want {d_held} (fsdp={fsdp} over {rows} data "
+                             "rows)")
+    g = mesh.index(ROWS) if m_state.shape[0] > 1 else 0
     my = comm.my_rank
-    # rows over data (one EP group a row; in training the caller passes
-    # them), the dispatch's sequence over model
-    cut_b = local_slice(b, "batch", mesh) if m_state.shape[0] > 1 \
-        and not train else slice(0, b)
-    if mode != "broadcast" and s % ep:
-        raise ValueError(f"a seq dim of {s} does not divide over the {ep} "
-                         "ranks of the mesh's 'model' axis")
-    cut_s = slice(0, s) if mode == "broadcast" \
-        else local_slice(s, "seq", mesh)
-    xb = x[cut_b]
-    xl = xb if mode == "broadcast" else comm.scatter(xb, "model", 1)
-    bl, sl = xl.shape[:2]
     m_part = (torch.arange(ep, device=x.device) == my).to(F32) \
         * m_state[g, my].to(F32)
     kw = {"fsdp": fsdp} if train else {}
-    if mode != "broadcast":
-        # the router's logits of the group's whole sequence, this rank's
-        # slice kept: a BLAS picks its f32 GEMM by the row count, so logits
-        # of a slice could differ in the last bit from the one-device
-        # layer's and flip a near-tie of the top-k
-        kw["logits"] = comm.scatter(
-            (xb.reshape(-1, d).to(F32) @ p["router"].to(F32))
-            .reshape(bl, s, -1), "model", 1).reshape(bl * sl, -1)
+    if tp:
+        # the tensor-parallel layout (models.layout): ``x`` is the rank's
+        # rows and, in dispatch, its S/ep slice of the sequence already;
+        # the expert stacks' D dim (``embed`` over data) is gathered on
+        # use in serving too (the reference's GSPMD gathers them into its
+        # shard_map), its transpose reduce-scattering the gradient
+        xl, mod_l, val_l = x, modality, valid
+        p = {**p, **{n: comm.fsdp_gather(p[n], FSDP_DIM[n])
+                     if p[n].shape[FSDP_DIM[n]] < d else p[n]
+                     for n in ("w_gate", "w_up", "w_down")}}
+        if train:
+            kw["fsdp"] = False
+    else:
+        # rows over data (one EP group a row; in training the caller
+        # passes them), the dispatch's sequence over model
+        cut_b = local_slice(b, "batch", mesh) if m_state.shape[0] > 1 \
+            and not train else slice(0, b)
+        if mode != "broadcast" and s % ep:
+            raise ValueError(f"a seq dim of {s} does not divide over the "
+                             f"{ep} ranks of the mesh's 'model' axis")
+        cut_s = slice(0, s) if mode == "broadcast" \
+            else local_slice(s, "seq", mesh)
+        xb = x[cut_b]
+        xl = xb if mode == "broadcast" else comm.scatter(xb, "model", 1)
+        mod_l, val_l = modality[cut_b, cut_s], valid[cut_b, cut_s]
+        if mode != "broadcast":
+            # the router's logits of the group's whole sequence, this
+            # rank's slice kept: a BLAS picks its f32 GEMM by the row
+            # count, so logits of a slice could differ in the last bit
+            # from the one-device layer's and flip a near-tie of the top-k
+            kw["logits"] = comm.scatter(
+                (xb.reshape(-1, d).to(F32) @ p["router"].to(F32))
+                .reshape(xb.shape[0], s, -1), "model", 1).reshape(
+                    xl.shape[0] * xl.shape[1], -1)
+    bl, sl = xl.shape[:2]
     with kcost.alternatives():
-        y, m_new, aux = fn(xl.reshape(bl * sl, d),
-                           modality[cut_b, cut_s].reshape(bl * sl),
-                           valid[cut_b, cut_s].reshape(bl * sl), p, m_part,
+        y, m_new, aux = fn(xl.reshape(bl * sl, d), mod_l.reshape(bl * sl),
+                           val_l.reshape(bl * sl), p, m_part,
                            cfg, rcfg, rep, ep, comm, **train_kw, **kw)
     y = y.reshape(bl, sl, d)
-    if mode != "broadcast":
+    if mode != "broadcast" and not tp:
         y = comm.all_gather_model(y).permute(1, 0, 2, 3).reshape(bl, s, d)
     scal = torch.stack([aux[n].to(F32).reshape(()) for n in AUX_SCALARS])
     stats = torch.stack([aux["load_d"], aux["vis_d"]])          # [2, ep]
@@ -1165,7 +1362,7 @@ def ep_moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         scal, stats, estats, sstats = (scal[None], stats[None],
                                        estats[None], sstats[None])
     else:                                # every row's values, by row
-        if not train:
+        if not train and not tp:
             y = comm.gather_rows(y).reshape(b, s, d)
         packed = comm.gather_rows(torch.cat([
             m_new.reshape(-1), scal, stats.reshape(-1), estats.reshape(-1),
@@ -1195,7 +1392,7 @@ def moe_state_shape(mesh=None, global_batch: int = 1,
     the policy's virtual EP topology (``virtual_ep``, default 1)."""
     if mesh is None:
         return (1, int(virtual_ep) if virtual_ep else 1)
-    rows, ep = mesh.size("data"), mesh.size("model")
+    rows, ep = mesh.size(ROWS), mesh.size("model")
     if global_batch % max(rows, 1):
         rows = 1
     return (rows, ep)

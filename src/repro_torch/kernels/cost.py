@@ -19,6 +19,8 @@ and :func:`alternatives` and :func:`branch` enter nothing.
 """
 from __future__ import annotations
 
+import contextlib
+
 from typing import Callable, Dict, NamedTuple, Optional
 
 # bytes of one NVFP4 weight: a 4-bit code and its share of the f32 scale
@@ -126,6 +128,23 @@ class _Null:
 
 
 _NULL = _Null()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The ops that move a collective (a staged backend's host copies,
+    the process group's own): the analyzer counts a collective by the
+    mesh's census, not by them, so a step's counts on a mesh of ranks
+    equal those on the abstract mesh, where nothing moves."""
+    an = _analyzer
+    if an is None or not hasattr(an, "_paused"):
+        yield
+        return
+    an._paused += 1
+    try:
+        yield
+    finally:
+        an._paused -= 1
 
 
 def alternatives():

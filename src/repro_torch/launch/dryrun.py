@@ -4,9 +4,10 @@ shape × mesh) cell built on ``meta`` under an abstract production mesh.
 Counterpart of ``repro.launch.dryrun``, which lowers and compiles each
 cell for 256 or 512 placeholder devices.  Here a cell's step runs once on
 ``meta`` tensors at the published widths, under the abstract 16×16 or
-2×16×16 mesh (``pod`` folded into ``data``, rank 0's coordinates; see
-``launch.mesh``), through the op-level analyzer (``launch.op_analysis``):
-nothing is allocated, no collective moves, no card is needed.
+2×16×16 mesh (rank 0's coordinates; see ``launch.mesh``), in the
+tensor-parallel layout of the default rules (``models.layout``), through the
+op-level analyzer (``launch.op_analysis``): nothing is allocated, no
+collective moves, no card is needed.
 
 Usage::
 
@@ -66,7 +67,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str) -> dict:
         rec.update(status="skipped", reason=why)
         return rec
     mesh = mesh_for(mesh_kind, abstract=True)
-    n_dev = mesh.size("data") * mesh.size("model")
+    n_dev = mesh.size(None)
     cell = lower_cell(cfg, shape, mesh)
     card = hw.H100_SXM
     flops_global = cell["flops_per_device"] * n_dev
@@ -74,7 +75,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str) -> dict:
     peak = cell["memory"]["peak_bytes"]
     rec.update(
         status="ok" if peak <= card.hbm_bytes else "does_not_fit",
-        n_devices=n_dev, mesh_shape=[mesh.size("data"), mesh.size("model")],
+        n_devices=n_dev, mesh_shape=list(mesh.shape.values()),
         **cell,
         roofline=roofline.roofline_terms(
             cell["flops_per_device"], cell["bytes_per_device"],

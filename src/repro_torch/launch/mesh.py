@@ -6,8 +6,9 @@ group over the ``model`` axis); ``make_mesh`` builds any ``(data, model)``
 grid of it.  The reference's production meshes (``single_pod`` 16×16,
 ``multi_pod`` 2×16×16) exist here only as abstract meshes, for the dry
 run (``mesh_for(kind, abstract=True)``, ``make_production_mesh``): no
-process group, rank 0's coordinates, computation on ``meta``, ``pod``
-folded into ``data``.  Without ``abstract=True`` they are refused.
+process group, rank 0's coordinates, computation on ``meta``, the
+multi-pod mesh's ``pod`` axis kept.  Without ``abstract=True`` they are
+refused.
 
 The backend of the collectives follows the process group and the device:
 an NCCL group gives ``"nccl"``; a gloo group gives ``"gloo"`` on the CPU
@@ -81,9 +82,11 @@ def make_mesh(shape: Tuple[int, int], backend: Optional[str] = None,
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production mesh as an abstract mesh: 16×16 (256
-    devices) or 2×16×16 (512), ``pod`` folded into ``data`` (32×16)."""
+    devices) or 2×16×16 (512), ``pod`` kept as an axis: the rules cut a
+    batch over ``pod`` × ``data`` (32) and a weight's D dim over ``data``
+    alone (16), as the reference's ``resolve_spec`` does."""
     return Mesh(mesh_config_for("multi_pod" if multi_pod else "single_pod")
-                .port_shape, "abstract", "meta")
+                .shape, "abstract", "meta")
 
 
 def mesh_config_for(kind: str) -> MeshConfig:

@@ -21,13 +21,15 @@ caller that drops the step's result keeps the state it had, as with the
 reference's.
 
 Under a mesh (``models.common.use_mesh``) the same steps run on every
-rank: the train step takes the FSDP layout's parameters and the global
-batch, sums the replicated leaves' gradients over ``data``
+rank, in the tensor-parallel layout of the default rules
+(``models.layout``; the EP-only rules keep the FSDP layout of the expert
+stacks alone): the train step takes the rank's parameters and the global
+batch, sums each leaf's gradient over the batch axes its cut does not use
 (``optim.grad_utils.data_parallel_grads``) and updates each rank's leaves,
 the ranks agreeing on whether to write; its loss and metrics are the
 global ones, the same on every rank.  Prefill and decode take the global
-batch on every rank, their non-expert part and cache replicated (the
-port's layout, ``models.transformer``).
+batch on every rank and the rank's slice of the cache, and give the whole
+logits.
 """
 from __future__ import annotations
 
@@ -52,12 +54,15 @@ def make_train_step(cfg: ModelConfig, rcfg: ReaLBConfig, tcfg: TrainConfig):
     (``transformer.train_loss``), then one AdamW update.  ``batch`` holds
     tensors on the parameters' device; metrics are 0-dim tensors there
     (``loss``, ``ce``, the MoE scalars, ``lr``, ``grad_norm``)."""
+    spec = tf.model_spec(cfg)
+
     def train_step(params, opt_state, m_state, batch):
         (loss, (m_new, metrics)), grads = value_and_grad(
             tf.train_loss, params, cfg, rcfg, batch, m_state)
-        grads = data_parallel_grads(grads)
+        grads = data_parallel_grads(grads, spec)
         params, opt_state, opt_metrics = adamw.adamw_update(
-            params, grads, opt_state, tcfg, apply=torch.isfinite(loss))
+            params, grads, opt_state, tcfg, apply=torch.isfinite(loss),
+            spec=spec)
         return params, opt_state, m_new, {**metrics, **opt_metrics,
                                           "loss": loss}
 
@@ -108,7 +113,7 @@ def _meta(shape, dtype) -> torch.Tensor:
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
                 mesh=None) -> Dict[str, torch.Tensor]:
     """The cell's global input batch as ``meta`` tensors (every rank of the
-    port's layout takes the global batch)."""
+    port's layout takes the global batch and keeps its rows)."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return {"tokens": _meta((b, 1), torch.int32),
@@ -137,7 +142,9 @@ def m_state_spec(cfg: ModelConfig, shape: ShapeConfig,
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                 tcfg: Optional[TrainConfig] = None) -> Dict[str, Any]:
     """Every input of the cell's step as ``meta`` tensors: under ``mesh``,
-    rank 0's parameters (the FSDP layout for a train cell)."""
+    rank 0's parameters, moments and cache by the rules in force (the
+    tensor-parallel layout of the default rules; under the EP-only rules
+    the FSDP layout for a train cell and the whole cache)."""
     params = tf.abstract_model(cfg, mesh=mesh,
                                fsdp=shape.kind == "train"
                                and mesh is not None)
@@ -146,7 +153,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                              "batch": batch_specs(cfg, shape, mesh)}
     if shape.kind == "decode":
         specs["cache"] = tf.abstract_cache(cfg, shape.global_batch,
-                                           shape.seq_len)
+                                           shape.seq_len, mesh=mesh)
     if shape.kind == "train":
         specs["opt_state"] = adamw.abstract_opt_state(params,
                                                       tcfg or TrainConfig())

@@ -135,7 +135,8 @@ def main(argv=None):
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch, seed=tcfg.seed)
     loop = TrainLoop(step_fn, ckpt_dir=args.ckpt_dir,
-                     checkpoint_every=args.checkpoint_every, mesh=mesh)
+                     checkpoint_every=args.checkpoint_every, mesh=mesh,
+                     spec=tf.model_spec(cfg))
     start, state = loop.restore_or_init(state)
     data = DataLoader(dc, multimodal=args.multimodal,
                       d_model=cfg.d_model if args.multimodal else 0,

@@ -46,15 +46,16 @@ F32 = torch.float32
 def gqa_spec(cfg: ModelConfig) -> Dict[str, P]:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     spec = {
-        "wq": P((d, h, hd)),
-        "wk": P((d, k, hd)),
-        "wv": P((d, k, hd)),
-        "wo": P((h, hd, d), scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5),
+        "wq": P((d, h, hd), axes=("embed", "heads", None)),
+        "wk": P((d, k, hd), axes=("embed", "kv_heads", None)),
+        "wv": P((d, k, hd), axes=("embed", "kv_heads", None)),
+        "wo": P((h, hd, d), scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5,
+                axes=("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        spec["bq"] = P((h, hd), init="zeros")
-        spec["bk"] = P((k, hd), init="zeros")
-        spec["bv"] = P((k, hd), init="zeros")
+        spec["bq"] = P((h, hd), init="zeros", axes=("heads", None))
+        spec["bk"] = P((k, hd), init="zeros", axes=("kv_heads", None))
+        spec["bv"] = P((k, hd), init="zeros", axes=("kv_heads", None))
     return spec
 
 
@@ -63,15 +64,19 @@ def mla_spec(cfg: ModelConfig) -> Dict[str, P]:
     d, h = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq_a": P((d, m.q_lora_rank)),
-        "q_norm": P((m.q_lora_rank,), init="zeros"),
-        "wq_b": P((m.q_lora_rank, h, qk)),
-        "wkv_a": P((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": P((m.kv_lora_rank,), init="zeros"),
-        "wk_b": P((m.kv_lora_rank, h, m.qk_nope_head_dim)),
-        "wv_b": P((m.kv_lora_rank, h, m.v_head_dim)),
+        "wq_a": P((d, m.q_lora_rank), axes=("embed", "rank")),
+        "q_norm": P((m.q_lora_rank,), init="zeros", axes=("rank",)),
+        "wq_b": P((m.q_lora_rank, h, qk), axes=("rank", "heads", None)),
+        "wkv_a": P((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                   axes=("embed", "rank")),
+        "kv_norm": P((m.kv_lora_rank,), init="zeros", axes=("rank",)),
+        "wk_b": P((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                  axes=("rank", "heads", None)),
+        "wv_b": P((m.kv_lora_rank, h, m.v_head_dim),
+                  axes=("rank", "heads", None)),
         "wo": P((h, m.v_head_dim, d),
-                scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5),
+                scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5,
+                axes=("heads", None, "embed")),
     }
 
 
@@ -480,3 +485,297 @@ def mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        latf.to(F32)).to(dt)
     vh = torch.einsum("bshr,rhe->bshe", ctx, p["wv_b"].to(dt))
     return _out_proj(vh, p["wo"]), {"latent": latent, "k_rope": k_rope}
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel layout (models.layout): heads over ``model``, the
+# cache's rows over its ``kv_seq`` axes
+# --------------------------------------------------------------------------
+def _bias(t: torch.Tensor, p: Params, name: str, cfg: ModelConfig,
+          lo: int = 0, hi: Optional[int] = None) -> torch.Tensor:
+    if not cfg.qkv_bias:
+        return t
+    b = p[name] if hi is None else p[name][lo:hi]
+    return t + b.to(t.dtype)
+
+
+def _kv_heads(p: Params, src: torch.Tensor, cfg: ModelConfig, tp,
+              positions: Optional[torch.Tensor]):
+    """K/V of ``src`` in the layout: ``(k_all, v_all)``, every KV head
+    (None where the rank holds only its own: cut KV heads, gathered by
+    the caller that needs them), and ``(k, v)``, the heads this rank's
+    query heads attend (its own cut KV heads; a replicated KV stack's
+    heads its query heads map to, one per query head; all, with the
+    query heads replicated).  RoPE at ``positions`` (None: none)."""
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    rope = (lambda t: t) if positions is None else \
+        (lambda t: apply_rope(t, positions, cfg.rope_theta))
+    if tp.divides(kh) and tp.divides(h):
+        k = rope(_bias(_proj(src, p["wk"]), p, "bk", cfg))
+        v = _bias(_proj(src, p["wv"]), p, "bv", cfg)
+        return None, (k, v)
+    k_all = rope(_bias(_proj(src, p["wk"]), p, "bk", cfg))
+    v_all = _bias(_proj(src, p["wv"]), p, "bv", cfg)
+    if not tp.divides(h):
+        return (k_all, v_all), (k_all, v_all)
+    h0, h1 = tp.cut(h)
+    sel = torch.arange(h0, h1, device=src.device) // (h // kh)
+    return (k_all, v_all), (k_all[:, :, sel], v_all[:, :, sel])
+
+
+def tp_gqa_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, tp, *,
+                   positions: torch.Tensor, causal: bool = True,
+                   memory: Optional[torch.Tensor] = None,
+                   need_kv: bool = False):
+    """Self-attention over whole sequences (prefill, train, encode) or,
+    with ``memory``, cross-attention to it, in the tensor-parallel layout.
+    ``x`` is the residual's layout (``tp.sp``: this rank's rows);
+    ``positions`` [B, S] the whole sequence's.  Heads that divide over
+    ``model`` are column-parallel (the whole sequence gathered, ``wo``
+    row-parallel, reduced back); replicated heads attend with the rank's
+    own query rows.  Returns ``(out, kv)``: ``kv`` (``need_kv``) the whole
+    sequence's K/V of every KV head (self-attention, for the cache) or the
+    memory's as the cache holds them (its KV heads cut where they
+    divide)."""
+    h = cfg.n_heads
+    cut_q = tp.divides(h)
+    own = not cut_q and tp.sp
+    # the whole sequence: the queries of cut heads, the keys of
+    # self-attention
+    gathered = tp.gather_seq(x) if cut_q or (own and memory is None) else x
+    q = _bias(_proj(x if own else gathered, p["wq"]), p, "bq", cfg)
+    if memory is not None:
+        # the memory is whole on every rank of ``model``; its producer
+        # (``transformer._encode``) sums the cross layers' partial
+        # cotangents
+        kv_all, (k, v) = _kv_heads(p, memory.to(x.dtype), cfg, tp, None)
+        out = scaled_attention(q, k, v, cfg.head_dim ** -0.5, causal=False)
+        kv = None
+        if need_kv:
+            kv = {"k": k, "v": v} if kv_all is None else \
+                {"k": kv_all[0], "v": kv_all[1]}
+    else:
+        q_pos = positions.narrow(1, tp.seq_offset, tp.s_local) if own \
+            else positions
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        kv_all, (k, v) = _kv_heads(p, gathered, cfg, tp, positions)
+        out = _core(tp, q, k, v, cfg.head_dim ** -0.5, causal=causal,
+                    q_offset=tp.seq_offset if own else 0)
+        kv = None
+        if need_kv:
+            kv = {"k": tp.gather_heads(k), "v": tp.gather_heads(v)} \
+                if kv_all is None else {"k": kv_all[0], "v": kv_all[1]}
+    y = _out_proj(out, p["wo"])
+    return (tp.reduce_out(y) if cut_q else y), kv
+
+
+def _core(tp, q, k, v, scale, *, causal, q_offset):
+    """:func:`scaled_attention`; in training checkpointed on its own, so a
+    layer's recompute (or forward) keeps its q, k, v and output and not
+    every key chunk's scores (the same values: the backward recomputes
+    them)."""
+    if not (tp.train and torch.is_grad_enabled()):
+        return scaled_attention(q, k, v, scale, causal=causal,
+                                q_offset=q_offset)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(lambda q, k, v: scaled_attention(
+        q, k, v, scale, causal=causal, q_offset=q_offset), q, k, v,
+        use_reentrant=False)
+
+
+def _partial_attention(scores: torch.Tensor, mask: torch.Tensor, vals):
+    """A softmax over a rank's slice of the keys, unnormalized: ``(m, l,
+    acc)`` with ``m`` the slice's max score (``-1e30`` where every key is
+    masked), ``l`` the sum of ``exp(score - m)`` over the unmasked keys,
+    ``acc`` their products with the values (``vals(p)``: ``p`` rounded to
+    the values' dtype and multiplied in f32, as the reference's PV)."""
+    neg = torch.full((), -1e30, dtype=F32, device=scores.device)
+    scores = torch.where(mask, scores, neg)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None]) * mask
+    return m, p.sum(dim=-1), vals(p)
+
+
+def _combine(tp, cut, m, l, acc):  # noqa: E741
+    """The softmax over every key from each rank's partial ``(m, l, acc)``
+    (:func:`_partial_attention`) over the axes ``cut`` of the cache's
+    rows: the partials all-gathered (one packed gather) and merged in rank
+    order, the same bits on every rank; ``acc / l`` in f32."""
+    if cut:
+        d = acc.shape[-1]
+        flat = torch.cat([m.reshape(-1), l.reshape(-1), acc.reshape(-1)])
+        parts = tp.comm._gather(flat, cut, "kv_combine_all_gather")
+        ms, ls, accs = torch.split(parts, [m.numel(), l.numel(),
+                                           acc.numel()], dim=1)
+        top = ms.amax(dim=0)
+        tot, out = 0, 0
+        for i in range(parts.shape[0]):
+            w = torch.exp(ms[i] - top)
+            tot = tot + ls[i] * w
+            out = out + accs[i].reshape(-1, d) * w[:, None]
+        l, acc = tot.reshape(m.shape), out.reshape(acc.shape)  # noqa: E741
+    return acc / torch.clamp(l[..., None], min=1e-30)
+
+
+def _cached_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, tp,
+               positions: torch.Tensor):
+    """Every query head's q (rank's heads gathered over ``model`` where
+    they are cut) and every KV head's new K/V rows of ``x`` (the
+    cache holds them all on the rank that owns the rows), RoPE'd."""
+    h = cfg.n_heads
+    q = apply_rope(_bias(_proj(x, p["wq"]), p, "bq", cfg), positions,
+                   cfg.rope_theta)
+    if tp.divides(h):
+        q = tp.gather_heads(q)
+    kv_all, (k, v) = _kv_heads(p, x, cfg, tp, positions)
+    if kv_all is None:
+        kv_all = (tp.gather_heads(k), tp.gather_heads(v))
+    return q, kv_all[0], kv_all[1]
+
+
+def _attend_rows(tp, cut, q, k, v, scale, mask):
+    """Every head's queries ``q`` [B,S,H,D] against this rank's cache rows
+    ``k``/``v`` [B,T,K,D] under ``mask`` [B,1|H,S,T], the partials
+    combined over ``cut``: [B,S,H,D] in q's dtype."""
+    k, v = _repeat_kv(k.to(q.dtype), v.to(q.dtype), q.shape[2])
+    scores = torch.matmul(q.transpose(1, 2).to(F32),
+                          k.permute(0, 2, 3, 1).to(F32)) * scale
+    m, l, acc = _partial_attention(  # noqa: E741
+        scores, mask, lambda pr: torch.matmul(
+            pr.to(v.dtype).to(F32), v.transpose(1, 2).to(F32)))
+    return _combine(tp, cut, m, l, acc).transpose(1, 2).to(q.dtype)
+
+
+def _heads_out(p: Params, out: torch.Tensor, cfg: ModelConfig, tp, *,
+               seq: bool) -> torch.Tensor:
+    """Every head's attention output [B,S,H,Dv] through ``wo``: cut heads
+    take the rank's own and reduce (``seq``: over the sequence, else an
+    ordered all-reduce); replicated heads the rank's own rows (``seq``)."""
+    h = cfg.n_heads
+    if tp.divides(h):
+        h0, h1 = tp.cut(h)
+        y = _out_proj(out[:, :, h0:h1], p["wo"])
+        return tp.reduce_out(y) if seq else tp.psum(y)
+    if seq:
+        out = out.narrow(1, tp.seq_offset, tp.s_local)
+    return _out_proj(out, p["wo"])
+
+
+def tp_gqa_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, tp, *, pos: torch.Tensor, cut, kv_off):
+    """:func:`gqa_decode` in the layout: ``x`` [B,1,D] whole on every rank
+    of ``model``, the cache this rank's rows ``[kv_off, kv_off + T)`` of
+    every KV head (``cut``: the axes they are cut over).  The new row is
+    written by the rank that holds it; every head's query attends the
+    rank's rows and the partials are combined over ``cut``."""
+    q, k_new, v_new = _cached_kv(p, x, cfg, tp, pos[:, None])
+    rows = (pos - kv_off)[:, None]
+    ok = torch.ones_like(rows, dtype=torch.bool)
+    k_cache = write_rows_(cache["k"], k_new, rows, ok)
+    v_cache = write_rows_(cache["v"], v_new, rows, ok)
+    t = k_cache.shape[1]
+    kv_pos = kv_off + torch.arange(t, device=x.device)
+    mask = (kv_pos[None, :] < (pos + 1)[:, None])[:, None, None, :]
+    out = _attend_rows(tp, cut, q, k_cache, v_cache, cfg.head_dim ** -0.5,
+                       mask)
+    return _heads_out(p, out, cfg, tp, seq=False), {"k": k_cache,
+                                                     "v": v_cache}
+
+
+def tp_gqa_chunk(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, tp, *, positions: torch.Tensor,
+                 chunk_len: torch.Tensor, cut, kv_off):
+    """:func:`gqa_chunk` in the layout: ``x`` this rank's rows of the
+    chunk (sequence-parallel), ``positions`` [B,S] the whole chunk's; the
+    rows of the chunk each rank holds written there, every query attends
+    the rank's rows causally, the partials combined over ``cut``."""
+    xs = tp.gather_seq(x)
+    s = xs.shape[1]
+    q, k_new, v_new = _cached_kv(p, xs, cfg, tp, positions)
+    valid = torch.arange(s, device=x.device)[None, :] < chunk_len[:, None]
+    k_cache = write_rows_(cache["k"], k_new, positions - kv_off, valid)
+    v_cache = write_rows_(cache["v"], v_new, positions - kv_off, valid)
+    t = k_cache.shape[1]
+    kv_pos = kv_off + torch.arange(t, device=x.device)
+    mask = (kv_pos[None, None, :] <= positions[:, :, None])[:, None]
+    out = _attend_rows(tp, cut, q, k_cache, v_cache, cfg.head_dim ** -0.5,
+                       mask)
+    return _heads_out(p, out, cfg, tp, seq=tp.sp), {"k": k_cache,
+                                                    "v": v_cache}
+
+
+def tp_cross_decode(p: Params, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], cfg: ModelConfig, tp):
+    """:func:`cross_decode` in the layout: the rank's query heads against
+    the memory's K/V as the cache holds them (its own KV heads where they
+    divide, else every one, the heads its queries map to taken)."""
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    q = _bias(_proj(x, p["wq"]), p, "bq", cfg)
+    k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    if tp.divides(h) and not tp.divides(kh):
+        h0, h1 = tp.cut(h)
+        sel = torch.arange(h0, h1, device=x.device) // (h // kh)
+        k, v = k[:, :, sel], v[:, :, sel]
+    out = scaled_attention(q, k, v, cfg.head_dim ** -0.5, causal=False)
+    y = _out_proj(out, p["wo"])
+    return (tp.psum(y) if tp.divides(h) else y), cache
+
+
+def tp_mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, tp, *,
+                   positions: torch.Tensor, need_kv: bool = False):
+    """:func:`mla_forward` in the layout: the latent (``rank`` replicated)
+    of the whole sequence on every rank, the heads column-parallel where
+    they divide (else the rank's own query rows)."""
+    cut_q = tp.divides(cfg.n_heads)
+    gathered = tp.gather_seq(x) if (tp.sp or cut_q) else x
+    own = not cut_q and tp.sp
+    latent, k_rope = _latent_kv(p, gathered, cfg, positions)
+    q_src, q_pos = (x, positions.narrow(1, tp.seq_offset, tp.s_local)) \
+        if own else (gathered, positions)
+    q_nope, q_rope = _mla_q(p, q_src, cfg, q_pos)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k_nope = _proj(latent, p["wk_b"])
+    v = _proj(latent, p["wv_b"])
+    kr = k_rope[:, :, None, :].to(k_nope.dtype).expand(
+        *k_nope.shape[:3], cfg.mla.qk_rope_head_dim)
+    out = _core(tp, q, torch.cat([k_nope, kr], dim=-1), v, _mla_scale(cfg),
+                causal=True, q_offset=tp.seq_offset if own else 0)
+    y = _out_proj(out, p["wo"])
+    kv = {"latent": latent, "k_rope": k_rope} if need_kv else None
+    return (tp.reduce_out(y) if cut_q else y), kv
+
+
+def tp_mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, tp, *, pos: torch.Tensor, cut, kv_off):
+    """:func:`mla_decode` in the layout: the latent rows written by the
+    rank that holds them, every head's absorbed query (cut heads gathered)
+    against the rank's rows, the partial contexts combined over ``cut``,
+    then the rank's heads through ``W_vb`` and ``wo``."""
+    dt = x.dtype
+    h = cfg.n_heads
+    lat_new, kr_new = _latent_kv(p, x, cfg, pos[:, None])
+    rows = (pos - kv_off)[:, None]
+    ok = torch.ones_like(rows, dtype=torch.bool)
+    latent = write_rows_(cache["latent"], lat_new, rows, ok)
+    k_rope = write_rows_(cache["k_rope"], kr_new, rows, ok)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope, p["wk_b"].to(dt))
+    if tp.divides(h):
+        q_abs, q_rope = tp.gather_heads(q_abs), tp.gather_heads(q_rope)
+    latf = latent.to(dt)
+    scores = (torch.einsum("bshr,btr->bhst", q_abs.to(F32), latf.to(F32))
+              + torch.einsum("bshe,bte->bhst", q_rope.to(F32),
+                             k_rope.to(dt).to(F32))) * _mla_scale(cfg)
+    kv_pos = kv_off + torch.arange(latent.shape[1], device=x.device)
+    mask = (kv_pos[None, :] <= pos[:, None])[:, None, None, :]
+    m, l, acc = _partial_attention(  # noqa: E741
+        scores, mask, lambda pr: torch.einsum(
+            "bhst,btr->bhsr", pr.to(dt).to(F32), latf.to(F32)))
+    ctx = _combine(tp, cut, m, l, acc).transpose(1, 2).to(dt)  # [B,1,H,r]
+    if tp.divides(h):
+        h0, h1 = tp.cut(h)
+        ctx = ctx[:, :, h0:h1]
+    vh = torch.einsum("bshr,rhe->bshe", ctx, p["wv_b"].to(dt))
+    y = _out_proj(vh, p["wo"])
+    return (tp.psum(y) if tp.divides(h) else y), {"latent": latent,
+                                                  "k_rope": k_rope}

@@ -13,9 +13,10 @@ from repro_torch.models.common import P, activation_fn
 
 
 def ffn_spec(d_model: int, d_ff: int, activation: str) -> Dict[str, P]:
-    spec = {"w_up": P((d_model, d_ff)), "w_down": P((d_ff, d_model))}
+    spec = {"w_up": P((d_model, d_ff), axes=("embed", "ffn")),
+            "w_down": P((d_ff, d_model), axes=("ffn", "embed"))}
     if activation in ("swiglu", "geglu"):
-        spec["w_gate"] = P((d_model, d_ff))
+        spec["w_gate"] = P((d_model, d_ff), axes=("embed", "ffn"))
     return spec
 
 
@@ -30,3 +31,15 @@ def ffn_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         h = act(h.to(torch.float32)).to(x.dtype)
     return torch.matmul(h, p["w_down"].to(x.dtype))
+
+
+def tp_ffn_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: ModelConfig, tp, d_ff: int) -> torch.Tensor:
+    """:func:`ffn_forward` in the tensor-parallel layout
+    (``models.layout``): ``x`` the residual's layout; ``w_gate``/``w_up``
+    column-parallel over ``ffn`` and ``w_down`` row-parallel where ``d_ff``
+    divides over ``model`` (the whole sequence in, the partial sums
+    reduced back), else every weight whole and the rank's own rows."""
+    if not tp.divides(d_ff):
+        return ffn_forward(p, x, cfg)
+    return tp.reduce_out(ffn_forward(p, tp.gather_seq(x), cfg))

@@ -11,8 +11,10 @@ and the SSM state ``ssm [B, d_in, N]`` in f32.
 
 Everything here is plain PyTorch: the reference's SSM is ``jnp`` outside
 any Pallas kernel, and its projections are ``einsum`` (here
-``torch.matmul``).  Under a mesh the SSM weights stay whole on every rank,
-as attention's do.
+``torch.matmul``).  In the tensor-parallel layout (``models.layout``)
+``d_inner`` goes over ``model``: ``w_in`` column-parallel, ``w_x`` and
+``w_out`` row-parallel, the conv, the scan and the cache per channel on
+the rank's channels (so the recursion and its bits are unchanged).
 """
 from __future__ import annotations
 
@@ -33,15 +35,17 @@ def ssm_spec(cfg: ModelConfig) -> Dict[str, P]:
     d_in = s.expand * d
     dtr = s.resolved_dt_rank(d)
     return {
-        "w_in": P((d, 2 * d_in)),
-        "conv_w": P((s.d_conv, d_in)),
-        "conv_b": P((d_in,), init="zeros"),
-        "w_x": P((d_in, dtr + 2 * s.d_state)),
-        "w_dt": P((dtr, d_in)),
-        "b_dt": P((d_in,), init="ones", dtype="float32"),
-        "a_log": P((d_in, s.d_state), init="ones", dtype="float32"),
-        "d_skip": P((d_in,), init="ones", dtype="float32"),
-        "w_out": P((d_in, d)),
+        "w_in": P((d, 2 * d_in), axes=("embed", "d_inner")),
+        "conv_w": P((s.d_conv, d_in), axes=(None, "d_inner")),
+        "conv_b": P((d_in,), init="zeros", axes=("d_inner",)),
+        "w_x": P((d_in, dtr + 2 * s.d_state), axes=("d_inner", None)),
+        "w_dt": P((dtr, d_in), axes=(None, "d_inner")),
+        "b_dt": P((d_in,), init="ones", dtype="float32", axes=("d_inner",)),
+        "a_log": P((d_in, s.d_state), init="ones", dtype="float32",
+                   axes=("d_inner", None)),
+        "d_skip": P((d_in,), init="ones", dtype="float32",
+                    axes=("d_inner",)),
+        "w_out": P((d_in, d), axes=("d_inner", "embed")),
     }
 
 
@@ -110,7 +114,8 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_core(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
-              ssm_state: torch.Tensor, cfg: ModelConfig, seq_mode: bool
+              ssm_state: torch.Tensor, cfg: ModelConfig, seq_mode: bool,
+              proj_sum=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The selective-SSM math shared by prefill and decode.
 
@@ -119,7 +124,8 @@ def _ssm_core(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
     new conv_state, new ssm_state f32).  The casts are the reference's:
     the conv, the projections' products and ``dt`` before its ``w_dt``
     product round to the parameter dtype; silu, softplus and the scan run
-    in f32."""
+    in f32.  ``proj_sum`` (the tensor-parallel layout's) sums the
+    ``w_x`` product of a rank's channels over ``model``."""
     s_cfg = cfg.ssm or SSMConfig()
     n = s_cfg.d_state
     dt_x = xz.dtype
@@ -141,7 +147,10 @@ def _ssm_core(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
 
     # input-dependent dt, B, C
     dtr = p["w_dt"].shape[0]
-    proj = torch.matmul(x_conv.to(dt_x), p["w_x"].to(dt_x)).to(F32)
+    proj = torch.matmul(x_conv.to(dt_x), p["w_x"].to(dt_x))
+    if proj_sum is not None:
+        proj = proj_sum(proj)
+    proj = proj.to(F32)
     dt, b_mat, c_mat = torch.split(proj, [dtr, n, n], dim=-1)
     dt = torch.matmul(dt.to(dt_x), p["w_dt"].to(dt_x)).to(F32)
     dt = _softplus(dt + p["b_dt"][None, None])              # [B,S,d_in]
@@ -166,29 +175,71 @@ def _ssm_core(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
     return y.to(dt_x), new_conv_state.to(dt_x), new_ssm_state
 
 
-def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Whole-sequence mamba block from zero state. x: [B,S,D] -> (out,
-    final states ``{"conv", "ssm"}``)."""
+def _tp_in(p: Params, cfg: ModelConfig, tp):
+    """``(w_in, proj_sum, d_in)`` of a rank in the tensor-parallel layout
+    (``models.layout``): its channels' columns of ``w_in``, whose
+    ``d_inner`` dim the rules cut in one block over both halves (``x``,
+    then ``z``), so the block is gathered over ``model`` and the rank's
+    ``x`` and ``z`` columns taken (the gather's transpose reduce-scatters
+    the gradient); the sum of the ``w_x`` product over ``model``, entered
+    again (every rank's channels use all of ``dt``, ``B``, ``C``)."""
     s_cfg = cfg.ssm or SSMConfig()
     d_in = s_cfg.expand * cfg.d_model
-    xz = torch.matmul(x, p["w_in"].to(x.dtype))
+    if tp is None:
+        return p["w_in"], None, d_in
+    lo, hi = tp.cut(d_in)
+    w = tp.comm.fsdp_gather(p["w_in"], 1, "model", (
+        "tp_weight_all_gather", "tp_weight_reduce_scatter"))
+    w = torch.cat([w[:, lo:hi], w[:, d_in + lo:d_in + hi]], dim=1)
+    return w, (lambda t: tp.enter(tp.psum(t))), hi - lo
+
+
+def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, tp=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Whole-sequence mamba block from zero state. x: [B,S,D] -> (out,
+    final states ``{"conv", "ssm"}``).  ``tp`` (``models.layout.TP``):
+    ``x`` is the residual's layout; the rank's ``d_inner`` channels run
+    on the whole sequence (``w_in`` column-, ``w_x`` and ``w_out``
+    row-parallel) and their states are returned; a ``d_inner`` that does
+    not divide runs whole, the rank's rows kept."""
+    s_cfg = cfg.ssm or SSMConfig()
+    d_in = s_cfg.expand * cfg.d_model
+    if tp is not None and not tp.divides(d_in):
+        xs = tp.comm.gather_cat(x, 1) if tp.sp else x
+        out, st = ssm_forward(p, xs, cfg)
+        return tp.own_rows(out), st
+    w_in, proj_sum, d_loc = _tp_in(p, cfg, tp)
+    if tp is not None:
+        x = tp.gather_seq(x)
+    xz = torch.matmul(x, w_in.to(x.dtype))
     b = x.shape[0]
-    conv0 = torch.zeros((b, s_cfg.d_conv - 1, d_in), dtype=x.dtype,
+    conv0 = torch.zeros((b, s_cfg.d_conv - 1, d_loc), dtype=x.dtype,
                         device=x.device)
-    ssm0 = torch.zeros((b, d_in, s_cfg.d_state), dtype=F32, device=x.device)
-    y, conv_st, ssm_st = _ssm_core(p, xz, conv0, ssm0, cfg, seq_mode=True)
+    ssm0 = torch.zeros((b, d_loc, s_cfg.d_state), dtype=F32,
+                       device=x.device)
+    y, conv_st, ssm_st = _ssm_core(p, xz, conv0, ssm0, cfg, seq_mode=True,
+                                   proj_sum=proj_sum)
     out = torch.matmul(y, p["w_out"].to(x.dtype))
+    if tp is not None:
+        out = tp.reduce_out(out)
     return out, {"conv": conv_st, "ssm": ssm_st}
 
 
 def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
-               cfg: ModelConfig
+               cfg: ModelConfig, tp=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step. x: [B,1,D]; state: conv [B,dc-1,d_in], ssm
-    [B,d_in,N] -> (out, new states); the caller writes them back."""
-    xz = torch.matmul(x, p["w_in"].to(x.dtype))
+    [B,d_in,N] -> (out, new states); the caller writes them back.
+    ``tp``: the rank's channels (its slice of the state), the output
+    summed over ``model``."""
+    s_cfg = cfg.ssm or SSMConfig()
+    if tp is not None and not tp.divides(s_cfg.expand * cfg.d_model):
+        return ssm_decode(p, x, state, cfg)
+    w_in, proj_sum, _ = _tp_in(p, cfg, tp)
+    xz = torch.matmul(x, w_in.to(x.dtype))
     y, conv_st, ssm_st = _ssm_core(p, xz, state["conv"], state["ssm"], cfg,
-                                   seq_mode=False)
+                                   seq_mode=False, proj_sum=proj_sum)
     out = torch.matmul(y, p["w_out"].to(x.dtype))
+    if tp is not None:
+        out = tp.psum(out)
     return out, {"conv": conv_st, "ssm": ssm_st}

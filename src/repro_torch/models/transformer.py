@@ -28,34 +28,44 @@ one device or under a mesh, for every ported stack (a Mamba layer trains
 through the scan's recursion under autograd).
 
 Under a mesh (``models.common.use_mesh``) the same entry points run on
-every rank of the EP group.  The reference lets GSPMD pick the layout of
-everything outside the MoE layer's ``shard_map``; the port fixes one, and
-the function is the same: the non-expert part (embedding, attention, the
-Mamba layers, norms, the dense and shared-expert FFNs, unembedding) and
-the cache are replicated on every rank; each MoE layer
-(``ep_moe_forward``) takes the rank's rows and, in dispatch, its ``S/ep``
-slice of the sequence, runs the all-to-all dispatch over the rank's
-``S/ep`` expert slots, and all-gathers its output back over ``model``.
-``init_model`` builds only the rank's expert slots.  A chunk or prompt
-length must divide by the EP size (the engine's power-of-two chunk
-buckets, 8 and up, do for EP 2, 4 and 8).
+every rank, and every rank passes the whole batch.  The reference
+declares a logical axis on every parameter and cache entry and lets
+GSPMD place the collectives; the port fixes its layout with explicit,
+counted collectives (``core.ep_moe.Comm``, each with its transpose) and
+the function stays the same.  Under the default rules
+(``models.common.DEFAULT_RULES``) it is the reference's layout, the
+tensor-parallel one (``models.layout``): a rank holds the slice of every
+parameter that ``resolve_spec`` gives it (heads, KV heads, FFN, vocabulary
+and the Mamba layer's channels over ``model``, every weight's D dim over
+``data``, the expert stacks' slots over ``model``), the slice of the
+cache (:data:`CACHE_AXES`: rows over the batch axes, the sequence over
+the ``kv_seq`` axes the batch leaves), its ``B/rows`` rows of the batch
+and, between layers, its ``S/model`` slice of the sequence (a decode
+step's sequence of one stays whole on every rank of ``model``).  The
+embedding and the logits are vocabulary-parallel; serving's logits come
+back whole on every rank, training's as :func:`logits_layout` says, and
+:func:`cross_entropy` reduces the loss over ``model`` and the batch axes.
+Decode and chunk attention run every head's queries against the rank's
+rows of the cache and combine the partial softmaxes over the ``kv_seq``
+axes; a row is written only by the rank that holds it.  The MoE layer
+(``ep_moe_forward``) takes the rank's rows and sequence slice as they
+are, its expert stacks' D dim gathered over ``data``.  A chunk, a
+training sequence or a MoE stack's prompt must divide over ``model``.
 
-Training under a mesh (the reference's ``jit(value_and_grad(train_loss))``
-under ``use_mesh``) takes the FSDP layout (``init_model(fsdp=True)``:
-each expert stack's slots over ``model`` and its D dim over ``data``) and
-one ``m_state`` group a data row.  Each data row trains on its ``B/data``
-rows of the global batch for the whole step, its non-expert part
-replicated over ``model``; the MoE layers gather their slabs over
-``data`` (``fsdp=True``, as the reference's ``train_forward`` passes it);
-the loss is the global masked mean (numerator and denominator summed over
-``data``), the same on every rank.  Every collective has its transpose
-(``core.ep_moe.Comm``), so each rank's gradient is the global loss's
-with respect to what it holds: the expert shards' is complete (the FSDP
-gather's transpose sums the rows), a replicated leaf's is its data row's
-part, which ``optim.grad_utils.data_parallel_grads`` sums over ``data``.
-Under ``remat`` a checkpointed block's recompute re-issues its
-collectives inside the backward, the whole block on every rank in the
-same order (early stop off), and the census counts them.
+Under the EP-only rules (``models.common.EP_ONLY_RULES``, the port's
+first mesh layout, a rules override) only the expert stacks are cut: the
+non-expert part and the cache are replicated on every rank, each MoE
+layer takes the rank's rows and its ``S/ep`` slice of the sequence and
+all-gathers its output back over ``model``, bit for bit the one-device
+forward's.  Training there takes the FSDP layout (``init_model(fsdp=
+True)``: each expert stack's D dim over ``data``) and each data row
+trains on its ``B/data`` rows; ``optim.grad_utils.data_parallel_grads``
+sums a replicated leaf's gradient over ``data``.  In both layouts every
+collective has its transpose, so each rank's gradient is the global
+loss's with respect to what it holds.  Under ``remat`` a checkpointed
+block's recompute re-issues its collectives inside the backward, the
+whole block on every rank in the same order (early stop off), under the
+mesh and rules of the forward, and the census counts them.
 """
 from __future__ import annotations
 
@@ -70,10 +80,13 @@ from repro_torch.configs.base import ModelConfig, ReaLBConfig, SSMConfig
 from repro_torch.core import ep_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import layout
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (DTYPES, P, abstract_params,
-                                       current_mesh, init_params, local_slice,
-                                       resolve_device, rms_norm, use_mesh)
+from repro_torch.models.common import (DTYPES, ROWS, P, abstract_params,
+                                       current_mesh, current_rules,
+                                       init_params, leaf_cuts, local_slice,
+                                       resolve_device, resolve_spec,
+                                       rms_norm, tensor_parallel, use_mesh)
 
 Tree = Any
 AUX_KEYS = ep_moe.AUX_SCALARS
@@ -83,6 +96,7 @@ EXPERT_AXES = {"w_gate": ("expert", "embed", None),
                "w_up": ("expert", "embed", None),
                "w_down": ("expert", None, "embed")}
 F32 = torch.float32
+EMBED = ("embed",)
 
 
 # --------------------------------------------------------------------------
@@ -109,16 +123,19 @@ def block_structure(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, str], ...],
 def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
     e, d = cfg.moe, cfg.d_model
     return {
-        "router": P((d, e.num_experts), dtype="float32"),
-        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_gate"]),
-        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_up"]),
-        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES["w_down"]),
+        "router": P((d, e.num_experts), dtype="float32", axes=(None, None)),
+        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_gate"],
+                    fsdp=True),
+        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_up"],
+                  fsdp=True),
+        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES["w_down"],
+                    fsdp=True),
     }
 
 
 def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
-    spec: Dict[str, Any] = {"norm1": P((d,), init="zeros")}
+    spec: Dict[str, Any] = {"norm1": P((d,), init="zeros", axes=EMBED)}
     if mix in ("attn", "dec"):
         spec["attn"] = attn.attn_spec(cfg)
     elif mix == "ssm":
@@ -128,10 +145,10 @@ def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
     else:
         raise ValueError(f"token mixer {mix!r}")
     if mix == "dec":
-        spec["norm_cross"] = P((d,), init="zeros")
+        spec["norm_cross"] = P((d,), init="zeros", axes=EMBED)
         spec["cross"] = attn.gqa_spec(cfg)
     if ffn != "none":
-        spec["norm2"] = P((d,), init="zeros")
+        spec["norm2"] = P((d,), init="zeros", axes=EMBED)
     if ffn == "dense":
         spec["ffn"] = ffn_mod.ffn_spec(d, cfg.d_ff or cfg.moe.d_ff,
                                        cfg.activation)
@@ -147,20 +164,21 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     layout, _, n_prefix = block_structure(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     spec: Dict[str, Any] = {
-        "embed": P((v, d), init="embed", scale=0.02),
-        "final_norm": P((d,), init="zeros"),
+        "embed": P((v, d), init="embed", scale=0.02,
+                   axes=("vocab", "embed")),
+        "final_norm": P((d,), init="zeros", axes=EMBED),
         "blocks": {f"layer{i}": layer_spec(cfg, m, f)
                    for i, (m, f) in enumerate(layout)},
     }
     if not cfg.tie_embeddings:
-        spec["unembed"] = P((d, v))
+        spec["unembed"] = P((d, v), axes=("embed", "vocab"))
     if n_prefix:
         spec["prefix"] = {str(i): layer_spec(cfg, cfg.layer_kinds()[i],
                                              "dense")
                           for i in range(n_prefix)}
     if cfg.is_encdec:
         spec["enc_blocks"] = {"layer0": layer_spec(cfg, "attn", "dense")}
-        spec["enc_norm"] = P((d,), init="zeros")
+        spec["enc_norm"] = P((d,), init="zeros", axes=EMBED)
     return spec
 
 
@@ -168,9 +186,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None,
                mesh=None, fsdp: bool = False) -> Tree:
     """Random parameters from a seeded ``torch.Generator`` on the device,
     under the reference's key paths and layouts.  Under ``mesh`` (default:
-    the current one) only this rank's ``S/ep`` expert slots, equal to the
-    matching slice of the whole model's; with ``fsdp`` (the layout
-    training under a mesh takes) only their ``D/data`` slice."""
+    the current one) this rank's slice of each leaf by the rules in force,
+    equal to the matching slice of the whole model's: under the default
+    rules every leaf the reference's layout cuts; under
+    ``EP_ONLY_RULES`` only the ``S/ep`` expert slots, and with ``fsdp``
+    (the layout training under a mesh takes there) their ``D/data``
+    slice."""
     mesh = current_mesh() if mesh is None else mesh
     device = resolve_device(mesh.device if device is None and mesh
                             is not None else device)
@@ -204,10 +225,42 @@ def abstract_model(cfg: ModelConfig, mesh=None, fsdp: bool = False) -> Tree:
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                   mem_len: Optional[int] = None) -> Tree:
+                   mem_len: Optional[int] = None, mesh=None) -> Tree:
     """:func:`init_cache`'s tree as ``meta`` tensors (the reference's
-    ``abstract_cache``); the port replicates the cache under a mesh."""
-    return init_cache(cfg, batch, cache_len, device="meta", mem_len=mem_len)
+    ``abstract_cache``), under ``mesh`` (default: the current one) rank
+    0's slices."""
+    return init_cache(cfg, batch, cache_len, device="meta", mem_len=mem_len,
+                      mesh=mesh)
+
+
+def kv_layout(mesh, batch: int, cache_len: int) -> Tuple[Tuple[str, ...],
+                                                         int, int]:
+    """``(axes, first row, rows)`` of this rank's slice of a cache of
+    ``batch`` rows and ``cache_len`` positions along its ``kv_seq`` dim
+    (:func:`models.common.resolve_spec`)."""
+    cut = resolve_spec((batch, cache_len), ("batch", "kv_seq"), mesh)[1]
+    n = cache_len // mesh.size(cut) if cut else cache_len
+    return cut, layout.kv_rows(cut, mesh, n), n
+
+
+def cache_kv_layout(cfg: ModelConfig, cache: Tree, batch: int, mesh):
+    """:func:`kv_layout` of a cache of this rank's slices (None without an
+    attention layer): the whole length is the longest prefix of the
+    ``kv_seq`` axes left by the batch whose cut gives the slice."""
+    for group in ("prefix", "blocks"):
+        for entries in cache.get(group, {}).values():
+            for name in ("k", "latent"):
+                if name in entries:
+                    n = entries[name].shape[-3 if name == "k" else -2]
+                    used = set(resolve_spec((batch,), ("batch",), mesh)[0])
+                    cand = [a for a in current_rules()["kv_seq"]
+                            if a in mesh.shape and a not in used]
+                    for j in range(len(cand), -1, -1):
+                        total = n * mesh.size(tuple(cand[:j]))
+                        cut = kv_layout(mesh, batch, total)
+                        if cut[0] == tuple(cand[:j]):
+                            return cut
+    return None
 
 
 def memory_len(cfg: ModelConfig) -> int:
@@ -247,21 +300,44 @@ def _entry_shapes(cfg: ModelConfig, mix: str, batch: int, cache_len: int,
     return out
 
 
+# each cache entry's logical axes (the reference's ``_entry_spec``)
+CACHE_AXES = {"k": ("batch", "kv_seq", "kv_heads", None),
+              "v": ("batch", "kv_seq", "kv_heads", None),
+              "latent": ("batch", "kv_seq", "rank"),
+              "k_rope": ("batch", "kv_seq", None),
+              "conv": ("batch", None, "d_inner"),
+              "ssm": ("batch", "d_inner", None),
+              "xk": ("batch", None, "kv_heads", None),
+              "xv": ("batch", None, "kv_heads", None)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=None, mem_len: Optional[int] = None) -> Tree:
+               device=None, mem_len: Optional[int] = None,
+               mesh=None) -> Tree:
     """Zero cache: each prefix layer's entries (:func:`_entry_shapes`;
     ``mem_len`` rows of memory K/V, default :func:`memory_len`), each
-    block layer's stacked ``[n_blocks, ...]``."""
+    block layer's stacked ``[n_blocks, ...]``.  Under ``mesh`` (default:
+    the current one) in the tensor-parallel layout, this rank's slice of
+    each entry by the rules (:data:`CACHE_AXES`: rows over the batch axes,
+    the sequence over the ``kv_seq`` axes, the Mamba channels over
+    ``model``); under the EP-only rules the whole cache."""
+    mesh = current_mesh() if mesh is None else mesh
     device = resolve_device(device)
-    layout, n_blocks, n_prefix = block_structure(cfg)
+    blocks, n_blocks, n_prefix = block_structure(cfg)
+    cut = tensor_parallel(mesh)
 
     def entries(mix, lead=()):
-        return {n: torch.zeros(lead + shape, dtype=dt, device=device)
-                for n, (shape, dt) in _entry_shapes(
-                    cfg, mix, batch, cache_len, mem_len).items()}
+        out = {}
+        for n, (shape, dt) in _entry_shapes(cfg, mix, batch, cache_len,
+                                            mem_len).items():
+            if cut:
+                shape = tuple(c.stop - c.start for c in leaf_cuts(
+                    shape, CACHE_AXES[n], mesh))
+            out[n] = torch.zeros(lead + shape, dtype=dt, device=device)
+        return out
 
     out = {"blocks": {f"layer{i}": entries(m, (n_blocks,))
-                      for i, (m, _) in enumerate(layout)}}
+                      for i, (m, _) in enumerate(blocks)}}
     if n_prefix:
         kinds = cfg.layer_kinds()
         out["prefix"] = {str(i): entries(kinds[i]) for i in range(n_prefix)}
@@ -315,26 +391,42 @@ def split_placement(placement, n_blocks: int):
     return None, entries
 
 
+def _own_kv_rows(t: torch.Tensor, kv) -> torch.Tensor:
+    """This rank's ``kv = (axes, first row, rows)`` rows of a whole
+    prompt's cache entry ``t`` [B, S, ...], zero past the prompt."""
+    _, lo, n = kv
+    part = t[:, lo:lo + n]
+    return _pad_kv(part, n) if part.shape[1] < n else part
+
+
 def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-           positions, pos, cache_in, chunk_len=None, cache_len=0):
+           positions, pos, cache_in, chunk_len=None, cache_len=0, tp=None,
+           kv=None):
     """The layer's self token-mixer output ``o`` and its cache entries
     (None in "train" and "encode"): attention's KV (MLA's latent and
     k_rope), or a Mamba layer's final states (prefill; decode writes them
     into ``cache_in`` in place, as attention writes its KV row).  "encode"
-    is an encoder layer's non-causal attention, with no cache."""
+    is an encoder layer's non-causal attention, with no cache.  ``tp``
+    (``models.layout.TP``): the tensor-parallel layout, ``x`` the
+    residual's layout and ``kv`` the cache's rows this rank holds
+    (:func:`kv_layout`)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if mode not in ("prefill", "chunk", "decode", "train", "encode"):
         raise ValueError(f"mode {mode!r}: the port runs 'prefill', "
                          "'chunk', 'decode', 'train' and 'encode'")
     if "ssm" in lp:
         if mode == "decode":
-            o, st = ssm_mod.ssm_decode(lp["ssm"], h, cache_in, cfg)
+            o, st = ssm_mod.ssm_decode(lp["ssm"], h, cache_in, cfg, tp)
             for n, t in st.items():
                 cache_in[n].copy_(t)
             return o, cache_in
-        o, st = ssm_mod.ssm_forward(lp["ssm"], h, cfg)
+        o, st = ssm_mod.ssm_forward(lp["ssm"], h, cfg, tp)
         return o, (None if mode == "train" else st)
     mla = cfg.mla is not None
+    if tp is not None:
+        return _tp_mixer(lp["attn"], h, cfg, tp, mode=mode,
+                         positions=positions, pos=pos, cache_in=cache_in,
+                         chunk_len=chunk_len, kv=kv)
     if mode == "chunk":
         return attn.gqa_chunk(lp["attn"], h, cache_in, cfg,
                               positions=positions, chunk_len=chunk_len)
@@ -351,20 +443,52 @@ def _mixer(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     return o, {k: _pad_kv(v, cache_len) for k, v in kv.items()}
 
 
+def _tp_mixer(p, h, cfg: ModelConfig, tp, *, mode, positions, pos, cache_in,
+              chunk_len, kv):
+    """An attention mixer in the tensor-parallel layout (``models.layout``,
+    ``attention.tp_*``)."""
+    mla = cfg.mla is not None
+    if mode == "chunk":
+        return attn.tp_gqa_chunk(p, h, cache_in, cfg, tp, positions=positions,
+                                 chunk_len=chunk_len, cut=kv[0],
+                                 kv_off=kv[1])
+    if mode == "decode":
+        decode = attn.tp_mla_decode if mla else attn.tp_gqa_decode
+        return decode(p, h, cache_in, cfg, tp, pos=pos, cut=kv[0],
+                      kv_off=kv[1])
+    need = mode == "prefill"
+    if mla:
+        o, new = attn.tp_mla_forward(p, h, cfg, tp, positions=positions,
+                                     need_kv=need)
+    else:
+        o, new = attn.tp_gqa_forward(p, h, cfg, tp, positions=positions,
+                                     causal=mode != "encode", need_kv=need)
+    if not need:
+        return o, None
+    return o, {k: _own_kv_rows(v, kv) for k, v in new.items()}
+
+
 def _cross_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                memory, cache_in):
+                memory, cache_in, tp=None):
     """A cross-attention layer's residual step (a "cross" layer's, after
     ``norm1``; a "dec" layer's after ``norm_cross``, following its
     self-attention): (x, the memory's K/V as ``xk``/``xv``).  Prefill and
     "train" project ``memory``; decode reads the K/V the prefill cached in
     ``cache_in`` and writes nothing.  A layer without one returns x and
-    None."""
+    None.  ``tp``: the tensor-parallel layout (``memory`` whole on every
+    rank of ``model``)."""
     if "cross" not in lp:
         return x, None
     hn = rms_norm(x, lp.get("norm_cross", lp["norm1"]), cfg.norm_eps)
     if mode == "decode":
-        o, kv = attn.cross_decode(lp["cross"], hn, {
-            "k": cache_in["xk"], "v": cache_in["xv"]}, cfg)
+        decode = attn.cross_decode if tp is None else (
+            lambda p, h, c, cfg: attn.tp_cross_decode(p, h, c, cfg, tp))
+        o, kv = decode(lp["cross"], hn, {"k": cache_in["xk"],
+                                         "v": cache_in["xv"]}, cfg)
+    elif mode in ("prefill", "train") and tp is not None:
+        o, kv = attn.tp_gqa_forward(lp["cross"], hn, cfg, tp, positions=None,
+                                    memory=memory, need_kv=mode == "prefill")
+        kv = kv or {"k": None, "v": None}
     elif mode in ("prefill", "train"):
         o, kv = attn.cross_forward(lp["cross"], hn, memory, cfg)
     else:
@@ -373,11 +497,18 @@ def _cross_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     return x + o, {"xk": kv["k"], "xv": kv["v"]}
 
 
+def _dense_ffn(p, h, cfg: ModelConfig, d_ff: int, tp):
+    if tp is None:
+        return ffn_mod.ffn_forward(p, h, cfg)
+    return ffn_mod.tp_ffn_forward(p, h, cfg, tp, d_ff)
+
+
 def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
               rcfg: ReaLBConfig, ffn: str, *, mode: str, m_state, modality,
-              valid=None, placement=None, fsdp=False):
+              valid=None, placement=None, fsdp=False, tp=None):
     """The layer's dense or MoE FFN on the residual ``x``: (x, m_state,
-    aux_scalars, stats, estats, sstats)."""
+    aux_scalars, stats, estats, sstats).  ``tp``: the tensor-parallel
+    layout (``modality`` and ``valid`` the residual's rows)."""
     n_e = cfg.moe.num_experts if cfg.moe is not None else 1
     n_slot = n_physical_slots(cfg, placement)
     dev = x.device
@@ -387,7 +518,8 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     sstats = torch.zeros((2, n_slot), dtype=F32, device=dev)
     if ffn == "dense" and "ffn" in lp:
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + ffn_mod.ffn_forward(lp["ffn"], h2, cfg)
+        x = x + _dense_ffn(lp["ffn"], h2, cfg,
+                           cfg.d_ff or cfg.moe.d_ff, tp)
     elif ffn == "moe":
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         y, m_state, moe_aux = ep_moe.ep_moe_forward(
@@ -396,7 +528,8 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
             valid=valid, placement=placement, train=mode == "train",
             fsdp=fsdp)
         if "shared" in lp:
-            y = y + ffn_mod.ffn_forward(lp["shared"], h2, cfg)
+            y = y + _dense_ffn(lp["shared"], h2, cfg,
+                               cfg.moe.d_ff * cfg.moe.n_shared_experts, tp)
         x = x + y
         aux = {k: moe_aux[k].to(F32) for k in AUX_KEYS}
         stats = torch.stack([
@@ -414,7 +547,8 @@ def _ffn_part(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                 rcfg: ReaLBConfig, ffn: str, *, mode: str, positions, pos,
                 cache_in, m_state, modality, chunk_len=None, valid=None,
-                cache_len=0, placement=None, fsdp=False, memory=None):
+                cache_len=0, placement=None, fsdp=False, memory=None,
+                tp=None, kv=None, spec=None):
     """One attention or Mamba layer, a cross-attention layer, or the two
     attentions of a "dec" layer, then its dense or MoE FFN.  ``mode``:
     "prefill" (whole prompts; the KV comes back padded to ``cache_len``, a
@@ -423,22 +557,29 @@ def apply_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     states, written into ``cache_in`` in place, whose tensors come back as
     ``cache_out``; the memory's K/V are read), "train" (whole sequences,
     no cache, ``cache_out`` None; the MoE layer in its training form) or
-    "encode" (an encoder layer: non-causal, no cache).
+    "encode" (an encoder layer: non-causal, no cache).  ``tp`` (with the
+    layer's ``spec``): the tensor-parallel layout (``models.layout``): the
+    layer's weights are gathered and marked first (``layout.prepare``;
+    without ``spec`` the caller did it);
+    in prefill the KV comes back as this rank's rows ``kv`` of the cache.
     Returns (x, cache_out, m_state, aux_scalars, stats, estats, sstats)."""
-    kv = None
+    if spec is not None:
+        lp = layout.prepare(lp, spec, tp)
+    new = None
     if "attn" in lp or "ssm" in lp:
-        o, kv = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
-                       cache_in=cache_in, chunk_len=chunk_len,
-                       cache_len=cache_len)
+        o, new = _mixer(lp, x, cfg, mode=mode, positions=positions, pos=pos,
+                        cache_in=cache_in, chunk_len=chunk_len,
+                        cache_len=cache_len, tp=tp, kv=kv)
         x = x + o
     x, xkv = _cross_part(lp, x, cfg, mode=mode, memory=memory,
-                         cache_in=cache_in)
+                         cache_in=cache_in, tp=tp)
     if xkv is not None and mode != "train":
-        kv = {**(kv or {}), **xkv}
+        new = {**(new or {}), **xkv}
     x, m_state, aux, stats, estats, sstats = _ffn_part(
         lp, x, cfg, rcfg, ffn, mode=mode, m_state=m_state,
-        modality=modality, valid=valid, placement=placement, fsdp=fsdp)
-    return x, kv, m_state, aux, stats, estats, sstats
+        modality=modality, valid=valid, placement=placement, fsdp=fsdp,
+        tp=tp)
+    return x, new, m_state, aux, stats, estats, sstats
 
 
 # --------------------------------------------------------------------------
@@ -453,42 +594,145 @@ class ForwardResult(NamedTuple):
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            vision_embeds: Optional[torch.Tensor] = None,
-           mode: str = "decode") -> torch.Tensor:
+           mode: str = "decode", tp=None) -> torch.Tensor:
     """Token embeddings.  In a VLM (``family="vlm"``) ``vision_embeds``
     [B, N, D] overwrite the leading N rows of every sequence, after the
     sqrt(d) scale, except in decode (the reference's
     ``dynamic_update_slice``); a MoE backbone such as moonshot ignores
-    them, as the reference does."""
+    them, as the reference does.  ``tp``: the tensor-parallel layout,
+    ``tokens`` the rank's rows' whole sequence, the result the residual's
+    layout: a vocabulary cut over ``model`` is looked up masked to the
+    rank's ids and summed over ``model`` (one id a rank: exact), the sum
+    reduce-scattered over the sequence (decode: all-reduced)."""
     dt = DTYPES[cfg.param_dtype]
-    x = params["embed"][tokens.long()].to(dt)
+    if tp is None:
+        x = params["embed"][tokens.long()].to(dt)
+    else:
+        table = layout.prepare(params["embed"], model_spec(cfg)["embed"], tp)
+        t = tokens.long()
+        if tp.divides(cfg.vocab_size):
+            v0, v1 = tp.cut(cfg.vocab_size)
+            mine = ((t >= v0) & (t < v1))[..., None].to(dt)
+            x = tp.reduce_out(table[(t - v0).clamp(0, v1 - v0 - 1)].to(dt)
+                              * mine)
+        else:
+            x = table[tp.own_rows(t)].to(dt)
     if cfg.embed_scale_sqrt_d:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     if cfg.family == "vlm" and vision_embeds is not None \
             and mode != "decode":
-        if vision_embeds.shape[1] > x.shape[1]:
-            raise ValueError(f"{vision_embeds.shape[1]} rows of vision "
-                             f"embeds over a sequence of {x.shape[1]}")
-        x = torch.cat([vision_embeds.to(dt),
-                       x[:, vision_embeds.shape[1]:]], dim=1)
+        n = vision_embeds.shape[1]
+        if n > tokens.shape[1]:
+            raise ValueError(f"{n} rows of vision embeds over a sequence "
+                             f"of {tokens.shape[1]}")
+        if tp is None:
+            return torch.cat([vision_embeds.to(dt), x[:, n:]], dim=1)
+        vis = _pad_kv(vision_embeds.to(dt), tokens.shape[1])
+        at = tp.seq_offset + torch.arange(x.shape[1], device=x.device)
+        x = torch.where((at < n)[None, :, None], tp.own_rows(vis), x)
     return x
 
 
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).t())
-    else:
-        logits = torch.matmul(x, params["unembed"].to(x.dtype))
-    logits = logits.to(F32)
+    return _logits_of(x, params["embed"].t() if cfg.tie_embeddings
+                      else params["unembed"], cfg)
+
+
+def _tp_head(params, cfg: ModelConfig, tp) -> Dict[str, torch.Tensor]:
+    """``final_norm`` and the output projection, prepared for the layout
+    (``unembed`` [D, V/model], or the tied table's transpose)."""
+    spec = model_spec(cfg)
+    names = ("final_norm", "embed" if cfg.tie_embeddings else "unembed")
+    out = layout.prepare({k: params[k] for k in names},
+                         {k: spec[k] for k in names}, tp)
+    return {"final_norm": out["final_norm"],
+            "unembed": out["embed"].t() if cfg.tie_embeddings
+            else out["unembed"]}
+
+
+def _tp_logits(params, cfg: ModelConfig, x: torch.Tensor, tp,
+               rows_cut: bool) -> torch.Tensor:
+    """Serving's logits of ``x`` [B/rows, n, D] (whole on every rank of
+    ``model``) in the layout: the rank's vocabulary slice, then every
+    rank's gathered over ``model`` and the rows over the batch axes, so
+    every rank samples from the whole batch's whole logits."""
+    head = _tp_head(params, cfg, tp)
+    logits = _logits_of(rms_norm(x, head["final_norm"], cfg.norm_eps),
+                        head["unembed"], cfg)
+    comm = tp.comm
+    if tp.divides(cfg.vocab_size):
+        logits = comm._whole(logits, -1, "model", "logits_all_gather")
+    if rows_cut:
+        logits = comm._whole(logits, 0, ROWS, "logits_all_gather")
+    return logits
+
+
+def _tp_train_logits(params, cfg: ModelConfig, x: torch.Tensor, tp
+                     ) -> torch.Tensor:
+    """Training's logits in the layout (:func:`logits_layout`): a
+    vocabulary cut over ``model`` gives the rank's slice ``[B/rows, S,
+    V/model]`` of the whole sequence (gathered), else the rank's rows
+    ``[B/rows, S/model, V]``."""
+    head = _tp_head(params, cfg, tp)
+    x = rms_norm(x, head["final_norm"], cfg.norm_eps)
+    if tp.divides(cfg.vocab_size):
+        x = tp.comm.gather_cat(x, 1)
+    return _logits_of(x, head["unembed"], cfg)
+
+
+def _logits_of(x, w, cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits of ``x`` through the output projection ``w`` [D, V]
+    (soft-capped where the config says)."""
+    logits = torch.matmul(x, w.to(x.dtype)).to(F32)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
 
 
+def logits_layout(cfg: ModelConfig) -> Optional[str]:
+    """How ``train_forward``'s logits lie under the current mesh: None
+    (whole vocabulary, this data row's rows; no mesh, or the EP-only
+    rules), ``"vocab"`` (the tensor-parallel layout with a vocabulary that
+    divides over ``model``: the rank's vocabulary slice of the whole
+    sequence) or ``"seq"`` (one that does not: the rank's rows of the
+    sequence, every id)."""
+    mesh = current_mesh()
+    if not tensor_parallel(mesh):
+        return None
+    return "vocab" if cfg.vocab_size % mesh.size("model") == 0 else "seq"
+
+
+def _last_rows(x: torch.Tensor, tp, last: torch.Tensor) -> torch.Tensor:
+    """Row ``last[b]`` of each batch row's sequence of the residual ``x``
+    (sequence-parallel: taken by the rank that holds it and gathered over
+    ``model``, no arithmetic), ``[B, 1, D]``."""
+    ar = torch.arange(x.shape[0], device=x.device)
+    if not tp.sp:
+        return x[ar, last][:, None, :]
+    owner = torch.div(last, tp.s_local, rounding_mode="floor")
+    mine = x[ar, (last - owner * tp.s_local).clamp(0, tp.s_local - 1)]
+    every = tp.comm._gather(mine.contiguous(), "model", "last_row_all_gather")
+    return every[owner, ar][:, None, :]
+
+
+def _in_mesh(fn):
+    """``fn`` run under the mesh and rules in force where it was made (a
+    checkpointed recompute runs on autograd's thread, where the mesh
+    context, thread-local, is not set)."""
+    mesh, rules = current_mesh(), current_rules()
+
+    def run(*args):
+        with use_mesh(mesh, rules=rules):
+            return fn(*args)
+    return run
+
+
 def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
                m_state, modality, chunk_len=None, valid=None, cache_len=0,
-               placement=None, fsdp=False, memory=None):
+               placement=None, fsdp=False, memory=None, tp=None, kv=None,
+               b_global=None):
     """Prefix layers, then a loop over the stacked blocks; the cache is
     updated in place and returned: a chunk or decode writes only its new
     rows (``attention.write_rows_``), a prefill fills a new zero cache of
@@ -496,34 +740,42 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     at the memory's own length), "train" has none.  A
     shared placement table serves every block; a per-layer one gives block
     ``b`` its slice ``b`` (views, no copy).  In "train" ``cfg.remat``
-    picks what the backward recomputes (:func:`_train_block`)."""
-    layout, n_blocks, n_prefix = block_structure(cfg)
+    picks what the backward recomputes (:func:`_train_block`).  ``tp``,
+    ``kv``, ``b_global``: the tensor-parallel layout, the cache's rows
+    this rank holds and the whole batch (a prefill's new cache is this
+    rank's slice of it)."""
+    blocks, n_blocks, n_prefix = block_structure(cfg)
     place_shared, place_stacked = split_placement(placement, n_blocks)
     if mode == "prefill":
-        cache = init_cache(cfg, x.shape[0], cache_len, x.device, mem_len=(
-            None if memory is None else memory.shape[1]))
+        cache = init_cache(cfg, x.shape[0] if b_global is None else b_global,
+                           cache_len, x.device, mem_len=(
+                               None if memory is None else memory.shape[1]))
     aux_acc = {k: torch.zeros((), dtype=F32, device=x.device)
                for k in AUX_KEYS}
     kw = dict(mode=mode, positions=positions, pos=pos, modality=modality,
               chunk_len=chunk_len, valid=valid, cache_len=cache_len,
-              fsdp=fsdp, memory=memory)
+              fsdp=fsdp, memory=memory, tp=tp, kv=kv)
+    kinds = cfg.layer_kinds()
     for i in range(n_prefix):
         c = None if cache is None else cache["prefix"][str(i)]
         x, co, m_state, aux, _, _, _ = apply_layer(
             params["prefix"][str(i)], x, cfg, rcfg, "dense",
-            cache_in=c, m_state=m_state, **kw)
+            cache_in=c, m_state=m_state,
+            spec=layer_spec(cfg, kinds[i], "dense") if tp else None, **kw)
         if mode == "prefill":
             for n, t in co.items():
                 c[n].copy_(t)
         aux_acc = {k: aux_acc[k] + aux[k] for k in AUX_KEYS}
 
+    specs = [layer_spec(cfg, m, f) if tp else None for m, f in blocks]
     stats_b, estats_b, sstats_b = [], [], []
     for b in range(n_blocks):
         place_b = place_shared if place_stacked is None \
             else tuple(a[b] for a in place_stacked)
         if mode == "train":
             x, m_state, aux_b, st, es, ss = _train_block(
-                params, cfg, rcfg, layout, b, x, m_state, place_b, **kw)
+                params, cfg, rcfg, blocks, b, x, m_state, place_b,
+                specs=specs, **kw)
             aux_acc = {k: aux_acc[k] + aux_b[k] for k in AUX_KEYS}
             stats_b.append(st)
             estats_b.append(es)
@@ -532,12 +784,12 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
         st = torch.zeros((2,) + tuple(m_state.shape), dtype=F32,
                          device=x.device)
         es = ss = 0
-        for i, (_, f) in enumerate(layout):
+        for i, (_, f) in enumerate(blocks):
             lp = _index(params["blocks"][f"layer{i}"], b)
             c = cache["blocks"][f"layer{i}"]
             x, co, m_state, aux, stats, estats, sstats = apply_layer(
                 lp, x, cfg, rcfg, f, cache_in={n: t[b] for n, t in c.items()},
-                m_state=m_state, placement=place_b, **kw)
+                m_state=m_state, placement=place_b, spec=specs[i], **kw)
             if mode == "prefill":
                 for n, t in co.items():
                     c[n][b].copy_(t)
@@ -552,8 +804,8 @@ def _run_stack(params, cfg, rcfg, x, *, mode, positions, pos, cache,
     return x, cache, m_state, aux_acc
 
 
-def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
-                 **kw):
+def _train_block(params, cfg, rcfg, blocks, b, x, m_state, placement,
+                 specs=None, **kw):
     """Block ``b`` in "train": (x, m_state, aux, stats, estats, sstats).
 
     ``cfg.remat`` (the reference's policies, with
@@ -567,36 +819,38 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
     the statistics) is the first pass's. Kernel launch counters count the
     recompute too. Under a mesh the recompute runs whole (checkpoint's early
     stop off), so every rank re-issues every collective of the checkpointed
-    part, in order, and under the mesh of the forward: on a card it runs on
-    autograd's thread, where the mesh context (thread-local) is not set."""
+    part, in order, and under the mesh and rules of the forward: on a card
+    it runs on autograd's thread, where the mesh context (thread-local) is
+    not set.  In the tensor-parallel layout each layer's weights are
+    gathered (``layout.prepare``) inside what is checkpointed, so a
+    recompute gathers them again."""
     mesh = current_mesh()
-
-    def in_mesh(fn):
-        def run(*args):
-            with use_mesh(mesh):
-                return fn(*args)
-        return run
+    tp = kw["tp"]
 
     def layer(i, f, x, m):
         lp = _index(params["blocks"][f"layer{i}"], b)
+        if tp is not None:
+            lp = layout.prepare(lp, specs[i], tp)
         if cfg.remat != "attn_out":
             x, _, m, aux, st, es, ss = apply_layer(
                 lp, x, cfg, rcfg, f, cache_in=None, m_state=m,
                 placement=placement, **kw)
             return x, m, aux, st, es, ss
+
         def rest(x, m):
             x, _ = _cross_part(lp, x, cfg, mode=kw["mode"],
-                               memory=kw["memory"], cache_in=None)
+                               memory=kw["memory"], cache_in=None, tp=tp)
             return _ffn_part(lp, x, cfg, rcfg, f, m_state=m,
                              placement=placement, **{
                                  k: kw[k] for k in ("mode", "modality",
-                                                    "valid", "fsdp")})
+                                                    "valid", "fsdp", "tp")})
         if "attn" not in lp and "ssm" not in lp:
-            return checkpoint(in_mesh(rest), x, m, use_reentrant=False)
-        o = checkpoint(in_mesh(lambda x: _mixer(lp, x, cfg, cache_in=None, **{
+            return checkpoint(_in_mesh(rest), x, m, use_reentrant=False)
+        o = checkpoint(_in_mesh(lambda x: _mixer(lp, x, cfg, cache_in=None,
+                                                 tp=tp, kv=None, **{
             k: kw[k] for k in ("mode", "positions", "pos")})[0]), x,
             use_reentrant=False)
-        return checkpoint(in_mesh(lambda x, o, m: rest(x + o, m)), x, o, m,
+        return checkpoint(_in_mesh(lambda x, o, m: rest(x + o, m)), x, o, m,
                           use_reentrant=False)
 
     def block(x, m):
@@ -604,7 +858,7 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
                  for k in AUX_KEYS}
         st = torch.zeros((2,) + tuple(m.shape), dtype=F32, device=x.device)
         es = ss = 0
-        for i, (_, f) in enumerate(layout):
+        for i, (_, f) in enumerate(blocks):
             x, m, aux, stats, estats, sstats = layer(i, f, x, m)
             aux_b = {k: aux_b[k] + aux[k] for k in AUX_KEYS}
             st, es, ss = st + stats, es + estats, ss + sstats
@@ -617,7 +871,7 @@ def _train_block(params, cfg, rcfg, layout, b, x, m_state, placement,
         else contextlib.nullcontext()
     with whole:
         if cfg.remat == "full":
-            return checkpoint(in_mesh(block), x, m_state,
+            return checkpoint(_in_mesh(block), x, m_state,
                               use_reentrant=False)
         return block(x, m_state)
 
@@ -652,21 +906,40 @@ def _encode(params, cfg: ModelConfig, rcfg: ReaLBConfig, enc_embeds,
     attention + dense FFN layers over ``enc_embeds`` [B, T, D] (cast to
     the parameter dtype), then ``enc_norm``.  In training under
     ``remat="full"`` each layer is checkpointed, as the reference's
-    ``jax.checkpoint`` of its scan body."""
+    ``jax.checkpoint`` of its scan body.  In the tensor-parallel layout
+    the encoder's residual is sequence-parallel where ``T`` divides over
+    ``model`` (its output gathered whole, the gather's transpose summing
+    the cross layers' partial cotangents), else whole on every rank (its
+    output entered: the same sum)."""
     x = enc_embeds.to(DTYPES[cfg.param_dtype])
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    t = x.shape[1]
+    positions = torch.arange(t, device=x.device)[None, :]
+    mesh = current_mesh()
+    tp = None
+    if tensor_parallel(mesh):
+        tp = layout.TP(mesh, t % mesh.size("model") == 0, train, t)
+        x = tp.own_rows(x)
+    spec = layer_spec(cfg, "attn", "dense") if tp else None
 
     def layer(lp, h):
         return apply_layer(lp, h, cfg, rcfg, "dense", mode="encode",
                            positions=positions, pos=None, cache_in=None,
-                           m_state=m_state, modality=None)[0]
-    for i in range(cfg.n_enc_layers):
-        lp = _index(params["enc_blocks"]["layer0"], i)
-        if train and cfg.remat == "full":
-            x = checkpoint(layer, lp, x, use_reentrant=False)
-        else:
-            x = layer(lp, x)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+                           m_state=m_state, modality=None, tp=tp,
+                           spec=spec)[0]
+    # under a mesh a recompute re-issues every collective (no early stop)
+    with set_checkpoint_early_stop(False) if mesh is not None \
+            else contextlib.nullcontext():
+        for i in range(cfg.n_enc_layers):
+            lp = _index(params["enc_blocks"]["layer0"], i)
+            if train and cfg.remat == "full":
+                x = checkpoint(_in_mesh(layer), lp, x, use_reentrant=False)
+            else:
+                x = layer(lp, x)
+    if tp is None:
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    norm = layout.prepare(params["enc_norm"], model_spec(cfg)["enc_norm"], tp)
+    x = rms_norm(x, norm, cfg.norm_eps)
+    return tp.comm.gather_cat(x, 1) if tp.sp else tp.enter(x)
 
 
 def _memory(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch, m_state,
@@ -686,6 +959,24 @@ def _memory(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch, m_state,
     return batch[name][rows]
 
 
+def _tp_begin(cfg: ModelConfig, mesh, b: int, s: int, mode: str,
+              train: bool = False):
+    """The layout of a forward of ``b`` rows of ``s`` tokens: (TP, the
+    rank's rows).  A chunk, a training step or a MoE stack's prefill
+    needs a sequence that divides over ``model``."""
+    m = mesh.size("model")
+    sp = mode != "decode" and s % m == 0
+    if mode != "decode" and not sp and (mode in ("chunk", "train")
+                                        or cfg.moe is not None):
+        raise ValueError(f"a seq dim of {s} does not divide over the {m} "
+                         "ranks of the mesh's 'model' axis")
+    rows = local_slice(b, "batch", mesh)
+    if train and rows.stop - rows.start == b and mesh.size(ROWS) > 1:
+        raise ValueError(f"a training batch of {b} rows does not divide "
+                         f"over the {mesh.size(ROWS)} data rows")
+    return layout.TP(mesh, sp, train, s), rows
+
+
 def prefill_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                     m_state, cache_len: int = 0,
                     placement=None) -> ForwardResult:
@@ -695,18 +986,38 @@ def prefill_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     encoder-decoder's encoder input, required there).  Every token is
     real.  Returns the logits at the last position and a cache of
     ``cache_len`` rows (default S) holding the prompt's KV at rows [0, S)
-    and zeros after, and the memory's K/V at its own length."""
+    and zeros after, and the memory's K/V at its own length.  In the
+    tensor-parallel layout every rank passes the whole batch and gets the
+    whole logits; the cache is its slice (:func:`init_cache`)."""
     tokens, modality = _prepare_inputs(cfg, batch, "prefill")
     b, s = tokens.shape
     cache_len = cache_len or s
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    memory = _memory(params, cfg, rcfg, batch, m_state)
-    x = _embed(params, cfg, tokens, batch.get("vision_embeds"), "prefill")
+    mesh = current_mesh()
+    tp = rows = kv = None
+    if tensor_parallel(mesh):
+        tp, rows = _tp_begin(cfg, mesh, b, s, "prefill")
+        tokens, modality = tokens[rows], modality[rows]
+        kv = kv_layout(mesh, b, cache_len)
+    bl = tokens.shape[0]
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(bl, s)
+    memory = _memory(params, cfg, rcfg, batch, m_state,
+                     slice(None) if rows is None else rows)
+    vision = batch.get("vision_embeds")
+    if vision is not None and rows is not None:
+        vision = vision[rows]
+    x = _embed(params, cfg, tokens, vision, "prefill", tp=tp)
     x, cache, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="prefill", positions=positions, pos=None,
-        cache=None, m_state=m_state, modality=modality,
-        cache_len=cache_len, placement=placement, memory=memory)
-    logits = _unembed(params, cfg, x[:, -1:, :])
+        cache=None, m_state=m_state,
+        modality=modality if tp is None else tp.own_rows(modality),
+        cache_len=cache_len, placement=placement, memory=memory, tp=tp,
+        kv=kv, b_global=b)
+    if tp is None:
+        logits = _unembed(params, cfg, x[:, -1:, :])
+    else:
+        last = torch.full((bl,), s - 1, dtype=torch.long, device=x.device)
+        logits = _tp_logits(params, cfg, _last_rows(x, tp, last), tp,
+                            bl < b)
     return ForwardResult(logits[:, 0], cache, m_state, aux)
 
 
@@ -721,7 +1032,8 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     Returns logits at every row's last valid chunk position.  Only
     all-GQA stacks continue a chunk (no SSM state threading, no MLA
     latent cache continued mid-prompt, no memory of cross-attention
-    layers), as in the reference.
+    layers), as in the reference.  In the tensor-parallel layout the
+    cache is the rank's slice and S must divide over ``model``.
     """
     if cfg.layer_pattern != "attn" or cfg.ssm is not None \
             or cfg.mla is not None or cfg.is_encdec:
@@ -730,41 +1042,68 @@ def chunk_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     tokens, modality = _prepare_inputs(cfg, batch, "chunk")
     start, chunk_len = batch["start"], batch["chunk_len"]
     b, s = tokens.shape
+    mesh = current_mesh()
+    tp = kv = None
+    if tensor_parallel(mesh):
+        tp, rows = _tp_begin(cfg, mesh, b, s, "chunk")
+        tokens, modality = tokens[rows], modality[rows]
+        start, chunk_len = start[rows], chunk_len[rows]
+        kv = cache_kv_layout(cfg, cache, b, mesh)
+    bl = tokens.shape[0]
     dev = tokens.device
     ar = torch.arange(s, device=dev)
     positions = start[:, None] + ar[None, :]
     valid = ar[None, :] < chunk_len[:, None]
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp=tp)
+    if tp is not None:
+        modality, valid = tp.own_rows(modality), tp.own_rows(valid)
     x, cache, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="chunk", positions=positions, pos=start,
         cache=cache, m_state=m_state, modality=modality,
-        chunk_len=chunk_len, valid=valid, placement=placement)
+        chunk_len=chunk_len, valid=valid, placement=placement, tp=tp, kv=kv)
     last = torch.clamp(chunk_len - 1, 0, s - 1).long()
-    x_last = x[torch.arange(b, device=dev), last][:, None, :]
-    logits = _unembed(params, cfg, x_last)
+    if tp is None:
+        logits = _unembed(params, cfg, x[torch.arange(b, device=dev),
+                                         last][:, None, :])
+    else:
+        logits = _tp_logits(params, cfg, _last_rows(x, tp, last), tp,
+                            bl < b)
     return ForwardResult(logits[:, 0], cache, m_state, aux)
 
 
 def decode_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
                    cache, m_state, placement=None) -> ForwardResult:
     """batch: tokens [B,1], pos [B], modality [B,1] (vision flag of the new
-    token), valid [B,1] (False = dummy slot excluded from routing stats)."""
+    token), valid [B,1] (False = dummy slot excluded from routing stats).
+    In the tensor-parallel layout the cache is the rank's slice; the
+    step's sequence of one is whole on every rank of ``model``."""
     tokens, modality = _prepare_inputs(cfg, batch, "decode")
-    pos = batch["pos"]
-    x = _embed(params, cfg, tokens)
+    pos, valid = batch["pos"], batch.get("valid")
+    mesh = current_mesh()
+    tp = kv = None
+    b = tokens.shape[0]
+    if tensor_parallel(mesh):
+        tp, rows = _tp_begin(cfg, mesh, b, 1, "decode")
+        tokens, modality, pos = tokens[rows], modality[rows], pos[rows]
+        valid = None if valid is None else valid[rows]
+        kv = cache_kv_layout(cfg, cache, b, mesh)
+    x = _embed(params, cfg, tokens, tp=tp)
     x, cache, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="decode", positions=None, pos=pos,
         cache=cache, m_state=m_state, modality=modality,
-        valid=batch.get("valid"), placement=placement)
-    logits = _unembed(params, cfg, x)
+        valid=valid, placement=placement, tp=tp, kv=kv)
+    logits = _unembed(params, cfg, x) if tp is None else \
+        _tp_logits(params, cfg, x, tp, tokens.shape[0] < b)
     return ForwardResult(logits[:, 0], cache, m_state, aux)
 
 
 def _train_rows(b: int, m_state) -> slice:
     """The rows of the global batch this rank trains on: under a mesh with
-    one ``m_state`` group a data row, its data row's ``B/data``; else
-    all."""
+    one ``m_state`` group a data row (or in the tensor-parallel layout),
+    its data row's ``B/data``; else all."""
     mesh = current_mesh()
+    if tensor_parallel(mesh):
+        return local_slice(b, "batch", mesh)
     if mesh is None or m_state.dim() != 2 or m_state.shape[0] == 1:
         return slice(0, b)
     return local_slice(b, "batch", mesh)
@@ -779,45 +1118,71 @@ def train_forward(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     layers run their training form (FP4 off, the BF16 expert FFN with its
     gradient kernel; the policy and its AIMD update still run), and
     ``cfg.remat`` sets what the backward recomputes.  Under a mesh (see
-    the module docstring) every rank passes the global batch and the FSDP
-    layout's parameters; the logits are those of its data row's rows
-    (its memory rows too), ``m_state`` and the statistics the global
+    the module docstring) every rank passes the global batch; the logits
+    are those of its data row's rows (its memory rows too), as
+    :func:`logits_layout` says, ``m_state`` and the statistics the global
     ones.  A Mamba layer runs its whole-sequence form from zero state, as
     in prefill."""
     tokens, modality = _prepare_inputs(cfg, batch, "train")
-    rows = _train_rows(tokens.shape[0], m_state)
+    mesh = current_mesh()
+    tp = None
+    if tensor_parallel(mesh):
+        tp, rows = _tp_begin(cfg, mesh, *tokens.shape, "train", train=True)
+    else:
+        rows = _train_rows(tokens.shape[0], m_state)
     tokens, modality = tokens[rows], modality[rows]
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     memory = _memory(params, cfg, rcfg, batch, m_state, rows, train=True)
     vision = batch.get("vision_embeds")
     x = _embed(params, cfg, tokens, None if vision is None else vision[rows],
-               "train")
+               "train", tp=tp)
     x, _, m_state, aux = _run_stack(
         params, cfg, rcfg, x, mode="train", positions=positions, pos=None,
-        cache=None, m_state=m_state, modality=modality,
-        placement=placement, fsdp=current_mesh() is not None, memory=memory)
-    return ForwardResult(_unembed(params, cfg, x), None, m_state, aux)
+        cache=None, m_state=m_state,
+        modality=modality if tp is None else tp.own_rows(modality),
+        placement=placement, fsdp=mesh is not None, memory=memory, tp=tp)
+    logits = _unembed(params, cfg, x) if tp is None else \
+        _tp_train_logits(params, cfg, x, tp)
+    return ForwardResult(logits, None, m_state, aux)
 
 
 # --------------------------------------------------------------------------
 # losses
 # --------------------------------------------------------------------------
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  layout: Optional[str] = None) -> torch.Tensor:
     """Mean token CE. logits [B,S,V] f32, labels [B,S] int (-1 = pad).
     Under a mesh with data rows, ``logits`` and ``labels`` are this data
     row's rows and the mean is the global one: the numerator and the
-    denominator summed over ``data`` (not the mean of the rows' means)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    denominator summed over the batch axes (not the mean of the rows'
+    means).  ``layout`` (:func:`logits_layout`): ``"vocab"``, ``logits``
+    the rank's vocabulary slice (the max, the sum of exponentials and the
+    label's logit reduced over ``model``); ``"seq"``, the rank's rows of
+    the sequence (``labels`` too; the sums over ``model`` as well)."""
     mask = (labels >= 0).to(F32)
+    mesh = current_mesh()
+    if layout == "vocab":
+        comm = ep_moe._dist_comm(mesh)
+        n = logits.shape[-1]
+        v0 = mesh.index("model") * n
+        top = comm.all_max(logits.detach().amax(dim=-1))
+        se = comm.ordered_sum(torch.exp(logits - top[..., None]).sum(-1))
+        lse = torch.log(se) + top
+        idx = (labels.long() - v0)
+        mine = ((idx >= 0) & (idx < n)).to(F32)
+        ll = comm.ordered_sum(torch.gather(
+            logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0] * mine)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = (lse - ll) * mask
     num, den = nll.sum(), mask.sum()
-    mesh = current_mesh()
-    if mesh is not None and mesh.size("data") > 1:
+    axes = ROWS + ("model",) if layout == "seq" else ROWS
+    if mesh is not None and mesh.size(axes) > 1:
         num, den = ep_moe._dist_comm(mesh).psum(
-            [num.reshape(1), den.reshape(1)], axis="data")
+            [num.reshape(1), den.reshape(1)], axis=axes)
         num, den = num.reshape(()), den.reshape(())
     return num / torch.clamp(den, min=1.0)
 
@@ -830,8 +1195,13 @@ def train_loss(params, cfg: ModelConfig, rcfg: ReaLBConfig, batch,
     same on every rank."""
     res = train_forward(params, cfg, rcfg, batch, m_state)
     labels = batch["labels"]
-    ce = cross_entropy(res.logits, labels[_train_rows(labels.shape[0],
-                                                      m_state)])
+    labels = labels[_train_rows(labels.shape[0], m_state)]
+    lay = logits_layout(cfg)
+    if lay == "seq":
+        m = current_mesh().size("model")
+        n = labels.shape[1] // m
+        labels = labels.narrow(1, current_mesh().index("model") * n, n)
+    ce = cross_entropy(res.logits, labels, lay)
     loss = ce
     if cfg.moe is not None:
         loss = (loss + cfg.moe.aux_loss_coef * res.aux["lb_loss"]

@@ -166,7 +166,8 @@ class FlopByteLedger:
     def predict_graph_census(self, t_local: int, layers: int,
                              itemsize: int = 2,
                              n_slots: Optional[int] = None,
-                             rows: int = 1) -> Dict[str, Dict[str, int]]:
+                             rows: int = 1, layout: Optional[dict] = None
+                             ) -> Dict[str, Dict[str, int]]:
         """Predicted collective census of ``layers`` dispatch-mode MoE
         layers on an EP mesh: what one rank issues, with the bytes of its
         input (the reference's terms).  The all-to-alls carry the whole
@@ -186,7 +187,16 @@ class FlopByteLedger:
 
         ``t_local``: tokens a rank dispatches (its rows and sequence
         slice); ``itemsize``: activation bytes (2 = bf16); ``n_slots``:
-        physical slots (default: the expert count)."""
+        physical slots (default: the expert count).
+
+        ``layout`` (``mesh``, ``mode``, ``batch``, ``seq`` and optionally
+        ``cache_len``): the tensor-parallel layout of the default rules,
+        where every collective of the forward is the layout's as well
+        (:func:`predict_layout_census`, which takes these MoE terms for
+        each layer)."""
+        if layout is not None:
+            return predict_layout_census(self.cfg, n_slots=n_slots,
+                                         **layout)
         ep = self.ep
         cap_raw = math.ceil(t_local * self.top_k / ep
                             * float(self.cfg.moe.capacity_factor))
@@ -219,7 +229,8 @@ class FlopByteLedger:
 
     def predict_train_census(self, t_local: int, layers: int, rows: int,
                              itemsize: int, param_itemsize: int,
-                             replicated_shapes, remat: str = "none"
+                             replicated_shapes, remat: str = "none",
+                             layout: Optional[dict] = None
                              ) -> Dict[str, Dict[str, int]]:
         """Predicted collective census of one train step under a ``(rows,
         ep)`` mesh (``ep`` > 1; ``launch.steps.make_train_step``, the FSDP
@@ -239,8 +250,12 @@ class FlopByteLedger:
         (``replicated_shapes``: their shapes in tree order) in the f32
         buckets of ``optim.grad_utils.data_parallel_grads``
         (``grad_all_reduce``), the global norm's all-gather and the
-        agreement on the update."""
+        agreement on the update.  ``layout`` (``mesh``, ``batch``,
+        ``seq``): the tensor-parallel layout of the default rules
+        (:func:`predict_layout_census` of a train step)."""
         import torch
+        if layout is not None:
+            return predict_layout_census(self.cfg, mode="train", **layout)
 
         from repro_torch.models.common import row_chunks
         from repro_torch.optim.grad_utils import BUCKET_ELEMS, buckets
@@ -376,3 +391,357 @@ class FlopByteLedger:
             flops=as_f(flops), flops_by_rate=as_f(by_rate),
             hbm_bytes=as_f(hbm), ici_bytes=as_f(ici), pred_s=as_f(pred),
             model_flops=2.0 * self.active_params * tokens)
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel layout's census (models.layout)
+# --------------------------------------------------------------------------
+class _Tally:
+    """Collectives by kind, ``{"count", "bytes"}`` (``Comm``'s census)."""
+
+    def __init__(self):
+        self.kinds: Dict[str, Dict[str, int]] = {}
+
+    def add(self, kind: str, nbytes: float, count: int = 1) -> None:
+        if count <= 0:
+            return
+        k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += int(count)
+        k["bytes"] += int(nbytes)
+
+    def merge(self, other: Dict[str, Dict[str, int]], times: int = 1):
+        for kind, v in other.items():
+            self.add(kind, v["bytes"] * times, v["count"] * times)
+
+
+def predict_layout_census(cfg, mesh, mode: str, batch: int, seq: int,
+                          n_slots: Optional[int] = None,
+                          cache_len: Optional[int] = None
+                          ) -> Dict[str, Dict[str, int]]:
+    """Predicted collective census of one forward (``mode`` "prefill",
+    "chunk" or "decode", ``batch`` rows of ``seq`` tokens; a decode's
+    ``seq`` is 1) or one train step (``"train"``:
+    ``launch.steps.make_train_step``) in the tensor-parallel layout of the
+    default rules (``models.layout``) on ``mesh`` (a ``models.common.Mesh``
+    or its shape dict): what one rank issues, with the bytes of its input,
+    by the port's kinds.  Every term follows the code that issues it:
+
+    * each layer's weights gathered over ``data`` along their ``embed``
+      dim (``fsdp_all_gather``), the expert stacks' in the MoE layer;
+    * the residual's sequence gathered into each column-parallel layer
+      (``tp_all_gather``) and the row-parallel partial sums reduced back
+      (``tp_reduce_scatter``; in decode, or a sequence that does not
+      divide, ``tp_all_reduce``), the Mamba layer's ``w_in`` gathered over
+      ``model`` and its ``w_x`` product summed; the vocabulary-parallel
+      embedding's sum;
+    * serving: the heads gathered for the cache's rows and for decode and
+      chunk attention (``head_all_gather``), the attention partials
+      combined over the cache's ``kv_seq`` axes
+      (``kv_combine_all_gather``), the last rows and the logits gathered
+      (``last_row_all_gather``, ``logits_all_gather``);
+    * each MoE layer's EP collectives (:meth:`FlopByteLedger.
+      predict_graph_census` for dispatch, the decode combine's psum of the
+      one-hot and ordered sum for broadcast), with one ``m_state`` group a
+      data row its statistics gathered over the rows;
+    * training: the forward's collectives twice under ``remat="full"``
+      (the recompute), each one's transpose, the marked replicated
+      weights' and entered values' gradient sums (``tp_all_reduce_grad``),
+      the vocabulary-parallel loss (``tp_max_all_reduce``,
+      ``tp_all_reduce``), the global loss's sums over the batch axes, the
+      data-parallel gradient buckets (``grad_all_reduce``), the global
+      norm and the agreement on the update."""
+    import torch
+
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import (DTYPES, ROWS, Mesh, row_chunks,
+                                           resolve_spec)
+    from repro_torch.optim.grad_utils import BUCKET_ELEMS, buckets
+    if isinstance(mesh, dict):
+        mesh = Mesh(tuple(mesh.values()), "abstract", "meta")
+    train = mode == "train"
+    if train and cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat {cfg.remat!r}: the prediction "
+                                  "covers 'none' and 'full'")
+    m, data = mesh.size("model"), mesh.size("data")
+    it = DTYPES[cfg.param_dtype].itemsize
+    d, v = cfg.d_model, cfg.vocab_size
+    b_cut = resolve_spec((batch,), ("batch",), mesh)[0]
+    rows = mesh.size(b_cut) if b_cut else 1
+    bl = batch // rows
+    s = seq
+    sp = mode != "decode" and s % m == 0
+    sl = s // m if sp else s
+    spec = tf.model_spec(cfg)
+    fwd, bwd = _Tally(), _Tally()      # one forward; the transposes
+
+    def cut(p):
+        return resolve_spec(p.shape, p.axes or (None,) * len(p.shape), mesh)
+
+    def weights(tree, sp_here, skip_experts=True):
+        """``layout.prepare`` of a layer (or top-level leaves)."""
+        for k, p in sorted(tree.items()):
+            if isinstance(p, dict):
+                if k == "moe":
+                    p = {"router": p["router"]}
+                weights(p, sp_here)
+                continue
+            c = cut(p)
+            local = [n // (mesh.size(a) if a else 1)
+                     for n, a in zip(p.shape, c)]
+            held = math.prod(local)
+            for dim, (a, name) in enumerate(zip(c, p.axes or ())):
+                if name == "embed" and a and mesh.size(a) > 1:
+                    fwd.add("fsdp_all_gather", held * it)
+                    bwd.add("fsdp_reduce_scatter", held * mesh.size(a) * it)
+                    held *= mesh.size(a)
+            if train and sp_here and not any("model" in x for x in c):
+                bwd.add("tp_all_reduce_grad", held * 4)
+
+    def gather_seq(t_sp, n_tok, sp_here):
+        """``TP.gather_seq`` of [bl, n_tok (whole), width]."""
+        if m == 1:
+            return
+        if sp_here:
+            fwd.add("tp_all_gather", bl * (n_tok // m) * t_sp * it)
+            bwd.add("tp_reduce_scatter_grad", bl * n_tok * t_sp * it)
+        elif train:
+            bwd.add("tp_all_reduce_grad", bl * n_tok * t_sp * 4)
+
+    def reduce_out(n_tok, sp_here, width=d):
+        if m == 1:
+            return
+        if sp_here:
+            fwd.add("tp_reduce_scatter", bl * n_tok * width * it)
+            bwd.add("tp_all_gather_grad", bl * (n_tok // m) * width * it)
+        else:
+            fwd.add("tp_all_reduce", bl * n_tok * width * it)
+
+    def heads(n, n_tok, width):
+        if m > 1:
+            fwd.add("head_all_gather", bl * n_tok * (n // m) * width * it)
+
+    def combine(kv_cut, n_q, width):
+        if kv_cut and mesh.size(kv_cut) > 1:
+            h = cfg.n_heads
+            fwd.add("kv_combine_all_gather",
+                    4 * (2 * bl * h * n_q + bl * h * n_q * width))
+
+    def dense_ffn(d_ff, n_tok, sp_here):
+        if d_ff % m == 0:
+            gather_seq(d, n_tok, sp_here)
+            reduce_out(n_tok, sp_here)
+
+    kv_cut = ()
+    if mode in ("chunk", "decode"):
+        kv_cut = tf.kv_layout(mesh, batch, cache_len or 2 ** 20)[0]
+
+    def attention(mix, layer_mode, n_tok, sp_here, mem_len):
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        cut_q = h % m == 0
+        mla = cfg.mla is not None and mix in ("attn", "dec")
+        if mix in ("attn", "dec"):
+            if layer_mode in ("prefill", "train", "encode"):
+                own = not cut_q and sp_here
+                if mla:
+                    gather_seq(d, n_tok, sp_here) if (sp_here or cut_q) \
+                        else None
+                else:
+                    if cut_q or own:
+                        gather_seq(d, n_tok, sp_here)
+                    if layer_mode == "prefill" and cut_q and kh % m == 0:
+                        heads(kh, n_tok, hd)
+                        heads(kh, n_tok, hd)
+                if cut_q:
+                    reduce_out(n_tok, sp_here)
+            elif layer_mode == "chunk":
+                gather_seq(d, n_tok, sp_here)
+                if cut_q:
+                    heads(h, n_tok, hd)
+                    if kh % m == 0:
+                        heads(kh, n_tok, hd)
+                        heads(kh, n_tok, hd)
+                combine(kv_cut, n_tok, hd)
+                if cut_q:
+                    reduce_out(n_tok, sp_here)
+            else:                                       # decode
+                if mla:
+                    ml = cfg.mla
+                    if cut_q:
+                        heads(h, 1, ml.kv_lora_rank)
+                        heads(h, 1, ml.qk_rope_head_dim)
+                    combine(kv_cut, 1, ml.kv_lora_rank)
+                else:
+                    if cut_q:
+                        heads(h, 1, hd)
+                        if kh % m == 0:
+                            heads(kh, 1, hd)
+                            heads(kh, 1, hd)
+                    combine(kv_cut, 1, hd)
+                if cut_q:
+                    reduce_out(1, False)
+        if mix in ("cross", "dec"):
+            if layer_mode == "decode":
+                if cut_q:
+                    reduce_out(1, False)
+            else:
+                if cut_q:
+                    gather_seq(d, n_tok, sp_here)
+                    reduce_out(n_tok, sp_here)
+
+    def ssm(layer_mode, n_tok, sp_here):
+        s_cfg = cfg.ssm or SSMConfig()
+        d_in = s_cfg.expand * d
+        width = s_cfg.resolved_dt_rank(d) + 2 * s_cfg.d_state
+        if d_in % m:
+            if sp_here and m > 1:
+                fwd.add("tp_all_gather", bl * (n_tok // m) * d * it)
+                bwd.add("tp_reduce_scatter_grad", bl * n_tok * d * it)
+            return
+        if m > 1:
+            w_local = d * (2 * d_in // m) * it
+            fwd.add("tp_weight_all_gather", w_local)
+            bwd.add("tp_weight_reduce_scatter", w_local * m)
+        if layer_mode != "decode":
+            gather_seq(d, n_tok, sp_here)
+        if m > 1:
+            fwd.add("tp_all_reduce", bl * n_tok * width * it)
+            if train:
+                bwd.add("tp_all_reduce_grad", bl * n_tok * width * 4)
+        reduce_out(n_tok, sp_here and layer_mode != "decode")
+
+    moe_ledger = FlopByteLedger(cfg, ep=m) if cfg.moe is not None else None
+    groups = rows if batch % mesh.size(ROWS) == 0 else 1
+
+    def moe(layer_mode, n_tok, sp_here):
+        e = cfg.moe
+        s_all = e.num_experts if n_slots is None else int(n_slots)
+        slab = (s_all // m) * (d // data if d % data == 0 else d) * e.d_ff
+        if data > 1 and d % data == 0:
+            fwd.add("fsdp_all_gather", 3 * slab * it, 3)
+            bwd.add("fsdp_reduce_scatter", 3 * slab * data * it, 3)
+        if m > 1:
+            if layer_mode == "decode":
+                fwd.add("psum", 4 * m)
+                fwd.add("all_reduce", 4 * m)
+                fwd.add("psum", bl * d * 4)
+                fwd.add("all_gather", bl * d * 4)
+            else:
+                c = moe_ledger.predict_graph_census(
+                    t_local=bl * (n_tok // m), layers=1, itemsize=it,
+                    n_slots=s_all)
+                c.pop("layout_all_gather")
+                fwd.merge(c)
+                if train:
+                    cap_raw = math.ceil(bl * (n_tok // m) * e.top_k / m
+                                        * float(e.capacity_factor))
+                    cap = max(8, -(-cap_raw // 8) * 8)
+                    bwd.add("all_to_all_grad", 2 * m * cap * d * it, 2)
+        if groups > 1:
+            fwd.add("layout_all_gather",
+                    4 * (m + 7 + 2 * m + 2 * e.num_experts + 2 * s_all))
+        if e.n_shared_experts:
+            dense_ffn(e.d_ff * e.n_shared_experts, n_tok, sp_here)
+
+    def layer(mix, ffn, layer_mode, n_tok, sp_here, mem_len):
+        weights(tf.layer_spec(cfg, mix, ffn), sp_here)
+        if mix == "ssm":
+            ssm(layer_mode, n_tok, sp_here)
+        else:
+            attention(mix, layer_mode, n_tok, sp_here, mem_len)
+        if ffn == "dense" and (cfg.d_ff or (cfg.moe and cfg.moe.d_ff)):
+            dense_ffn(cfg.d_ff or cfg.moe.d_ff, n_tok, sp_here)
+        elif ffn == "moe":
+            moe(layer_mode, n_tok, sp_here)
+
+    passes = 2 if train and cfg.remat == "full" else 1
+    layer_mode = "train" if train else mode
+    # the encoder
+    if cfg.is_encdec and mode in ("prefill", "train"):
+        t = cfg.enc_seq_len
+        sp_e = t % m == 0
+        enc = _Tally()
+        saved = fwd
+        fwd = enc
+        for _ in range(cfg.n_enc_layers):
+            layer("attn", "dense", "encode", t, sp_e, 0)
+        fwd = saved
+        fwd.merge(enc.kinds, passes)
+        weights({"enc_norm": spec["enc_norm"]}, sp_e)
+        if m > 1:
+            if sp_e:
+                fwd.add("tp_all_gather", bl * (t // m) * d * it)
+                bwd.add("tp_reduce_scatter_grad", bl * t * d * it)
+            elif train:
+                bwd.add("tp_all_reduce_grad", bl * t * d * 4)
+    # the embedding
+    weights({"embed": spec["embed"]}, sp)
+    if v % m == 0:
+        reduce_out(s, sp)
+    # the layers
+    blocks, n_blocks, n_prefix = tf.block_structure(cfg)
+    kinds = cfg.layer_kinds()
+    mem = tf.memory_len(cfg)
+    for i in range(n_prefix):
+        layer(kinds[i], "dense", layer_mode, s, sp, mem)
+    block, block_bwd = _Tally(), _Tally()
+    saved = (fwd, bwd)
+    fwd, bwd = block, block_bwd
+    for mix, ffn in blocks:
+        layer(mix, ffn, layer_mode, s, sp, mem)
+    fwd, bwd = saved
+    fwd.merge(block.kinds, n_blocks * passes)
+    bwd.merge(block_bwd.kinds, n_blocks)
+    # the head
+    names = ("final_norm", "embed" if cfg.tie_embeddings else "unembed")
+    weights({k: spec[k] for k in names}, sp)
+    if not train:
+        if sp and mode != "decode" and m > 1:
+            fwd.add("last_row_all_gather", bl * d * it)
+        if v % m == 0 and m > 1:
+            fwd.add("logits_all_gather", bl * (v // m) * 4)
+        if rows > 1:
+            fwd.add("logits_all_gather", bl * v * 4)
+        return dict(sorted(fwd.kinds.items()))
+    if v % m == 0:
+        gather_seq(d, s, sp)
+        if m > 1:
+            fwd.add("tp_max_all_reduce", bl * s * 4)
+            fwd.add("tp_all_reduce", 2 * bl * s * 4, 2)
+        axes = ROWS
+    else:
+        axes = ROWS + ("model",)
+    if mesh.size(axes) > 1:
+        tag = "_".join(mesh._axes(axes))
+        fwd.add(f"psum_{tag}", 8, 2)
+        fwd.add(f"all_reduce_{tag}", 8)
+    # the data-parallel gradient buckets, by the batch axes a leaf's cut
+    # leaves (models.layout / optim.grad_utils)
+    groups_of: Dict[tuple, list] = {}
+
+    def grads(tree, lead=()):
+        for k, p in sorted(tree.items()):
+            if isinstance(p, dict):
+                grads(p, lead + ((n_blocks,) if k == "blocks" else
+                                 (cfg.n_enc_layers,) if k == "enc_blocks"
+                                 else ()))
+                continue
+            c = cut(p)
+            used = {a for x in c for a in x}
+            ax = tuple(a for a in ROWS if mesh.size(a) > 1
+                       and a not in used)
+            if not ax:
+                continue
+            local = tuple(n // (mesh.size(a) if a else 1)
+                          for n, a in zip(p.shape, c))
+            groups_of.setdefault(ax, []).extend(
+                x.numel() for x in row_chunks(torch.empty(
+                    lead + local, device="meta"), BUCKET_ELEMS))
+    grads(spec)
+    for ax, sizes in groups_of.items():
+        fwd.add("grad_all_reduce", 4 * sum(sizes), len(buckets(sizes)))
+    if mesh.size(None) > 1:
+        fwd.add("norm_all_gather", 4)
+        fwd.add("agree_all_reduce", 4)
+    fwd.merge(bwd.kinds, 1)
+    return dict(sorted(fwd.kinds.items()))

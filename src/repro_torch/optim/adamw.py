@@ -20,7 +20,9 @@ elementwise pass: the same bits), so its f32 temporaries are a chunk's,
 not the largest leaf's (the embedding's 1.3 GB at full width).
 
 Under a mesh (``models.common.use_mesh``) each rank updates the leaves it
-holds: the replicated ones whole and its shards of the expert stacks.
+holds: the replicated ones whole and its shards of the cut ones (the
+expert stacks; in the tensor-parallel layout every leaf the rules cut),
+its moments the same shape.
 :func:`global_norm` counts every element of the global tree once (the
 replicated leaves on each rank alone, the expert shards' squares summed
 over every rank of the mesh), so the clip scale is the same on every rank,
@@ -35,8 +37,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models.common import (DTYPES, current_mesh, is_expert_path,
-                                       row_chunks, tree_items)
+from repro_torch.models.common import (DTYPES, current_mesh, cut_of,
+                                       decl_at, is_expert_path,
+                                       layout_spec, row_chunks, tree_items)
 from repro_torch.models.common import tree_leaves as leaves
 from repro_torch.models.common import tree_map
 
@@ -81,17 +84,32 @@ def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, spec: Optional[Tree] = None) -> torch.Tensor:
     """The L2 norm of every leaf.  Under a mesh of more than one rank, of
     the global tree: the expert stacks' (each rank a shard) squares summed
-    over the mesh, the replicated leaves' once."""
+    over the mesh, the replicated leaves' once.  In the tensor-parallel
+    layout (``spec``: the model's declarations, ``transformer.model_spec``,
+    required there: ``models.common.layout_spec``) each leaf's squares
+    divided by the ranks that hold it alike (a power of two on the port's
+    meshes: exact) and summed over the mesh."""
     mesh = current_mesh()
-    if mesh is None or mesh.size("data") * mesh.size("model") == 1:
+    if mesh is None or mesh.size(None) == 1:
         total = 0
         for x in leaves(tree):
             total = total + torch.sum(torch.square(x.to(F32)))
         return torch.sqrt(total)
     from repro_torch.core.ep_moe import _dist_comm
+    dev = next(leaves(tree)).device
+    zero = torch.zeros((), dtype=F32, device=dev)
+    spec = layout_spec(spec, mesh)
+    if spec is not None:
+        part = zero
+        for path, x in tree_items(tree):
+            cut = cut_of(decl_at(spec, path), mesh)
+            held = mesh.size(tuple(a for c in cut for a in c))
+            part = part + torch.sum(torch.square(x.to(F32))) \
+                / float(mesh.size(None) // held)
+        return torch.sqrt(_dist_comm(mesh).sum_over_mesh(part))
     rep = part = None
     for path, x in tree_items(tree):
         sq = torch.sum(torch.square(x.to(F32)))
@@ -99,10 +117,9 @@ def global_norm(tree: Tree) -> torch.Tensor:
             part = sq if part is None else part + sq
         else:
             rep = sq if rep is None else rep + sq
-    dev = next(leaves(tree)).device
-    zero = torch.zeros((), dtype=F32, device=dev)
     part = _dist_comm(mesh).sum_over_mesh(zero if part is None else part)
     return torch.sqrt((zero if rep is None else rep) + part)
+
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -113,21 +130,24 @@ def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (g.to(F32) * scale).to(g.dtype)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        spec: Optional[Tree] = None
                         ) -> Tuple[Tree, torch.Tensor]:
-    g = global_norm(grads)
+    g = global_norm(grads, spec)
     scale = _clip_scale(g, max_norm)
     return tree_map(lambda x: _clipped(x, scale), grads), g
 
 
 def adamw_update(params: Tree, grads: Tree, state: OptState,
-                 cfg: TrainConfig, apply: Optional[torch.Tensor] = None
+                 cfg: TrainConfig, apply: Optional[torch.Tensor] = None,
+                 spec: Optional[Tree] = None
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, written into ``params`` and ``state``'s moments
     (returned, with the advanced step).  ``apply``: a 0-dim bool tensor;
     where it is false the parameters, moments and step stay as they were.
     Nothing is read on the host (a staged mesh's collectives copy through
-    it).  Under a mesh the ranks' ``apply`` are and-ed."""
+    it).  Under a mesh the ranks' ``apply`` are and-ed; ``spec``: see
+    :func:`global_norm`."""
     mesh = current_mesh()
     if apply is not None and mesh is not None \
             and mesh.size("data") * mesh.size("model") > 1:
@@ -135,7 +155,7 @@ def adamw_update(params: Tree, grads: Tree, state: OptState,
         apply = _dist_comm(mesh).all_true(apply)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, spec)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
     c1 = 1.0 - b1 ** step.to(F32)

@@ -19,12 +19,13 @@ global gradient (what the reference's ``jit(value_and_grad)`` gives).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (current_mesh, is_expert_path,
-                                       row_chunks, tree_items)
+from repro_torch.models.common import (ROWS, current_mesh, cut_of,
+                                       decl_at, is_expert_path,
+                                       layout_spec, row_chunks, tree_items)
 from repro_torch.models.common import tree_leaves as leaves
 from repro_torch.models.common import tree_map
 
@@ -102,18 +103,43 @@ def compressed_all_reduce(stacked_grads: Tree, stacked_err: Tree, mesh,
             tree_map(lambda t: comm._gather(t, axis_name), err))
 
 
-def data_parallel_grads(grads: Tree) -> Tree:
+def data_parallel_grads(grads: Tree, spec: Optional[Tree] = None) -> Tree:
     """Sum over the current mesh's ``data`` axis of every leaf the data
     rows hold replicated, written into ``grads`` in place and returned:
     exact, in f32 all-reduces of up to ``BUCKET_ELEMS`` packed elements (a
     larger leaf in row chunks), each element rounded once to its leaf's
     dtype.  Every rank ends with the same bits.  The expert stacks (FSDP
     shards, already reduced) are left as they are; nothing happens on one
-    data row."""
+    data row.
+
+    In the tensor-parallel layout (``spec``: the model's declarations,
+    ``transformer.model_spec``, required there: see
+    ``models.common.layout_spec``) a leaf is summed over the batch axes its
+    cut does not use: every leaf whose ``embed`` dim is not cut over
+    ``data`` (the FSDP gather's transpose reduced the others).  The sums
+    over ``model`` of the leaves replicated there and applied to the
+    sequence-parallel residual ran in the backward already, at their use
+    (``models.layout.prepare``)."""
     mesh = current_mesh()
-    if mesh is None or mesh.size("data") == 1:
+    if mesh is None:
         return grads
     comm = _comm(mesh)
+    spec = layout_spec(spec, mesh)
+    if spec is not None:
+        groups: dict = {}
+        for path, g in tree_items(grads):
+            used = {a for c in cut_of(decl_at(spec, path), mesh) for a in c}
+            axes = tuple(a for a in ROWS if mesh.size(a) > 1
+                         and a not in used)
+            if axes:
+                groups.setdefault(axes, []).extend(
+                    row_chunks(g, BUCKET_ELEMS))
+        for axes, rep in groups.items():
+            for lo, hi in buckets([g.numel() for g in rep]):
+                _reduce_bucket(comm, rep[lo:hi], axes)
+        return grads
+    if mesh.size("data") == 1:
+        return grads
     rep = [c for path, g in tree_items(grads) if not is_expert_path(path)
            for c in row_chunks(g, BUCKET_ELEMS)]
     for lo, hi in buckets([g.numel() for g in rep]):
@@ -136,9 +162,9 @@ def buckets(sizes, cap: int = BUCKET_ELEMS):
     return out
 
 
-def _reduce_bucket(comm, bucket) -> None:
+def _reduce_bucket(comm, bucket, axes="data") -> None:
     flat = torch.cat([g.reshape(-1).to(F32) for g in bucket])
-    comm._all_reduce(flat, "data", "grad_all_reduce")
+    comm._all_reduce(flat, axes, "grad_all_reduce")
     i = 0
     with torch.no_grad():
         for g in bucket:

@@ -4,10 +4,12 @@ Counterpart of ``repro.runtime.elastic``.  When a data row or an EP rank
 is lost, serving (or, later, training) resumes on a smaller mesh: the
 expert stacks keep their logical slot axis, so resharding is cutting each
 rank's ``S/ep`` slots of the host copy anew on the new mesh
-(:func:`repro_torch.convert.rank_shard`); an EP size other than the
-writer's re-buckets the slots.  The reverse (scale-up) works identically.
-:func:`repro_torch.checkpoint.ckpt.restore` with ``mesh=`` does the same
-from a checkpoint on disk.
+(:func:`repro_torch.convert.rank_shard`); an EP size other than the writer's
+re-buckets the slots. In the tensor-parallel layout every leaf is cut by the
+rules on the new mesh (``reshard(spec=)``,
+:func:`repro_torch.convert.layout_shard`). The reverse (scale-up) works
+identically. :func:`repro_torch.checkpoint.ckpt.restore` with ``mesh=`` does
+the same from a checkpoint on disk.
 
 :func:`shrink_mesh` builds a :class:`~repro_torch.models.common.Mesh`
 over the surviving ranks.  A mesh's process groups are made by
@@ -19,19 +21,28 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-from repro_torch.convert import rank_shard
-from repro_torch.models.common import Mesh
+from repro_torch.convert import layout_shard, rank_shard
+from repro_torch.models.common import Mesh, layout_spec, use_mesh
 
 Tree = Any
 
 
-def reshard(host_tree: Tree, new_mesh: Mesh) -> Optional[Tree]:
+def reshard(host_tree: Tree, new_mesh: Mesh,
+            spec: Optional[Tree] = None) -> Optional[Tree]:
     """This rank's parameters on ``new_mesh``, on its device: the host
     tree (the reference's numpy layout, expert stacks ``[.., S, a, b]`` in
-    slot order) cut to the rank's ``S/ep`` slots, every other leaf whole.
-    None on a rank that is not in ``new_mesh``."""
+    slot order) cut to the rank's ``S/ep`` slots, every other leaf whole;
+    in the tensor-parallel layout (``spec``: the model's declarations,
+    required there: ``models.common.layout_spec``) every leaf cut by the
+    rules, as the reference's ``reshard`` puts each leaf under its
+    ``NamedSharding``.  None on a rank that is not in
+    ``new_mesh``."""
     if not new_mesh.member:
         return None
+    with use_mesh(new_mesh):
+        spec = layout_spec(spec, new_mesh)
+        if spec is not None:
+            return layout_shard(host_tree, spec, new_mesh, new_mesh.device)
     return rank_shard(host_tree, new_mesh.size("model"),
                       new_mesh.index("model"), device=new_mesh.device)
 

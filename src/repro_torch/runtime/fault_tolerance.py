@@ -88,10 +88,14 @@ class TrainLoop:
     def __init__(self, step_fn: Callable, *, ckpt_dir: str,
                  checkpoint_every: int = 100, keep: int = 3,
                  nan_tolerance: int = 3, log_every: int = 10,
-                 logger: Callable[[str], None] = print, mesh=None):
+                 logger: Callable[[str], None] = print, mesh=None,
+                 spec=None):
         self.step_fn = step_fn
-        self.mesh = mesh if mesh is not None and \
-            mesh.size("data") * mesh.size("model") > 1 else None
+        # the model's declarations: in the tensor-parallel layout the
+        # checkpoint gathers and cuts every leaf by them
+        self.spec = spec
+        self.mesh = mesh if mesh is not None and mesh.size(None) > 1 \
+            else None
         self.keep = keep
         self.ckpt_dir = ckpt_dir
         self.checkpoint_every = checkpoint_every
@@ -118,14 +122,14 @@ class TrainLoop:
 
     def _restore(self, state):
         return ckpt_lib.restore(self.ckpt_dir, state, mesh=self.mesh,
-                                fsdp=True)
+                                fsdp=True, spec=self.spec)
 
     def _save(self, step: int, state) -> None:
         if self.mesh is None:
             self.checkpointer.save(step, state)
         else:
             ckpt_lib.save(self.ckpt_dir, step, state, keep=self.keep,
-                          mesh=self.mesh, fsdp=True)
+                          mesh=self.mesh, fsdp=True, spec=self.spec)
 
     def restore_or_init(self, state: Dict[str, Tree]
                         ) -> tuple[int, Dict[str, Tree]]:
@@ -187,6 +191,6 @@ class TrainLoop:
                     self._save(step, state)
         self.checkpointer.wait()
         ckpt_lib.save(self.ckpt_dir, step, state, keep=self.keep,
-                      mesh=self.mesh, fsdp=True)
+                      mesh=self.mesh, fsdp=True, spec=self.spec)
         self.log(f"[ft] final checkpoint at step {step}")
         return state

@@ -110,7 +110,8 @@ from repro_torch.core.policy import init_m_state
 from repro_torch.models import transformer as tf
 from repro_torch.analysis.sentinel import NULL_SENTINEL
 from repro_torch.models.common import (DTYPES, current_mesh, ep_size,
-                                       resolve_device)
+                                       local_slice, resolve_device,
+                                       tensor_parallel)
 from repro_torch.obs.profiler import NULL_PROFILER
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement import migrate as pmigrate
@@ -788,11 +789,33 @@ class Engine:
         """Copy a batch-1 prefill cache into slot ``slot`` of the engine
         cache, in place, every entry of every layer (KV rows, Mamba
         states, the memory's K/V).  Stacked block entries are [n_blocks,
-        B, ...] (batch axis 1); prefix entries are [B, ...] (axis 0)."""
+        B, ...] (batch axis 1); prefix entries are [B, ...] (axis 0).  In
+        the tensor-parallel layout each rank holds a slice of both: a
+        batch of one leaves more axes to the prefill cache's rows than the
+        engine's batch leaves to its own, so those rows are gathered
+        whole (every rank takes part) and cut as the engine's cache is;
+        the data row holding the slot writes it."""
+        mesh = self._mesh
+        cut = None
+        rows = slice(0, self.max_slots)
+        if mesh is not None and tensor_parallel(mesh):
+            src_kv = tf.kv_layout(mesh, 1, self.max_len)
+            dst_kv = tf.kv_layout(mesh, self.max_slots, self.max_len)
+            if src_kv[0] != dst_kv[0]:
+                cut = (src_kv[0], dst_kv)
+            rows = local_slice(self.max_slots, "batch", mesh)
+        comm = None if cut is None else ep_moe._dist_comm(mesh)
         for group, axis in (("blocks", 1), ("prefix", 0)):
             for name, entries in self.cache.get(group, {}).items():
                 for n, t in entries.items():
-                    t.narrow(axis, slot, 1).copy_(new_cache[group][name][n])
+                    src = new_cache[group][name][n]
+                    if cut is not None and n in ("k", "v", "latent",
+                                                 "k_rope"):
+                        whole = comm._whole(src.contiguous(), axis + 1,
+                                            cut[0], "cache_all_gather")
+                        src = whole.narrow(axis + 1, cut[1][1], cut[1][2])
+                    if rows.start <= slot < rows.stop:
+                        t.narrow(axis, slot - rows.start, 1).copy_(src)
 
     def _prefill_oneshot(self, req: Request):
         """The whole prompt in one batch-1 forward, its cache copied into
@@ -1015,7 +1038,15 @@ class Engine:
         state = {"serving": {"params": self.params, "m_state": self.m_state}}
         if self._placement is not None:
             state[self._placement.ckpt_group] = self._placement.state_dict()
-        return ckpt.save(ckpt_dir, step, state, keep=keep, mesh=self._mesh)
+        return ckpt.save(ckpt_dir, step, state, keep=keep, mesh=self._mesh,
+                         spec=self._ckpt_spec())
+
+    def _ckpt_spec(self):
+        """The declarations the checkpoint cuts the params by in the
+        tensor-parallel layout (None: the EP-only layout)."""
+        if self._mesh is None or not tensor_parallel(self._mesh):
+            return None
+        return {"params": tf.model_spec(self.cfg)}
 
     def _refuse_mid_flight(self, what: str) -> None:
         if self.migration_draining \
@@ -1062,7 +1093,8 @@ class Engine:
         # ones (a manager-free checkpoint has one row per logical expert)
         templates = {"serving": {"params": self.params,
                                  "m_state": self.m_state}}
-        step, out = ckpt.restore(ckpt_dir, templates, step, mesh=self._mesh)
+        step, out = ckpt.restore(ckpt_dir, templates, step, mesh=self._mesh,
+                                 spec=self._ckpt_spec())
         self.params = out["serving"]["params"]
         self.m_state.copy_(out["serving"]["m_state"])
         if self._placement is not None:

@@ -5,11 +5,15 @@ the ``spawn`` method, rendezvouses them through a ``FileStore`` under
 ``tmp_path`` (so concurrent test workers never share a port), builds the
 ``(data, model)`` mesh of ``shape`` with the gloo backend on the CPU,
 runs ``fn(mesh, payload)`` under it in every rank and returns the ranks'
-results in rank order.  Every spawn is joined within ``deadline``
-seconds: past it the processes are killed and the test fails, so a hung
-collective cannot run out the suite's clock.  ``fn`` must be importable
-by name in a fresh interpreter (a module-level function of a module on
-``sys.path``), and ``payload`` and the results picklable.
+results in rank order. ``rules`` overrides the logical-axis rules
+(``models.common.use_mesh``): None, the default, runs under the EP-only layout
+(``EP_ONLY_RULES``, which the EP, migration, elastic, FSDP training and
+checkpoint tests pin bit for bit); ``{}`` under the tensor-parallel layout of
+the default rules. Every spawn is joined within ``deadline`` seconds: past it
+the processes are killed and the test fails, so a hung collective cannot run
+out the suite's clock. ``fn`` must be importable by name in a fresh
+interpreter (a module-level function of a module on ``sys.path``), and
+``payload`` and the results picklable.
 """
 import os
 import queue as _queue
@@ -21,11 +25,11 @@ import torch.multiprocessing as mp
 DEADLINE_S = 120.0
 
 
-def _rank_main(fn, rank, world, shape, store_path, payload, out):
+def _rank_main(fn, rank, world, shape, store_path, payload, out, rules):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.models.common import Mesh, use_mesh
+    from repro_torch.models.common import EP_ONLY_RULES, Mesh, use_mesh
     torch.set_num_threads(1)
     try:
         store = dist.FileStore(store_path, world)
@@ -33,7 +37,8 @@ def _rank_main(fn, rank, world, shape, store_path, payload, out):
                                 world_size=world)
         try:
             mesh = Mesh(shape, "gloo", "cpu")
-            with use_mesh(mesh):
+            with use_mesh(mesh, rules=EP_ONLY_RULES if rules is None
+                          else rules):
                 res = fn(mesh, payload)
         finally:
             dist.destroy_process_group()
@@ -43,13 +48,15 @@ def _rank_main(fn, rank, world, shape, store_path, payload, out):
         raise
 
 
-def run_ranks(fn, shape, payload, tmp_path, deadline: float = DEADLINE_S):
+def run_ranks(fn, shape, payload, tmp_path, deadline: float = DEADLINE_S,
+              rules=None):
     world = shape[0] * shape[1]
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     store = os.path.join(str(tmp_path), f"store_{fn.__name__}_{time.time_ns()}")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, tuple(shape), store, payload, out),
+                         args=(fn, r, world, tuple(shape), store, payload, out,
+                               rules),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()

@@ -1431,3 +1431,215 @@ def abstract_mesh_cases(mesh, archs):
         return out
     except Exception:
         return {"error": traceback.format_exc()}
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel layout (test_torch_tp.py)
+# --------------------------------------------------------------------------
+TP_POLICY = dict(gate_gamma=10 ** 9, md_init=0.5)     # the gate closed
+
+
+def _tp_cfg(arch, over=None):
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(arch), **(over or {}))
+    if cfg.moe is not None:          # no drops, no per-group losses
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, aux_loss_coef=0.0,
+            router_z_coef=0.0))
+    return cfg
+
+
+def _t(tree):
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree))
+
+
+def _tp_steps(cfg, params, batches, m_state):
+    """Prefill, then each later batch as a chunk (``"start"`` in it) or a
+    decode step: the logits, ``m_state`` and routing statistics of each."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import transformer as tf
+    rcfg = ReaLBConfig(**TP_POLICY)
+    pre = batches[0]
+    res = tf.prefill_forward(params, cfg, rcfg, _t(pre["batch"]), m_state,
+                             cache_len=pre["cache_len"])
+    outs = [res]
+    for step in batches[1:]:
+        fwd = tf.chunk_forward if "start" in step["batch"] \
+            else tf.decode_forward
+        res = fwd(params, cfg, rcfg, _t(step["batch"]), res.cache,
+                  res.m_state)
+        outs.append(res)
+    return [{"logits": _np(r.logits), "m": _np(r.m_state),
+             "experts": _np(r.aux["expert_stats"]),
+             "slots": _np(r.aux["slot_stats"])} for r in outs]
+
+
+def _tp_forward_case(mesh, c):
+    """One arch's forwards in the layout and on one device, the latter a
+    data row's rows at a time (each data row is its own EP group)."""
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import ROWS, use_mesh
+    cfg = _tp_cfg(c["arch"], c.get("over"))
+    params = tf.init_model(cfg, seed=0)
+    b = c["steps"][0]["batch"]["tokens"].shape[0]
+    got = _tp_steps(cfg, params, c["steps"],
+                    torch.full(ep_moe.moe_state_shape(mesh, b),
+                               TP_POLICY["md_init"]))
+    rows = mesh.size(ROWS) if b % mesh.size(ROWS) == 0 else 1
+    ref, moved = [], []
+    with use_mesh(None):
+        whole = tf.init_model(cfg, seed=0, device="cpu")
+        for g in range(rows):
+            part = [{**s, "batch": {k: v[g * b // rows:(g + 1) * b // rows]
+                                    for k, v in s["batch"].items()}}
+                    for s in c["steps"]]
+            m = torch.full((1, mesh.size("model")), TP_POLICY["md_init"])
+            ref.append(_tp_steps(cfg, whole, part, m))
+            # the one-device forwards' own change when the embedding
+            # moves by two f32 ulps (a random stack's conditioning)
+            moved.append([[x["logits"] for x in _tp_steps(
+                cfg, dict(whole, embed=whole["embed"] * f), part, m)]
+                for f in (1 + 2.0 ** -22, 1 - 2.0 ** -22)])
+    return {"got": got, "ref": ref, "moved": moved}
+
+
+def _tp_engine_case(mesh, c):
+    """The engine's stream in the layout and on one device (virtual EP of
+    the mesh's ``model`` size)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+    cfg = _tp_cfg(c["arch"])
+    c = dict(c, engine_rcfg=TP_POLICY)
+    got = _engine(c, tf.init_model(cfg, seed=0), cfg)
+    with use_mesh(None):
+        ref = _engine(dict(c, engine=dict(c["engine"],
+                                          virtual_ep=mesh.size("model"))),
+                      tf.init_model(cfg, seed=0, device="cpu"), cfg)
+    return {"got": got, "ref": ref}
+
+
+def _tp_grads(cfg, params, batch, m_state, perturb=1.0):
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.models import layout
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import (current_mesh, cut_of, decl_at,
+                                           tree_items)
+    from repro_torch.optim.grad_utils import (data_parallel_grads,
+                                              value_and_grad)
+    if perturb != 1.0:
+        params = dict(params, embed=params["embed"] * perturb)
+    spec = tf.model_spec(cfg)
+    (loss, _), grads = value_and_grad(tf.train_loss, params, cfg,
+                                      ReaLBConfig(**TP_POLICY), _t(batch),
+                                      m_state)
+    mesh = current_mesh()
+    if mesh is None:
+        return float(loss), {"/".join(p): _np(g)
+                             for p, g in tree_items(grads)}
+    grads = data_parallel_grads(grads, spec)
+    return float(loss), {"/".join(p): _np(layout.whole_leaf(
+        g, cut_of(decl_at(spec, p), mesh), mesh))
+        for p, g in tree_items(grads)}
+
+
+def _tp_train_case(mesh, c):
+    """A train step's loss and every gradient leaf (whole) in the layout,
+    and on one device with the embedding as it is and moved by two f32
+    ulps either way (the spread bound of test_torch_train_mesh.py)."""
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import use_mesh
+    cfg = _tp_cfg(c["arch"])
+    b = c["batch"]["tokens"].shape[0]
+    loss, grads = _tp_grads(cfg, tf.init_model(cfg, seed=0), c["batch"],
+                            torch.full(ep_moe.moe_state_shape(mesh, b),
+                                       0.5))
+    out = {"loss": loss, "grads": grads}
+    with use_mesh(None):
+        whole = tf.init_model(cfg, seed=0, device="cpu")
+        m = torch.full((1, mesh.size("model")), 0.5)
+        out["ref"] = [_tp_grads(cfg, whole, c["batch"], m, f)
+                      for f in (1.0, 1 + 2.0 ** -22, 1 - 2.0 ** -22)]
+    return out
+
+
+def _tp_ckpt_case(mesh, c):
+    """The layout's parameters saved under the mesh (every leaf gathered
+    whole, rank 0 writing) and restored on one device: equal, leaf for
+    leaf, to the one-device init of the same seed."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_items, use_mesh
+    cfg = _tp_cfg(c["arch"])
+    params = tf.init_model(cfg, seed=5)
+    ckpt.save(c["dir"], 1, {"params": params}, mesh=mesh,
+              spec=tf.model_spec(cfg))
+    with use_mesh(None):
+        whole = tf.init_model(cfg, seed=5, device="cpu")
+        _, got = ckpt.restore(c["dir"], {"params": whole})
+    mine = ckpt.restore(c["dir"], {"params": params}, mesh=mesh,
+                        spec=tf.model_spec(cfg))[1]["params"]
+    saved = dict(tree_items(got["params"]))
+    recut = dict(tree_items(mine))
+    return {"restored": all(torch.equal(a, saved[p])
+                            for p, a in tree_items(whole)),
+            "recut": all(torch.equal(a, recut[p])
+                         for p, a in tree_items(params))}
+
+
+def _tp_census_case(mesh, c):
+    """Reduced moonshot's chunk and decode steps under the op-level
+    analyzer on the ranks: each step's census and, on rank 0, its counts
+    (flops, traffic, memory record, census, aten ops), for the test's
+    prediction and the same steps on ``meta`` under the abstract mesh."""
+    from repro_torch.configs import ReaLBConfig
+    from repro_torch.core import ep_moe
+    from repro_torch.launch.steps import analyze_step
+    from repro_torch.models import transformer as tf
+    cfg = _tp_cfg(c["arch"])
+    rcfg = ReaLBConfig(**TP_POLICY)
+    params = tf.init_model(cfg, seed=0)
+    b = c["chunk"]["tokens"].shape[0]
+    cache = tf.init_cache(cfg, b, c["cache_len"])
+    m = torch.full(ep_moe.moe_state_shape(mesh, b), 0.5)
+    out = {}
+    for name, fwd in (("chunk", tf.chunk_forward),
+                      ("decode", tf.decode_forward)):
+        def step(p, ca, mm, bt, fwd=fwd):
+            return fwd(p, cfg, rcfg, bt, ca, mm)
+        res, an, mem = analyze_step(step, [params, cache, m, _t(c[name])],
+                                    mesh)
+        m.copy_(res.m_state)
+        out[name] = {"census": an.census, "flops": an.flops,
+                     "traffic": int(an.traffic), "memory": mem,
+                     "ops": an.n_ops}
+    return out
+
+
+def tp_cases(mesh, c):
+    """Every case of test_torch_tp.py: on the ``(2, 2)`` mesh and on a
+    ``(1, 2)`` mesh of ranks 0 and 1 (every rank builds both: the
+    construction is collective), under the default rules."""
+    from repro_torch.models.common import Mesh, use_mesh
+    try:
+        pair = Mesh((1, 2), "gloo", "cpu", ranks=[[0, 1]])
+        out = {}
+        for shape, m in (("2x2", mesh), ("1x2", pair)):
+            if not m.member:
+                continue
+            with use_mesh(m, rules={}):
+                res = {name: _tp_forward_case(m, f)
+                       for name, f in c["forwards"].items()}
+                res["engine"] = _tp_engine_case(m, c["engine"])
+                res["oneshot"] = _tp_engine_case(m, c["oneshot"])
+                res["train"] = _tp_train_case(m, c["train"])
+                if shape == "2x2":
+                    res["ckpt"] = _tp_ckpt_case(m, c["ckpt"])
+                    res["census"] = _tp_census_case(m, c["census"])
+            out[shape] = res
+        return out
+    except Exception:
+        return {"error": traceback.format_exc()}

@@ -67,7 +67,7 @@ def test_scan_covers_the_host_side_copies():
               "repro_torch.runtime.elastic",
               "repro_torch.serving.elastic", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.launch.mesh",
-              "repro_torch.models.common",
+              "repro_torch.models.common", "repro_torch.models.layout",
               "repro_torch.configs.olmoe_1b_7b",
               "repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.optim", "repro_torch.optim.adamw",

@@ -127,9 +127,11 @@ MESH_ARCHS = ("moonshot-v1-16b-a3b", "jamba-1.5-large-398b")
 @pytest.fixture(scope="module")
 def gloo_layouts(tmp_path_factory):
     """Rank 0's ``init_model(mesh=)`` layouts on a gloo ``(2, 2)`` mesh and
-    a ``(1, 2)`` mesh of two of its ranks, one spawn of four ranks."""
+    a ``(1, 2)`` mesh of two of its ranks, one spawn of four ranks, under
+    the default rules (the tensor-parallel layout), as the abstract mesh
+    below."""
     out = run_ranks(workers.abstract_mesh_cases, (2, 2), list(MESH_ARCHS),
-                    tmp_path_factory.mktemp("abstract_mesh"))
+                    tmp_path_factory.mktemp("abstract_mesh"), rules={})
     for r in out:
         assert "error" not in r, r.get("error")
     return out[0]
@@ -195,7 +197,10 @@ def test_production_meshes_are_abstract_only():
     single = mesh_for("single_pod", abstract=True)
     multi = mesh_for("multi_pod", abstract=True)
     assert (single.size("data"), single.size("model")) == (16, 16)
-    assert (multi.size("data"), multi.size("model")) == (32, 16)
+    # the multi-pod mesh keeps its pod axis: a batch is cut over pod x
+    # data (32 rows), a weight's D dim over data alone (16)
+    assert (multi.size(("pod", "data")), multi.size("model")) == (32, 16)
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
     for m in (single, multi):
         assert m.backend == "abstract" and m.device.type == "meta"
         assert m.index("data") == m.index("model") == 0 and m.member

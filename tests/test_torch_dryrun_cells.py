@@ -1,12 +1,14 @@
 """``python -m repro_torch.launch.dryrun`` at the published widths: a
-record of the stated schema, a pinned ``does_not_fit`` cell, and the
-sweep's skipped records and resumption."""
+record of the stated schema, the cell the tensor-parallel layout flipped
+to ``ok``, and the sweep's skipped records and resumption."""
 import json
 
 import pytest
 
-from repro_torch.configs import all_cells, hw
+from repro_torch.configs import all_cells, get_config, get_shape, hw
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import mesh_for
+from repro_torch.obs.ledger import predict_layout_census
 
 RECORD_KEYS = {
     "arch", "shape", "mesh", "params", "active_params", "status",
@@ -43,20 +45,39 @@ def test_decode_cell_record(tmp_path):
                                     "roofline_fraction"}
     assert rec["useful_flop_ratio"] == pytest.approx(
         rec["model_flops_global"] / rec["flops_global"])
-    # no MoE layer, so nothing crosses the mesh in the port's layout
-    assert rec["census"] == {} and rec["collective_bytes_per_device"] == 0
+    # no MoE layer; the tensor-parallel layout's collectives (the Mamba
+    # layers' channels over model, the weights' D over data, the
+    # vocabulary-parallel embedding and logits), as predicted
+    assert rec["census"] == predict_layout_census(
+        get_config("falcon-mamba-7b"), mesh_for("single_pod", abstract=True),
+        "decode", 1, 1, cache_len=get_shape("long_500k").seq_len)
+    assert rec["collective_bytes_per_device"] > 0
     assert rec["kernels"] == {}
 
 
-def test_vlm_train_cell_does_not_fit(tmp_path):
-    """llama-3.2-vision-90b × train_4k × single_pod: the port replicates
-    the dense part of the model on every device, so its ~90 B dense
-    parameters and their moments alone exceed one card.  Pinned until a
-    layout that shards the dense part flips it."""
+def test_vlm_train_cell_fits(tmp_path):
+    """llama-3.2-vision-90b × train_4k × single_pod: the cell the
+    replicated dense part kept off the card (its ~90 B dense parameters
+    and their moments alone exceeded one) fits in the reference's layout:
+    a device holds 1/256 of the bf16 parameters and the f32 moments (the
+    weights' D dims over data, heads, FFN and vocabulary over model), its
+    16 rows' activations sequence-parallel; its census the predicted
+    one."""
     rec = _cell(tmp_path, "llama-3.2-vision-90b", "train_4k", "single_pod")
-    assert rec["status"] == "does_not_fit"
-    assert rec["per_device_bytes"] > rec["hbm_bytes"]
-    assert rec["memory"]["argument_bytes"] > rec["hbm_bytes"]
+    assert rec["status"] == "ok"
+    assert rec["per_device_bytes"] <= rec["hbm_bytes"]
+    cfg = get_config("llama-3.2-vision-90b")
+    # the arguments: the global batch (every rank takes it and keeps its
+    # rows; its vision embeds alone are 6.7 GB) and this device's
+    # parameters and f32 moments, 10 bytes a parameter over 256 devices
+    # (a dim that does not divide stays whole: the KV heads over model)
+    batch = 256 * 4096 * (4 + 4 + 1) + 256 * cfg.n_vision_tokens \
+        * cfg.d_model * 2
+    state = rec["memory"]["argument_bytes"] - batch
+    assert 10 * cfg.param_count() / 256 < state \
+        < 1.5 * 10 * cfg.param_count() / 256
+    assert rec["census"] == predict_layout_census(
+        cfg, mesh_for("single_pod", abstract=True), "train", 256, 4096)
 
 
 def test_sweep_writes_skipped_records_and_resumes(tmp_path, monkeypatch):

@@ -10,7 +10,7 @@ jamba-1.5-large-398b trained 50 steps (the loss falls, a restart from step
 its MoE layers) and falcon-mamba-7b at its published widths cut to 4
 layers (three steps of 4 x 256 tokens, step 1 against an f32 copy, the
 scans' share of a step); (b) qwen1.5-0.5b and gemma-7b whole and
-command-r-35b cut to 16 layers: the f32 copy's decode/prefill gap,
+command-r-35b cut to 8 layers: the f32 copy's decode/prefill gap,
 graphed chunk and decode steps bitwise against eager, phase 5's stream
 (chunked prefill); (c) minicpm3-4b whole: the f32 gap, graphed absorbed
 decode bitwise against eager, the latent cache's bytes, a 1024-token
