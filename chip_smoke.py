@@ -77,8 +77,9 @@
    capacity factors, the expansion's peak), and checks the landed and
    expanded weights on the card bit for bit against host copies of the
    original slabs gathered by the committed tables;
-9. elastic serving, profiled and guarded: moonshot at full width and 24
-   layers (its checkpoint must fit the run's 45 GiB of disk writes),
+9. elastic serving, profiled and guarded: moonshot at full width and
+   ``PHASE9_LAYERS`` = 24 layers (its checkpoint must fit the run's 45
+   GiB of disk writes),
    expanded in place to 80 slots over 16 virtual ranks
    (peak printed), the quantizer and the global scale held bitwise at
    G = 80; each MoE stage of one layer timed by ``time_moe_phases`` (CUDA
@@ -118,7 +119,7 @@
    only sanctioned pulls; each rank's kernels against their plain versions
    at G = S/ep (in turn, timed);
 11. migration and elastic serving under EP, on phase 10's ranks after
-   phase 10 (``ep_migration_work``): (a) phase 5's stream with a shared
+   phase 10 (``managed_arms_rank_work``): (a) phase 5's stream with a shared
    ``PlacementManager`` migrating synchronously across the ranks (each
    block's rows whose source another rank holds come over the EP group
    in one all-to-all), then the weights gathered back to the identity;
@@ -201,8 +202,8 @@
 17. the memory stream (``memory_stream``, after phase 16; graphed engines,
    strict sentinels, no kernel on the path: the launch counters zeroed
    just before and read just after each stream, all 0): (a)
-   llama-3.2-vision-90b at its published widths cut to 10 layers (8
-   self-attention, 2 cross-attention over 1601 vision rows): the f32
+   llama-3.2-vision-90b at its published widths cut to 5 layers (4
+   self-attention, 1 cross-attention over 1601 vision rows): the f32
    decode/prefill gap on its first block (logged where the cut is
    chaotic) and one cross layer alone in f32 (``cross_decode`` against
    ``cross_forward``'s last row), graphed decode bitwise against eager,
@@ -252,6 +253,29 @@
    1's CE and gradients within phase 14's spread bound of the one-card
    step's, the census equal to ``predict_train_census``;
    the kernels' launches by rank on both paths in the ``kernels`` line;
+20. placement, replication, live migration and elastic serving under
+   the default rules (``layout_ep_serving``, on phase 19's ranks after
+   19b, through ``managed_arms_rank_work`` as phase 11;
+   ``tools/layout_ep_phase.py`` runs phases 19 and 20 alone): four rank
+   processes of a ``(2, 2)`` mesh through the ``staged`` backend,
+   moonshot-v1-16b-a3b at its published widths cut to
+   ``PHASE20_LAYERS``, each expert slot's D cut over ``data``, each arm
+   serving phase 5's first ``PHASE20_REQUESTS`` requests cut to
+   ``PHASE20_MAX_NEW`` new tokens: (a) a shared
+   ``PlacementManager`` migrating synchronously, then the weights
+   gathered back to the identity; (b) per-layer tables drained
+   asynchronously; (c) ``PHASE20_C_SPARES`` spares a rank (64 slots: one
+   model rank holds all 64 experts), a per-layer ``ReplicaManager``, the
+   engine's checkpoint, model rank 1 killed at iteration 2 and rejoined
+   at 5.  Checks: each
+   rank's slabs equal, at its D slice, the host rows its tables name; the
+   bytes it exchanged the plans' cross-rank rows at that slice
+   (``obs.ledger.slot_row_bytes``), each data row's sum half the
+   managers' count; every rank the same tokens; the dead model rank's
+   slots zero, the others untouched, a checkpoint refused mid-recovery,
+   rows patched from it; 0 unsanctioned syncs; the kernels against their
+   plain versions at (c)'s G = 64 (the quantizer on block 0's whole-D
+   slabs);
 6. checks the outputs (finite full-width logits; reduced model on the card
    against the CPU) and prints one ``{"kernels": [...]}`` line with each
    kernel's launches (on its path, on the one-shot and long-KV paths of
@@ -269,8 +293,8 @@
    (launches on 13d's path, error, time, bound, plain time, TFLOP/s,
    device time by stage); every row's launches on phase 14a's mesh steps
    by rank, and the two FFN kernels' checks there; every row's launches
-   on phase 17's streams (0), on phase 18's cells (18a, 18b), and on
-   phase 19's paths by rank (19a, 19b);
+   on phase 17's streams (0), on phase 18's cells (18a, 18b), on
+   phase 19's paths by rank (19a, 19b) and on phase 20's arms by rank;
 7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2763,17 +2787,20 @@ def elastic_serving(dev):
 # CUDA context and its KV cache, four times over; 24 layers (~6.4 + ~3.1
 # GB a rank) leave the headroom.  The smoke's time cuts it further: every
 # layer's collectives copy through the host, and at 24 layers phases 10
-# and 11 took 373.5 s of the smoke's 998 s (1200 allowed); 12 layers halve
-# their per-layer work.  With one card a rank (NCCL) the depth is not cut.
-# The width is never cut.
-PHASE10_LAYERS = 12
+# and 11 took 373.5 s of the smoke's 998 s (1200 allowed), at 12 layers
+# 208.4 s of 989 s (PR 29), at 8 layers 172.2 s (PR 30); phase 20 needs
+# room beside them, so 8 layers.  With one card a rank (NCCL) the depth is
+# not cut.  The width is never cut.
+PHASE10_LAYERS = 8
 PHASE10_DEPTH_REASON = ("four ranks share the one card: at 48 layers a "
                         "rank holds ~13.3 GB of experts and ~4.7 GB of the "
                         "rest plus a context and a cache, four times over, "
                         "too little headroom on 80 GB; and each layer's "
                         "collectives copy through the host, so phases 10 "
                         "and 11 at 24 layers took 373.5 s of the smoke's "
-                        "1200 s; 12 layers hold ~5.5 GB a rank")
+                        "1200 s, at 12 layers 208.4 s of 989 s beside "
+                        "which phase 20 must fit; 8 layers hold ~3.9 GB a "
+                        "rank")
 PHASE10_DEADLINE_S = 850          # spawn to join, phases 10 and 11
 PHASE10_CHUNK = dict(b=8, s=256, real=128, vis=0.6, seed=4)
 PHASE10_OFF = dict(gate_gamma=10 ** 9)
@@ -2893,6 +2920,16 @@ def policy_vectors(moe_stats, ep):
                      for l in range(ms.shape[0])])
 
 
+def set_card_rates():
+    """This process's rate constants (the bounds' rates) from the card's
+    hardware record: a spawned rank starts without them."""
+    from repro_torch.configs import hw
+    global HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S
+    card = hw.current()
+    HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S = (
+        card.hbm_bw, card.peak_bf16, card.peak_f32)
+
+
 def phase10_cfg(layers: int):
     """Full-width moonshot-v1-16b-a3b at ``layers`` layers."""
     import dataclasses
@@ -2912,11 +2949,7 @@ def ep_rank_main(rank, world, backend, store_path, layers, out,
         dev = torch.device(device_type, rank if backend == "nccl" else 0)
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
-        from repro_torch.configs import hw
-        global HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S
-        card = hw.current()
-        HBM_BYTES_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S = (
-            card.hbm_bw, card.peak_bf16, card.peak_f32)
+        set_card_rates()
         store = dist.FileStore(store_path, world)
         if backend == "nccl":
             dist.init_process_group("nccl", store=store, rank=rank,
@@ -3045,8 +3078,8 @@ def ep_rank_work(mesh, layers):
     del note, working_by_m, fw
     holder = [params]
     del params
-    res["p11"] = ep_migration_work(mesh, holder, cfg, sent)
-    res["sentinel_p11"] = sent.report()
+    res["p11"] = managed_arms_rank_work(mesh, holder, cfg, sent, "11",
+                                        PHASE11_ARMS)
     return res
 
 
@@ -3055,13 +3088,19 @@ def ep_rank_work(mesh, layers):
 # (68 slots, one spare a rank, leave 51).  It runs at PHASE11_C_LAYERS
 # layers on any number of cards: its EP checkpoint is ~1.59 GB a MoE layer
 # plus ~1.51 GB of embeddings and the dense layer, and one run may write
-# 45 GiB (48.3 GB) to its disk, counted even when deleted; phase 9's
-# checkpoint takes 34.93 GB of that, so (c) keeps ~9.5 GB (6 layers).
-PHASE11_C_LAYERS = 6
+# 45 GiB (48.3 GB) to its disk, counted even when deleted: phase 9's
+# checkpoint takes 34.93 GB of that and phase 20's 6.08 GB (PR 30), which
+# leaves 7.3 GB.  4 layers (6.28 GB) would leave ~1 GB for the rest of the
+# run's writes; 3 layers (4.70 GB) leave 2.6 GB.
+PHASE11_C_LAYERS = 3
 PHASE11_C_SPARES = 6
 PHASE11_C_DEPTH_REASON = ("its EP checkpoint at 88 slots is ~1.59 GB a MoE "
                           "layer plus ~1.51 GB, and a run may write 45 GiB "
-                          "to its disk, 34.93 GB of it phase 9's checkpoint")
+                          "(48.3 GB) to its disk, 34.93 GB of it phase 9's "
+                          "checkpoint and 6.08 GB phase 20's")
+PHASE11_ARMS = dict(n_req=None, max_new=None, replan_every=8,
+                    c_layers=PHASE11_C_LAYERS, spares=PHASE11_C_SPARES,
+                    faults=[(3, "fail", 2), (20, "rejoin", 2)])
 
 
 def ep_host_blocks(params, blocks, comm):
@@ -3085,29 +3124,35 @@ def ep_check_blocks(params, logical, owners, ep, my, what):
 
 def crossrank_expected(committed, ep, my, n_blocks, row_bytes):
     """The bytes rank ``my`` sends in the plans' committed chunks, from the
-    plans alone: each changed slot of another rank whose source this rank
-    holds, one slot's slabs (a shared plan: in every block)."""
+    plans alone (``obs.ledger.predict_migration_census`` of each chunk: a
+    shared plan in every block, a per-layer plan in its committed
+    layers)."""
     import numpy as np
-    from repro_torch.placement.migrate import crossrank_sends
-    rows = 0
+    from repro_torch.obs.ledger import predict_migration_census
+    sent = 0
     for plan, layers in committed:
         idx = np.asarray(plan.gather_idx)
-        sends = crossrank_sends(idx, ep)
-        if idx.ndim == 1:
-            rows += int(sends[my]) * n_blocks
-        else:
-            rows += sum(int(sends[l, my]) for l in layers)
-    return rows * row_bytes
+        if idx.ndim > 1 and not layers:
+            continue
+        pred = (predict_migration_census(idx, ep, row_bytes, n_blocks)
+                if idx.ndim == 1 else
+                predict_migration_census(idx[layers], ep, row_bytes))
+        sent += pred[my].get("migrate_all_to_all", {"bytes": 0})["bytes"]
+    return sent
 
 
 def ep_managed_serve(mesh, params, cfg, arm, mgr, sent, note, run=None,
-                     before=None, **engine_kw):
+                     before=None, tag="11", n_req=None, max_new=None,
+                     **engine_kw):
     """Phase 5's 16 requests, submitted at once, through the EP engine
     with ``mgr`` on the wall clock under the strict sentinel, the launch
     counters zeroed just before and read just after.  Notes every
     committed chunk, every drained batch's layers and every timed gather;
     returns the engine and a record of the run.  ``before(eng)`` runs
-    first; ``run(eng)`` drives the engine (default: step until idle)."""
+    first; ``run(eng)`` drives the engine (default: step until idle);
+    ``tag`` names the phase in errors; ``n_req``: the stream's first
+    ``n_req`` requests only, each generating at most ``max_new``
+    tokens."""
     import hashlib
 
     import numpy as np
@@ -3128,9 +3173,11 @@ def ep_managed_serve(mesh, params, cfg, arm, mgr, sent, note, run=None,
     if before is not None:
         before(eng)
     reqs = []
-    for sp in mmmu_stream(cfg):
+    for sp in mmmu_stream(cfg)[:n_req]:
         r = sp.to_request()
         r.arrival_time = None
+        if max_new is not None:
+            r.max_new_tokens = min(r.max_new_tokens, max_new)
         reqs.append(r)
         eng.submit(r)
     committed, chunks, timed = [], [], []
@@ -3198,29 +3245,36 @@ def ep_managed_serve(mesh, params, cfg, arm, mgr, sent, note, run=None,
         "stall_s": eng.migration_stall_s,
         "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30}
     if rec["finished"] != rec["requests"]:
-        raise AssertionError(f"11{arm} rank {my}: {rec['finished']} of "
+        raise AssertionError(f"{tag}{arm} rank {my}: {rec['finished']} of "
                              f"{rec['requests']} requests finished")
     if mgr.in_flight is not None or eng.migration_draining:
-        raise AssertionError(f"11{arm} rank {my}: a plan is in flight")
+        raise AssertionError(f"{tag}{arm} rank {my}: a plan is in flight")
     return eng, rec
 
 
-def ep_migration_work(mesh, holder, cfg, sent):
-    """Phase 11 on one rank, after phase 10 on the same ranks: (a) phase
-    5's stream through the EP engine with a shared ``PlacementManager``
-    migrating synchronously across ranks, then the weights gathered back
-    to the identity; (b) per-layer tables drained asynchronously under the
-    measured budget (bandwidth EWMA times iteration seconds, both agreed
-    over the ranks); (c) at ``PHASE11_C_LAYERS`` layers, the weights
-    expanded to 88 slots, a per-layer ``ReplicaManager``, the EP engine's
-    checkpoint, rank 2 killed at iteration 3 and rejoined at 20 under a
-    ``FaultInjector``, the strict sentinel and a ``Profiler``.  Checks on
-    the rank: block 0's and the last block's slabs equal the host rows its
-    tables name after each arm, the dead rank's slots zero and the others
-    untouched after the kill, the checkpoint refused mid-recovery, the
-    kernels against their plain versions at G = 22 (in turn).  Returns
-    each arm's record (the parent checks tokens, chunks, bytes and syncs
-    across the ranks)."""
+def managed_arms_rank_work(mesh, holder, cfg, sent, tag, arms):
+    """Phase ``tag``'s managed arms on one rank, under the rules in force
+    (phase 11: EP-only on phase 10's ranks; phase 20: the default rules
+    on phase 19's): (a) phase 5's stream through the EP engine with a
+    shared ``PlacementManager`` migrating synchronously across ranks, then
+    the weights gathered back to the identity; (b) per-layer tables
+    drained asynchronously under the measured budget (bandwidth EWMA times
+    iteration seconds, both agreed over the ranks); (c) at
+    ``arms["c_layers"]`` layers, fresh weights expanded by
+    ``arms["spares"]`` spares a rank, a per-layer ``ReplicaManager``, the
+    EP engine's checkpoint, ``arms["faults"]`` under a ``FaultInjector``,
+    the strict sentinel and a ``Profiler``.  ``holder``: (a)/(b)'s weights
+    (popped, so the caller keeps no reference); ``arms``: the stream
+    (phase 5's first ``n_req`` requests, each cut to ``max_new`` new
+    tokens; None: all) and (a)/(b)'s ``replan_every``.  Checks on the
+    rank: one slot's slabs are ``obs.ledger.slot_row_bytes`` (its ``D``
+    slice in the layout); block 0's and the last block's slabs equal, at
+    that slice, the host rows its tables name after each arm; the dead
+    rank's slots zero and the others untouched after the kill; the
+    checkpoint refused mid-recovery; in turn, the kernels against their
+    plain versions at (c)'s G on the serve run's inputs and on block 0's
+    whole-D slabs.  Returns each arm's record (the parent checks across
+    the ranks: :func:`managed_arm_checks`)."""
     import shutil
 
     import torch
@@ -3230,6 +3284,7 @@ def ep_migration_work(mesh, holder, cfg, sent):
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import tree_bytes
     from repro_torch.obs import FlopByteLedger, Profiler
+    from repro_torch.obs.ledger import slot_row_bytes
     from repro_torch.placement import PlacementManager, PlacementTable
     from repro_torch.placement import migrate as pmigrate
     from repro_torch.replication import ReplicaManager, expand_moe_params
@@ -3243,22 +3298,33 @@ def ep_migration_work(mesh, holder, cfg, sent):
     comm = ep_moe._dist_comm(mesh)
     ep, my = mesh.size("model"), mesh.index("model")
     e = cfg.moe.num_experts
-    n_blocks = int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[0])
+    stream = dict(tag=tag, n_req=arms["n_req"], max_new=arms["max_new"])
+    moe = params["blocks"]["layer0"]["moe"]
+    row = sum(moe[k][0, 0].numel() * moe[k].element_size() for k in MOE_KEYS)
+    want_row = slot_row_bytes(cfg.d_model, cfg.moe.d_ff,
+                              moe["w_gate"].element_size(), mesh)
+    if row != want_row:
+        raise AssertionError(f"{tag} rank {my}: a slot's slabs hold {row} "
+                             f"bytes, slot_row_bytes says {want_row}")
+    out = {"d_held": int(moe["w_gate"].shape[2]),
+           "slots": int(moe["w_gate"].shape[1]), "row_bytes": row,
+           "weights_gb": tree_bytes(params) / GIGA}
+    n_blocks = int(moe["w_gate"].shape[0])
     ends = (0, n_blocks - 1)
-    out = {}
     logical = ep_host_blocks(params, ends, comm)
     ident = PlacementTable.identity(e, ep)
     ep_check_blocks(params, logical, lambda b: ident.owner, ep, my,
-                    "11 before")
+                    f"{tag} before")
 
     # (a) a shared table, synchronous migration across the ranks
     mgr = PlacementManager(cfg, PlacementConfig(
-        planner="least_loaded", replan_every=8, warmup_iters=2,
-        min_gain=0.0), ep=ep)
+        planner="least_loaded", replan_every=arms["replan_every"],
+        warmup_iters=2, min_gain=0.0), ep=ep)
     note = ServeLaunches(keep_inputs=False)
-    eng, out["a"] = ep_managed_serve(mesh, params, cfg, "a", mgr, sent, note)
+    eng, out["a"] = ep_managed_serve(mesh, params, cfg, "a", mgr, sent, note,
+                                     **stream)
     ep_check_blocks(params, logical, lambda b: mgr.table.owner, ep, my,
-                    "11a")
+                    f"{tag}a")
     comm.census.reset()
     t0 = time.perf_counter()
     pmigrate.apply_to_params(params, pmigrate.diff(mgr.table, ident))
@@ -3267,33 +3333,34 @@ def ep_migration_work(mesh, holder, cfg, sent):
     out["a"]["back_sent"] = comm.census.snapshot().get(
         "migrate_all_to_all", {"bytes": 0})["bytes"]
     ep_check_blocks(params, logical, lambda b: ident.owner, ep, my,
-                    "11a back to identity")
+                    f"{tag}a back to identity")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
 
     # (b) per-layer tables drained asynchronously under the measured budget
     mgr = PlacementManager(cfg, PlacementConfig(
-        planner="least_loaded", replan_every=8, warmup_iters=2,
-        min_gain=0.0, per_layer=True, max_changed_layers=8), ep=ep)
+        planner="least_loaded", replan_every=arms["replan_every"],
+        warmup_iters=2, min_gain=0.0, per_layer=True, max_changed_layers=8),
+        ep=ep)
     note = ServeLaunches(keep_inputs=False)
     eng, out["b"] = ep_managed_serve(mesh, params, cfg, "b", mgr, sent, note,
-                                     migrate_async=True)
+                                     migrate_async=True, **stream)
     ep_check_blocks(params, logical, lambda b: mgr.tables[b].owner, ep, my,
-                    "11b")
+                    f"{tag}b")
     out["b"]["bw_gbps"] = mgr.bandwidth.bytes_per_s / GIGA
-    del eng, params, logical, mgr, note
+    del eng, params, moe, logical, mgr, note
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) elastic serving under EP at PHASE11_C_LAYERS layers
-    cfg_c = phase10_cfg(PHASE11_C_LAYERS)
+    # (c) replicas, the engine's checkpoint, a rank killed and rejoined
+    cfg_c = phase10_cfg(arms["c_layers"])
     params = tf.init_model(cfg_c, seed=0)
     n_blocks = int(params["blocks"]["layer0"]["moe"]["w_gate"].shape[0])
     ends = (0, n_blocks - 1)
     logical = ep_host_blocks(params, ends, comm)
     mgr = ReplicaManager(cfg_c, ReplicationConfig(
-        per_layer=True, spare_per_rank=PHASE11_C_SPARES, max_replicas=2,
+        per_layer=True, spare_per_rank=arms["spares"], max_replicas=2,
         replan_every=4, warmup_iters=2, min_gain=0.0), ep)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3303,17 +3370,17 @@ def ep_migration_work(mesh, holder, cfg, sent):
     out["c_slots"] = int(params["blocks"]["layer0"]["moe"]["w_gate"]
                          .shape[1])
     out["c_weights_gb"] = tree_bytes(params) / GIGA
-    ep_check_blocks(params, logical,
-                    lambda b: mgr.rsets[b].slot_owner, ep, my, "11c expanded")
-    ckdir = ROOT / "build" / "phase11_ckpt"
+    ep_check_blocks(params, logical, lambda b: mgr.rsets[b].slot_owner, ep,
+                    my, f"{tag}c expanded")
+    ckdir = ROOT / "build" / f"phase{tag}_ckpt"
     if dist.get_rank() == 0:
-        for old in ("phase9_ckpt", "phase7_ckpt", "phase11_ckpt"):
+        for old in ("phase9_ckpt", "phase7_ckpt", ckdir.name):
             shutil.rmtree(ROOT / "build" / old, ignore_errors=True)
     dist.barrier()
     tel = Telemetry()
     prof = Profiler(FlopByteLedger(cfg_c, ep=ep), registry=tel.registry)
     co = ElasticCoordinator(mgr, ckpt_dir=str(ckdir), telemetry=tel)
-    fi = FaultInjector([(3, "fail", 2), (20, "rejoin", 2)])
+    fi = FaultInjector(arms["faults"])
     budget = int(0.75 * e) * mgr.bytes_per_expert
     seen = {"kills": [], "refused": []}
 
@@ -3331,9 +3398,9 @@ def ep_migration_work(mesh, holder, cfg, sent):
             seen["kills"].append((eng._it, rank, sorted(
                 co.lost_experts.tolist())))
             if (my == rank and nz) or not kept:
-                raise AssertionError(f"11c rank {my}: after the kill of "
-                                     f"rank {rank}: {nz} nonzero weights, "
-                                     f"others kept {kept}")
+                raise AssertionError(f"{tag}c rank {my}: after the kill of "
+                                     f"model rank {rank}: {nz} nonzero "
+                                     f"weights, others kept {kept}")
             del before
 
         eng.fail_rank = checked_fail
@@ -3346,12 +3413,13 @@ def ep_migration_work(mesh, holder, cfg, sent):
                 except RuntimeError as err:
                     seen["refused"].append((eng._it, str(err)[:60]))
                 else:
-                    raise AssertionError("11c: a checkpoint was saved "
+                    raise AssertionError(f"{tag}c: a checkpoint was saved "
                                          "mid-recovery")
 
     def save(eng):
-        # the EP engine's checkpoint (global layout, rank 0 writes): the
-        # re-materialization source
+        # the EP engine's checkpoint in the global layout (every leaf
+        # gathered over the mesh, rank 0 writes): the re-materialization
+        # source
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.save_checkpoint(str(ckdir), 0)
@@ -3365,13 +3433,14 @@ def ep_migration_work(mesh, holder, cfg, sent):
         eng, out["c"] = ep_managed_serve(
             mesh, params, cfg_c, "c", mgr, sent, note, run=run, before=save,
             migrate_async=True, migrate_bytes_per_iter=budget,
-            telemetry=tel, profiler=prof, elastic=co, fault_injector=fi)
+            telemetry=tel, profiler=prof, elastic=co, fault_injector=fi,
+            **stream)
     finally:
         dist.barrier()
         if dist.get_rank() == 0:
             shutil.rmtree(ckdir, ignore_errors=True)
     ep_check_blocks(params, logical, lambda b: mgr.rsets[b].slot_owner, ep,
-                    my, "11c at the end")
+                    my, f"{tag}c at the end")
     summ, p_sum = tel.summary(), prof.summary()
     out["c"].update(
         kills=seen["kills"], refused=seen["refused"],
@@ -3381,32 +3450,48 @@ def ep_migration_work(mesh, holder, cfg, sent):
         alive=mgr.rank_alive.tolist(), mfu=p_sum["mfu"],
         events=[(ev["kind"], ev.get("rank")) for ev in co.events])
     if not seen["kills"] or not seen["kills"][0][2]:
-        raise AssertionError(f"11c rank {my}: the kill opened no degraded "
-                             f"window: {seen['kills']}")
+        raise AssertionError(f"{tag}c rank {my}: the kill opened no "
+                             f"degraded window: {seen['kills']}")
     if not seen["refused"]:
-        raise AssertionError(f"11c rank {my}: no mid-recovery refusal")
+        raise AssertionError(f"{tag}c rank {my}: no mid-recovery refusal")
     if co.state not in (STATE_HEALTHY, STATE_WARMING) \
             or not mgr.rank_alive.all() or summ["recovery_s"] is None \
             or not tel.degraded_iters:
-        raise AssertionError(f"11c rank {my}: ends {co.state}, alive "
+        raise AssertionError(f"{tag}c rank {my}: ends {co.state}, alive "
                              f"{mgr.rank_alive.tolist()}, recovery "
                              f"{summ['recovery_s']}, degraded "
                              f"{tel.degraded_iters}")
     working_by_m = note.working()
-    for r in range(ep):
+    block = whole_d_block(params, 0, comm)
+    t0 = time.perf_counter()
+    for r in range(mesh.size(None)):
         dist.barrier()
-        if r == my:
-            log(f"11c: rank {my}: its kernels at G = {out['c_slots']}")
+        if r == dist.get_rank():
+            log(f"{tag}c: rank {r}: its kernels at G = {out['c_slots']}")
             out["c_ffn"] = check_ffn_at_serve_launches(note, working_by_m,
                                                        require=False)
-            out["c_quant"] = check_kernels_at_slots(params, 0,
-                                                    f"11c rank {my}")
+            out["c_quant"] = check_kernels_at_slots(block, 0,
+                                                    f"{tag}c rank {r}")
         dist.barrier()
-    del eng, params, logical, note, working_by_m
+    out["checks_s"] = time.perf_counter() - t0
+    del eng, params, logical, note, working_by_m, block
     gc.collect()
     torch.cuda.empty_cache()
+    out["sentinel"] = sent.report()
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+def whole_d_block(params, b: int, comm):
+    """Block ``b``'s expert stacks as the MoE layer uses them: a rank's
+    slots with their ``D`` dim gathered over ``data`` (collective over the
+    data rows; the rank's own stacks where ``D`` is whole), in a tree
+    :func:`check_kernels_at_slots` reads."""
+    from repro_torch.models.common import FSDP_DIM
+    moe = params["blocks"]["layer0"]["moe"]
+    return {"blocks": {"layer0": {"moe": {
+        k: comm.fsdp_gather(moe[k][b], FSDP_DIM[k])[None]
+        for k in MOE_KEYS}}}}
 
 
 def run_rank_processes(tag: str, target, world: int, deadline: float,
@@ -3639,48 +3724,54 @@ def ep_serving(dev, smi: str):
     return counts, working, recs, g, p11
 
 
-def ep_migration_checks(ranks, backend, layers, smi):
-    """Phase 11's checks across the ranks (each rank checked its own slabs
-    against the host rows its tables name): the same tokens on every rank
-    in each arm, the same chunks drained in (b) and (c), the bytes each
-    rank exchanged equal to the plans' cross-rank rows it holds (their sum
-    the managers' count), 0 unsanctioned syncs, every kernel of the path
-    launched and working in each arm; prints the migrations, the recovery
-    and the checkpoint.  Returns each arm's launches and working launches
-    by rank, and the kernels' records at (c)'s G by rank."""
-    p = [r["p11"] for r in ranks]
-    ep = len(ranks)
-    log(f"11: backend {backend}, {ep} ranks; (a) and (b) at {layers} layers "
-        f"(phase 10's weights), (c) at {PHASE11_C_LAYERS} layers: "
-        f"{PHASE11_C_DEPTH_REASON}; phase 11 took "
-        f"{max(x['seconds'] for x in p):.1f} s on the ranks")
+def managed_arm_checks(p, tag, rows, smi):
+    """The checks across the ranks of phase ``tag``'s three managed arms
+    (``p``: each rank's record of :func:`managed_arms_rank_work`, in rank
+    order, the mesh's ``rows`` data rows of EP ranks one after another;
+    each rank checked its own slabs against the host rows its tables
+    name): the same tokens on every rank in each arm, the same chunks
+    committed and drained, the bytes each rank exchanged equal to the
+    plans' cross-rank rows it holds at its slab size, each data row's sum
+    times ``rows`` the managers' count (a data row exchanges its
+    ``D/rows`` slices of the slabs), every kernel of the path launched on
+    every rank and working on one, the same elastic run on every rank,
+    bytes patched from the checkpoint, 0 unsanctioned syncs; prints each
+    arm, the recovery and the checkpoint.  Returns each arm's launches and
+    working launches by rank, and the kernels' records at (c)'s G by
+    rank."""
+    n = len(p)
     for arm in ("a", "b", "c"):
         recs = [x[arm] for x in p]
         r0 = recs[0]
         for i, r in enumerate(recs):
             if r["digest"] != r0["digest"]:
-                raise AssertionError(f"11{arm} rank {i}: tokens differ")
+                raise AssertionError(f"{tag}{arm} rank {i}: tokens differ")
             if r["commits"] != r0["commits"] or r["chunks"] != r0["chunks"]:
-                raise AssertionError(f"11{arm} rank {i}: committed chunks "
+                raise AssertionError(f"{tag}{arm} rank {i}: committed chunks "
                                      f"{r['chunks']} != rank 0's "
                                      f"{r0['chunks']}")
             if r["sent"] != r["expected"]:
-                raise AssertionError(f"11{arm} rank {i}: exchanged "
+                raise AssertionError(f"{tag}{arm} rank {i}: exchanged "
                                      f"{r['sent']} bytes, the plans' "
                                      f"cross-rank rows {r['expected']}")
             if min(r["counts"][k] for k in SERVE_KERNELS) == 0:
-                raise AssertionError(f"11{arm} rank {i}: a kernel never "
+                raise AssertionError(f"{tag}{arm} rank {i}: a kernel never "
                                      f"launched: {r['counts']}")
         for k in SERVE_KERNELS:
             if max(r["working"][k] for r in recs) == 0:
-                raise AssertionError(f"11{arm}: {k} never worked")
-        total = sum(r["sent"] for r in recs)
-        if total != r0["counted"] or not r0["plans"]:
-            raise AssertionError(f"11{arm}: {r0['plans']} plans; the ranks "
-                                 f"exchanged {total} bytes, the managers "
-                                 f"counted {r0['counted']}")
+                raise AssertionError(f"{tag}{arm}: {k} never worked")
+        per_row = [sum(r["sent"] for r in recs[j * n // rows:
+                                               (j + 1) * n // rows])
+                   for j in range(rows)]
+        if any(t * rows != r0["counted"] for t in per_row) \
+                or not r0["plans"]:
+            raise AssertionError(f"{tag}{arm}: {r0['plans']} plans; each "
+                                 f"data row's ranks exchanged {per_row} "
+                                 f"bytes, the managers counted "
+                                 f"{r0['counted']} over {rows} rows")
+        total = sum(per_row)
         secs = [t[1] for t in r0["timed"]]
-        log(f"11{arm}: every rank the same {r0['tokens']} tokens (digest "
+        log(f"{tag}{arm}: every rank the same {r0['tokens']} tokens (digest "
             f"{r0['digest']}), {r0['iters']} iterations; {r0['plans']} "
             f"plans committed in {len(r0['commits'])} commits; exchanged "
             f"bytes a rank {[r['sent'] for r in recs]} = the plans' "
@@ -3695,51 +3786,71 @@ def ep_migration_checks(ranks, backend, layers, smi):
             f"{r0['tpot_p50_ms']:.2f} ms, peak "
             f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank; {smi}")
         if arm != "a":
-            log(f"11{arm}: chunk layers drained per batch (every rank): "
+            log(f"{tag}{arm}: chunk layers drained per batch (every rank): "
                 f"{r0['chunks']}")
         for i, r in enumerate(recs):
-            log(f"11{arm} rank {i}: launches {r['counts']}; working "
+            log(f"{tag}{arm} rank {i}: launches {r['counts']}; working "
                 f"{r['working']}")
-    a0 = p[0]["a"]
-    log(f"11a: weights gathered back to the identity tables in "
-        f"{a0['back_s'] * 1e3:.1f} ms, exchanged bytes a rank "
-        f"{[x['a']['back_sent'] for x in p]}; 11b: bandwidth EWMA "
-        f"{p[0]['b']['bw_gbps']:.3f} GB/s")
-    c0 = p[0]["c"]
-    log(f"11c: {p[0]['c_slots']} slots a rank after expand_moe_params in "
-        f"{p[0]['c_expand_s']:.2f} s ({p[0]['c_weights_gb']:.2f} GB a rank); "
-        f"EP checkpoint {p[0]['c_ckpt_bytes']} bytes "
-        f"({p[0]['c_ckpt_bytes'] / GIGA:.2f} GB, rank 0 writes) in "
-        f"{p[0]['c_save_s']:.1f} s; kills {c0['kills']}; refused "
+    x0 = p[0]
+    log(f"{tag}a: weights gathered back to the identity tables in "
+        f"{x0['a']['back_s'] * 1e3:.1f} ms, exchanged bytes a rank "
+        f"{[x['a']['back_sent'] for x in p]}; {tag}b: bandwidth EWMA "
+        f"{x0['b']['bw_gbps']:.3f} GB/s")
+    c0 = x0["c"]
+    patched = [x["c"]["patched_bytes"] for x in p]
+    log(f"{tag}c: {x0['c_slots']} slots a rank after expand_moe_params in "
+        f"{x0['c_expand_s']:.2f} s ({x0['c_weights_gb']:.3f} GB a rank); "
+        f"EP checkpoint {x0['c_ckpt_bytes']} bytes "
+        f"({x0['c_ckpt_bytes'] / GIGA:.2f} GB, rank 0 writes) in "
+        f"{x0['c_save_s']:.1f} s; kills {c0['kills']}; refused "
         f"{c0['refused']}; recovery s {c0['recovery_s']}; degraded "
         f"iterations {c0['degraded_iters']}, availability "
         f"{c0['availability']:.4f}, lost tokens {c0['lost_tokens']:.0f}; "
-        f"bytes patched from the checkpoint a rank "
-        f"{[x['c']['patched_bytes'] for x in p]}; state {c0['state']}; "
-        f"events {c0['events']}; MFU {c0['mfu']:.6f}")
+        f"bytes patched from the checkpoint a rank {patched}; state "
+        f"{c0['state']}; events {c0['events']}; MFU {c0['mfu']:.6f}")
+    if not any(patched):
+        raise AssertionError(f"{tag}c: no row patched from the checkpoint")
     for i, x in enumerate(p):
         rep = x["c"]
         if (rep["kills"], rep["refused"][0][0], rep["events"]) != (
                 c0["kills"], c0["refused"][0][0], c0["events"]):
-            raise AssertionError(f"11c rank {i}: its elastic run differs "
+            raise AssertionError(f"{tag}c rank {i}: its elastic run differs "
                                  "from rank 0's")
-    for i, r in enumerate(ranks):
-        rep = r["sentinel_p11"]
-        if rep["violations"]:
-            raise AssertionError(f"11 rank {i}: syncs {rep['violations']}")
-    log(f"11: 0 syncs outside sanctioned windows on every rank; sanctioned "
-        f"pulls (rank 0) {ranks[0]['sentinel_p11']['sanctioned_pulls']}")
+        if x["sentinel"]["violations"]:
+            raise AssertionError(f"{tag} rank {i}: syncs "
+                                 f"{x['sentinel']['violations']}")
+    log(f"{tag}: 0 syncs outside sanctioned windows on every rank; "
+        f"sanctioned pulls (rank 0) {x0['sentinel']['sanctioned_pulls']}; "
+        f"{smi}")
+    return arm_launches_and_recs(p)
+
+
+def ep_migration_checks(ranks, backend, layers, smi):
+    """Phase 11's checks across the ranks (:func:`managed_arm_checks` on
+    each rank's phase 11 record)."""
+    p = [r["p11"] for r in ranks]
+    log(f"11: backend {backend}, {len(ranks)} ranks; (a) and (b) at "
+        f"{layers} layers (phase 10's weights), (c) at {PHASE11_C_LAYERS} "
+        f"layers: {PHASE11_C_DEPTH_REASON}; phase 11 took "
+        f"{max(x['seconds'] for x in p):.1f} s on the ranks")
+    return managed_arm_checks(p, "11", 1, smi)
+
+
+def arm_launches_and_recs(p):
+    """Each managed arm's launches and working launches by kernel and rank,
+    and each rank's kernel records at (c)'s G (``p``: the ranks'
+    records)."""
     counts = {arm: {k: [x[arm]["counts"][k] for x in p]
                     for k in SERVE_KERNELS} for arm in ("a", "b", "c")}
     working = {arm: {k: [x[arm]["working"][k] for x in p]
                      for k in SERVE_KERNELS} for arm in ("a", "b", "c")}
-    g17 = {}
+    g = p[0]["c_slots"]
+    recs = {}
     for k in SERVE_KERNELS:
         per = []
         for x in p:
             if k in x["c_quant"]:
                 q = x["c_quant"][k]
-                g = p[0]["c_slots"]
                 per.append({"ms": q[f"g{g}_ms"], "plain_ms": q[f"g{g}_plain_ms"],
                             "max_abs_err": q[f"g{g}_max_abs_err"]})
             else:
@@ -3747,9 +3858,8 @@ def ep_migration_checks(ranks, backend, layers, smi):
                 per.append(f and {"ms": f["ms"], "plain_ms": f["plain_ms"],
                                   "max_abs_err": f["max_abs_err"],
                                   "bound_ms": f["bound_ms"]})
-        g17[k] = per
-    return {"counts": counts, "working": working, "g": p[0]["c_slots"],
-            "recs": g17}
+        recs[k] = per
+    return {"counts": counts, "working": working, "g": g, "recs": recs}
 
 
 # --------------------------------------------------------------------------
@@ -5804,11 +5914,12 @@ def dense_and_mla(dev, smi):
 
 
 # Phase 17: the memory stream.  Depth: llama-3.2-vision-90b whole is 87.67
-# B parameters (175.3 GB in bf16), past the card's 80 GB; two of its 20
-# blocks (10 layers: 8 self-attention and 2 cross-attention) keep the
-# published widths at 10.66 B parameters, 21.32 GB.  whisper-large-v3 runs
-# whole (1.60 B parameters, 3.20 GB).
-PHASE17_VLM_LAYERS = 10
+# B parameters (175.3 GB in bf16), past the card's 80 GB; one of its 20
+# blocks (5 layers: 4 self-attention and 1 cross-attention, the least
+# depth that holds a cross layer) keeps the published widths; two blocks
+# (10 layers, until PR 30) cost the smoke time that phase 20 needs.
+# whisper-large-v3 runs whole (1.60 B parameters, 3.20 GB).
+PHASE17_VLM_LAYERS = 5
 # The f32 decode/prefill checks: llama-vision's first block (5 layers, the
 # least depth that holds a cross layer; vocabulary cut to 8192), whisper's
 # first decoder and encoder layer.  A cut's own change under two ulps of
@@ -6605,9 +6716,11 @@ def phase19_meta(cfg, rcfg, shape):
 
 
 def tp_rank_main(rank, world, backend, store_path, shape, ref, meta, grads,
-                 out, device_type="cuda"):
+                 out, device_type="cuda", phase20=False):
     """One rank of phase 19 (a spawned process) under the default rules:
-    19a's analyzed serving steps and FP4 chunk, then 19b's train step."""
+    19a's analyzed serving steps and FP4 chunk, then 19b's train step;
+    with ``phase20`` then phase 20 on the same ranks
+    (:func:`layout_ep_rank_work`)."""
     import os
     import traceback
 
@@ -6632,6 +6745,11 @@ def tp_rank_main(rank, world, backend, store_path, shape, ref, meta, grads,
             with use_mesh(mesh, rules={}):
                 res = tp_serving_rank(mesh, meta)
                 res["train"] = tp_train_rank(mesh, grads)
+                if phase20:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    set_card_rates()
+                    res["p20"] = layout_ep_rank_work(mesh)
         finally:
             dist.destroy_process_group()
         out.put((rank, True, res))
@@ -6786,7 +6904,7 @@ def tp_train_rank(mesh, one):
     return res
 
 
-def tp_layout(dev, smi: str):
+def tp_layout(dev, smi: str, phase20: bool = False):
     """Phase 19: the tensor-parallel layout of the dense part and the cache
     (``models.layout``) under a ``(2, 2)`` mesh of four rank processes on
     the card through the ``staged`` backend (host copies around gloo: the
@@ -6805,7 +6923,9 @@ def tp_layout(dev, smi: str):
     chunk equal. 19b: a train step at 13d's cut: step 1's CE and gradients
     within phase 14's spread bound, the census equal to
     ``predict_train_census``.
-    Returns the kernels' launches by rank on 19a's and 19b's paths."""
+    Returns the kernels' launches by rank on 19a's and 19b's paths, and
+    with ``phase20`` each rank's phase 20 record (run on the same ranks
+    after 19b)."""
     import numpy as np
     import torch
     from repro_torch.configs import ReaLBConfig
@@ -6902,9 +7022,11 @@ def tp_layout(dev, smi: str):
         f"{json.dumps(tpred)}")
     try:
         ranks, took = run_rank_processes(
-            "19", tp_rank_main, world, PHASE19_DEADLINE_S,
+            "19", tp_rank_main, world, PHASE19_DEADLINE_S
+            + (PHASE20_DEADLINE_S if phase20 else 0),
             lambda r, store, q: (r, world, backend, store, PHASE19_MESH,
-                                 None, meta, (one, tol), q, dev.type))
+                                 None, meta, (one, tol), q, dev.type,
+                                 phase20))
     finally:
         del one
     log(f"19: {world} ranks ran in {took:.1f} s (spawn to join)")
@@ -7022,10 +7144,90 @@ def tp_layout(dev, smi: str):
             if idle:
                 raise AssertionError(f"19 rank {r}: {idle} never launched "
                                      "on the main path")
-    log(f"19: passed in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    log(f"19: passed in {time.perf_counter() - t_phase:.1f} s (with phase "
+        f"20's rank work: {phase20}); {smi}")
     return ({k: [r["counts"].get(k, 0) for r in ranks] for k in kinds},
             {k: [r["train"]["counts"].get(k, 0) for r in ranks]
-             for k in kinds + ("grouped_ffn_bwd",)})
+             for k in kinds + ("grouped_ffn_bwd",)},
+            [r["p20"] for r in ranks] if phase20 else None)
+
+
+# --------------------------------------------------------------------------
+# phase 20: placement, replication, live migration and elastic serving
+# under the default rules
+# --------------------------------------------------------------------------
+PHASE20_MESH = (2, 2)
+PHASE20_LAYERS = PHASE19_LAYERS      # one dense and two MoE layers
+# (c): 64 slots a rank (32 spares), so that the surviving model rank can
+# hold all 64 experts while the other is down
+PHASE20_C_SPARES = 32
+# each arm serves phase 5's first 8 requests, one wave of its 8 slots,
+# each cut to 8 new tokens (~9 iterations): a staged step of the layout
+# copies every layer's D half of the weights through the host (2.4-4.7 s
+# a step), so the whole stream's ~38 iterations an arm would not fit the
+# smoke's 1200 s, and at 18 new tokens (19 iterations) the smoke took
+# 946.9-1175.3 s (my chip runs, PR 30, calls 3-4)
+PHASE20_REQUESTS = 8
+PHASE20_MAX_NEW = 8
+PHASE20_STREAM_REASON = ("the smoke's 1200 s: a staged layout step copies "
+                         "every layer's D/2 weights through the host, "
+                         "2.4-4.7 s a step")
+PHASE20_FAULTS = [(2, "fail", 1), (5, "rejoin", 1)]
+PHASE20_ARMS = dict(n_req=PHASE20_REQUESTS, max_new=PHASE20_MAX_NEW,
+                    replan_every=3, c_layers=PHASE20_LAYERS,
+                    spares=PHASE20_C_SPARES, faults=PHASE20_FAULTS)
+PHASE20_DEADLINE_S = 600             # spawn to join, beside phase 19's
+
+
+def layout_ep_rank_work(mesh):
+    """Phase 20 on one of phase 19's ranks of the ``(2, 2)`` mesh, under
+    the default rules: its slices of moonshot at ``PHASE20_LAYERS`` layers
+    (seed 0), each slot's D cut over ``data``, through
+    :func:`managed_arms_rank_work` with ``PHASE20_ARMS`` under a strict
+    sentinel."""
+    from repro_torch.analysis import Sentinel
+    from repro_torch.core import ep_moe
+    from repro_torch.models import transformer as tf
+
+    sent = Sentinel(strict=True)
+    ep_moe._dist_comm(mesh).sentinel = sent
+    cfg = phase10_cfg(PHASE20_LAYERS)
+    holder = [tf.init_model(cfg, seed=0)]
+    return managed_arms_rank_work(mesh, holder, cfg, sent, "20", PHASE20_ARMS)
+
+
+def layout_ep_serving(dev, smi: str, ranks):
+    """Phase 20: placement, replication, live migration and elastic
+    serving under the default rules (the reference's layout: the dense
+    part tensor-parallel over ``model``, every weight's D dim, the expert
+    stacks' among them, cut over ``data``), on phase 19's four rank
+    processes of a ``(2, 2)`` mesh on the card through the ``staged``
+    backend (host copies around gloo: correctness only, no time of it is
+    NCCL's).  ``ranks``: each rank's record of :func:`layout_ep_rank_work`
+    (``tp_layout(phase20=True)`` ran it after phase 19's work).  Across the
+    ranks (:func:`managed_arm_checks`): every rank the same tokens in each
+    arm and the same chunks, the bytes each exchanged equal to the plans'
+    cross-rank rows it holds at its ``D/2`` slab size (each data row's sum
+    half the managers' count), the same elastic run on every rank, 0
+    unsanctioned syncs, every kernel of the path launched and working.
+    Returns each arm's launches and working launches by rank, and the
+    kernels' records at (c)'s G by rank."""
+    rows, ep = PHASE20_MESH
+    cfg = phase10_cfg(PHASE20_LAYERS)
+    r0 = ranks[0]
+    log(f"20: on phase 19's {rows * ep} rank processes ({dev.type}), a "
+        f"{rows}x{ep} mesh under the default rules; {cfg.name} at "
+        f"{cfg.n_layers} layers, each expert slot's D cut over data; "
+        f"{max(r['seconds'] for r in ranks):.1f} s of phase work on the "
+        f"ranks ({r0['checks_s']:.1f} s of it the kernel checks in turn), "
+        f"each arm serving phase 5's first {PHASE20_REQUESTS} requests cut "
+        f"to {PHASE20_MAX_NEW} new tokens ({PHASE20_STREAM_REASON}); each "
+        f"rank holds {r0['slots']} of {cfg.moe.num_experts} expert slots at "
+        f"D {r0['d_held']} of {cfg.d_model}, {r0['row_bytes']} bytes a "
+        f"slot's slabs, {r0['weights_gb']:.3f} GB of weights; (c) "
+        f"{PHASE20_ARMS['spares']} spares a rank, faults "
+        f"{PHASE20_ARMS['faults']}")
+    return managed_arm_checks(ranks, "20", rows, smi)
 
 
 def check_small_against_cpu(dev):
@@ -7118,7 +7320,9 @@ def main() -> int:
     phase18b = dryrun_training(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_serve_counts, tp_train_counts = tp_layout(dev, smi)
+    tp_serve_counts, tp_train_counts, p20_ranks = tp_layout(dev, smi,
+                                                            phase20=True)
+    p20 = layout_ep_serving(dev, smi, p20_ranks)
     for name, ms in forced_ms.items():
         ffn_recs[name]["forced_ms"] = ms
 
@@ -7244,6 +7448,21 @@ def main() -> int:
     for k in kernels:
         k["tp_launches"] = tp_serve_counts.get(k["name"], [0] * 4)
         k["tp_train_launches"] = tp_train_counts.get(k["name"], [0] * 4)
+    # phase 20: the managed arms under the default rules, by arm and rank;
+    # the serving kernels at (c)'s G by rank
+    for k in kernels:
+        name = k["name"]
+        k["layout_ep_launches"] = {a: p20["counts"][a].get(name, [0] * 4)
+                                   for a in ("a", "b", "c")}
+        k["layout_ep_working_launches"] = {
+            a: p20["working"][a].get(name, [0] * 4) for a in ("a", "b", "c")}
+        if name in p20["recs"]:
+            per = p20["recs"][name]
+            k.update(layout_ep_g=p20["g"],
+                     layout_ep_ms=[x and x["ms"] for x in per],
+                     layout_ep_plain_ms=[x and x["plain_ms"] for x in per],
+                     layout_ep_max_abs_err=[x and x["max_abs_err"]
+                                            for x in per])
     log(json.dumps({"dryrun": {**phase18["cells"], "train": {
         f: v for f, v in phase18b.items() if f != "counts"}}}))
     log(json.dumps({"kernels": kernels}))

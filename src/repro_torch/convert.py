@@ -86,6 +86,28 @@ def slot_owner(placement, num_experts: int) -> np.ndarray:
     return owner
 
 
+def _placed_slots(arr: np.ndarray, placement, num_experts: Optional[int],
+                  part: Tuple[int, int]) -> np.ndarray:
+    """Slots ``part = (i, n)`` -- the ``i``-th of ``n`` equal parts -- of
+    an expert stack ``[.., E, a, b]`` in logical order, laid out in the
+    table's physical slot order (empty spares zero; a per-layer table lays
+    out block ``b`` by its row ``b``)."""
+    e = num_experts or arr.shape[-3]
+    owner = slot_owner(placement, e)
+    n_slots = owner.shape[-1]
+    i, n = part
+    if n_slots % n:
+        raise ValueError(f"{n_slots} slots over {n} ranks")
+    mine = owner[..., i * n_slots // n:(i + 1) * n_slots // n]
+    idx = np.maximum(mine, 0)
+    if mine.ndim == 1:
+        out = np.take(arr, idx, axis=-3)
+    else:                           # per-layer rows over the blocks
+        out = np.stack([arr[b][idx[b]] for b in range(arr.shape[0])])
+    out[np.broadcast_to(mine < 0, out.shape[:-2])] = 0
+    return out
+
+
 def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
                device=None, num_experts: Optional[int] = None,
                fsdp: Optional[Tuple[int, int]] = None) -> Tree:
@@ -104,19 +126,8 @@ def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
         return tensor_from_numpy(node, device)
 
     def cut(arr, key):
-        arr = np.asarray(arr)
-        e = num_experts or arr.shape[-3]
-        owner = slot_owner(placement, e)
-        n = owner.shape[-1]
-        if n % ep:
-            raise ValueError(f"{n} slots over {ep} ranks")
-        mine = owner[..., rank * n // ep:(rank + 1) * n // ep]
-        idx = np.maximum(mine, 0)
-        if mine.ndim == 1:
-            out = np.take(arr, idx, axis=-3)
-        else:                       # per-layer rows over the blocks
-            out = np.stack([arr[b][idx[b]] for b in range(arr.shape[0])])
-        out[np.broadcast_to(mine < 0, out.shape[:-2])] = 0
+        out = _placed_slots(np.asarray(arr), placement, num_experts,
+                            (rank, ep))
         if fsdp is not None:
             rows, row = fsdp
             dim = out.ndim + FSDP_DIM[key]
@@ -131,22 +142,31 @@ def rank_shard(tree: Tree, ep: int, rank: int, placement=None,
     return walk(tree, False)
 
 
-def layout_shard(tree: Tree, spec: Tree, mesh, device=None) -> Tree:
+def layout_shard(tree: Tree, spec: Tree, mesh, device=None, placement=None,
+                 num_experts: Optional[int] = None) -> Tree:
     """This rank's parameters from the reference's numpy tree in the
     tensor-parallel layout (``models.layout``): every leaf cut by the
-    rules in force as its declaration in ``spec`` (a stacked leaf's
-    leading dim whole); only the rank's part is copied to the device."""
+    rules in force as its declaration in ``spec`` gives its axes, at the
+    leaf's own shape (a stacked leaf's leading dim whole; a replica
+    engine's ``S`` expert slots, not the declared ``E``).  ``placement``
+    (as :func:`rank_shard` takes it) lays each expert stack, given in
+    logical order, out in the table's physical slot order on the host
+    first; without it the stacks are taken as they are.  Only the rank's
+    part is copied to the device."""
     from repro_torch.models.common import leaf_cuts
     device = resolve_device(mesh.device if device is None else device)
 
-    def walk(node, decl):
+    def walk(node, decl, key):
         if isinstance(node, dict):
-            return {k: walk(v, decl[k]) for k, v in node.items()}
+            return {k: walk(v, decl[k], k) for k, v in node.items()}
         arr = np.asarray(node)
-        cut = leaf_cuts(decl.shape, decl.axes, mesh)
-        lead = (slice(None),) * (arr.ndim - len(cut))
-        return tensor_from_numpy(arr[lead + cut], device)
-    return walk(tree, spec)
+        if placement is not None and key in MOE_KEYS \
+                and len(decl.shape) == 3:
+            arr = _placed_slots(arr, placement, num_experts, (0, 1))
+        lead = arr.ndim - len(decl.shape)
+        cut = leaf_cuts(arr.shape[lead:], decl.axes, mesh)
+        return tensor_from_numpy(arr[(slice(None),) * lead + cut], device)
+    return walk(tree, spec, None)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

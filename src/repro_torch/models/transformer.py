@@ -120,20 +120,23 @@ def block_structure(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, str], ...],
     return layout, len(rest) // period, n_prefix
 
 
-def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
+def moe_spec(cfg: ModelConfig, n_slots: Optional[int] = None
+             ) -> Dict[str, P]:
+    """The MoE layer's declarations; ``n_slots``: the expert stacks'
+    physical slot count (a replica engine's ``S``; default the expert
+    count)."""
     e, d = cfg.moe, cfg.d_model
+    s = e.num_experts if n_slots is None else int(n_slots)
     return {
         "router": P((d, e.num_experts), dtype="float32", axes=(None, None)),
-        "w_gate": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_gate"],
-                    fsdp=True),
-        "w_up": P((e.num_experts, d, e.d_ff), axes=EXPERT_AXES["w_up"],
-                  fsdp=True),
-        "w_down": P((e.num_experts, e.d_ff, d), axes=EXPERT_AXES["w_down"],
-                    fsdp=True),
+        "w_gate": P((s, d, e.d_ff), axes=EXPERT_AXES["w_gate"], fsdp=True),
+        "w_up": P((s, d, e.d_ff), axes=EXPERT_AXES["w_up"], fsdp=True),
+        "w_down": P((s, e.d_ff, d), axes=EXPERT_AXES["w_down"], fsdp=True),
     }
 
 
-def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
+def layer_spec(cfg: ModelConfig, mix: str, ffn: str,
+               n_slots: Optional[int] = None) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"norm1": P((d,), init="zeros", axes=EMBED)}
     if mix in ("attn", "dec"):
@@ -153,21 +156,24 @@ def layer_spec(cfg: ModelConfig, mix: str, ffn: str) -> Dict[str, Any]:
         spec["ffn"] = ffn_mod.ffn_spec(d, cfg.d_ff or cfg.moe.d_ff,
                                        cfg.activation)
     elif ffn == "moe":
-        spec["moe"] = moe_spec(cfg)
+        spec["moe"] = moe_spec(cfg, n_slots)
         if cfg.moe.n_shared_experts:
             spec["shared"] = ffn_mod.ffn_spec(
                 d, cfg.moe.d_ff * cfg.moe.n_shared_experts, cfg.activation)
     return spec
 
 
-def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
+def model_spec(cfg: ModelConfig, n_slots: Optional[int] = None
+               ) -> Dict[str, Any]:
+    """The model's declarations (``n_slots``: the expert stacks' physical
+    slot count, :func:`moe_spec`)."""
     layout, _, n_prefix = block_structure(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     spec: Dict[str, Any] = {
         "embed": P((v, d), init="embed", scale=0.02,
                    axes=("vocab", "embed")),
         "final_norm": P((d,), init="zeros", axes=EMBED),
-        "blocks": {f"layer{i}": layer_spec(cfg, m, f)
+        "blocks": {f"layer{i}": layer_spec(cfg, m, f, n_slots)
                    for i, (m, f) in enumerate(layout)},
     }
     if not cfg.tie_embeddings:

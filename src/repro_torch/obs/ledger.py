@@ -227,6 +227,48 @@ class FlopByteLedger:
                                   "bytes": gather * layers},
         }
 
+    def predict_layout_moe_census(self, mesh, t_local: int, layers: int = 1,
+                                  itemsize: int = 2, groups: int = 1,
+                                  n_slots: Optional[int] = None,
+                                  decode: bool = False
+                                  ) -> Dict[str, Dict[str, int]]:
+        """The forward collectives of ``layers`` MoE layers in the
+        tensor-parallel layout of the default rules on ``mesh`` (a
+        ``models.common.Mesh``), what one rank issues: the three expert
+        stacks' ``D`` dim gathered over ``data`` where it divides
+        (``fsdp_all_gather`` of the rank's ``S/ep`` slots); over ``model``
+        the dispatch's collectives of ``t_local`` tokens a rank
+        (:meth:`predict_graph_census`, no output gather: the layer gives
+        the rank's own rows) or, with ``decode``, the broadcast combine's
+        (the one-hot and ordered sum of ``t_local`` rows); with
+        ``groups`` > 1 ``m_state`` groups the statistics gathered over
+        the rows.  ``itemsize``: the weights' and activations' bytes;
+        ``n_slots``: physical slots (default: the expert count)."""
+        m, data = mesh.size("model"), mesh.size("data")
+        d = self.d
+        s_all = self.n_experts if n_slots is None else int(n_slots)
+        out = _Tally()
+        if data > 1 and d % data == 0:
+            out.add("fsdp_all_gather",
+                    3 * (s_all // m) * (d // data) * self.d_ff * itemsize, 3)
+        if m > 1:
+            if decode:
+                out.add("psum", 4 * m)
+                out.add("all_reduce", 4 * m)
+                out.add("psum", t_local * d * 4)
+                out.add("all_gather", t_local * d * 4)
+            else:
+                c = self.predict_graph_census(t_local, 1, itemsize,
+                                              n_slots=s_all)
+                c.pop("layout_all_gather")
+                out.merge(c)
+        if groups > 1:
+            out.add("layout_all_gather",
+                    4 * (m + 7 + 2 * m + 2 * self.n_experts + 2 * s_all))
+        tot = _Tally()
+        tot.merge(out.kinds, layers)
+        return tot.kinds
+
     def predict_train_census(self, t_local: int, layers: int, rows: int,
                              itemsize: int, param_itemsize: int,
                              replicated_shapes, remat: str = "none",
@@ -391,6 +433,44 @@ class FlopByteLedger:
             flops=as_f(flops), flops_by_rate=as_f(by_rate),
             hbm_bytes=as_f(hbm), ici_bytes=as_f(ici), pred_s=as_f(pred),
             model_flops=2.0 * self.active_params * tokens)
+
+
+# --------------------------------------------------------------------------
+# a live migration's exchange (placement.migrate.gather_across)
+# --------------------------------------------------------------------------
+def slot_row_bytes(d_model: int, d_ff: int, itemsize: int, mesh=None) -> int:
+    """Bytes of one expert slot's three slabs as a rank holds them, the
+    unit ``Comm.exchange_rows`` moves: whole, or in the tensor-parallel
+    layout of the default rules its data row's ``D/data`` slice (``embed``
+    over ``data``, where it divides)."""
+    from repro_torch.models.common import local_slice, tensor_parallel
+    d = d_model
+    if mesh is not None and tensor_parallel(mesh):
+        cut = local_slice(d_model, "embed", mesh)
+        d = cut.stop - cut.start
+    return 3 * d * d_ff * itemsize
+
+
+def predict_migration_census(gather_idx, ep: int, row_bytes: int,
+                             blocks: int = 1) -> list:
+    """Each EP rank's ``migrate_all_to_all`` census of a live migration's
+    gather ``gather_idx`` (``[S]`` global slots, applied to ``blocks``
+    stacked blocks alike, or ``[L, S]``, one row a block): one exchange a
+    block whose rows cross ranks, on every rank of the group, carrying the
+    rows it sends another rank (``placement.migrate.crossrank_sends``)
+    times ``row_bytes`` (:func:`slot_row_bytes`).  In the tensor-parallel
+    layout every data row's EP group makes the same exchange of its own
+    ``D/data`` slices."""
+    from repro_torch.placement.migrate import crossrank_sends
+    idx = np.asarray(gather_idx, np.int64)
+    rows = idx.reshape(-1, idx.shape[-1])
+    times = blocks if idx.ndim == 1 else 1
+    sends = crossrank_sends(rows, ep)                       # [L, ep]
+    crossing = int((sends.sum(1) > 0).sum()) * times
+    return [{"migrate_all_to_all": {
+        "count": crossing,
+        "bytes": int(sends[:, r].sum()) * times * int(row_bytes)}}
+        if crossing else {} for r in range(ep)]
 
 
 # --------------------------------------------------------------------------
@@ -616,30 +696,18 @@ def predict_layout_census(cfg, mesh, mode: str, batch: int, seq: int,
     def moe(layer_mode, n_tok, sp_here):
         e = cfg.moe
         s_all = e.num_experts if n_slots is None else int(n_slots)
-        slab = (s_all // m) * (d // data if d % data == 0 else d) * e.d_ff
-        if data > 1 and d % data == 0:
-            fwd.add("fsdp_all_gather", 3 * slab * it, 3)
-            bwd.add("fsdp_reduce_scatter", 3 * slab * data * it, 3)
-        if m > 1:
-            if layer_mode == "decode":
-                fwd.add("psum", 4 * m)
-                fwd.add("all_reduce", 4 * m)
-                fwd.add("psum", bl * d * 4)
-                fwd.add("all_gather", bl * d * 4)
-            else:
-                c = moe_ledger.predict_graph_census(
-                    t_local=bl * (n_tok // m), layers=1, itemsize=it,
-                    n_slots=s_all)
-                c.pop("layout_all_gather")
-                fwd.merge(c)
-                if train:
-                    cap_raw = math.ceil(bl * (n_tok // m) * e.top_k / m
-                                        * float(e.capacity_factor))
-                    cap = max(8, -(-cap_raw // 8) * 8)
-                    bwd.add("all_to_all_grad", 2 * m * cap * d * it, 2)
-        if groups > 1:
-            fwd.add("layout_all_gather",
-                    4 * (m + 7 + 2 * m + 2 * e.num_experts + 2 * s_all))
+        decode = layer_mode == "decode"
+        fwd.merge(moe_ledger.predict_layout_moe_census(
+            mesh, bl if decode else bl * (n_tok // m), itemsize=it,
+            groups=groups, n_slots=s_all, decode=decode))
+        if train and data > 1 and d % data == 0:
+            bwd.add("fsdp_reduce_scatter",
+                    3 * (s_all // m) * d * e.d_ff * it, 3)
+        if train and m > 1:
+            cap_raw = math.ceil(bl * (n_tok // m) * e.top_k / m
+                                * float(e.capacity_factor))
+            cap = max(8, -(-cap_raw // 8) * 8)
+            bwd.add("all_to_all_grad", 2 * m * cap * d * it, 2)
         if e.n_shared_experts:
             dense_ffn(e.d_ff * e.n_shared_experts, n_tok, sp_here)
 

@@ -60,7 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
-from repro_torch.models.common import current_mesh
+from repro_torch.models.common import (FSDP_DIM, current_mesh, local_slice,
+                                       tensor_parallel)
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.placement.migrate import MOE_WEIGHT_KEYS, moe_param_paths
 
@@ -98,6 +99,24 @@ def zero_rank_slabs(params: Tree, rank: int, slots_per_rank: int) -> Tree:
             w = moe[key]
             w.narrow(w.dim() - 3, lo, hi - lo).zero_()   # slot axis
     return params
+
+
+def _local_part(saved_shape, key: str):
+    """(the shape this rank holds of an expert stack saved whole as
+    ``saved_shape``, the slice of the saved D dim it holds): the ``S/ep``
+    slots of its EP rank and, in the tensor-parallel layout, the ``D/data``
+    slice its data row holds of each (``embed`` over ``data``, where it
+    divides); the whole D dim otherwise."""
+    ep, _ = _ep_rank()
+    want = list(saved_shape)
+    want[-3] //= ep
+    dim = len(want) + FSDP_DIM[key]
+    cut = slice(0, want[dim])
+    mesh = current_mesh()
+    if mesh is not None and tensor_parallel(mesh):
+        cut = local_slice(want[dim], "embed", mesh)
+        want[dim] = cut.stop - cut.start
+    return tuple(want), cut
 
 
 class ElasticCoordinator:
@@ -345,24 +364,25 @@ class ElasticCoordinator:
             if path not in maps:
                 raise KeyError(f"checkpoint missing {path!r}")
             saved, ext = maps[path]
-            want = list(w.shape)
-            want[-3] *= ep                 # the global slots of a shard
-            if tuple(saved.shape) != tuple(want):
+            want, d_cut = _local_part(saved.shape, key)
+            if saved.shape[-3] % ep or tuple(w.shape) != want:
                 raise ValueError(
-                    f"checkpoint {path!r} shape {tuple(saved.shape)} != "
-                    f"current {tuple(want)} — geometry changed")
+                    f"checkpoint {path!r} shape {tuple(saved.shape)} holds "
+                    f"{want} on this rank, not its {tuple(w.shape)} — "
+                    "geometry changed")
             self._patch_weight(w, saved, ext, saved_pos, saved_nt, plan,
-                               new_sets, todo)
+                               new_sets, todo, (FSDP_DIM[key], d_cut))
         return params
 
     def _patch_weight(self, w, saved, ext, saved_pos, saved_nt, plan,
-                      new_sets, layers) -> None:
+                      new_sets, layers, d_part) -> None:
         """One weight tensor: write each lost expert's saved primary row
         into its destination slots.  ``[L, S, ...]`` stacked weights are
         row-patched per plan layer (per-layer manager) or across the whole
         stack (shared plan); ``[S, ...]`` weights on the slot axis.  Each
         distinct source row is read and uploaded once, then copied on the
-        device to every slot it lands in."""
+        device to every slot it lands in.  ``d_part = (dim, slice)``: the
+        part of each saved row's D dim this rank holds."""
         stacked = w.dim() == 4
         per_layer_plan = new_sets is not None
         by_layer = stacked and per_layer_plan and self.manager.n_tables > 1
@@ -388,6 +408,8 @@ class ElasticCoordinator:
                 rows = saved[:, srcs]                       # [L, n, a, b]
             else:
                 rows = saved[srcs]
+            dim, cut = d_part
+            rows = rows[(Ellipsis, cut) + (slice(None),) * (-1 - dim)]
             up = ckpt_lib.decode_rows(rows, ext).to(device=w.device,
                                                     dtype=w.dtype)
             self.patched_bytes += up.numel() * up.element_size()

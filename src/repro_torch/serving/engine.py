@@ -1043,10 +1043,15 @@ class Engine:
 
     def _ckpt_spec(self):
         """The declarations the checkpoint cuts the params by in the
-        tensor-parallel layout (None: the EP-only layout)."""
+        tensor-parallel layout (None: the EP-only layout): the expert
+        stacks at the ``S`` physical slots the manager routes over (a
+        replica engine's spares included)."""
         if self._mesh is None or not tensor_parallel(self._mesh):
             return None
-        return {"params": tf.model_spec(self.cfg)}
+        n_slots = None if self._placement is None or self.cfg.moe is None \
+            else tf.n_physical_slots(self.cfg,
+                                     self._placement.device_tables())
+        return {"params": tf.model_spec(self.cfg, n_slots)}
 
     def _refuse_mid_flight(self, what: str) -> None:
         if self.migration_draining \

@@ -13,9 +13,14 @@ the default rules. Every spawn is joined within ``deadline`` seconds: past it
 the processes are killed and the test fails, so a hung collective cannot run
 out the suite's clock. ``fn`` must be importable by name in a fresh
 interpreter (a module-level function of a module on ``sys.path``), and
-``payload`` and the results picklable.
+``payload`` and the results picklable.  The payload goes to the ranks
+through a pickle file beside the store, not the spawn pipe: a process's
+start writes its arguments into a pipe the new interpreter reads only once
+it has imported what unpickling them needs, so a payload larger than the
+pipe's buffer would start the ranks one after another.
 """
 import os
+import pickle
 import queue as _queue
 import time
 import traceback
@@ -25,13 +30,16 @@ import torch.multiprocessing as mp
 DEADLINE_S = 120.0
 
 
-def _rank_main(fn, rank, world, shape, store_path, payload, out, rules):
+def _rank_main(fn, rank, world, shape, store_path, payload_path, out,
+               rules):
     import torch
     import torch.distributed as dist
 
     from repro_torch.models.common import EP_ONLY_RULES, Mesh, use_mesh
     torch.set_num_threads(1)
     try:
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
         store = dist.FileStore(store_path, world)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world)
@@ -54,9 +62,11 @@ def run_ranks(fn, shape, payload, tmp_path, deadline: float = DEADLINE_S,
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     store = os.path.join(str(tmp_path), f"store_{fn.__name__}_{time.time_ns()}")
+    with open(store + ".payload", "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, tuple(shape), store, payload, out,
-                               rules),
+                         args=(fn, r, world, tuple(shape), store,
+                               store + ".payload", out, rules),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()

@@ -1,12 +1,17 @@
 """Rank-side halves of the port's multi-rank tests (``test_torch_ep*.py``,
 ``test_torch_train_mesh.py``, ``test_torch_ckpt_mesh.py``,
-``test_torch_ssm_train.py``, ``test_torch_memory_mesh.py``).
+``test_torch_ssm_train.py``, ``test_torch_memory_mesh.py``,
+``test_torch_tp.py``, ``test_torch_layout_ep.py``).
 
 Each function runs in a spawned gloo rank (``_torch_dist.run_ranks``) under
 the mesh, imports only torch and the port, takes numpy inputs and returns
 numpy results; the test process holds them against the reference.  A case
 that raises returns ``{"error": traceback}`` so the other cases still
-report."""
+report.  The EP layer, migration and elastic cases run under the rules in
+force: the EP-only layout (``run_ranks``' default) or the tensor-parallel
+layout of the default rules (``test_torch_layout_ep.py``), where a rank
+holds every leaf as the rules cut it (``_shard``) and passes the MoE layer
+its rows and sequence slice (``_layer_in``)."""
 import contextlib
 import dataclasses
 import traceback
@@ -60,19 +65,47 @@ def _placement(entries):
             4: ep_moe.WeightedReplication}[len(t)](*t)
 
 
+def _layer_in(mesh, grouped, dispatch, *ts):
+    """What a rank passes the MoE layer of the global ``[B, S, ..]`` inputs
+    ``ts`` (None passes): the whole under ``EP_ONLY_RULES``; in the
+    tensor-parallel layout its rows (``grouped``: one ``m_state`` group a
+    data row) and, in dispatch, its sequence slice."""
+    from repro_torch.models.common import local_slice, tensor_parallel
+    if not tensor_parallel(mesh):
+        return ts
+    b, s = ts[0].shape[:2]
+    mine = (local_slice(b, "batch", mesh) if grouped else slice(0, b),
+            local_slice(s, "seq", mesh) if dispatch else slice(0, s))
+    return tuple(None if t is None else t[mine] for t in ts)
+
+
+def _layer_out(mesh, grouped, dispatch, y):
+    """The global output of the MoE layer from a rank's (``_layer_in``'s
+    inverse; gathered outside the census)."""
+    from repro_torch.core import ep_moe
+    from repro_torch.models.common import tensor_parallel
+    if not tensor_parallel(mesh):
+        return y
+    comm = ep_moe._dist_comm(mesh)
+    if dispatch:
+        y = torch.cat(list(comm._gather(y.contiguous(), "model")), 1)
+    if grouped:
+        y = torch.cat(list(comm._gather(y.contiguous(), "data")), 0)
+    return y
+
+
 def _layer_case(mesh, c):
     from repro_torch.configs import ReaLBConfig
-    from repro_torch.convert import rank_shard
     from repro_torch.core import ep_moe
     cfg = _cfg(c.get("arch", "olmoe-1b-7b"))
-    ep, rank = mesh.size("model"), mesh.index("model")
-    p = rank_shard({"moe": c["p"]}, ep, rank, c.get("placement"),
-                   device="cpu")["moe"]
+    p = _shard({"moe": c["p"]}, mesh, c.get("placement"))["moe"]
     rcfg = ReaLBConfig(**c["rcfg"])
     m = torch.from_numpy(np.asarray(c["m"], np.float32))
     x = torch.from_numpy(c["x"])
     mod = torch.from_numpy(c["mod"])
     valid = None if c.get("valid") is None else torch.from_numpy(c["valid"])
+    grouped, dispatch = m.shape[0] > 1, c["mode"] != "broadcast"
+    x, mod, valid = _layer_in(mesh, grouped, dispatch, x, mod, valid)
     comm = ep_moe._dist_comm(mesh)
     comm.census.reset()
     rec = {"pred": [], "fp4_rows": []}
@@ -81,8 +114,10 @@ def _layer_case(mesh, c):
             x, m, aux = ep_moe.ep_moe_forward(
                 p, x, cfg, rcfg, m, mod, mode=c["mode"], valid=valid,
                 placement=_placement(c.get("placement")))
-    out = {"y": _np(x), "m": _np(m), "aux": _np(aux),
-           "census": comm.census.snapshot(), **rec}
+    census = comm.census.snapshot()
+    x = _layer_out(mesh, grouped, dispatch, x)
+    out = {"y": _np(x), "m": _np(m), "aux": _np(aux), "census": census,
+           "d_held": int(p["w_gate"].shape[1]), **rec}
     if c.get("stop_stage"):
         try:
             ep_moe.ep_moe_forward(p, x, cfg, rcfg, m, mod, mode=c["mode"],
@@ -247,9 +282,34 @@ def _tensors(tree):
     return params_from_numpy(tree, "cpu")
 
 
-def _shard(tree, mesh, placement=None):
-    """This rank's slots of a numpy tree (identity cut of a physical one)."""
-    from repro_torch.convert import rank_shard
+def _spec_of(tree):
+    """Declarations of a test tree: each expert stack's trailing three dims
+    under the model's axes (``EXPERT_AXES``), every other leaf whole."""
+    from repro_torch.models.common import P
+    from repro_torch.models.transformer import EXPERT_AXES
+
+    def walk(node, key, in_moe):
+        if isinstance(node, dict):
+            return {k: walk(v, k, key == "moe") for k, v in node.items()}
+        shape = np.shape(node)
+        if in_moe and key in MOE:
+            return P(shape[-3:], axes=EXPERT_AXES[key])
+        return P(shape)
+    return walk(tree, None, False)
+
+
+def _shard(tree, mesh, placement=None, cfg=None):
+    """This rank's slots of a numpy tree (identity cut of a physical one)
+    by the rules in force: under ``EP_ONLY_RULES`` its ``S/ep`` expert
+    slots; in the tensor-parallel layout every leaf as the rules cut it
+    (the model's declarations with ``cfg``, else :func:`_spec_of`), the
+    expert slots' D dim over ``data`` among them."""
+    from repro_torch.convert import layout_shard, rank_shard
+    from repro_torch.models.common import tensor_parallel
+    if tensor_parallel(mesh):
+        from repro_torch.models.transformer import model_spec
+        spec = model_spec(cfg) if cfg is not None else _spec_of(tree)
+        return layout_shard(tree, spec, mesh, "cpu", placement)
     return rank_shard(tree, mesh.size("model"), mesh.index("model"),
                       placement, device="cpu")
 
@@ -269,15 +329,26 @@ def _same_bytes(a, b):
         a.view(torch.uint8).numpy()) == bytes(b.view(torch.uint8).numpy())
 
 
-def _shard_equal(mine, whole, mesh):
-    """Every expert leaf of ``mine`` holds this rank's slots of ``whole``."""
+def _mine_of(w, key, mesh):
+    """This rank's part of a whole expert stack ``w``: its slots and, in
+    the tensor-parallel layout, their D slice (``embed`` over ``data``)."""
+    from repro_torch.models.common import (FSDP_DIM, local_slice,
+                                           tensor_parallel)
     ep, my = mesh.size("model"), mesh.index("model")
+    n = w.shape[-3] // ep
+    w = w.narrow(w.dim() - 3, my * n, n)
+    if tensor_parallel(mesh):
+        dim = w.dim() + FSDP_DIM[key]
+        cut = local_slice(w.shape[dim], "embed", mesh)
+        w = w.narrow(dim, cut.start, cut.stop - cut.start)
+    return w
+
+
+def _shard_equal(mine, whole, mesh):
+    """Every expert leaf of ``mine`` holds this rank's part of ``whole``."""
     got = dict(_moe_leaves(mine))
-    for path, w in _moe_leaves(whole):
-        n = w.shape[-3] // ep
-        if not _same_bytes(got[path], w.narrow(w.dim() - 3, my * n, n)):
-            return False
-    return True
+    return all(_same_bytes(got[path], _mine_of(w, path[-1], mesh))
+               for path, w in _moe_leaves(whole))
 
 
 def _plan(rows):
@@ -466,17 +537,20 @@ def _case_ckpt(mesh, c):
         return t
 
     mine = bf16(_shard(tree, mesh))
+    spec = {"params": _spec_of(tree)}
     # the parent's Engine.save_checkpoint under a mesh: each rank's save
-    try:
-        ckpt.save(str(root / "per_rank"), 0, {"serving": {"params": mine}})
-        out["per_rank"] = "saved"
-    except Exception as err:             # noqa: BLE001 - the fault shown
-        out["per_rank"] = repr(err)
-    dist.barrier()
+    if not c.get("layout"):
+        try:
+            ckpt.save(str(root / "per_rank"), 0,
+                      {"serving": {"params": mine}})
+            out["per_rank"] = "saved"
+        except Exception as err:         # noqa: BLE001 - the fault shown
+            out["per_rank"] = repr(err)
+        dist.barrier()
     state = {"serving": {"params": mine,
                          "m_state": torch.full((1, mesh.size("model")), .5)},
              "placement": {"e2r": np.arange(4, dtype=np.int32)}}
-    path = ckpt.save(str(root / "global"), 3, state, mesh=mesh)
+    path = ckpt.save(str(root / "global"), 3, state, mesh=mesh, spec=spec)
     out["path"] = path
     if dist.get_rank() == 0:
         with use_mesh(None):
@@ -486,7 +560,8 @@ def _case_ckpt(mesh, c):
     dist.barrier()
     templates = {"serving": {"params": bf16(_shard(tree, mesh)),
                              "m_state": torch.zeros(1, mesh.size("model"))}}
-    _, got = ckpt.restore(str(root / "global"), templates, mesh=mesh)
+    _, got = ckpt.restore(str(root / "global"), templates, mesh=mesh,
+                          spec=spec)
     out["restored"] = _shard_equal(got["serving"]["params"],
                                    bf16(_tensors(tree)), mesh)
     # onto another EP size, over the same ranks
@@ -498,7 +573,8 @@ def _case_ckpt(mesh, c):
     other = Mesh(shape, "gloo", "cpu")
     with use_mesh(other):
         tmpl = {"serving": {"params": bf16(_shard(tree, other))}}
-        _, got = ckpt.restore(str(root / "global"), tmpl, mesh=other)
+        _, got = ckpt.restore(str(root / "global"), tmpl, mesh=other,
+                              spec=spec)
         out["restored_other_ep"] = (other.size("model"), _shard_equal(
             got["serving"]["params"], bf16(_tensors(tree)), other))
     return out
@@ -517,7 +593,7 @@ def _case_layers(mesh, c):
     cfg = reduced(get_config("olmoe-1b-7b"), n_layers=2)
     rcfg = ReaLBConfig(gate_gamma=10 ** 9)
     ep = mesh.size("model")
-    params = _shard(c["params"], mesh)
+    params = _shard(c["params"], mesh, cfg=cfg)
     tokens = torch.from_numpy(c["tokens"])
     b = tokens.shape[0]
     _, n_blocks, _ = tf.block_structure(cfg)
@@ -539,7 +615,7 @@ def _case_layers(mesh, c):
         torch.equal(a, b_) for name in ("none", "shared")
         for a, b_ in zip(outs[name], outs["stacked"]))}
     e2r, slot = (np.asarray(a) for a in c["perm_tables"])
-    perm = _shard(c["params"], mesh, placement=(e2r, slot))
+    perm = _shard(c["params"], mesh, placement=(e2r, slot), cfg=cfg)
     place = (torch.from_numpy(e2r).to(torch.int32),
              torch.from_numpy(slot).to(torch.int32))
     res = tf.prefill_forward(perm, cfg, rcfg, {"tokens": tokens}, m0,
@@ -572,10 +648,10 @@ def _case_async(mesh, c):
 
     m_sync, p_sync = mk()
     m_async, p_async = mk()
-    ref = apply_to_params(_shard(c["params"], mesh), p_sync)
+    ref = apply_to_params(_shard(c["params"], mesh, cfg=cfg), p_sync)
     m_sync.commit(p_sync)
     ex = MigrationExecutor(m_async, p_async, bytes_per_iter=1)
-    got = _shard(c["params"], mesh)
+    got = _shard(c["params"], mesh, cfg=cfg)
     while ex.draining:
         got, _ = ex.drain(got)
     out = {"layers": len(m_sync.plan_layers(p_sync)),
@@ -642,7 +718,8 @@ def _case_capacity(mesh, c):
         mine["router"] = p["router"]
         place = tuple(torch.from_numpy(np.asarray(a)) for a in s.as_arrays())
         m = torch.full(ep_moe.moe_state_shape(mesh, x.shape[0]), 0.9)
-        _, _, a = ep_moe.ep_moe_forward(mine, x, cfg_red, rcfg, m, mod,
+        xl, ml = _layer_in(mesh, m.shape[0] > 1, True, x, mod)
+        _, _, a = ep_moe.ep_moe_forward(mine, xl, cfg_red, rcfg, m, ml,
                                         mode="dispatch", placement=place)
         out[f"drop_{name}"] = float(a["drop_frac"])
     return out
@@ -693,7 +770,7 @@ def _serve_arm(mesh, c, after_step=None):
         mgr = ReplicaManager(cfg, ReplicationConfig(**mcfg), ep)
     observed = []
     mgr.bandwidth.observe = lambda nbytes, s: observed.append(int(nbytes))
-    params = _shard(c["params"], mesh)
+    params = _shard(c["params"], mesh, cfg=cfg)
     if kind == "replication":
         params = expand_moe_params(
             params, mgr.rsets if mgr.per_layer else mgr.rset)
@@ -755,8 +832,13 @@ def _serve_arm(mesh, c, after_step=None):
                                    "n_recoveries", "recovery_s",
                                    "lost_tokens_total")}
     if c.get("save_to"):
+        from repro_torch.models.common import tree_items
         eng.drain_migrations()
         out["saved"] = eng.save_checkpoint(c["save_to"], 5)
+        held = [t.clone() for _, t in tree_items(eng.params)]
+        eng.load_checkpoint(c["save_to"])
+        out["reloaded"] = all(_same_bytes(a, b) for a, (_, b) in zip(
+            held, tree_items(eng.params)))
     return out
 
 
@@ -810,17 +892,20 @@ def _case_kill(mesh, c):
     params = expanded()
     ckpt.save(c["dir"], 0, {"serving": {"params": params,
                                         "m_state": np.zeros((1, ep))},
-                            mgr.ckpt_group: mgr.state_dict()}, mesh=mesh)
+                            mgr.ckpt_group: mgr.state_dict()}, mesh=mesh,
+              spec={"params": _spec_of(wrapped)})
     co = ElasticCoordinator(mgr, ckpt_dir=c["dir"])
 
     def run(params):
         place = tuple(torch.from_numpy(np.asarray(a))
                       for a in mgr.device_tables())
         m = torch.full(ep_moe.moe_state_shape(mesh, x.shape[0]), 0.9)
-        y, _, aux = ep_moe.ep_moe_forward(params["blocks"]["l0"]["moe"], x,
-                                          cfg, rcfg, m, mod, mode="dispatch",
+        grouped = m.shape[0] > 1
+        xl, ml = _layer_in(mesh, grouped, True, x, mod)
+        y, _, aux = ep_moe.ep_moe_forward(params["blocks"]["l0"]["moe"], xl,
+                                          cfg, rcfg, m, ml, mode="dispatch",
                                           placement=place)
-        return _np(y), _np(aux)
+        return _np(_layer_out(mesh, grouped, True, y)), _np(aux)
 
     out = {}
     before = [params["blocks"]["l0"]["moe"][k].clone() for k in MOE]
@@ -895,18 +980,38 @@ def _case_reshard(mesh, c):
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import Mesh, use_mesh
     from repro_torch.runtime.elastic import reshard, shrink_mesh
+    from repro_torch.convert import slot_owner
     cfg = _cfg(c["arch"])
     rcfg = ReaLBConfig(**c["rcfg"])
     tokens = torch.from_numpy(c["tokens"])
+    host, place, n_slots = c["params"], None, None
+    if c.get("replicas") is not None:
+        # a managed, expanded tree: the experts in a replica set's S slots
+        place = tuple(np.asarray(a) for a in c["replicas"])
+        owner = slot_owner(place, cfg.moe.num_experts)
+        n_slots = owner.shape[-1]
+
+        def expand(node, key=None, in_moe=False):
+            if isinstance(node, dict):
+                return {k: expand(v, k, key == "moe")
+                        for k, v in node.items()}
+            if in_moe and key in MOE:
+                out = np.take(np.asarray(node), np.maximum(owner, 0), -3)
+                out[..., owner < 0, :, :] = 0
+                return out
+            return node
+        host = expand(host)
+        place = tuple(torch.from_numpy(a) for a in place)
 
     def logits(m):
         with use_mesh(m):
-            p = reshard(c["params"], m)
+            p = reshard(host, m, spec=tf.model_spec(cfg, n_slots))
             if p is None:
                 return None
             m0 = torch.full(ep_moe.moe_state_shape(m, tokens.shape[0]), 0.9)
             return _np(tf.prefill_forward(p, cfg, rcfg, {"tokens": tokens},
-                                          m0, cache_len=20).logits)
+                                          m0, cache_len=20,
+                                          placement=place).logits)
 
     meshes = {"here": mesh, "lost_data_row": shrink_mesh(mesh, "data", 1),
               "lost_ep_rank": shrink_mesh(mesh, "model", 0),
@@ -1643,3 +1748,48 @@ def tp_cases(mesh, c):
         return out
     except Exception:
         return {"error": traceback.format_exc()}
+
+
+# --------------------------------------------------------------------------
+# the EP managers under the default rules (test_torch_layout_ep.py)
+# --------------------------------------------------------------------------
+def layout_ep_cases(mesh, c):
+    """The EP layer, migration, serving-arm and elastic cases of ``c``
+    (``{"layer": .., "migrate": .., "elastic": ..}``, each as
+    :func:`layer_cases`, :func:`migrate_cases` and :func:`elastic_cases`
+    take them) on this mesh under the rules in force; ``c["wide"]``'s on a
+    ``(1, world)`` mesh of the same ranks (four EP ranks, the reference's
+    scenarios); and with ``c["pair"]`` a one-shot-prefill engine stream
+    (reduced jamba) on a ``(1, 2)`` mesh of ranks 0 and 1 under the
+    default rules and under ``EP_ONLY_RULES``, each against the one-device
+    engine.  Every rank builds every mesh, in the same order (the
+    construction is collective)."""
+    import torch.distributed as dist
+    from repro_torch.models.common import EP_ONLY_RULES, Mesh, use_mesh
+
+    def run(m, cases):
+        out = {}
+        for name, fn in (("layer", layer_cases), ("migrate", migrate_cases),
+                         ("elastic", elastic_cases)):
+            if name in cases:
+                out[name] = fn(m, cases[name])
+        return out
+    try:
+        wide = Mesh((1, dist.get_world_size()), "gloo", "cpu") \
+            if c.get("wide") else None
+        pair = Mesh((1, 2), "gloo", "cpu", ranks=[[0, 1]]) \
+            if c.get("pair") else None
+    except Exception:
+        return {"error": traceback.format_exc()}
+    out = run(mesh, c)
+    if wide is not None:
+        with use_mesh(wide):
+            out["wide"] = run(wide, c["wide"])
+    if pair is not None and pair.member:
+        for name, rules in (("layout", {}), ("ep_only", EP_ONLY_RULES)):
+            try:
+                with use_mesh(pair, rules=rules):
+                    out[f"pair_{name}"] = _tp_engine_case(pair, c["pair"])
+            except Exception:
+                out[f"pair_{name}"] = {"error": traceback.format_exc()}
+    return out

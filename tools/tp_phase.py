@@ -47,7 +47,7 @@ def main() -> int:
     cs.log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     _build.load()
     t0 = time.perf_counter()
-    serve, train = cs.tp_layout(torch.device("cuda"), smi)
+    serve, train, _ = cs.tp_layout(torch.device("cuda"), smi)
     cs.log(json.dumps({"tp_launches": serve, "tp_train_launches": train}))
     cs.log(f"phase 19 passed in {time.perf_counter() - t0:.1f} s; {smi}")
     return 0
